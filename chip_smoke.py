@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive slice 0 of the PyTorch port (``gpsig_tpu_torch``) on one NVIDIA
-GPU and check it end to end.
+"""Drive slice 0 of the PyTorch port (``gpsig_tpu_torch``), serving and
+training, on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -8,10 +8,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
 1. build: compile ``gpsig_tpu_torch/csrc/*.cu`` for sm_90a into
    ``gpsig_tpu_torch/.build/`` and load it;
-2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's shapes, in float32 and float64, with the
-   tolerance and its reason printed; kernel and plain version timed with
-   CUDA events (warm-up, then the median of 7);
+2. kernels: each hand-written kernel (forward and backward) against its
+   plain PyTorch version on the card, at the main path's shapes, in
+   float32 and float64, with the tolerance and its reason printed; kernel
+   and plain version timed with CUDA events (warm-up, then the median of
+   7);
 3. slice: the order-1 SVGP serving path at its flagship width (M=500
    inducing tensors with increments, nl=5, d=3, L=50, C=10 classes):
    ELBO on a batch of 50 out of 840, ``posterior()`` and ``predict_y`` on
@@ -21,7 +22,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    sum to 1, variances >= 0; Kuf, the predictive means and the GPR
    outputs must agree with the same calls routed through the plain
    functions on the card; a small float64 model must agree with the CPU;
-4. report: one JSON line with every kernel's launches, error and times,
+4. training: natgrad + Adam steps of the same flagship SVGP (B=50 of 840,
+   Adam 1e-3, γ=0.1) and Adam steps on the GPR log marginal likelihood at
+   BASELINE config 1 (N=150 of 200, L=50, d=2, nl=4, noise 0.05, Adam
+   5e-2), float32; ELBO and lml finite at every step; all five kernels'
+   launch counters must rise; the first step's gradients and parameters
+   must agree with the same step routed through the plain functions on the
+   card; ms per step by host clock; small float64 models' three steps must
+   agree with the CPU;
+5. report: one JSON line with every kernel's launches, error and times,
    then the device line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
@@ -31,6 +40,7 @@ beside it, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -52,6 +62,11 @@ KERNELS = {
              "gpsig_tpu/ops/pallas/fused_gram.py:330"),
     "tens_seq": ("_tens_seq_kernel", "gpsig_tpu_torch/csrc/tens_seq.cu",
                  "gpsig_tpu/ops/pallas/tens_seq.py:66"),
+    "gram_bwd": ("_bwd_fused_kernel", "gpsig_tpu_torch/csrc/fused_gram_bwd.cu",
+                 "gpsig_tpu/ops/pallas/fused_gram.py:631"),
+    "tens_seq_bwd": ("_tens_seq_bwd_kernel",
+                     "gpsig_tpu_torch/csrc/tens_seq_bwd.cu",
+                     "gpsig_tpu/ops/pallas/tens_seq.py:281"),
 }
 # scaled error max|kernel - plain| / max|plain| allowed, per dtype
 TOL = {
@@ -59,6 +74,13 @@ TOL = {
                 "another order than the plain version (about 100 ulp)"),
     "float64": (1e-11, "same arithmetic as the plain version, other "
                 "summation order only"),
+}
+# the same for the backward kernels
+BWD_TOL = {
+    "float32": (1e-3, "float32 reverse sweep whose DP states are rebuilt by "
+                "subtraction (each carries the rounding of every later "
+                "column), summed with atomics in a run-dependent order"),
+    "float64": (1e-10, "as float32, in float64"),
 }
 
 
@@ -77,7 +99,34 @@ def walks(rng, n, L, d):
 
 
 def scaled_err(got, want):
+    """max|got − want| / max|want|; for tuples, the worst component."""
+    if isinstance(want, (tuple, list)):
+        return max(scaled_err(g, w) for g, w in zip(got, want))
     return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def abs_err(got, want):
+    if isinstance(want, (tuple, list)):
+        return max(abs_err(g, w) for g, w in zip(got, want))
+    return (got - want).abs().max().item()
+
+
+def counters():
+    """The launch counters of all five kernels."""
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+
+    return dict(gram=fg.gram_launches, diag=fg.diag_launches,
+                tens_seq=ts.launches, gram_bwd=fg.gram_bwd_launches,
+                tens_seq_bwd=ts.bwd_launches)
+
+
+def reset_counters():
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+
+    fg.gram_launches = fg.diag_launches = fg.gram_bwd_launches = 0
+    ts.launches = ts.bwd_launches = 0
 
 
 def cuda_ms(fn, reps=7, warmup=2):
@@ -125,8 +174,11 @@ def plain_route():
     with mock.patch.object(fg, "fused_gram_levels", fg.fused_gram_levels_ref), \
             mock.patch.object(fg, "fused_diag_levels",
                               fg.fused_diag_levels_ref), \
+            mock.patch.object(fg, "fused_gram_levels_bwd",
+                              fg.fused_gram_levels_bwd_ref), \
             mock.patch.object(ts, "fused_tens_seq_levels",
-                              ts.fused_tens_seq_levels_ref):
+                              ts.fused_tens_seq_levels_ref), \
+            mock.patch.object(ts, "tens_seq_bwd", ts.tens_seq_bwd_ref):
         yield
 
 
@@ -146,6 +198,9 @@ def kernel_phase(dev):
     z_inc = incs[rng.integers(0, len(incs), 500 * 15 * 2)].reshape(
         500, 15, 2, 3)
     z_raw = incs[rng.integers(0, len(incs), 500 * 15)].reshape(500, 15, 3)
+    g_gram = rng.standard_normal((5, 256, 256))
+    train_x = seq_x[:840]
+    g_kuf = rng.standard_normal((6, 500, 840))
 
     # (report key, label, kernel call, plain call, inputs)
     cases = [
@@ -167,23 +222,39 @@ def kernel_phase(dev):
          lambda z, x: ts.fused_tens_seq_levels(z, x, 5, True, False),
          lambda z, x: ts.fused_tens_seq_levels_ref(z, x, 5, True, False),
          (z_raw, seq_x)),
+        ("gram_bwd", "Gram backward RBF N=256x256 L=50 d=2 nl=4",
+         lambda a, b, g: fg.fused_gram_levels_bwd(a, b, g, 4, True),
+         lambda a, b, g: fg.fused_gram_levels_bwd_ref(a, b, g, 4, True),
+         (gram_x, gram_y, g_gram)),
+        ("tens_seq_bwd", "Kuf backward RBF T=500 increments N=50 L=50 d=3 "
+         "nl=5",
+         lambda z, x, g: ts.tens_seq_bwd(z, x, g, 5, True, True),
+         lambda z, x, g: ts.tens_seq_bwd_ref(z, x, g, 5, True, True),
+         (z_inc, train_x[:50], np.ascontiguousarray(g_kuf[:, :, :50]))),
+        (None, "Kuf backward RBF T=500 increments N=840 L=50 d=3 nl=5",
+         lambda z, x, g: ts.tens_seq_bwd(z, x, g, 5, True, True),
+         lambda z, x, g: ts.tens_seq_bwd_ref(z, x, g, 5, True, True),
+         (z_inc, train_x, g_kuf)),
     ]
     report = {}
     for key, label, kern, plain, arrays in cases:
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).split(".")[1]
-            tol, why = TOL[name]
+            tol, why = (BWD_TOL if "backward" in label else TOL)[name]
             args = [torch.as_tensor(a, dtype=dtype, device=dev)
                     for a in arrays]
             got = kern(*args)
             want = plain(*args)
             torch.cuda.synchronize()
-            check(got.shape == want.shape, f"{label}: shape {got.shape}")
-            check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+            pairs = (list(zip(got, want)) if isinstance(want, tuple)
+                     else [(got, want)])
+            for g, w in pairs:
+                check(g.shape == w.shape, f"{label}: shape {g.shape}")
+                check(bool(torch.isfinite(g).all()), f"{label}: not finite")
             err = scaled_err(got, want)
-            abs_err = (got - want).abs().max().item()
+            max_abs = abs_err(got, want)
             print(f"kernel {label} {name}: scaled err {err:.3e} "
-                  f"(max abs {abs_err:.3e}), tolerance {tol:g}: {why}")
+                  f"(max abs {max_abs:.3e}), tolerance {tol:g}: {why}")
             check(err <= tol, f"{label} {name}: scaled err {err} > {tol}")
             if dtype == torch.float32:
                 ms = cuda_ms(lambda: kern(*args))
@@ -191,7 +262,7 @@ def kernel_phase(dev):
                 print(f"time {label} float32: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms")
                 if key is not None:
-                    report[key] = dict(max_abs_err=abs_err, ms=ms,
+                    report[key] = dict(max_abs_err=max_abs, ms=ms,
                                        plain_ms=plain_ms)
             del got, want, args
             torch.cuda.empty_cache()
@@ -226,8 +297,6 @@ def slice_phase(dev):
 
     from gpsig_tpu_torch.kernels.signature import SignatureRBF
     from gpsig_tpu_torch.models.gpr import GPR
-    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
-    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
 
     f32 = torch.float32
     rng = np.random.default_rng(SEED)
@@ -256,13 +325,13 @@ def slice_phase(dev):
                     fvar=fvar, Kuf=Kuf, lml=lml, gmean=gmean, gvar=gvar)
 
     with torch.no_grad():
-        fg.gram_launches = fg.diag_launches = ts.launches = 0
+        reset_counters()
         out = serve()
-        launches = dict(gram=fg.gram_launches, diag=fg.diag_launches,
-                        tens_seq=ts.launches)
+        launches = counters()
         print(f"slice launches: {launches}")
-        for key, n in launches.items():
-            check(n > 0, f"kernel {key} was not launched by the slice")
+        for key in ("gram", "diag", "tens_seq"):
+            check(launches[key] > 0,
+                  f"kernel {key} was not launched by the slice")
 
         for k, v in out.items():
             check(bool(torch.isfinite(v).all()), f"slice {k} not finite")
@@ -306,8 +375,6 @@ def slice_phase(dev):
 def small_float64_check(dev):
     """A small float64 model on the card against the same model on the
     CPU (plain path): same parameters, same inputs, rtol 1e-8."""
-    import copy
-
     import torch
 
     rng = np.random.default_rng(SEED + 1)
@@ -324,6 +391,201 @@ def small_float64_check(dev):
         print(f"small float64 {name}: card vs CPU scaled err {err:.3e}, "
               "tolerance 1e-8")
         check(err <= 1e-8, f"small float64 {name}: {err}")
+
+
+def regression_sequences(rng, N=200, L=50, d=2, noise=0.1):
+    """BASELINE config 1's data, as ``gpsig_tpu.data.synthetic.
+    regression_sequences`` makes it (written out here: that package imports
+    JAX): random walks with a smooth path functional as target."""
+    X = np.cumsum(0.3 * rng.standard_normal((N, L, d)), axis=1)
+    area = np.sum(X[:, :-1, 0] * np.diff(X[:, :, 1], axis=1), axis=1)
+    y = np.tanh(X[:, -1, 0]) + 0.5 * np.tanh(area)
+    return X, (y + noise * rng.standard_normal(N))[:, None]
+
+
+def build_gpr(torch, dev, dtype, X, nl):
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.models.gpr import GPR
+
+    kern = SignatureRBF(X.shape[-1], nl, lengthscales=1.0, normalization=True,
+                        dtype=dtype, device=dev)
+    return GPR.create(kern, noise_variance=0.05, dtype=dtype, device=dev)
+
+
+def gpr_step_fn(torch, gpr, X, Y, lr):
+    """One Adam step on −log_marginal_likelihood over every parameter, as
+    benchmarks/config1_gram_gpr.py writes it; returns the step's lml."""
+    from gpsig_tpu_torch.config import precise_linalg
+
+    opt = torch.optim.Adam(gpr.parameters(), lr=lr)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        with precise_linalg():
+            loss = -gpr.log_marginal_likelihood(X, Y)
+            loss.backward()
+        opt.step()
+        return -loss.detach()
+
+    return step
+
+
+def grads_and_params(model):
+    return ({n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None},
+            {n: p.detach().clone() for n, p in model.named_parameters()})
+
+
+def compare_first_step(label, got, want, lr):
+    """The first step through the kernels against the same step through
+    the plain functions on the card (float32), each parameter's gradient
+    and new value."""
+    (g_grad, g_par), (w_grad, w_par) = got, want
+    check(set(g_grad) == set(w_grad), f"{label}: gradients of "
+          f"{sorted(g_grad)} vs {sorted(w_grad)}")
+    grad_tol = 1e-2
+    for n in sorted(w_grad):
+        err = scaled_err(g_grad[n], w_grad[n])
+        print(f"train {label} step 1 grad {n}: kernel vs plain route scaled "
+              f"err {err:.3e}, tolerance {grad_tol:g} (float32 Kuf/Gram "
+              "rounding carried through the M=500 / N=150 Cholesky, whose "
+              "f32 jitter 1e-4 lets L⁻¹ grow to 100)")
+        check(err <= grad_tol, f"{label} grad {n}: {err} > {grad_tol}")
+    for n in sorted(w_par):
+        if n in w_grad:
+            # Adam's first step moves every entry by ±lr (m̂/√v̂ = sign g), so
+            # an entry whose gradient is rounding noise may step the other
+            # way: the gradients themselves are held above
+            err, tol = abs_err(g_par[n], w_par[n]), 2 * lr * (1 + 1e-3)
+            print(f"train {label} step 1 {n}: kernel vs plain route max abs "
+                  f"err {err:.3e}, tolerance {tol:.4g} (2·lr: Adam's first "
+                  "step is ±lr per entry)")
+        else:
+            err, tol = scaled_err(g_par[n], w_par[n]), 1e-3
+            print(f"train {label} step 1 {n} (natgrad): kernel vs plain route"
+                  f" scaled err {err:.3e}, tolerance {tol:g} (as the slice's "
+                  "predictive means)")
+        check(err <= tol, f"{label} {n}: {err} > {tol}")
+
+
+def training_phase(dev):
+    """Both training paths at full width, float32: natgrad + Adam steps of
+    the flagship SVGP and Adam steps on GPR's log marginal likelihood."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 2)
+    model, X, Y = build_svgp(torch, dev, f32, rng, M=500, nl=5, d=3, L=50,
+                             C=10, n_train=840)
+    svgp_steps, gpr_steps = 6, 10
+    batches = [torch.as_tensor(rng.choice(840, 50, replace=False),
+                               device=dev) for _ in range(svgp_steps)]
+    Xg, yg = regression_sequences(np.random.default_rng(SEED))
+    Xg = torch.as_tensor(Xg[:150], dtype=f32, device=dev)
+    yg = torch.as_tensor(yg[:150], dtype=f32, device=dev)
+    gpr = build_gpr(torch, dev, f32, Xg, nl=4)
+    plain_model, plain_gpr = copy.deepcopy(model), copy.deepcopy(gpr)
+
+    svgp_step = make_step_fn(1e-3, num_data=840, gamma=0.1)
+    state = svgp_step.init(model)
+    gpr_step = gpr_step_fn(torch, gpr, Xg, yg, 5e-2)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    reset_counters()
+    elbos, svgp_ms, first = [], [], {}
+    for k, idx in enumerate(batches):
+        (state, elbo), ms = timed(lambda: svgp_step(state, X[idx], Y[idx]))
+        elbos.append(elbo.item())
+        svgp_ms.append(ms)
+        if k == 0:
+            first["svgp"] = grads_and_params(model)
+    lmls, gpr_ms = [], []
+    for k in range(gpr_steps):
+        lml, ms = timed(gpr_step)
+        lmls.append(lml.item())
+        gpr_ms.append(ms)
+        if k == 0:
+            first["gpr"] = grads_and_params(gpr)
+    launches = counters()
+    print(f"training launches: {launches}")
+    for key, n in launches.items():
+        check(n > 0, f"kernel {key} was not launched by the training run")
+    print(f"train svgp elbo per step: {elbos}")
+    print(f"train gpr lml per step: {lmls}")
+    check(all(np.isfinite(elbos)), "svgp elbo not finite")
+    check(all(np.isfinite(lmls)), "gpr lml not finite")
+    for p in (*model.parameters(), *gpr.parameters()):
+        check(bool(torch.isfinite(p).all()), "trained parameter not finite")
+
+    # the first step again, through the plain functions on the card
+    with plain_route():
+        pstep = make_step_fn(1e-3, num_data=840, gamma=0.1)
+        pstep(pstep.init(plain_model), X[batches[0]], Y[batches[0]])
+        gpr_step_fn(torch, plain_gpr, Xg, yg, 5e-2)()
+    torch.cuda.synchronize()
+    compare_first_step("svgp", first["svgp"], grads_and_params(plain_model),
+                       1e-3)
+    compare_first_step("gpr", first["gpr"], grads_and_params(plain_gpr),
+                       5e-2)
+
+    # step times: median over the steps after the first
+    ms_svgp = statistics.median(svgp_ms[1:])
+    ms_gpr = statistics.median(gpr_ms[1:])
+    print(f"time svgp natgrad+Adam step (M=500, nl=5, C=10, B=50): "
+          f"{ms_svgp:.3f} ms (median of {len(svgp_ms) - 1}; all "
+          f"{[round(t, 3) for t in svgp_ms]})")
+    print(f"time gpr Adam step (N=150, L=50, d=2, nl=4): {ms_gpr:.3f} ms "
+          f"(median of {len(gpr_ms) - 1}; all "
+          f"{[round(t, 3) for t in gpr_ms]})")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    return launches
+
+
+def small_float64_training_check(dev):
+    """Three float64 training steps of small models on the card against
+    the same steps on the CPU (plain path), rtol 1e-8: an SVGP
+    (natgrad + Adam) and a GPR (Adam)."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 3)
+    model, X, Y = build_svgp(torch, dev, f64, rng, M=20, nl=4, d=3, L=20,
+                             C=4, n_train=30)
+    Xg, yg = regression_sequences(rng, N=24, L=20)
+    Xg, yg = (torch.as_tensor(a, dtype=f64, device=dev) for a in (Xg, yg))
+    gpr = build_gpr(torch, dev, f64, Xg, nl=4)
+    setups = {
+        "card": (model, gpr, X, Y, Xg, yg),
+        "cpu": (copy.deepcopy(model).to("cpu"), copy.deepcopy(gpr).to("cpu"),
+                *(t.cpu() for t in (X, Y, Xg, yg))),
+    }
+    runs = {}
+    for where, (model, gpr, X, Y, Xg, yg) in setups.items():
+        step = make_step_fn(1e-2, num_data=100, gamma=0.1)
+        state = step.init(model)
+        gstep = gpr_step_fn(torch, gpr, Xg, yg, 5e-2)
+        out = []
+        for _ in range(3):
+            state, elbo = step(state, X, Y)
+            out += [elbo, gstep()]
+        out += [p.detach() for p in (*model.parameters(),
+                                     *gpr.parameters())]
+        runs[where] = [t.cpu() for t in out]
+    err = max(scaled_err(g, w) for g, w in zip(runs["card"], runs["cpu"]))
+    print(f"small float64 training (3 SVGP + 3 GPR steps): card vs CPU "
+          f"scaled err {err:.3e} over every ELBO, lml and parameter, "
+          "tolerance 1e-8")
+    check(err <= 1e-8, f"small float64 training: {err}")
 
 
 def main():
@@ -360,12 +622,16 @@ def main():
     timings = kernel_phase(dev)
     launches = slice_phase(dev)
     small_float64_check(dev)
+    train_launches = training_phase(dev)
+    small_float64_training_check(dev)
 
+    # launches: forward kernels from the serving run, backward kernels from
+    # the training run (each path's counters were reset just before it)
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
+        n = train_launches[key] if key.endswith("_bwd") else launches[key]
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=launches[key],
-                            **timings[key]))
+                            replaces=replaces, launches=n, **timings[key]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,37 +35,14 @@
 // shuffles, not shared-memory round trips, on the prefix; the scans of the
 // nl - 1 levels are independent and interleave.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
+using namespace gpsig;
+
 constexpr int kMaxLevels = 7;
 constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float texp(float v) { return expf(v); }
-__device__ __forceinline__ double texp(double v) { return exp(v); }
-
-// k(a, b) for one point pair; na, nb are -|a|^2/2, -|b|^2/2 (RBF only)
-template <typename T>
-__device__ __forceinline__ T base_k(const T* a, T na, const T* b, T nb,
-                                    int d, bool rbf) {
-  T acc = rbf ? na + nb : T(0);
-  for (int c = 0; c < d; ++c) acc += a[c] * b[c];
-  return rbf ? texp(acc) : acc;
-}
-
-// -|x_i|^2/2 for the L points of a staged sequence, written by `nthreads`
-// cooperating threads starting at `tid`
-template <typename T>
-__device__ void half_sqnorms(const T* xs, T* nxs, int L, int d, int tid,
-                             int nthreads) {
-  for (int i = tid; i < L; i += nthreads) {
-    T s = T(0);
-    for (int c = 0; c < d; ++c) s += xs[i * d + c] * xs[i * d + c];
-    nxs[i] = T(-0.5) * s;
-  }
-}
 
 // Per-level kernels of one pair, computed by the calling (full) warp.
 // xs, ys: [L][d] staged sequences; nxs, nys: their -|.|^2/2 (RBF only).
@@ -113,26 +90,8 @@ __device__ void pair_levels(const T* xs, const T* nxs, const T* ys,
     // exclusive row prefixes of C_1..C_{nl-1}, before this column's update
     T pre[kMaxLevels][R];
 #pragma unroll
-    for (int m = 0; m + 1 < kMaxLevels; ++m) {
-      if (m + 1 < nl) {
-        T run = T(0);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          pre[m][r] = run;
-          run += C[m][r];
-        }
-        T incl = run;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const T v = __shfl_up_sync(kFull, incl, off);
-          if (lane >= off) incl += v;
-        }
-        T excl = __shfl_up_sync(kFull, incl, 1);
-        if (lane == 0) excl = T(0);
-#pragma unroll
-        for (int r = 0; r < R; ++r) pre[m][r] += excl;
-      }
-    }
+    for (int m = 0; m + 1 < kMaxLevels; ++m)
+      if (m + 1 < nl) warp_excl_prefix<T, R>(C[m], pre[m], lane);
 #pragma unroll
     for (int r = 0; r < R; ++r) C[0][r] += mcol[r];
 #pragma unroll
@@ -151,8 +110,7 @@ __device__ void pair_levels(const T* xs, const T* nxs, const T* ys,
       T s = T(0);
 #pragma unroll
       for (int r = 0; r < R; ++r) s += C[m][r];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+      s = warp_sum(s);
       if (lane == 0) out[(m + 1) * stride] = s;
     }
   }
@@ -220,13 +178,6 @@ fused_diag_kernel(const T* __restrict__ X, T* __restrict__ out, int N,
                     static_cast<long long>(N));
 }
 
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <typename T, int R>
 cudaError_t launch_gram(const void* X, const void* Y, void* out, int N1,
                         int N2, int L, int d, int nl, int rbf,
@@ -256,15 +207,6 @@ cudaError_t launch_diag(const void* X, void* out, int N, int L, int d,
   fused_diag_kernel<T, R><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
       static_cast<const T*>(X), static_cast<T*>(out), N, L, d, nl, rbf);
   return cudaGetLastError();
-}
-
-// rows per lane for L - 1 increment rows; 0 when no instantiation covers L
-int rows_per_lane(int L) {
-  const int rows = L - 1;
-  if (rows <= 32) return 1;
-  if (rows <= 64) return 2;
-  if (rows <= 128) return 4;
-  return 0;
 }
 
 template <typename T>

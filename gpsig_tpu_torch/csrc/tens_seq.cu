@@ -33,14 +33,13 @@
 // d = 3) that is 1.5e9 exps against 6 MB of output, so it is bound by the
 // exp and FMA pipes, not by memory.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace gpsig;
 
-__device__ __forceinline__ float texp(float v) { return expf(v); }
-__device__ __forceinline__ double texp(double v) { return exp(v); }
+constexpr int kThreads = 128;
 
 template <typename T, int NL, bool INC>
 __global__ void __launch_bounds__(kThreads)

@@ -2,8 +2,9 @@
 
 Counterpart of ``gpsig_tpu/models/svgp.py``:
 ELBO = (N/B) Σ_batch E_q[log p(y_i | f_i)] − KL[q(u) ‖ p(u)], prediction,
-and the cached :class:`Posterior`. Training (natural gradients + Adam)
-is ROADMAP Queue 1 item 7; the Kuu = I (VOSF) fast path is item 13.
+and the cached :class:`Posterior`. Training (natural gradients + Adam) is
+``gpsig_tpu_torch.training``; the Kuu = I (VOSF) fast path is ROADMAP
+Queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -82,6 +83,18 @@ class SVGP(nn.Module):
         batch = fmean.shape[0]
         total = batch if num_data is None else num_data
         return (total / batch) * torch.sum(var_exp) - kl
+
+    def forward(self, X, Y, num_data=None):
+        """The ELBO (so that ``torch.func.functional_call`` reaches it)."""
+        return self.elbo(X, Y, num_data)
+
+    def elbo_at(self, q_mu, q_sqrt, X, Y, num_data=None):
+        """The ELBO with (q_mu, q_sqrt) in place of the model's own, without
+        copying the model (the counterpart of ``model.replace(q_mu=…,
+        q_sqrt=…).elbo(…)``); gradients flow to the given tensors."""
+        return torch.func.functional_call(
+            self, {"q_mu": q_mu, "q_sqrt": q_sqrt}, (X, Y),
+            {"num_data": num_data})
 
     def predict_y(self, X):
         m, v = self.predict_f(X)

@@ -1,16 +1,18 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, at first use, and loaded
-with ``ctypes``. The library's name carries a hash of the sources and the
-flags, so an edited ``.cu`` file builds anew. Builds go to
-``gpsig_tpu_torch/.build/`` (git-ignored). A failed build raises with
-nvcc's output; nothing falls back to another implementation.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``. The library's name carries a hash of the sources, the shared
+header and the flags, so an edited ``.cu`` or ``.cuh`` file builds anew.
+Builds go to ``gpsig_tpu_torch/.build/`` (git-ignored). A failed build
+raises with nvcc's output; nothing falls back to another implementation.
 
 Nothing here runs at import time: the package imports on machines with no
 CUDA toolkit, and only a launch on a CUDA tensor reaches :func:`library`.
 :func:`check_inputs` and :func:`launch` are the wrappers' shared checks
-and launch path.
+and launch path. Gradients are the business of the wrappers'
+``torch.autograd.Function``s: a launch reads only the inputs' data.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -28,9 +31,9 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / ".build"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -40,6 +43,10 @@ SIGNATURES = {
     "gpsig_fused_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gpsig_fused_diag": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpsig_tens_seq": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gpsig_fused_gram_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
+    "gpsig_tens_seq_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
 }
 
 _lib = None
@@ -64,32 +71,46 @@ def _sources():
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgpsig_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build():
-    """Compile the sources unless a library of the same hash exists.
-    Returns its path. nvcc's report (registers, spills) is kept beside it
-    as ``<lib>.log``."""
+    """Compile the sources unless a library of the same hash exists: one
+    ``nvcc -c`` per source, all started together, then one link. Returns
+    the library's path. nvcc's reports (registers, spills) and each
+    source's compile time are kept beside it as ``<lib>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [f"{proc.communicate()[0]}{cmd[-1]}: "
+                f"{time.perf_counter() - t0:.1f} s\n"
+                for cmd, proc in zip(cmds, procs)]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        Path(str(out) + ".log").write_text("".join(logs))
+        os.replace(lib, out)
     return out
 
 
@@ -108,11 +129,9 @@ def library():
     return _lib
 
 
-def check_inputs(name, tensors, backward_item):
+def check_inputs(name, tensors):
     """Validate what a kernel takes: CUDA tensors on one device, float32 or
-    float64 alike, contiguous, and no autograd graph to extend (the
-    kernels have no backward yet; ``backward_item`` names the ROADMAP item
-    that ports it). Raises on anything else."""
+    float64 alike, contiguous. Raises on anything else."""
     first = tensors[0]
     for t in tensors:
         if not t.is_cuda or t.device != first.device:
@@ -126,11 +145,6 @@ def check_inputs(name, tensors, backward_item):
             raise TypeError(f"{name}: mixed dtypes {t.dtype}, {first.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: no backward kernel yet ({backward_item}); call it "
-            "under torch.no_grad()"
-        )
 
 
 def launch(name, device, *args):
@@ -139,7 +153,8 @@ def launch(name, device, *args):
     reported a CUDA error (the entry points return
     ``cudaGetLastError()`` right after their launch)."""
     lib = library()
-    c_args = [a.data_ptr() if torch.is_tensor(a) else int(a) for a in args]
+    c_args = [a.detach().data_ptr() if torch.is_tensor(a) else int(a)
+              for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(*c_args, stream)

@@ -1,16 +1,21 @@
 """Fused order-1 signature Gram and diagonal: CUDA kernels and their plain
 PyTorch versions.
 
-Counterpart of ``gpsig_tpu/ops/pallas/fused_gram.py`` (``fused_gram_levels``
-and ``fused_diag_levels``); the kernels are in ``csrc/fused_gram.cu``, whose
-opening note gives the design. Semantics: pre-scaled sequences, order 1,
-``difference=True``, RBF (``rbf=True``) or Linear base, ``num_levels <= 7``,
-RBF distance unclamped.
+Counterpart of ``gpsig_tpu/ops/pallas/fused_gram.py`` (``fused_gram_levels``,
+``fused_diag_levels`` and ``fused_gram_levels_bwd_pallas``); the kernels
+are in ``csrc/fused_gram.cu`` (forward, diagonal) and
+``csrc/fused_gram_bwd.cu`` (Gram backward), whose opening notes give the
+designs. Semantics: pre-scaled sequences, order 1, ``difference=True``, RBF
+(``rbf=True``) or Linear base, ``num_levels <= 7``, RBF distance
+unclamped.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises. Each wrapper counts its launches in a module-level
-integer (``gram_launches``, ``diag_launches``) that a run may reset and
-read to show the kernels were used.
+Dispatch: a CPU tensor runs the plain version (autograd differentiates
+it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
+launches the kernel and whose backward launches the backward kernel (the
+diagonal's backward is autograd through its plain version, as in the JAX
+package), or raises. Each launch counts in a module-level integer
+(``gram_launches``, ``diag_launches``, ``gram_bwd_launches``) that a run may
+reset and read to show the kernels were used.
 """
 
 from __future__ import annotations
@@ -24,10 +29,10 @@ MAX_LEVELS = 7
 #: longest sequence the compiled kernels take: L - 1 increment rows over
 #: 32 lanes at 4 rows per lane, the largest instantiation
 MAX_LENGTH = 32 * 4 + 1
-_BACKWARD = "ROADMAP Queue 2 item 3, _bwd_fused_kernel"
 
 gram_launches = 0
 diag_launches = 0
+gram_bwd_launches = 0
 
 
 def _rbf_gram(a, b):
@@ -58,6 +63,16 @@ def fused_diag_levels_ref(X, num_levels, rbf=True):
     return sigops.signature_kern(sigops.incremental_gram(G), num_levels)
 
 
+def fused_gram_levels_bwd_ref(X, Y, g, num_levels, rbf=True):
+    """Plain version of :func:`fused_gram_levels_bwd`: autograd through
+    :func:`fused_gram_levels_ref`."""
+    with torch.enable_grad():
+        Xg = X.detach().requires_grad_()
+        Yg = Y.detach().requires_grad_()
+        out = fused_gram_levels_ref(Xg, Yg, num_levels, rbf)
+        return torch.autograd.grad(out, (Xg, Yg), g)
+
+
 def _check_shapes(name, num_levels, *seqs):
     L, d = seqs[0].shape[1:] if seqs[0].ndim == 3 else (None, None)
     for s in seqs:
@@ -79,14 +94,10 @@ def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def fused_gram_levels(X, Y, num_levels, rbf=True):
-    """[nl+1, N1, N2] per-level signature kernels of X [N1, L, d] against
-    Y [N2, L, d]."""
+def _launch_gram(X, Y, num_levels, rbf):
     global gram_launches
-    if _on_cpu(X, Y):
-        return fused_gram_levels_ref(X, Y, num_levels, rbf)
     name = "fused_gram_levels"
-    _build.check_inputs(name, (X, Y), _BACKWARD)
+    _build.check_inputs(name, (X, Y))
     _check_shapes(name, num_levels, X, Y)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     out = torch.empty((num_levels + 1, N1, N2), dtype=X.dtype,
@@ -98,13 +109,10 @@ def fused_gram_levels(X, Y, num_levels, rbf=True):
     return out
 
 
-def fused_diag_levels(X, num_levels, rbf=True):
-    """[nl+1, N] per-level self kernels k_m(x_n, x_n) of X [N, L, d]."""
+def _launch_diag(X, num_levels, rbf):
     global diag_launches
-    if _on_cpu(X):
-        return fused_diag_levels_ref(X, num_levels, rbf)
     name = "fused_diag_levels"
-    _build.check_inputs(name, (X,), _BACKWARD)
+    _build.check_inputs(name, (X,))
     _check_shapes(name, num_levels, X)
     N, L, d = X.shape
     out = torch.empty((num_levels + 1, N), dtype=X.dtype, device=X.device)
@@ -113,3 +121,87 @@ def fused_diag_levels(X, num_levels, rbf=True):
                       num_levels, rbf, X.dtype == torch.float64)
         diag_launches += 1
     return out
+
+
+class _GramLevels(torch.autograd.Function):
+    """Forward: the Gram kernel. Backward: the Gram backward kernel. X and
+    Y may be one tensor; both gradients are returned and autograd adds
+    them."""
+
+    @staticmethod
+    def forward(ctx, X, Y, num_levels, rbf):
+        ctx.save_for_backward(X, Y)
+        ctx.num_levels, ctx.rbf = num_levels, rbf
+        return _launch_gram(X, Y, num_levels, rbf)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        X, Y = ctx.saved_tensors
+        Xbar, Ybar = fused_gram_levels_bwd(X, Y, g.contiguous(),
+                                           ctx.num_levels, ctx.rbf)
+        need_x, need_y = ctx.needs_input_grad[:2]
+        return (Xbar if need_x else None, Ybar if need_y else None, None,
+                None)
+
+
+class _DiagLevels(torch.autograd.Function):
+    """Forward: the diagonal kernel. Backward: autograd through the plain
+    version, recomputed here. This is the JAX package's own route
+    (``_diag_vjp_bwd`` differentiates ``_xla_reference_diag``; it has no
+    backward kernel for the diagonal), not a fallback."""
+
+    @staticmethod
+    def forward(ctx, X, num_levels, rbf):
+        ctx.save_for_backward(X)
+        ctx.num_levels, ctx.rbf = num_levels, rbf
+        return _launch_diag(X, num_levels, rbf)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (X,) = ctx.saved_tensors
+        with torch.enable_grad():
+            Xg = X.detach().requires_grad_()
+            out = fused_diag_levels_ref(Xg, ctx.num_levels, ctx.rbf)
+            (Xbar,) = torch.autograd.grad(out, Xg, g)
+        return Xbar, None, None
+
+
+def fused_gram_levels(X, Y, num_levels, rbf=True):
+    """[nl+1, N1, N2] per-level signature kernels of X [N1, L, d] against
+    Y [N2, L, d]."""
+    if _on_cpu(X, Y):
+        return fused_gram_levels_ref(X, Y, num_levels, rbf)
+    return _GramLevels.apply(X, Y, num_levels, rbf)
+
+
+def fused_diag_levels(X, num_levels, rbf=True):
+    """[nl+1, N] per-level self kernels k_m(x_n, x_n) of X [N, L, d]."""
+    if _on_cpu(X):
+        return fused_diag_levels_ref(X, num_levels, rbf)
+    return _DiagLevels.apply(X, num_levels, rbf)
+
+
+def fused_gram_levels_bwd(X, Y, g, num_levels, rbf=True):
+    """(X̄, Ȳ): the VJP of :func:`fused_gram_levels` for the level
+    cotangents g [nl+1, N1, N2] (counterpart of
+    ``fused_gram_levels_bwd_pallas``)."""
+    global gram_bwd_launches
+    if _on_cpu(X, Y, g):
+        return fused_gram_levels_bwd_ref(X, Y, g, num_levels, rbf)
+    name = "fused_gram_levels_bwd"
+    _build.check_inputs(name, (X, Y, g))
+    _check_shapes(name, num_levels, X, Y)
+    (N1, L, d), N2 = X.shape, Y.shape[0]
+    if tuple(g.shape) != (num_levels + 1, N1, N2):
+        raise ValueError(f"{name}: g must be [{num_levels + 1}, {N1}, {N2}];"
+                         f" got {tuple(g.shape)}")
+    Xbar = torch.zeros_like(X)
+    Ybar = torch.zeros_like(Y)
+    if N1 and N2:
+        _build.launch("gpsig_fused_gram_bwd", X.device, X, Y, g, Xbar, Ybar,
+                      N1, N2, L, d, num_levels, rbf,
+                      X.dtype == torch.float64)
+        gram_bwd_launches += 1
+    return Xbar, Ybar

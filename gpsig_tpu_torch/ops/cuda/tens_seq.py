@@ -2,13 +2,16 @@
 plain PyTorch version.
 
 Counterpart of ``gpsig_tpu/ops/pallas/tens_seq.py``
-(``fused_tens_seq_levels``); the kernel is in ``csrc/tens_seq.cu``, whose
-opening note gives the design. Semantics: pre-scaled inputs, order 1,
-``difference=True``, RBF or Linear base, ``num_levels <= 7``, RBF distance
-unclamped.
+(``fused_tens_seq_levels`` and ``tens_seq_bwd_pallas``); the kernels are in
+``csrc/tens_seq.cu`` (forward) and ``csrc/tens_seq_bwd.cu`` (backward),
+whose opening notes give the designs. Semantics: pre-scaled inputs, order
+1, ``difference=True``, RBF or Linear base, ``num_levels <= 7``, RBF
+distance unclamped.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises. ``launches`` counts the kernel's launches.
+Dispatch: a CPU tensor runs the plain version (autograd differentiates
+it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
+launches the kernel and whose backward launches the backward kernel, or
+raises. ``launches`` and ``bwd_launches`` count the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -17,13 +20,14 @@ import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
 from gpsig_tpu_torch.ops.cuda import _build
-from gpsig_tpu_torch.ops.cuda.fused_gram import MAX_LEVELS, _rbf_gram
+from gpsig_tpu_torch.ops.cuda.fused_gram import (MAX_LEVELS, _on_cpu,
+                                                  _rbf_gram)
 
 #: grid rows are tensors; CUDA caps gridDim.y at 65535
 MAX_TENSORS = 65535
-_BACKWARD = "ROADMAP Queue 2 item 5, _tens_seq_bwd_kernel"
 
 launches = 0
+bwd_launches = 0
 
 
 def fused_tens_seq_levels_ref(Z, X, num_levels, rbf=True, increments=False):
@@ -44,14 +48,20 @@ def fused_tens_seq_levels_ref(Z, X, num_levels, rbf=True, increments=False):
     return sigops.signature_kern_tens_vs_seq(U, num_levels)
 
 
-def fused_tens_seq_levels(Z, X, num_levels, rbf=True, increments=False):
-    """[nl+1, T, N] per-level ⟨z^{(m)}, S_m(x)⟩ for Z [T, F, d] (or
-    [T, F, 2, d] with ``increments``) against X [N, L, d]."""
-    global launches
-    if Z.device.type == "cpu" and X.device.type == "cpu":
-        return fused_tens_seq_levels_ref(Z, X, num_levels, rbf, increments)
-    name = "fused_tens_seq_levels"
-    _build.check_inputs(name, (Z, X), _BACKWARD)
+def tens_seq_bwd_ref(Z, X, g, num_levels, rbf=True, increments=False):
+    """Plain version of :func:`tens_seq_bwd`: autograd through
+    :func:`fused_tens_seq_levels_ref` (as ``_tens_seq_vjp_bwd`` on the
+    CPU)."""
+    with torch.enable_grad():
+        Zg = Z.detach().requires_grad_()
+        Xg = X.detach().requires_grad_()
+        out = fused_tens_seq_levels_ref(Zg, Xg, num_levels, rbf, increments)
+        return torch.autograd.grad(out, (Zg, Xg), g)
+
+
+def _check(name, Z, X, num_levels, increments, *more):
+    """Validate the kernels' inputs; returns (T, N, L, d)."""
+    _build.check_inputs(name, (Z, X, *more))
     if not 1 <= num_levels <= MAX_LEVELS:
         raise ValueError(f"{name}: num_levels must be 1..{MAX_LEVELS}")
     F = sigops.tensor_factor_count(num_levels)
@@ -65,6 +75,13 @@ def fused_tens_seq_levels(Z, X, num_levels, rbf=True, increments=False):
     T = Z.shape[0]
     if T > MAX_TENSORS:
         raise ValueError(f"{name}: at most {MAX_TENSORS} tensors per call")
+    return T, N, L, d
+
+
+def _launch(Z, X, num_levels, rbf, increments):
+    global launches
+    T, N, L, d = _check("fused_tens_seq_levels", Z, X, num_levels,
+                        increments)
     out = torch.empty((num_levels + 1, T, N), dtype=X.dtype, device=X.device)
     if T and N:
         Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]: coalesced x_i
@@ -72,3 +89,52 @@ def fused_tens_seq_levels(Z, X, num_levels, rbf=True, increments=False):
                       num_levels, rbf, increments, X.dtype == torch.float64)
         launches += 1
     return out
+
+
+class _TensSeqLevels(torch.autograd.Function):
+    """Forward: the Kuf kernel. Backward: the Kuf backward kernel."""
+
+    @staticmethod
+    def forward(ctx, Z, X, num_levels, rbf, increments):
+        ctx.save_for_backward(Z, X)
+        ctx.args = (num_levels, rbf, increments)
+        return _launch(Z, X, num_levels, rbf, increments)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        Z, X = ctx.saved_tensors
+        Zbar, Xbar = tens_seq_bwd(Z, X, g.contiguous(), *ctx.args)
+        need_z, need_x = ctx.needs_input_grad[:2]
+        return (Zbar if need_z else None, Xbar if need_x else None, None,
+                None, None)
+
+
+def fused_tens_seq_levels(Z, X, num_levels, rbf=True, increments=False):
+    """[nl+1, T, N] per-level ⟨z^{(m)}, S_m(x)⟩ for Z [T, F, d] (or
+    [T, F, 2, d] with ``increments``) against X [N, L, d]."""
+    if _on_cpu(Z, X):
+        return fused_tens_seq_levels_ref(Z, X, num_levels, rbf, increments)
+    return _TensSeqLevels.apply(Z, X, num_levels, rbf, increments)
+
+
+def tens_seq_bwd(Z, X, g, num_levels, rbf=True, increments=False):
+    """(Z̄, X̄): the VJP of :func:`fused_tens_seq_levels` for the level
+    cotangents g [nl+1, T, N] (counterpart of ``tens_seq_bwd_pallas``)."""
+    global bwd_launches
+    if _on_cpu(Z, X, g):
+        return tens_seq_bwd_ref(Z, X, g, num_levels, rbf, increments)
+    name = "tens_seq_bwd"
+    T, N, L, d = _check(name, Z, X, num_levels, increments, g)
+    if tuple(g.shape) != (num_levels + 1, T, N):
+        raise ValueError(f"{name}: g must be [{num_levels + 1}, {T}, {N}];"
+                         f" got {tuple(g.shape)}")
+    Zbar = torch.zeros_like(Z)
+    XbarT = torch.zeros((L, d, N), dtype=X.dtype, device=X.device)
+    if T and N:
+        Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]
+        _build.launch("gpsig_tens_seq_bwd", X.device, Z, Xt, g, Zbar, XbarT,
+                      T, N, L, d, num_levels, rbf, increments,
+                      X.dtype == torch.float64)
+        bwd_launches += 1
+    return Zbar, XbarT.permute(2, 0, 1).contiguous()

@@ -1,0 +1,150 @@
+"""Training loops: natural gradients on q(u) alternating with Adam on the
+hyperparameters (the reference's benchmark protocol).
+
+Counterpart of ``gpsig_tpu/training/loop.py``. A step is, in this order:
+the natgrad step on (q_mu, q_sqrt) when ``use_natgrad``; the loss −ELBO
+(minus ``log_prior_fn(model)`` for MAP) on the post-natgrad model; its
+gradient; q_mu and q_sqrt left out of Adam when
+``freeze_variational_in_adam`` (default: ``use_natgrad``); one
+``torch.optim.Adam`` update. ``torch.optim.Adam`` and ``optax.adam`` are
+the same update (β 0.9/0.999, eps 1e-8 outside the square root, the same
+bias correction), and a parameter Adam skips is one JAX hands zero
+gradients forever.
+
+The JAX package's ``_value_and_grad_floats`` and ``float_only_optimizer``
+exist because its pytrees carry integer leaves; the port's modules hold
+only floating-point parameters, so neither is needed. Nor are PRNG keys:
+no likelihood of the port is Monte-Carlo. The model is trained in place.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from gpsig_tpu_torch.config import precise_linalg
+from gpsig_tpu_torch.training.natgrad import natgrad_step
+
+
+class TrainState(NamedTuple):
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int
+
+
+def init_state(model, learning_rate):
+    """A fresh state: ``torch.optim.Adam(learning_rate)`` over every
+    parameter of ``model``."""
+    return TrainState(model, torch.optim.Adam(model.parameters(),
+                                              lr=learning_rate), 0)
+
+
+def make_step_fn(learning_rate, num_data, gamma=0.1, use_natgrad=True,
+                 freeze_variational_in_adam=None,
+                 log_prior_fn: Callable | None = None):
+    """Build a ``(state, X, Y) -> (state, elbo)`` training step; the ELBO
+    returned is the post-natgrad, pre-Adam one (plus the log-prior under
+    MAP). ``step.init(model)`` makes its state with Adam at
+    ``learning_rate``. log_prior_fn(model) -> scalar log-prior over
+    hyperparameters enables MAP training."""
+    if freeze_variational_in_adam is None:
+        freeze_variational_in_adam = use_natgrad
+
+    def step(state, X, Y):
+        model, opt = state.model, state.optimizer
+        if use_natgrad:
+            natgrad_step(model, gamma, X, Y, num_data=num_data)
+        opt.zero_grad(set_to_none=True)
+        # the backward runs inside precise_linalg too: the forward's
+        # decorator has returned by then, and TF32 would cut its products
+        with precise_linalg():
+            loss = -model.elbo(X, Y, num_data=num_data)
+            if log_prior_fn is not None:
+                loss = loss - log_prior_fn(model)
+            loss.backward()
+        if freeze_variational_in_adam:
+            model.q_mu.grad = None
+            model.q_sqrt.grad = None
+        opt.step()
+        return TrainState(model, opt, state.step + 1), -loss.detach()
+
+    step.init = lambda model: init_state(model, learning_rate)
+    return step
+
+
+def make_multi_step_fn(learning_rate, num_data, gamma=0.1, use_natgrad=True,
+                       freeze_variational_in_adam=None,
+                       log_prior_fn: Callable | None = None):
+    """``(state, Xb [k, B, ...], Yb [k, B]) -> (state, elbos [k])``: k
+    minibatch steps in a Python loop, the same math as k calls of
+    :func:`make_step_fn`'s step with the same batches."""
+    step = make_step_fn(learning_rate, num_data, gamma, use_natgrad,
+                        freeze_variational_in_adam, log_prior_fn)
+
+    def multi(state, Xb, Yb):
+        elbos = []
+        for X, Y in zip(Xb, Yb):
+            state, elbo = step(state, X, Y)
+            elbos.append(elbo)
+        return state, torch.stack(elbos)
+
+    multi.init = step.init
+    return multi
+
+
+def default_val_metric(model, Xv, yv):
+    """Validation accuracy (classification): the reference benchmarks'
+    early-stopping criterion."""
+    with torch.no_grad():
+        p, _ = model.predict_y(Xv)
+    return float((p.argmax(1).cpu().numpy() == np.asarray(yv.cpu())).mean())
+
+
+def fit(model, X, Y, num_iters=500, batch_size=None, learning_rate=1e-3,
+        gamma=0.1, use_natgrad=True, seed=0, callback: Callable | None = None,
+        log_every=100, val_data=None, val_every=50, patience=10,
+        val_metric: Callable | None = None):
+    """Full-data or minibatch fitting loop (host-side batching, drawn with
+    ``np.random.default_rng(seed).choice`` as in JAX, so a run can be held
+    against it exactly).
+
+    val_data=(Xv, yv) enables validation early stopping: evaluate
+    ``val_metric`` (default: accuracy) every ``val_every`` iterations, keep
+    a copy of the best model, stop after ``patience`` evaluations without
+    improvement. Returns (model, history [(iteration, elbo)])."""
+    N = X.shape[0]
+    step_fn = make_step_fn(learning_rate, N, gamma, use_natgrad)
+    state = step_fn.init(model)
+    rng = np.random.default_rng(seed)
+    history = []
+    metric = val_metric if val_metric is not None else default_val_metric
+    best_score, best_model, stale = -np.inf, None, 0
+    for it in range(num_iters):
+        if batch_size is None or batch_size >= N:
+            xb, yb = X, Y
+        else:
+            idx = torch.as_tensor(rng.choice(N, batch_size, replace=False),
+                                  device=X.device)
+            xb, yb = X[idx], Y[idx]
+        state, elbo = step_fn(state, xb, yb)
+        if it % log_every == 0 or it == num_iters - 1:
+            history.append((it, float(elbo)))
+            if callback is not None:
+                callback(it, state.model, float(elbo))
+        if val_data is not None and (
+            (it + 1) % val_every == 0 or it == num_iters - 1
+        ):
+            score = metric(state.model, val_data[0], val_data[1])
+            if score > best_score:
+                best_score, stale = score, 0
+                best_model = copy.deepcopy(state.model)
+            else:
+                stale += 1
+                if stale >= patience:
+                    break
+    if val_data is not None and best_model is not None:
+        return best_model, history
+    return state.model, history
