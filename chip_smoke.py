@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive slice 0 of the PyTorch port (``gpsig_tpu_torch``), serving and
-training, on one NVIDIA GPU and check it end to end.
+"""Drive the PyTorch port (``gpsig_tpu_torch``) on one NVIDIA GPU and check
+it end to end: slice 0 (the order-1 model, serving and training) and slice
+1's serving half (the general engines: order-2 SVGP and GPR).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -30,8 +31,21 @@ Phases, each of which ends the run with a non-zero exit on failure:
    must agree with the same step routed through the plain functions on the
    card; ms per step by host clock; small float64 models' three steps must
    agree with the CPU;
-5. report: one JSON line with every kernel's launches, error and times,
-   then the device line.
+5. slice 1: each general-engine kernel (``_ho_kernel``, ``_tsg_kernel``,
+   the sig_gram ``_fwd_kernel`` and ``_fwd_kernel_ho``) against its plain
+   version at the main path's shapes in float32 and float64, timed; a
+   coverage sweep at small sizes over every base kind × ``difference`` ×
+   order 1-3 (× ``increments`` for Kuf, plus num_levels 7, and lags with
+   ARD through the kernel layer); the order-2 flagship SVGP serving path
+   (M=500 inducing tensors with increments, nl=5, order 2, d=2, L=50,
+   C=10, N_train=500: ELBO on 50, ``posterior()`` + ``predict_y`` on 2048,
+   ``predict_y`` on the cached posterior) and exact GPR at BASELINE config
+   1's width at order 2 (and at order 1 with a Poly base), each with its
+   launch counters (the general kernels' must rise, the tuned order-1
+   kernels' must not) and against the plain route; a small order-2 float64
+   model on the card against the CPU;
+6. report: one JSON line with every kernel's launches, error, times and
+   bound, then the device line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
 beside it, it exits non-zero before printing any result.
@@ -54,7 +68,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
-# kernel name, source, TPU kernel it replaces
+# report key: kernel name, source, TPU kernel it replaces
 KERNELS = {
     "gram": ("_fused_kernel", "gpsig_tpu_torch/csrc/fused_gram.cu",
              "gpsig_tpu/ops/pallas/fused_gram.py:146"),
@@ -67,6 +81,14 @@ KERNELS = {
     "tens_seq_bwd": ("_tens_seq_bwd_kernel",
                      "gpsig_tpu_torch/csrc/tens_seq_bwd.cu",
                      "gpsig_tpu/ops/pallas/tens_seq.py:281"),
+    "gram_ho": ("_ho_kernel", "gpsig_tpu_torch/csrc/fused_gram_ho.cu",
+                "gpsig_tpu/ops/pallas/fused_gram_ho.py:133"),
+    "tsg": ("_tsg_kernel", "gpsig_tpu_torch/csrc/tens_seq_general.cu",
+            "gpsig_tpu/ops/pallas/tens_seq_general.py:200"),
+    "sig_gram": ("_fwd_kernel", "gpsig_tpu_torch/csrc/sig_gram.cu",
+                 "gpsig_tpu/ops/pallas/sig_gram.py:80"),
+    "sig_gram_ho": ("_fwd_kernel_ho", "gpsig_tpu_torch/csrc/sig_gram.cu",
+                    "gpsig_tpu/ops/pallas/sig_gram.py:126"),
 }
 # scaled error max|kernel - plain| / max|plain| allowed, per dtype
 TOL = {
@@ -75,6 +97,13 @@ TOL = {
     "float64": (1e-11, "same arithmetic as the plain version, other "
                 "summation order only"),
 }
+# the same for the general engines' forward kernels
+GEN_TOL = {
+    "float32": (3e-4, "float32 base kernels and DP sums, where a cell at "
+                "order p sums up to p² run-length states and a degree-3 "
+                "Poly base cubes its dot product's rounding"),
+    "float64": (1e-10, "other summation order only"),
+}
 # the same for the backward kernels
 BWD_TOL = {
     "float32": (1e-3, "float32 reverse sweep whose DP states are rebuilt by "
@@ -82,6 +111,12 @@ BWD_TOL = {
                 "column), summed with atomics in a run-dependent order"),
     "float64": (1e-10, "as float32, in float64"),
 }
+
+
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
+# the tensor cores, and HBM3
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -112,21 +147,81 @@ def abs_err(got, want):
 
 
 def counters():
-    """The launch counters of all five kernels."""
+    """The launch counters of all nine kernels."""
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
 
     return dict(gram=fg.gram_launches, diag=fg.diag_launches,
                 tens_seq=ts.launches, gram_bwd=fg.gram_bwd_launches,
-                tens_seq_bwd=ts.bwd_launches)
+                tens_seq_bwd=ts.bwd_launches, gram_ho=fgho.launches,
+                tsg=tsg.launches, sig_gram=sg.launches,
+                sig_gram_ho=sg.ho_launches)
 
 
 def reset_counters():
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
 
     fg.gram_launches = fg.diag_launches = fg.gram_bwd_launches = 0
     ts.launches = ts.bwd_launches = 0
+    fgho.launches = tsg.launches = sg.launches = sg.ho_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Work of each kernel on its inputs, for its bound: the operations its
+# algorithm needs (an FMA counts 2, an exp or cos 1) over the FP32 peak,
+# and its bytes (each input read once, each output written once) over the
+# HBM rate; the larger is the least time the card could take. Counted per
+# float32 value (the timed dtype).
+# ---------------------------------------------------------------------------
+
+def bound(ops, nbytes):
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def base_ops(d, kind):
+    """One base-kernel value: the dot product (d FMAs), the half norms and
+    the exp or cos where the kind has them."""
+    return 2 * d + (3 if kind in ("rbf", "cosine") else 0)
+
+
+def dp_cell_ops(nl, p):
+    """The run-length column DP per increment-matrix entry at order p: at
+    level m >= 2, R = min(p, m)² states each multiplied by M and added
+    into the carries, and R prefix-scan adds; 1 at level 1."""
+    return 1 + sum(2 * min(p, m) ** 2 + min(p, m) for m in range(2, nl + 1))
+
+
+def gram_work(N1, N2, L, d, nl, p=1, kind="rbf", difference=True):
+    """Gram (_fused_kernel, _diag_kernel with N2 = 1 per pair, _ho_kernel):
+    L² base values per pair, then (L-1)² increments (3 subtractions) or L²
+    raw entries through the DP."""
+    rows = L - 1 if difference else L
+    per_pair = (L * L * base_ops(d, kind)
+                + rows * rows * (dp_cell_ops(nl, p) + 3 * difference))
+    return per_pair * N1 * N2
+
+
+def kuf_dp_point_ops(nl, p):
+    """The tensor-vs-sequence DP per sequence step: at level m, stage a has
+    min(p, m, a+1) states, each a product and an accumulation."""
+    return nl + sum(2 * min(p, m, a + 1) for m in range(1, nl + 1)
+                    for a in range(1, m))
+
+
+def kuf_work(T, F2, N, L, d, nl, p=1, kind="rbf", increments=True):
+    F = F2 // 2 if increments else F2
+    per_pair = (L * F2 * base_ops(d, kind)
+                + (L - 1) * (F * (1 + increments) + kuf_dp_point_ops(nl, p)))
+    return per_pair * T * N
 
 
 def cuda_ms(fn, reps=7, warmup=2):
@@ -164,28 +259,72 @@ def host_ms(fn, reps=5, warmup=1):
     return statistics.median(times)
 
 
+def profile_split(fn, label, reps=3):
+    """Device time of ``fn()`` by ``torch.profiler`` (CPU and CUDA
+    activities, ``reps`` calls after one warm-up): host wall per call
+    inside the profiler, the device events' time per call, their ratio
+    (the busy share) and the six device events with the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / reps
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # the device's own events only: a host operation's self device time
+    # repeats that of the kernels it launched
+    events = sorted((e for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=dev_us, reverse=True)
+    device = sum(dev_us(e) for e in events) / 1e3 / reps
+    if device == 0:
+        print(f"profile {label}: device time not measured (the profiler "
+              f"saw no device activity); wall {wall:.3f} ms")
+        return
+    top = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / reps:.3f} ms"
+                    for e in events[:6])
+    print(f"profile {label}: wall {wall:.3f} ms per call (profiled), device "
+          f"{device:.3f} ms, busy share {device / wall:.2f}; top: {top}")
+
+
 @contextlib.contextmanager
 def plain_route():
     """Route the package's kernel entry points to their plain versions
     (explicitly, for the reference run on the card)."""
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
 
-    with mock.patch.object(fg, "fused_gram_levels", fg.fused_gram_levels_ref), \
-            mock.patch.object(fg, "fused_diag_levels",
-                              fg.fused_diag_levels_ref), \
-            mock.patch.object(fg, "fused_gram_levels_bwd",
-                              fg.fused_gram_levels_bwd_ref), \
-            mock.patch.object(ts, "fused_tens_seq_levels",
-                              ts.fused_tens_seq_levels_ref), \
-            mock.patch.object(ts, "tens_seq_bwd", ts.tens_seq_bwd_ref):
+    patches = [(fg, "fused_gram_levels", fg.fused_gram_levels_ref),
+               (fg, "fused_diag_levels", fg.fused_diag_levels_ref),
+               (fg, "fused_gram_levels_bwd", fg.fused_gram_levels_bwd_ref),
+               (ts, "fused_tens_seq_levels", ts.fused_tens_seq_levels_ref),
+               (ts, "tens_seq_bwd", ts.tens_seq_bwd_ref),
+               (fgho, "fused_gram_ho_levels", fgho.fused_gram_ho_levels_ref),
+               (tsg, "fused_tens_seq_general_levels",
+                tsg.fused_tens_seq_general_levels_ref),
+               (sg, "sig_gram_levels", sg.sig_gram_levels_ref),
+               (sg, "sig_gram_levels_ho", sg.sig_gram_levels_ho_ref)]
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in patches:
+            stack.enter_context(mock.patch.object(module, name, plain))
         yield
 
 
 def kernel_phase(dev):
     """Each kernel against its plain version at the main path's shapes."""
-    import torch
-
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
 
@@ -201,6 +340,24 @@ def kernel_phase(dev):
     g_gram = rng.standard_normal((5, 256, 256))
     train_x = seq_x[:840]
     g_kuf = rng.standard_normal((6, 500, 840))
+
+    # work of the reported cases: (operations, bytes) for their bounds; a
+    # backward counts 3 forwards (the forward recompute, the reverse sweep
+    # of as many products, the chain to the inputs), its bytes the inputs
+    # and cotangent read and the gradients written
+    gram_ops = gram_work(256, 256, 50, 2, 4)
+    kuf_ops = kuf_work(500, 30, 2048, 50, 3, 5)
+    gram_bytes = 4 * (512 * 50 * 2 + 5 * 256 * 256)
+    works = {
+        "gram": (gram_ops, gram_bytes),
+        "diag": (gram_work(2048, 1, 50, 3, 5), 4 * (2048 * 50 * 3 + 6 * 2048)),
+        "tens_seq": (kuf_ops, 4 * (500 * 30 * 3 + 2048 * 50 * 3
+                                   + 6 * 500 * 2048)),
+        "gram_bwd": (3 * gram_ops, 2 * gram_bytes),
+        "tens_seq_bwd": (3 * kuf_work(500, 30, 50, 50, 3, 5),
+                         4 * (2 * 500 * 30 * 3 + 2 * 50 * 50 * 3
+                              + 6 * 500 * 50)),
+    }
 
     # (report key, label, kernel call, plain call, inputs)
     cases = [
@@ -236,11 +393,21 @@ def kernel_phase(dev):
          lambda z, x, g: ts.tens_seq_bwd_ref(z, x, g, 5, True, True),
          (z_inc, train_x, g_kuf)),
     ]
+    return run_cases(dev, cases, works, TOL)
+
+
+def run_cases(dev, cases, works, fwd_tol):
+    """Each case's kernel call against its plain call in float32 and
+    float64, with the tolerance for its kind (``fwd_tol`` for forwards,
+    BWD_TOL for backwards); float32 timed. Returns the report entries of
+    the cases with a report key."""
+    import torch
+
     report = {}
     for key, label, kern, plain, arrays in cases:
         for dtype in (torch.float32, torch.float64):
             name = str(dtype).split(".")[1]
-            tol, why = (BWD_TOL if "backward" in label else TOL)[name]
+            tol, why = (BWD_TOL if "backward" in label else fwd_tol)[name]
             args = [torch.as_tensor(a, dtype=dtype, device=dev)
                     for a in arrays]
             got = kern(*args)
@@ -263,13 +430,16 @@ def kernel_phase(dev):
                       f"{plain_ms:.4f} ms")
                 if key is not None:
                     report[key] = dict(max_abs_err=max_abs, ms=ms,
-                                       plain_ms=plain_ms)
+                                       plain_ms=plain_ms, **bound(*works[key]),
+                                       library_ms=None)
+                    print(f"bound {label}: {report[key]['bound_ms']:.4f} ms "
+                          f"({report[key]['bound_by']})")
             del got, want, args
             torch.cuda.empty_cache()
     return report
 
 
-def build_svgp(torch, dev, dtype, rng, M, nl, d, L, C, n_train):
+def build_svgp(torch, dev, dtype, rng, M, nl, d, L, C, n_train, order=1):
     from gpsig_tpu_torch.inducing import make_inducing_tensors_from_data
     from gpsig_tpu_torch.kernels.signature import SignatureRBF
     from gpsig_tpu_torch.likelihoods import MultiClass
@@ -277,7 +447,8 @@ def build_svgp(torch, dev, dtype, rng, M, nl, d, L, C, n_train):
 
     X = torch.as_tensor(walks(rng, n_train, L, d), dtype=dtype, device=dev)
     Y = torch.as_tensor(rng.integers(0, C, n_train), device=dev)
-    kern = SignatureRBF(d, nl, normalization=True, dtype=dtype, device=dev)
+    kern = SignatureRBF(d, nl, normalization=True, order=order, dtype=dtype,
+                        device=dev)
     feat = make_inducing_tensors_from_data(
         torch.Generator().manual_seed(SEED), X, num_tensors=M,
         num_levels=nl, num_features=d, increments=True)
@@ -372,14 +543,14 @@ def slice_phase(dev):
     return launches
 
 
-def small_float64_check(dev):
+def small_float64_check(dev, order=1):
     """A small float64 model on the card against the same model on the
     CPU (plain path): same parameters, same inputs, rtol 1e-8."""
     import torch
 
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(SEED + order)
     model, X, Y = build_svgp(torch, dev, torch.float64, rng, M=20, nl=4,
-                             d=3, L=20, C=4, n_train=30)
+                             d=3, L=20, C=4, n_train=30, order=order)
     cpu_model = copy.deepcopy(model).to("cpu")
     with torch.no_grad():
         got = [model.elbo(X, Y, num_data=100),
@@ -388,8 +559,8 @@ def small_float64_check(dev):
                 *cpu_model.posterior().predict_y(X.cpu())]
     for g, w, name in zip(got, want, ("elbo", "probs", "var")):
         err = scaled_err(g.cpu(), w)
-        print(f"small float64 {name}: card vs CPU scaled err {err:.3e}, "
-              "tolerance 1e-8")
+        print(f"small float64 order-{order} SVGP {name}: card vs CPU scaled "
+              f"err {err:.3e}, tolerance 1e-8")
         check(err <= 1e-8, f"small float64 {name}: {err}")
 
 
@@ -403,12 +574,13 @@ def regression_sequences(rng, N=200, L=50, d=2, noise=0.1):
     return X, (y + noise * rng.standard_normal(N))[:, None]
 
 
-def build_gpr(torch, dev, dtype, X, nl):
-    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+def build_gpr(torch, dev, dtype, X, nl, order=1, ctor="SignatureRBF", **kw):
+    from gpsig_tpu_torch.kernels import signature
     from gpsig_tpu_torch.models.gpr import GPR
 
-    kern = SignatureRBF(X.shape[-1], nl, lengthscales=1.0, normalization=True,
-                        dtype=dtype, device=dev)
+    kern = getattr(signature, ctor)(X.shape[-1], nl, lengthscales=1.0,
+                                    normalization=True, order=order,
+                                    dtype=dtype, device=dev, **kw)
     return GPR.create(kern, noise_variance=0.05, dtype=dtype, device=dev)
 
 
@@ -515,8 +687,9 @@ def training_phase(dev):
             first["gpr"] = grads_and_params(gpr)
     launches = counters()
     print(f"training launches: {launches}")
-    for key, n in launches.items():
-        check(n > 0, f"kernel {key} was not launched by the training run")
+    for key in ("gram", "diag", "tens_seq", "gram_bwd", "tens_seq_bwd"):
+        check(launches[key] > 0,
+              f"kernel {key} was not launched by the training run")
     print(f"train svgp elbo per step: {elbos}")
     print(f"train gpr lml per step: {lmls}")
     check(all(np.isfinite(elbos)), "svgp elbo not finite")
@@ -588,6 +761,342 @@ def small_float64_training_check(dev):
     check(err <= 1e-8, f"small float64 training: {err}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 1: the general engines (order >= 2, difference=False, Poly/Cosine)
+# ---------------------------------------------------------------------------
+
+def self_increments(X):
+    """The kernel layer's self-increment matrices [N, L-1, L-1] of X under
+    the RBF base with unit lengthscales (the diagonal's input)."""
+    sq = np.sum(X * X, -1)
+    G = np.exp(-0.5 * np.maximum(
+        sq[:, :, None] + sq[:, None, :] - 2 * X @ X.transpose(0, 2, 1), 0))
+    return np.diff(np.diff(G, axis=1), axis=2)
+
+
+def slice1_kernel_phase(dev):
+    """(a) Each general-engine kernel against its plain version at the
+    order-2 main path's shapes: the Gram at ``job_ho_gram``'s (N=256², L=50,
+    d=2, nl=4, RBF, orders 2 and 3), Kuf at the flagship prediction's
+    (T=500 with increments, N=2048, L=50, d=2, nl=5, order 2), the
+    sig_gram DP on that X's 2048 self-increment matrices (L'=49, nl=5)."""
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+    rng = np.random.default_rng(SEED + 10)
+    gram_x = walks(rng, 256, 50, 2)
+    gram_y = walks(rng, 256, 50, 2)
+    seq_x = walks(rng, 2048, 50, 2)
+    incs = np.diff(seq_x, axis=1).reshape(-1, 2)
+    z_inc = incs[rng.integers(0, len(incs), 500 * 15 * 2)].reshape(
+        500, 15, 2, 2)
+    m_self = self_increments(seq_x)
+    sg_bytes = 4 * (2048 * 49 * 49 + 6 * 2048)
+    works = {
+        "gram_ho": (gram_work(256, 256, 50, 2, 4, p=2),
+                    4 * (512 * 50 * 2 + 5 * 256 * 256)),
+        "tsg": (kuf_work(500, 30, 2048, 50, 2, 5, p=2),
+                4 * (500 * 30 * 2 + 2048 * 50 * 2 + 6 * 500 * 2048)),
+        "sig_gram_ho": (2048 * 49 * 49 * dp_cell_ops(5, 2), sg_bytes),
+        "sig_gram": (2048 * 49 * 49 * dp_cell_ops(5, 1), sg_bytes),
+    }
+    cases = [
+        ("gram_ho", "general Gram RBF order 2 N=256x256 L=50 d=2 nl=4",
+         lambda a, b: fgho.fused_gram_ho_levels(a, b, 4, 2, "rbf", True),
+         lambda a, b: fgho.fused_gram_ho_levels_ref(a, b, 4, 2, "rbf", True),
+         (gram_x, gram_y)),
+        (None, "general Gram RBF order 3 N=256x256 L=50 d=2 nl=4",
+         lambda a, b: fgho.fused_gram_ho_levels(a, b, 4, 3, "rbf", True),
+         lambda a, b: fgho.fused_gram_ho_levels_ref(a, b, 4, 3, "rbf", True),
+         (gram_x, gram_y)),
+        ("tsg", "general Kuf RBF order 2 T=500 increments N=2048 L=50 d=2 "
+         "nl=5",
+         lambda z, x: tsg.fused_tens_seq_general_levels(z, x, 5, 2, "rbf",
+                                                        True, True),
+         lambda z, x: tsg.fused_tens_seq_general_levels_ref(z, x, 5, 2, "rbf",
+                                                            True, True),
+         (z_inc, seq_x)),
+        ("sig_gram_ho", "sig_gram order 2 B=2048 L'=49 nl=5",
+         lambda m: sg.sig_gram_levels_ho(m, 5, 2),
+         lambda m: sg.sig_gram_levels_ho_ref(m, 5, 2), (m_self,)),
+        ("sig_gram", "sig_gram order 1 B=2048 L'=49 nl=5",
+         lambda m: sg.sig_gram_levels(m, 5),
+         lambda m: sg.sig_gram_levels_ref(m, 5), (m_self,)),
+    ]
+    return run_cases(dev, cases, works, GEN_TOL)
+
+
+def with_offset_channel(X, Y, kind, c=0.6):
+    """The kernel layer's Poly offset channel: x_extra = 1, y_extra = c."""
+    if not kind.startswith("poly"):
+        return X, Y
+    return (np.concatenate([X, np.ones(X.shape[:-1] + (1,))], -1),
+            np.concatenate([Y, np.full(Y.shape[:-1] + (1,), c)], -1))
+
+
+def coverage_sweep(dev):
+    """(b) Every base kind × difference × order 1-3 (× increments for Kuf)
+    at small sizes, each kernel against its plain version in float32 and
+    float64; one num_levels-7 case of each kernel; lags with ARD through
+    the kernel layer against the plain route."""
+    import torch
+
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+    rng = np.random.default_rng(SEED + 12)
+    calls = []  # (kernel, kernel call, plain call, numpy inputs)
+    for kind in ("linear", "rbf", "poly2", "poly3", "cosine"):
+        for difference in (True, False):
+            for order in (1, 2, 3):
+                X, Y = with_offset_channel(walks(rng, 16, 20, 2),
+                                           walks(rng, 12, 20, 2), kind)
+                args = (4, order, kind, difference)
+                calls.append(("gram_ho",
+                              lambda x, y, a=args: fgho.fused_gram_ho_levels(
+                                  x, y, *a),
+                              lambda x, y, a=args:
+                              fgho.fused_gram_ho_levels_ref(x, y, *a),
+                              (X, Y)))
+                for increments in (True, False):
+                    Z = 0.4 * rng.standard_normal(
+                        (8, 10, 2, 2) if increments else (8, 10, 2))
+                    Xs, Zs = with_offset_channel(walks(rng, 16, 20, 2), Z,
+                                                 kind)
+                    a = (4, order, kind, increments, difference)
+                    calls.append((
+                        "tsg",
+                        lambda z, x, a=a: tsg.fused_tens_seq_general_levels(
+                            z, x, *a),
+                        lambda z, x, a=a:
+                        tsg.fused_tens_seq_general_levels_ref(z, x, *a),
+                        (Zs, Xs)))
+    M = 0.4 * rng.standard_normal((6, 19, 23))
+    calls.append(("sig_gram", lambda m: sg.sig_gram_levels(m, 4),
+                  lambda m: sg.sig_gram_levels_ref(m, 4), (M,)))
+    for order in (2, 3):
+        calls.append(("sig_gram_ho",
+                      lambda m, o=order: sg.sig_gram_levels_ho(m, 4, o),
+                      lambda m, o=order: sg.sig_gram_levels_ho_ref(m, 4, o),
+                      (M,)))
+    # num_levels 7 (every run-length state live at order 7)
+    X, Y = walks(rng, 8, 20, 2), walks(rng, 6, 20, 2)
+    calls.append(("gram_ho",
+                  lambda x, y: fgho.fused_gram_ho_levels(x, y, 7, 7, "rbf"),
+                  lambda x, y: fgho.fused_gram_ho_levels_ref(x, y, 7, 7,
+                                                             "rbf"), (X, Y)))
+    Z = 0.4 * rng.standard_normal((5, 28, 2, 2))
+    calls.append(("tsg",
+                  lambda z, x: tsg.fused_tens_seq_general_levels(
+                      z, x, 7, 3, "cosine", True, False),
+                  lambda z, x: tsg.fused_tens_seq_general_levels_ref(
+                      z, x, 7, 3, "cosine", True, False), (Z, X)))
+    calls.append(("sig_gram_ho", lambda m: sg.sig_gram_levels_ho(m, 7, 7),
+                  lambda m: sg.sig_gram_levels_ho_ref(m, 7, 7), (M,)))
+
+    worst = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            for key, kern, plain, arrays in calls:
+                args = [torch.as_tensor(a, dtype=dtype, device=dev)
+                        for a in arrays]
+                got, want = kern(*args), plain(*args)
+                check(got.shape == want.shape and bool(
+                    torch.isfinite(got).all()), f"sweep {key}: {got.shape}")
+                k = (key, name)
+                worst[k] = max(worst.get(k, 0.0), scaled_err(got, want))
+            # lags and ARD through the kernel layer, against the plain route
+            kern = SignatureRBF(2, 4, order=2, num_lags=2,
+                                lengthscales=[0.7, 1.3], dtype=dtype,
+                                device=dev)
+            X = torch.as_tensor(walks(rng, 10, 20, 2), dtype=dtype,
+                                device=dev)
+            Z = torch.as_tensor(0.4 * rng.standard_normal((6, 10, 2, 6)),
+                                dtype=dtype, device=dev)
+
+            def layer():
+                return (kern.K(X), kern.K_tens_vs_seq(Z, X, True))
+
+            got = layer()
+            with plain_route():
+                want = layer()
+            worst[("layer lags+ARD", name)] = scaled_err(got, want)
+    for (key, name), err in sorted(worst.items()):
+        tol, why = GEN_TOL[name]
+        print(f"sweep {key} {name}: worst scaled err {err:.3e} over "
+              f"{sum(c[0] == key for c in calls) or 1} cases, tolerance "
+              f"{tol:g}: {why}")
+        check(err <= tol, f"sweep {key} {name}: {err} > {tol}")
+
+
+def check_general_route(launches, need, label):
+    """The general kernels in ``need`` ran; the tuned order-1 ones did
+    not."""
+    print(f"{label} launches: {launches}")
+    for key in need:
+        check(launches[key] > 0, f"kernel {key} was not launched by {label}")
+    for key in ("gram", "diag", "tens_seq"):
+        check(launches[key] == 0, f"tuned kernel {key} ran in {label}")
+
+
+def compare_routes(label, out, ref, tolerances):
+    for k, tol in tolerances.items():
+        err = scaled_err(out[k], ref[k])
+        print(f"{label} {k}: kernel vs plain route scaled err {err:.3e}, "
+              f"tolerance {tol:g}")
+        check(err <= tol, f"{label} {k}: {err} > {tol}")
+
+
+def slice1_serving_phase(dev):
+    """(c) The order-2 flagship SVGP serving path at full width, float32
+    (``job_flagship_o2``: M=500 inducing tensors with increments, nl=5,
+    order 2, d=2, L=50, C=10, N_train=500)."""
+    import torch
+
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 11)
+    model, X, Y = build_svgp(torch, dev, f32, rng, M=500, nl=5, d=2, L=50,
+                             C=10, n_train=500, order=2)
+    Xb, Yb = X[:50], Y[:50]
+    Xtest = torch.as_tensor(walks(rng, 2048, 50, 2), dtype=f32, device=dev)
+
+    def serve():
+        elbo = model.elbo(Xb, Yb, num_data=500)
+        post = model.posterior()
+        probs, pvar = post.predict_y(Xtest)
+        fmean, fvar = post.predict_f(Xtest)
+        Kuf = model.inducing.Kuf(model.kernel, Xtest)
+        torch.cuda.synchronize()
+        return dict(elbo=elbo, probs=probs, pvar=pvar, fmean=fmean,
+                    fvar=fvar, Kuf=Kuf)
+
+    with torch.no_grad():
+        reset_counters()
+        out = serve()
+        launches = counters()
+        check_general_route(launches, ("tsg", "sig_gram_ho"),
+                            "order-2 SVGP serving")
+        for k, v in out.items():
+            check(bool(torch.isfinite(v).all()), f"order-2 {k} not finite")
+        check(out["probs"].shape == (2048, 10), "order-2 predict_y shape")
+        sums = out["probs"].sum(-1)
+        check(bool(torch.allclose(sums, torch.ones_like(sums), atol=1e-5)),
+              "order-2 class probabilities do not sum to 1")
+        for k in ("pvar", "fvar"):
+            check(bool((out[k] >= 0).all()), f"order-2 {k} has negatives")
+        print(f"order-2 SVGP elbo {out['elbo'].item():.6g}, mean max prob "
+              f"{out['probs'].max(-1).values.mean().item():.4f}")
+        with plain_route():
+            ref = serve()
+        # 1e-3 throughout (means and variances alike): the normalised high
+        # levels of Kuf divide float32
+        # DP sums that cancel to small values by the square roots of the
+        # self-kernels, themselves such sums, in both routes; the kernels
+        # alone agree with their plain versions to ~1e-6 scaled (phase a).
+        # Both routes' Kuf against the kernel route in float64 says which
+        # rounds more.
+        compare_routes("order-2 SVGP", out, ref,
+                       dict(Kuf=1e-3, fmean=1e-3, fvar=1e-3, probs=1e-3,
+                            pvar=1e-3, elbo=1e-3))
+        model64 = copy.deepcopy(model).double()
+        truth = model64.inducing.Kuf(model64.kernel, Xtest.double())
+        print(f"order-2 SVGP Kuf against float64: kernel route scaled err "
+              f"{scaled_err(out['Kuf'].double(), truth):.3e}, plain route "
+              f"{scaled_err(ref['Kuf'].double(), truth):.3e}")
+        del model64, truth
+        ms_predict = host_ms(lambda: model.posterior().predict_y(Xtest))
+        post = model.posterior()
+        ms_cached = host_ms(lambda: post.predict_y(Xtest))
+        ms_elbo = host_ms(lambda: model.elbo(Xb, Yb, num_data=500))
+        with plain_route():
+            ms_plain = host_ms(lambda: post.predict_y(Xtest), reps=3)
+        print(f"time order-2 posterior()+predict_y N_test=2048: "
+              f"{ms_predict:.3f} ms; predict_y on a cached posterior: "
+              f"{ms_cached:.3f} ms (plain route {ms_plain:.3f} ms); elbo "
+              f"B=50: {ms_elbo:.3f} ms")
+        profile_split(lambda: post.predict_y(Xtest),
+                      "order-2 predict_y, cached posterior, N_test=2048")
+        profile_split(lambda: model.posterior().predict_y(Xtest),
+                      "order-2 posterior()+predict_y, N_test=2048")
+        profile_split(lambda: model.elbo(Xb, Yb, num_data=500),
+                      "order-2 ELBO, B=50")
+    return launches
+
+
+def slice1_gpr_phase(dev):
+    """(d) Exact GPR at BASELINE config 1's width (N=150 of 200, L=50, d=2,
+    nl=4, noise 0.05), float32: order 2 (RBF) through _ho_kernel and the
+    order-2 sig_gram, and order 1 with a Poly base (offset 0.6) through
+    _ho_kernel and the order-1 sig_gram."""
+    import torch
+
+    f32 = torch.float32
+    Xg, yg = regression_sequences(np.random.default_rng(SEED))
+    Xg = torch.as_tensor(Xg, dtype=f32, device=dev)
+    yg = torch.as_tensor(yg, dtype=f32, device=dev)
+    X, Y, Xnew = Xg[:150], yg[:150], Xg[150:]
+    models = {"order-2 RBF": build_gpr(torch, dev, f32, X, nl=4, order=2),
+              "order-1 Poly": build_gpr(torch, dev, f32, X, nl=4,
+                                        ctor="SignaturePoly", offset=0.6)}
+
+    def run():
+        out = {}
+        for name, gpr in models.items():
+            mean, var = gpr.predict_y(X, Y, Xnew)
+            out[name] = dict(lml=gpr.log_marginal_likelihood(X, Y),
+                             mean=mean, var=var)
+        torch.cuda.synchronize()
+        return out
+
+    with torch.no_grad():
+        reset_counters()
+        out = run()
+        launches = counters()
+        check_general_route(launches, ("gram_ho", "sig_gram", "sig_gram_ho"),
+                            "GPR serving")
+        with plain_route():
+            ref = run()
+        for name in models:
+            for k, v in out[name].items():
+                check(bool(torch.isfinite(v).all()), f"GPR {name} {k}")
+            check(bool((out[name]["var"] >= 0).all()), f"GPR {name} var")
+            print(f"GPR {name}: lml {out[name]['lml'].item():.6g}")
+            compare_routes(f"GPR {name}", out[name], ref[name],
+                           dict(lml=1e-3, mean=1e-3, var=1e-3))
+            gpr = models[name]
+            ms = host_ms(lambda: gpr.log_marginal_likelihood(X, Y))
+            print(f"time GPR {name} log_marginal_likelihood N=150: "
+                  f"{ms:.3f} ms")
+    return launches
+
+
+def small_float64_gpr_check(dev):
+    """(e) A small order-2 GPR (Poly base) in float64 on the card against
+    the CPU, rtol 1e-8."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 4)
+    Xg, yg = regression_sequences(rng, N=24, L=20)
+    Xg, yg = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+              for a in (Xg, yg))
+    gpr = build_gpr(torch, dev, torch.float64, Xg, nl=4, order=2,
+                    ctor="SignaturePoly", offset=0.6, difference=False)
+    cpu = copy.deepcopy(gpr).to("cpu")
+    with torch.no_grad():
+        got = [gpr.log_marginal_likelihood(Xg[:16], yg[:16]),
+               *gpr.predict_y(Xg[:16], yg[:16], Xg[16:])]
+        want = [cpu.log_marginal_likelihood(Xg[:16].cpu(), yg[:16].cpu()),
+                *cpu.predict_y(Xg[:16].cpu(), yg[:16].cpu(), Xg[16:].cpu())]
+    err = max(scaled_err(g.cpu(), w) for g, w in zip(got, want))
+    print(f"small float64 order-2 Poly GPR (difference=False): card vs CPU "
+          f"scaled err {err:.3e}, tolerance 1e-8")
+    check(err <= 1e-8, f"small float64 GPR: {err}")
+
+
 def main():
     import torch
 
@@ -617,6 +1126,10 @@ def main():
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(ROOT)}")
+    for line in Path(str(lib) + ".log").read_text().splitlines():
+        if line.endswith(" s") and ".cu: " in line:
+            print(f"nvcc {Path(line.split(': ')[0]).name}: "
+                  f"{line.split(': ')[1]}")
 
     dev = torch.device("cuda", 0)
     timings = kernel_phase(dev)
@@ -624,12 +1137,24 @@ def main():
     small_float64_check(dev)
     train_launches = training_phase(dev)
     small_float64_training_check(dev)
+    timings.update(slice1_kernel_phase(dev))
+    coverage_sweep(dev)
+    svgp2_launches = slice1_serving_phase(dev)
+    gpr_launches = slice1_gpr_phase(dev)
+    small_float64_check(dev, order=2)
+    small_float64_gpr_check(dev)
 
-    # launches: forward kernels from the serving run, backward kernels from
-    # the training run (each path's counters were reset just before it)
+    # launches, each from the main-path run that its counters were reset
+    # just before: slice 0's forward kernels from its serving run, the
+    # backward kernels from its training run, Kuf and the order-2 diagonal
+    # from the order-2 SVGP serving run, the general Gram and the order-1
+    # sig_gram from the GPR run
+    source_of = dict(gram_bwd=train_launches, tens_seq_bwd=train_launches,
+                     tsg=svgp2_launches, sig_gram_ho=svgp2_launches,
+                     gram_ho=gpr_launches, sig_gram=gpr_launches)
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
-        n = train_launches[key] if key.endswith("_bwd") else launches[key]
+        n = source_of.get(key, launches)[key]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=n, **timings[key]))
     print(card)

@@ -3,6 +3,13 @@
 Counterpart of ``gpsig_tpu/config.py``. Library code is dtype-polymorphic:
 it computes in the dtype of its inputs (float64 for parity on the CPU,
 float32 on the card) and only consults this module for constants.
+
+Device policy: the entry points that create parameters (the kernels'
+constructors, ``SVGP.create``, ``GPR.create``, the likelihoods' ``create``,
+``convert.from_jax_arrays``) put them on :func:`default_device`, the CUDA
+card, unless the caller names a device (the CPU tests pass
+``device="cpu"``). Without a card such a call fails with PyTorch's own
+error; it never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +31,16 @@ class Settings:
 
 
 settings = Settings()
+
+
+def default_device():
+    """Where the entry points put what they create: the CUDA card."""
+    return torch.device("cuda")
+
+
+def resolve_device(device):
+    """``device``, or :func:`default_device` when it is None."""
+    return default_device() if device is None else torch.device(device)
 
 
 def default_jitter(dtype=None):

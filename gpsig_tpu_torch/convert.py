@@ -14,11 +14,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gpsig_tpu_torch import config
+
 
 def from_jax_arrays(tree, dtype=None, device=None):
-    """{dotted path: array} → a ``state_dict`` of tensors. A ``None`` leaf
+    """{dotted path: array} → a ``state_dict`` of tensors on ``device``
+    (default: the card, :func:`config.default_device`). A ``None`` leaf
     (no lengthscales, no lags, no mixing weights) stays absent, as the
-    port's module then has no such parameter."""
+    port's module then has no such parameter. A Poly base's offset travels
+    as ``kernel.base.raw_offset``, its JAX path."""
+    device = config.resolve_device(device)
     return {
         key: torch.as_tensor(np.array(value), dtype=dtype, device=device)
         for key, value in tree.items()
@@ -28,7 +33,8 @@ def from_jax_arrays(tree, dtype=None, device=None):
 
 def load_jax_arrays(module, tree):
     """Copy the leaves into ``module``'s parameters (cast to their dtype
-    and device). Strict: a missing or unexpected key, or a shape that
-    differs, raises, so the two models must share their configuration."""
-    module.load_state_dict(from_jax_arrays(tree), strict=True)
+    and device; staged on the CPU). Strict: a missing or unexpected key,
+    or a shape that differs, raises, so the two models must share their
+    configuration (base kind included: only a Poly base has an offset)."""
+    module.load_state_dict(from_jax_arrays(tree, device="cpu"), strict=True)
     return module

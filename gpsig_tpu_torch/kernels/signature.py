@@ -1,17 +1,27 @@
-"""Truncated signature kernels over sequences, order 1.
+"""Truncated signature kernels over sequences, any order.
 
 Counterpart of ``gpsig_tpu/kernels/signature.py`` (see its docstring for
 the options). :class:`SignatureKernel` is an ``nn.Module`` whose
 parameters are the *unconstrained* leaves, named as the JAX fields:
 ``raw_sigma``, ``raw_variances``, ``raw_lengthscales``, ``raw_lags``,
-``raw_gamma`` (an absent one is ``None``).
+``raw_gamma`` (an absent one is ``None``), and a Poly base's
+``base.raw_offset``. Bases: Linear, RBF, Poly, Cosine.
 
-Dispatch. The kernels of ``ops/cuda`` cover order 1, ``difference=True``,
-an RBF or Linear base and ``num_levels <= 7``. A CPU tensor takes the plain
-PyTorch path (for covered configurations, the kernels' own plain versions);
-a CUDA tensor launches the kernels, and a configuration they do not cover
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
-Orders above 1 are not ported on either device yet.
+Dispatch mirrors the JAX package's precedence, by device and without size
+thresholds, for ``num_levels <= 7``:
+
+- the tuned order-1 kernels (``ops/cuda/fused_gram.py``, ``tens_seq.py``)
+  where they qualify: order 1, ``difference=True``, RBF or Linear;
+- otherwise the general kernels: the Gram ``fused_gram_ho.py``, Kuf
+  ``tens_seq_general.py`` (the Poly offset folded in as a constant
+  channel), and for the normalisation diagonal the self-increment matrices
+  built in PyTorch and reduced by ``sig_gram.py``.
+
+A CPU tensor runs those entry points' plain versions through the same
+wrappers; a CUDA tensor launches the kernels. ``num_levels > 7`` runs
+plain PyTorch on the CPU and raises ``NotImplementedError`` on CUDA, as
+does a backward through a general kernel on CUDA; each names the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -19,11 +29,19 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from gpsig_tpu_torch import config
 from gpsig_tpu_torch import params as pr
 from gpsig_tpu_torch.kernels import static_kernels as sk
 from gpsig_tpu_torch.ops import signature as sigops
 from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+_NL_GAP = ("num_levels > 7 on CUDA: ROADMAP Queue 2 item 10 (the sig_gram "
+           "kernels beyond 7 levels, over an increment tensor built in "
+           "PyTorch)")
 
 
 class SignatureKernel(nn.Module):
@@ -80,35 +98,54 @@ class SignatureKernel(nn.Module):
 
     # -- dispatch ---------------------------------------------------------
     def _rbf(self):
-        """The kernels' base flag: True for RBF, False for Linear."""
+        """The tuned kernels' base flag: True for RBF, False for Linear."""
         return isinstance(self.base, sk.RBFBase)
 
+    def _kind(self):
+        """The general kernels' base kind."""
+        if isinstance(self.base, sk.RBFBase):
+            return "rbf"
+        if isinstance(self.base, sk.LinearBase):
+            return "linear"
+        if isinstance(self.base, sk.PolyBase):
+            return f"poly{self.base.degree}"
+        if isinstance(self.base, sk.CosineBase):
+            return "cosine"
+        raise TypeError(f"unknown base kernel {type(self.base).__name__}")
+
     def _cuda_gap(self):
-        """Why the CUDA kernels do not cover this configuration, or None."""
-        if self.order != 1:
-            return ("order > 1 on CUDA: ROADMAP Queue 2 items 6 and 8 "
-                    "(_ho_kernel, _tsg_kernel), slice 1")
-        if not self.difference:
-            return ("difference=False on CUDA: ROADMAP Queue 2 items 6 and 8 "
-                    "(_ho_kernel, _tsg_kernel), slice 1")
-        if not isinstance(self.base, (sk.RBFBase, sk.LinearBase)):
-            return ("Poly/Cosine bases on CUDA: ROADMAP Queue 1 item 9, "
-                    "slice 1")
+        """Why the CUDA kernels do not cover this configuration's forward,
+        or None. (Backwards through the general kernels raise in their
+        autograd Functions: ROADMAP Queue 2 items 7, 9 and 10.)"""
         if self.num_levels > fg.MAX_LEVELS:
-            return ("num_levels > 7 on CUDA: ROADMAP Queue 2 item 10 "
-                    "(sig_gram kernels)")
+            return _NL_GAP
         return None
 
-    def _fused(self, device):
-        """True when the ops/cuda entry points (kernel on CUDA, their plain
-        version on CPU) compute this configuration. A CUDA device with a
-        configuration they do not cover raises NotImplementedError."""
+    def _route(self, device):
+        """Which ops/cuda entry points (kernel on CUDA, plain version on
+        the CPU) compute this configuration: "tuned" (order 1,
+        difference, RBF/Linear), "general", or None for plain PyTorch,
+        which only a CPU device takes: on CUDA it raises
+        NotImplementedError."""
         gap = self._cuda_gap()
-        if torch.device(device).type == "cuda":
-            if gap is not None:
+        if gap is not None:
+            if torch.device(device).type == "cuda":
                 raise NotImplementedError(gap)
-            return True
-        return gap is None
+            return None
+        if (self.order == 1 and self.difference
+                and isinstance(self.base, (sk.RBFBase, sk.LinearBase))):
+            return "tuned"
+        return "general"
+
+    def _poly_channels(self, X, Y):
+        """Fold a Poly offset in as a constant channel, x_extra = 1 and
+        y_extra = c, so the general kernels' ⟨x, y⟩ is ⟨x, y⟩ + c; other
+        bases pass through."""
+        if not isinstance(self.base, sk.PolyBase):
+            return X, Y
+        ones = torch.ones(X.shape[:-1] + (1,), dtype=X.dtype, device=X.device)
+        c = self.base.offset.to(Y.dtype).expand(Y.shape[:-1] + (1,))
+        return torch.cat([X, ones], dim=-1), torch.cat([Y, c], dim=-1)
 
     # -- input handling ---------------------------------------------------
     def _as_sequences(self, X):
@@ -146,14 +183,19 @@ class SignatureKernel(nn.Module):
         return torch.cat(blocks, dim=-1)
 
     # -- sequence-vs-sequence ---------------------------------------------
-    # The plain branches below run on the CPU only (difference=False,
-    # num_levels > 7); _fused raises for them on CUDA.
     def _increments(self, G):
         return sigops.incremental_gram(G) if self.difference else G
 
     def _K_levels(self, X, Y):
-        if self._fused(X.device):
+        route = self._route(X.device)
+        if route == "tuned":
             return fg.fused_gram_levels(X, Y, self.num_levels, self._rbf())
+        if route == "general":
+            Xq, Yq = self._poly_channels(X, Y)
+            return fgho.fused_gram_ho_levels(Xq, Yq, self.num_levels,
+                                             self.order, self._kind(),
+                                             self.difference)
+        # num_levels > 7, CPU only
         N1, L1, d = X.shape
         N2, L2, _ = Y.shape
         G = self.base.gram(X.reshape(N1 * L1, d), Y.reshape(N2 * L2, d))
@@ -162,11 +204,14 @@ class SignatureKernel(nn.Module):
                                      self.order)
 
     def _K_levels_diag(self, X):
-        if self._fused(X.device):
+        if self._route(X.device) == "tuned":
             return fg.fused_diag_levels(X, self.num_levels, self._rbf())
-        G = self.base.gram(X, X)
-        return sigops.signature_kern(self._increments(G), self.num_levels,
-                                     self.order)
+        # the self-increment matrices [N, l, l] in PyTorch (as the JAX
+        # package leaves them to XLA), then the per-pair DP
+        M = self._increments(self.base.gram(X, X))
+        if self.order == 1:
+            return sg.sig_gram_levels(M, self.num_levels)
+        return sg.sig_gram_levels_ho(M, self.num_levels, self.order)
 
     def K(self, X, X2=None, return_levels=False):
         """Signature-kernel Gram matrix [N1, N2]."""
@@ -255,11 +300,19 @@ class SignatureKernel(nn.Module):
         """Cross-covariance ⟨z, S(x)⟩: [T, N]."""
         Zs = self._scale_tensors(Z)
         Xs = self._augment(self._as_sequences(X))
-        if self._fused(Xs.device):
+        route = self._route(Xs.device)
+        if route == "tuned":
             levels = ts.fused_tens_seq_levels(
                 Zs, Xs, self.num_levels, self._rbf(), increments
             )
             return self._finish_tens_vs_seq(levels, Xs, return_levels)
+        if route == "general":
+            Xq, Zq = self._poly_channels(Xs, Zs)
+            levels = tsg.fused_tens_seq_general_levels(
+                Zq, Xq, self.num_levels, self.order, self._kind(),
+                increments, self.difference)
+            return self._finish_tens_vs_seq(levels, Xs, return_levels)
+        # num_levels > 7, CPU only
         N, L, d = Xs.shape
         T, F = Zs.shape[0], Zs.shape[1]
         if increments:
@@ -298,7 +351,7 @@ def _normalize_levels(levels, dx, dy, eps=1e-30):
 def _make(base, num_features, num_levels, order=1, normalization=True,
           difference=True, num_lags=0, sigma=1.0, variances=None,
           lengthscales=None, dtype=torch.float64, device=None):
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=config.resolve_device(device))
     nl1 = num_levels + 1
     if variances is None:
         variances = torch.ones((nl1,), **kw)
@@ -337,4 +390,17 @@ def SignatureLinear(num_features, num_levels, lengthscales=1.0, **kw):
 
 def SignatureRBF(num_features, num_levels, lengthscales=1.0, **kw):
     return _make(sk.RBFBase(), num_features, num_levels,
+                 lengthscales=lengthscales, **kw)
+
+
+def SignaturePoly(num_features, num_levels, lengthscales=1.0, offset=1.0,
+                  degree=2, dtype=torch.float64, device=None, **kw):
+    base = sk.PolyBase.create(offset=offset, degree=degree, dtype=dtype,
+                              device=device)
+    return _make(base, num_features, num_levels, lengthscales=lengthscales,
+                 dtype=dtype, device=device, **kw)
+
+
+def SignatureCosine(num_features, num_levels, lengthscales=1.0, **kw):
+    return _make(sk.CosineBase(), num_features, num_levels,
                  lengthscales=lengthscales, **kw)

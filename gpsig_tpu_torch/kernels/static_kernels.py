@@ -1,9 +1,11 @@
 """Static base kernels lifted into the signature machinery.
 
-Counterpart of ``gpsig_tpu/kernels/static_kernels.py`` (Linear and RBF;
-Poly and Cosine are ROADMAP Queue 1 item 9). ARD lengthscales belong to
+Counterpart of ``gpsig_tpu/kernels/static_kernels.py``: Linear, RBF, Poly
+and Cosine. ARD lengthscales belong to
 :class:`~gpsig_tpu_torch.kernels.signature.SignatureKernel`, which
-pre-scales the inputs, so these bases hold no parameters.
+pre-scales the inputs. Only Poly holds a parameter, its trainable offset
+``raw_offset``; it is an ``nn.Module`` so that the kernel's state dict
+names it ``base.raw_offset``, as the JAX pytree path does.
 
 - ``gram(A, B)``: [..., n, d] × [..., m, d] → [..., n, m]
 - ``matched(A, B)``: [..., d] × [..., d] → [...] (paired evaluation)
@@ -12,6 +14,10 @@ pre-scales the inputs, so these bases hold no parameters.
 from __future__ import annotations
 
 import torch
+from torch import nn
+
+from gpsig_tpu_torch import config
+from gpsig_tpu_torch import params as pr
 
 
 def _dot(A, B):
@@ -44,3 +50,40 @@ class RBFBase:
     def matched(self, A, B):
         d = A - B
         return torch.exp(-0.5 * torch.sum(d * d, dim=-1))
+
+
+class PolyBase(nn.Module):
+    """k(a, b) = (⟨a, b⟩ + c)^degree with a trainable offset c > 0."""
+
+    def __init__(self, raw_offset, degree=2):
+        super().__init__()
+        self.raw_offset = nn.Parameter(raw_offset)
+        self.degree = degree
+
+    @classmethod
+    def create(cls, offset=1.0, degree=2, dtype=torch.float64, device=None):
+        c = torch.as_tensor(offset, dtype=dtype,
+                            device=config.resolve_device(device))
+        return cls(pr.inv_positive(c), degree)
+
+    @property
+    def offset(self):
+        return pr.positive(self.raw_offset)
+
+    def gram(self, A, B):
+        return (_dot(A, B) + self.offset) ** self.degree
+
+    def matched(self, A, B):
+        return (torch.sum(A * B, dim=-1) + self.offset) ** self.degree
+
+
+class CosineBase:
+    """k(a, b) = cos(||a - b||) on pre-scaled inputs (GPflow 1.x's
+    stationary ``Cosine``)."""
+
+    def gram(self, A, B):
+        return torch.cos(torch.sqrt(_sqdist(A, B) + 1e-36))
+
+    def matched(self, A, B):
+        d = A - B
+        return torch.cos(torch.sqrt(torch.sum(d * d, dim=-1) + 1e-36))

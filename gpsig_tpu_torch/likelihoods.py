@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from gpsig_tpu_torch import config
 from gpsig_tpu_torch import params as pr
 
 _GH_POINTS = 30
@@ -40,8 +41,8 @@ class Gaussian(nn.Module):
 
     @classmethod
     def create(cls, variance=1.0, dtype=torch.float64, device=None):
-        return cls(pr.inv_positive(
-            torch.as_tensor(variance, dtype=dtype, device=device)))
+        return cls(pr.inv_positive(torch.as_tensor(
+            variance, dtype=dtype, device=config.resolve_device(device))))
 
     @property
     def variance(self):

@@ -10,7 +10,7 @@ import math
 import torch
 from torch import nn
 
-from gpsig_tpu_torch import gauss
+from gpsig_tpu_torch import config, gauss
 from gpsig_tpu_torch.config import default_jitter, precise_linalg
 from gpsig_tpu_torch.likelihoods import Gaussian
 
@@ -24,7 +24,8 @@ class GPR(nn.Module):
     @classmethod
     def create(cls, kernel, noise_variance=1.0, dtype=torch.float64,
                device=None):
-        return cls(kernel, Gaussian.create(noise_variance, dtype, device))
+        return cls(kernel, Gaussian.create(noise_variance, dtype,
+                                           config.resolve_device(device)))
 
     def _chol(self, X):
         K = self.kernel.K(X)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gpsig_tpu_torch import gauss
+from gpsig_tpu_torch import config, gauss
 from gpsig_tpu_torch.config import precise_linalg
 
 _IDENTITY = ("Kuu = I inducing features (VOSF) are not ported yet: ROADMAP "
@@ -37,7 +37,7 @@ class SVGP(nn.Module):
     def create(cls, kernel, likelihood, inducing, num_latent, whiten=True,
                q_diag=False, dtype=torch.float64, device=None):
         M = inducing.num_inducing
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=config.resolve_device(device))
         q_mu = torch.zeros((M, num_latent), **kw)
         if q_diag:
             q_sqrt = torch.ones((M, num_latent), **kw)

@@ -47,6 +47,9 @@ SIGNATURES = {
                              _P],
     "gpsig_tens_seq_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P],
+    "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 10, _P],
+    "gpsig_sig_gram": [_P, _P, *[_I] * 6, _P],
+    "gpsig_tens_seq_general": [_P, _P, _P, *[_I] * 11, _P],
 }
 
 _lib = None
@@ -91,13 +94,23 @@ def build():
         objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(_sources(), objs)]
+        outs = [obj.with_suffix(".txt") for obj in objs]
         t0 = time.perf_counter()
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in cmds]
-        logs = [f"{proc.communicate()[0]}{cmd[-1]}: "
-                f"{time.perf_counter() - t0:.1f} s\n"
-                for cmd, proc in zip(cmds, procs)]
+        procs = []
+        for cmd, path in zip(cmds, outs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        # each source's own wall time, polled (its output goes to a file,
+        # so no process waits on a full pipe)
+        seconds = [None] * len(procs)
+        while None in seconds:
+            for i, proc in enumerate(procs):
+                if seconds[i] is None and proc.poll() is not None:
+                    seconds[i] = time.perf_counter() - t0
+            time.sleep(0.1)
+        logs = [f"{path.read_text()}{cmd[-1]}: {sec:.1f} s\n"
+                for cmd, path, sec in zip(cmds, outs, seconds)]
         for cmd, proc, log in zip(cmds, procs, logs):
             if proc.returncode != 0:
                 raise RuntimeError(

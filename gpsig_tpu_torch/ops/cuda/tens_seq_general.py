@@ -1,0 +1,94 @@
+"""Fused inducing-tensor-vs-sequence levels (Kuf) of the general engine:
+CUDA kernel and its plain PyTorch version.
+
+Counterpart of ``gpsig_tpu/ops/pallas/tens_seq_general.py``
+(``fused_tens_seq_general_levels``); the kernel is
+``csrc/tens_seq_general.cu``, whose opening note gives the design.
+Semantics: pre-scaled inputs, any ``order``, ``difference`` and
+``increments`` True or False, base ``kind`` as in ``fused_gram_ho.py``
+(for 'poly<K>' the caller has appended the offset channel: x_extra = 1,
+z_extra = c), ``num_levels <= 7``, RBF exponent unclamped. The tuned
+order-1 kernel (``tens_seq.py``) takes precedence where it applies.
+
+Dispatch: a CPU tensor runs the plain version (autograd differentiates
+it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
+launches the kernel and whose backward raises ``NotImplementedError``
+(ROADMAP Queue 2 item 9, ``_tsg_bwd_kernel``). ``launches`` counts the
+kernel's launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpsig_tpu_torch.ops import signature as sigops
+from gpsig_tpu_torch.ops.cuda import _build
+from gpsig_tpu_torch.ops.cuda.fused_gram import _on_cpu
+from gpsig_tpu_torch.ops.cuda.fused_gram_ho import _kind_code, base_gram
+from gpsig_tpu_torch.ops.cuda.tens_seq import _check
+
+launches = 0
+
+_BWD_GAP = ("gradients of the general Kuf on CUDA: ROADMAP Queue 2 item 9 "
+            "(_tsg_bwd_kernel), slice 1 training")
+
+
+def fused_tens_seq_general_levels_ref(Z, X, num_levels, order, kind="rbf",
+                                      increments=False, difference=True):
+    """Plain version of :func:`fused_tens_seq_general_levels` (as
+    ``_xla_reference_tens_seq_general``)."""
+    T, F = Z.shape[0], Z.shape[1]
+    N, L, d = X.shape
+    G = base_gram(Z.reshape(-1, d), X.reshape(-1, d), kind)
+    if increments:
+        G = G.reshape(T, F, 2, N, L)
+        G = G[:, :, 1] - G[:, :, 0]
+    else:
+        G = G.reshape(T, F, N, L)
+    U = G[..., 1:] - G[..., :-1] if difference else G
+    U = torch.movedim(U, 1, 2)  # [T, N, F, l]
+    return sigops.signature_kern_tens_vs_seq(U, num_levels, order)
+
+
+def _launch(Z, X, num_levels, order, kind, increments, difference):
+    global launches
+    name = "fused_tens_seq_general_levels"
+    T, N, L, d = _check(name, Z, X, num_levels, increments)
+    if order < 1:
+        raise ValueError(f"{name}: order must be >= 1")
+    if L < (2 if difference else 1):
+        raise ValueError(f"{name}: sequence length {L} too short")
+    code, degree = _kind_code(kind)
+    out = torch.empty((num_levels + 1, T, N), dtype=X.dtype, device=X.device)
+    if T and N:
+        Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]: coalesced x_i
+        _build.launch("gpsig_tens_seq_general", X.device, Z, Xt, out, T, N, L,
+                      d, num_levels, order, code, degree, increments,
+                      difference, X.dtype == torch.float64)
+        launches += 1
+    return out
+
+
+class _TensSeqGeneralLevels(torch.autograd.Function):
+    """Forward: the kernel. Backward: not ported yet, raises."""
+
+    @staticmethod
+    def forward(ctx, Z, X, num_levels, order, kind, increments, difference):
+        return _launch(Z, X, num_levels, order, kind, increments, difference)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(_BWD_GAP)
+
+
+def fused_tens_seq_general_levels(Z, X, num_levels, order, kind="rbf",
+                                  increments=False, difference=True):
+    """[nl+1, T, N] per-level ⟨z^{(m)}, S_m(x)⟩ for Z [T, F, d] (or
+    [T, F, 2, d] with ``increments``) against X [N, L, d], any order and
+    base kind."""
+    if _on_cpu(Z, X):
+        return fused_tens_seq_general_levels_ref(Z, X, num_levels, order,
+                                                 kind, increments,
+                                                 difference)
+    return _TensSeqGeneralLevels.apply(Z, X, num_levels, order, kind,
+                                       increments, difference)

@@ -10,24 +10,34 @@ Tests marked ``cuda`` skip without a CUDA device. Tolerances (scaled error
 max|kernel − plain| / max|plain|): forward kernels 1e-11 in float64, where
 only the summation order differs, and 1e-4 in float32, for float32 exp and
 DP sums over up to 99 columns taken in another order than the plain
-version's. Backward kernels 1e-10 in float64 and 1e-3 in float32: they
-rebuild the forward's DP states by subtraction in the reverse sweep (each
-rebuilt state carries the rounding of every later column) and add their
-results with atomics in an order that changes from run to run.
+version's; the general engines' forward kernels (any order, every base
+kind) 1e-10 and 3e-4: at order p a cell sums up to p² run-length states,
+and a degree-3 Poly base cubes the rounding of its dot product.
+Backward kernels 1e-10 in float64 and 1e-3 in float32: they rebuild the
+forward's DP states by subtraction in the reverse sweep (each rebuilt
+state carries the rounding of every later column) and add their results
+with atomics in an order that changes from run to run.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gpsig_tpu_torch.kernels.signature import SignatureLinear, SignatureRBF
+from gpsig_tpu_torch.kernels.signature import (SignatureCosine,
+                                               SignatureLinear,
+                                               SignaturePoly, SignatureRBF)
 from gpsig_tpu_torch.ops.cuda import _build
 from gpsig_tpu_torch.ops.cuda import fused_gram as tfg
+from gpsig_tpu_torch.ops.cuda import fused_gram_ho as tfgho
+from gpsig_tpu_torch.ops.cuda import sig_gram as tsg_
 from gpsig_tpu_torch.ops.cuda import tens_seq as tts
+from gpsig_tpu_torch.ops.cuda import tens_seq_general as ttsg
 
 torch.set_num_threads(1)
 TOLS = [(torch.float64, 1e-11), (torch.float32, 1e-4)]
+GEN_TOLS = [(torch.float64, 1e-10), (torch.float32, 3e-4)]
 BWD_TOLS = [(torch.float64, 1e-10), (torch.float32, 1e-3)]
+KINDS = ["linear", "rbf", "poly2", "poly3", "cosine"]
 
 
 @pytest.fixture
@@ -108,8 +118,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
             torch.zeros(2, tfg.MAX_LENGTH + 1, 2, device=cuda_device), 3)
     with pytest.raises(TypeError, match="float32 or float64"):
         tfg.fused_diag_levels(X.half(), 3)
-    with pytest.raises(NotImplementedError, match="Queue 2 items 6 and 8"):
-        SignatureRBF(2, 3, order=2, device=cuda_device).K(X)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+        SignatureRBF(2, 8, order=2, device=cuda_device).K(X)
 
 
 @pytest.mark.cuda
@@ -119,7 +129,7 @@ def test_signature_kernel_on_card_matches_cpu(cuda_device, ctor):
     X = torch.as_tensor(_walks(rng, 6, 12, 2))
     F = 3 * 4 // 2
     Z = torch.as_tensor(0.4 * rng.standard_normal((5, F, 2, 2)))
-    kern = ctor(2, 3, lengthscales=[0.8, 1.3], num_lags=1)
+    kern = ctor(2, 3, lengthscales=[0.8, 1.3], num_lags=1, device="cpu")
     Z = torch.cat([Z, Z], dim=-1)  # lag-augmented factor space
     with torch.no_grad():
         want = (kern.K(X), kern.K_tens_vs_seq(Z, X, increments=True))
@@ -192,7 +202,7 @@ def test_gradients_flow_through_the_backward_kernels(cuda_device):
     F = 3 * 4 // 2
     Z = torch.tensor(0.4 * rng.standard_normal((5, F, 2, 2)),
                      requires_grad=True)
-    kern = SignatureRBF(2, 3, lengthscales=[0.8, 1.3])
+    kern = SignatureRBF(2, 3, lengthscales=[0.8, 1.3], device="cpu")
 
     def grads(kern, X, Z):
         loss = (kern.K(X) ** 2).sum() + kern.K_tens_vs_seq(
@@ -225,9 +235,10 @@ def test_training_step_on_card_matches_cpu(cuda_device):
     nl, M, C = 3, 8, 3
     F = nl * (nl + 1) // 2
     Z = torch.as_tensor(0.4 * rng.standard_normal((M, F, 2, 2)))
-    model = SVGP.create(SignatureRBF(2, nl, lengthscales=[0.8, 1.2]),
+    model = SVGP.create(SignatureRBF(2, nl, lengthscales=[0.8, 1.2],
+                                     device="cpu"),
                         MultiClass(C), InducingTensors.create(Z, nl, True),
-                        C)
+                        C, device="cpu")
     X = torch.as_tensor(_walks(rng, 10, 9, 2))
     Y = torch.as_tensor(rng.integers(0, C, 10))
     card = copy.deepcopy(model).to(cuda_device)
@@ -246,3 +257,156 @@ def test_training_step_on_card_matches_cpu(cuda_device):
     assert tts.bwd_launches > n0[1] and tfg.diag_launches > n0[0]
     for g, w in zip(out["card"], out["cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)
+
+
+def _offset_channel(X, Y, kind, c=0.7):
+    """The kernel layer's Poly offset channel (x_extra = 1, y_extra = c)."""
+    if not kind.startswith("poly"):
+        return X, Y
+    return (torch.cat([X, torch.ones_like(X[..., :1])], -1),
+            torch.cat([Y, torch.full_like(Y[..., :1], c)], -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_gram_ho_kernel_matches_plain(cuda_device, dtype, tol, kind):
+    rng = np.random.default_rng(10)
+    for L, nl, order in [(7, 3, 2), (20, 4, 1), (50, 4, 3), (66, 5, 2),
+                         (100, 7, 7)]:
+        for difference in (True, False):
+            # a raw (undifferenced) Poly Gram of long walks overflows
+            # float32 at 7 levels in the plain version too: shorter steps
+            scale = 0.1 if kind.startswith("poly") and not difference else 1
+            X = torch.as_tensor(scale * _walks(rng, 9, L, 2), dtype=dtype,
+                                device=cuda_device)
+            Y = torch.as_tensor(scale * _walks(rng, 6, L, 2), dtype=dtype,
+                                device=cuda_device)
+            X, Y = _offset_channel(X, Y, kind)
+            with torch.no_grad():
+                n0 = tfgho.launches
+                got = tfgho.fused_gram_ho_levels(X, Y, nl, order, kind,
+                                                 difference)
+                assert tfgho.launches == n0 + 1
+                want = tfgho.fused_gram_ho_levels_ref(X, Y, nl, order, kind,
+                                                      difference)
+            assert got.shape == (nl + 1, 9, 6)
+            assert _scaled_err(got, want) < tol, (L, nl, order, difference)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_tens_seq_general_kernel_matches_plain(cuda_device, dtype, tol,
+                                               kind):
+    rng = np.random.default_rng(11)
+    for T, N, L, nl, order in [(3, 5, 7, 2, 2), (7, 130, 50, 5, 2),
+                               (4, 33, 20, 7, 3), (5, 20, 30, 4, 1),
+                               (2, 9, 12, 7, 7)]:
+        for increments in (False, True):
+            for difference in (True, False):
+                F = nl * (nl + 1) // 2
+                shape = (T, F, 2, 3) if increments else (T, F, 3)
+                Z = torch.as_tensor(0.4 * rng.standard_normal(shape),
+                                    dtype=dtype, device=cuda_device)
+                X = torch.as_tensor(_walks(rng, N, L, 3), dtype=dtype,
+                                    device=cuda_device)
+                X, Z = _offset_channel(X, Z, kind)
+                with torch.no_grad():
+                    n0 = ttsg.launches
+                    got = ttsg.fused_tens_seq_general_levels(
+                        Z, X, nl, order, kind, increments, difference)
+                    assert ttsg.launches == n0 + 1
+                    want = ttsg.fused_tens_seq_general_levels_ref(
+                        Z, X, nl, order, kind, increments, difference)
+                assert got.shape == (nl + 1, T, N)
+                assert _scaled_err(got, want) < tol, (nl, order, increments,
+                                                      difference)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+def test_sig_gram_kernels_match_plain(cuda_device, dtype, tol):
+    rng = np.random.default_rng(12)
+    for B, L1, L2, nl in [(5, 9, 12, 5), (9, 49, 49, 5), (3, 100, 70, 7),
+                          (4, 30, 140, 3), (2, 1, 1, 2)]:
+        M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2)),
+                            dtype=dtype, device=cuda_device)
+        with torch.no_grad():
+            n0 = (tsg_.launches, tsg_.ho_launches)
+            got = tsg_.sig_gram_levels(M, nl)
+            assert _scaled_err(got, tsg_.sig_gram_levels_ref(M, nl)) < tol
+            for order in (2, 3, nl):
+                got = tsg_.sig_gram_levels_ho(M, nl, max(order, 2))
+                want = tsg_.sig_gram_levels_ho_ref(M, nl, max(order, 2))
+                assert got.shape == (nl + 1, B)
+                assert _scaled_err(got, want) < tol, (L1, L2, nl, order)
+            assert (tsg_.launches, tsg_.ho_launches) == (n0[0] + 1,
+                                                         n0[1] + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctor,kw", [
+    (SignatureRBF, dict(order=2)),
+    (SignatureRBF, dict(order=1, difference=False)),
+    (SignatureLinear, dict(order=3, num_lags=1)),
+    (SignaturePoly, dict(order=2, offset=0.6, degree=3)),
+    (SignatureCosine, dict(order=2, difference=False)),
+])
+def test_general_signature_kernel_on_card_matches_cpu(cuda_device, ctor,
+                                                      kw):
+    """K, Kdiag, Kuf through the general kernels on the card (counters
+    rise, the tuned order-1 ones do not) against the CPU, float64."""
+    rng = np.random.default_rng(13)
+    X = torch.as_tensor(_walks(rng, 6, 12, 2))
+    X2 = torch.as_tensor(_walks(rng, 4, 12, 2))
+    width = 2 * (1 + kw.get("num_lags", 0))
+    Z = torch.as_tensor(0.4 * rng.standard_normal((5, 10, 2, width)))
+    kern = ctor(2, 4, lengthscales=[0.8, 1.3], device="cpu", **kw)
+
+    def calls(X, X2, Z):
+        return (kern.K(X), kern.K(X, X2), kern.K_tens_vs_seq(Z, X, True),
+                kern.Kdiag(X, return_levels=True))
+
+    with torch.no_grad():
+        want = calls(X, X2, Z)
+        kern.to(cuda_device)
+        before = (tfg.gram_launches, tfg.diag_launches, tts.launches,
+                  tfgho.launches, ttsg.launches,
+                  tsg_.launches + tsg_.ho_launches)
+        got = calls(*(t.to(cuda_device) for t in (X, X2, Z)))
+        after = (tfg.gram_launches, tfg.diag_launches, tts.launches,
+                 tfgho.launches, ttsg.launches,
+                 tsg_.launches + tsg_.ho_launches)
+    assert after[:3] == before[:3]
+    assert all(a > b for a, b in zip(after[3:], before[3:]))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_general_backward_raises_on_card(cuda_device):
+    X = torch.as_tensor(_walks(np.random.default_rng(14), 4, 9, 2),
+                        device=cuda_device).requires_grad_()
+    kern = SignatureRBF(2, 3, order=2, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="Queue 2 item"):
+        kern.K(X).sum().backward()
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(cuda_device):
+    """Constructors given no device build on the card."""
+    from gpsig_tpu_torch.convert import from_jax_arrays
+    from gpsig_tpu_torch.inducing import InducingTensors
+    from gpsig_tpu_torch.likelihoods import Gaussian, MultiClass
+    from gpsig_tpu_torch.models.gpr import GPR
+    from gpsig_tpu_torch.models.svgp import SVGP
+
+    kern = SignaturePoly(2, 3, order=2)
+    feat = InducingTensors.create(torch.zeros(4, 6, 2, device=cuda_device), 3)
+    made = [kern.raw_sigma, kern.base.raw_offset,
+            SVGP.create(kern, MultiClass(3), feat, 3).q_mu,
+            GPR.create(SignatureCosine(2, 3)).likelihood.raw_variance,
+            Gaussian.create().raw_variance,
+            from_jax_arrays({"a": np.ones(2)})["a"]]
+    assert {t.device.type for t in made} == {"cuda"}

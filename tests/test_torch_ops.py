@@ -1,5 +1,6 @@
 """Parity of the PyTorch port's parameter transforms, numeric policy and
-plain signature recursions with ``gpsig_tpu`` (float64, CPU).
+plain order-1 signature recursions with ``gpsig_tpu`` (float64, CPU); the
+higher-order recursions are ``test_torch_higher_order.py``'s.
 
 Tolerances: both sides run the same float64 formulas op for op, so they
 agree to rounding (rtol 1e-10); the recursions sum in another order than
@@ -111,19 +112,16 @@ def test_signature_kern_tens_matches_jax():
                                want, rtol=RTOL)
 
 
-def test_higher_order_is_not_ported_yet():
-    M = torch.zeros(2, 4, 4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tsig.signature_kern(M, 3, order=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tsig.signature_kern_tens_vs_seq(M, 2, order=2)
-
-
 def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
         "import gpsig_tpu_torch.models.svgp, gpsig_tpu_torch.models.gpr\n"
         "import gpsig_tpu_torch.convert, gpsig_tpu_torch.ops.cuda.tens_seq\n"
+        "import gpsig_tpu_torch.kernels.signature\n"
+        "import gpsig_tpu_torch.ops.cuda.fused_gram_ho\n"
+        "import gpsig_tpu_torch.ops.cuda.tens_seq_general\n"
+        "import gpsig_tpu_torch.ops.cuda.sig_gram\n"
+        "import gpsig_tpu_torch.training.loop\n"
         "assert not any(m.startswith('jax') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
         "print('ok')\n"

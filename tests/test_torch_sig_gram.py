@@ -1,0 +1,85 @@
+"""Parity of the port's per-pair DP over increment matrices
+(``ops/cuda/sig_gram.py``: ``sig_gram_levels``, order 1, and
+``sig_gram_levels_ho``) with ``gpsig_tpu/ops/pallas/sig_gram.py``.
+
+- The plain versions against ``gpsig_tpu.ops.signature.signature_kern`` in
+  float64: rtol 1e-10.
+- Against the Pallas kernels (``_fwd_kernel``, ``_fwd_kernel_ho``) in
+  interpret mode: their in-kernel triangular products accumulate in
+  float32 even on float64 inputs: scaled error 1e-5.
+- The symmetry k_m(M) = k_m(Mᵀ) that the CUDA kernel relies on to stream
+  M's rows.
+
+The CUDA kernel itself is checked on the card by
+``test_torch_cuda_kernels.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpsig_tpu.ops import signature as jsig
+from gpsig_tpu.ops.pallas import sig_gram as jsg
+from gpsig_tpu_torch.ops.cuda import sig_gram as tsg
+
+torch.set_num_threads(1)
+
+
+def _scaled_err(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 5])
+@pytest.mark.parametrize("shape,nl", [((3, 9, 12), 4), ((2, 13, 5), 5),
+                                      ((1, 1, 1), 2), ((2, 6, 6), 7)])
+def test_refs_match_signature_kern(shape, nl, order):
+    M = 0.4 * np.random.default_rng(nl + order).standard_normal(shape)
+    want = jsig.signature_kern(M, nl, order=order)
+    Mt = torch.as_tensor(M)
+    got = (tsg.sig_gram_levels(Mt, nl) if order == 1
+           else tsg.sig_gram_levels_ho(Mt, nl, order))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10,
+                               atol=1e-14)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 5])
+def test_wrappers_match_pallas_interpret(order):
+    M = 0.4 * np.random.default_rng(30 + order).standard_normal((3, 9, 12))
+    nl = 5
+    if order == 1:
+        want = jsg.sig_gram_levels(jnp.asarray(M), nl, True)
+        got = tsg.sig_gram_levels(torch.as_tensor(M), nl)
+    else:
+        want = jsg.sig_gram_levels_ho(jnp.asarray(M), nl, order, True)
+        got = tsg.sig_gram_levels_ho(torch.as_tensor(M), nl, order)
+    assert _scaled_err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("order", [1, 2, 4])
+def test_levels_are_symmetric_under_transpose(order):
+    M = torch.as_tensor(0.4 * np.random.default_rng(order).standard_normal(
+        (3, 7, 11)))
+    torch.testing.assert_close(
+        tsg.sig_gram_levels_ho_ref(M, 4, order),
+        tsg.sig_gram_levels_ho_ref(M.transpose(1, 2), 4, order),
+        rtol=1e-12, atol=1e-14)
+
+
+def test_wrappers_take_plain_path_on_cpu_without_launching():
+    M = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 5, 6)))
+    before = (tsg.launches, tsg.ho_launches)
+    torch.testing.assert_close(tsg.sig_gram_levels(M, 3),
+                               tsg.sig_gram_levels_ref(M, 3), rtol=0, atol=0)
+    torch.testing.assert_close(tsg.sig_gram_levels_ho(M, 3, 2),
+                               tsg.sig_gram_levels_ho_ref(M, 3, 2), rtol=0,
+                               atol=0)
+    assert (tsg.launches, tsg.ho_launches) == before
+    with pytest.raises(ValueError, match="order >= 2"):
+        tsg.sig_gram_levels_ho(M, 3, 1)
+
+
+def test_backward_on_card_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+        tsg._SigGramLevels.backward(None, torch.zeros(3))

@@ -1,14 +1,18 @@
 """Parity of the port's signature kernel and inducing tensors
 (``kernels/signature.py``, ``inducing.py``) with ``gpsig_tpu``'s XLA
 engine, float64 on the CPU, parameters loaded through
-``convert.load_jax_arrays``.
+``convert.load_jax_arrays``; every base (RBF, Linear, Poly, Cosine) at
+orders 1-3 with and without differencing, and against the JAX package's
+Pallas engine run in interpret mode.
 
-Tolerance rtol 1e-8: the JAX XLA path clamps the RBF squared distance at 0
-(``static_kernels.py``) while the port's covered configurations run the
-fused kernels' plain versions, which (as the Pallas kernels) do not clamp.
-The two differ only where two points coincide, where the unclamped
-distance is a rounding-level negative number; elsewhere they agree to
-summation-order rounding.
+Tolerance rtol 1e-8 against the XLA engine: it clamps the RBF squared
+distance at 0 (``static_kernels.py``) while the port's covered
+configurations run the fused kernels' plain versions, which (as the
+Pallas kernels) do not clamp. The two differ only where two points
+coincide, where the unclamped distance is a rounding-level negative
+number; elsewhere they agree to summation-order rounding. Against the
+Pallas engine, scaled error 1e-5: its in-kernel matrix products
+accumulate in float32 even on float64 inputs.
 """
 
 import jax
@@ -17,11 +21,17 @@ import numpy as np
 import pytest
 import torch
 
+from unittest import mock
+
 from gpsig_tpu import inducing as jind
 from gpsig_tpu.kernels import signature as jsk
+from gpsig_tpu_torch import config as tcfg
 from gpsig_tpu_torch import convert
 from gpsig_tpu_torch import inducing as tind
 from gpsig_tpu_torch.kernels import signature as tsk
+from gpsig_tpu_torch.ops.cuda import fused_gram_ho as tfgho
+from gpsig_tpu_torch.ops.cuda import sig_gram as tsg
+from gpsig_tpu_torch.ops.cuda import tens_seq_general as ttsg
 
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-8, 1e-12
@@ -35,6 +45,15 @@ CONFIGS = {
     "rbf_no_difference": ("SignatureRBF", dict(difference=False)),
     "linear_no_lengthscales": ("SignatureLinear",
                                dict(lengthscales=None, num_levels=2)),
+    "rbf_order2": ("SignatureRBF", dict(lengthscales=[0.7, 1.3], order=2)),
+    "rbf_order3_lags": ("SignatureRBF", dict(lengthscales=[0.8, 1.1],
+                                             num_lags=1, order=3)),
+    "poly_order2": ("SignaturePoly", dict(offset=0.6, order=2)),
+    "poly3_no_difference": ("SignaturePoly",
+                            dict(offset=1.4, degree=3, difference=False)),
+    "cosine_order2_unnormalized": ("SignatureCosine",
+                                   dict(order=2, normalization=False)),
+    "rbf_levels8": ("SignatureRBF", dict(num_levels=8, order=2)),
 }
 
 
@@ -54,7 +73,10 @@ def kernel_pair(name, seed=0):
         raw_sigma=jnp.asarray(rng.normal(0.5, 0.3)),
         raw_variances=jnp.asarray(rng.normal(0.0, 0.5, nl + 1)),
     )
-    tk = getattr(tsk, ctor)(D, nl, **kw)
+    if ctor == "SignaturePoly":
+        jk = jk.replace(base=jk.base.replace(
+            raw_offset=jnp.asarray(rng.normal(0.3, 0.2))))
+    tk = getattr(tsk, ctor)(D, nl, device="cpu", **kw)
     convert.load_jax_arrays(tk, leaves(jk))
     return jk, tk
 
@@ -80,6 +102,27 @@ def test_converted_parameters_match_names_and_values():
     _, tk2 = kernel_pair("linear_no_lengthscales")
     assert tk2.raw_lengthscales is None
     assert "raw_lengthscales" not in tk2.state_dict()
+    jk3, tk3 = kernel_pair("poly_order2")
+    assert "base.raw_offset" in leaves(jk3)
+    np.testing.assert_array_equal(
+        tk3.state_dict()["base.raw_offset"].numpy(),
+        leaves(jk3)["base.raw_offset"])
+
+
+@pytest.mark.parametrize("source,target", [
+    ("SignatureRBF", "SignatureLinear"), ("SignatureLinear", "SignatureRBF"),
+    ("SignaturePoly", "SignatureCosine"), ("SignatureCosine", "SignaturePoly"),
+])
+def test_load_is_strict_across_bases(source, target):
+    """A Poly kernel's offset has no home in another base, and a Poly
+    kernel needs one; bases without parameters load into each other."""
+    jk = getattr(jsk, source)(D, NL, engine="xla")
+    tk = getattr(tsk, target)(D, NL, device="cpu")
+    if "SignaturePoly" in (source, target):
+        with pytest.raises(RuntimeError, match="raw_offset"):
+            convert.load_jax_arrays(tk, leaves(jk))
+    else:
+        convert.load_jax_arrays(tk, leaves(jk))
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -154,28 +197,161 @@ def test_make_inducing_tensors_draws_data_increments(increments):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(order=2), "Queue 2 items 6 and 8"),
-    (dict(difference=False), "Queue 2 items 6 and 8"),
     (dict(num_levels=8), "Queue 2 item 10"),
+    (dict(num_levels=8, order=2), "Queue 2 item 10"),
+    (dict(num_levels=9, difference=False), "Queue 2 item 10"),
 ])
 def test_cuda_dispatch_raises_for_uncovered_configurations(kw, item):
     kw = dict(kw)
-    kern = tsk.SignatureRBF(D, kw.pop("num_levels", NL), **kw)
+    kern = tsk.SignatureRBF(D, kw.pop("num_levels", NL), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=item):
-        kern._fused(torch.device("cuda"))
-    assert kern._fused(torch.device("cpu")) is False
+        kern._route(torch.device("cuda"))
+    assert kern._route(torch.device("cpu")) is None
 
 
 @pytest.mark.parametrize("ctor", ["SignatureRBF", "SignatureLinear"])
 def test_cuda_dispatch_takes_kernels_for_the_main_path(ctor):
-    kern = getattr(tsk, ctor)(D, 7)
-    assert kern._fused(torch.device("cuda")) is True
-    assert kern._fused(torch.device("cpu")) is True
+    kern = getattr(tsk, ctor)(D, 7, device="cpu")
+    assert kern._route(torch.device("cuda")) == "tuned"
+    assert kern._route(torch.device("cpu")) == "tuned"
     assert kern._rbf() is (ctor == "SignatureRBF")
 
 
-def test_order_two_is_not_ported_on_cpu_either():
-    kern = tsk.SignatureRBF(D, NL, order=2)
-    X = torch.as_tensor(walks(np.random.default_rng(5), 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        kern.K(X)
+@pytest.mark.parametrize("ctor,kw", [
+    ("SignatureRBF", dict(order=2)), ("SignatureRBF", dict(difference=False)),
+    ("SignatureLinear", dict(order=3)), ("SignaturePoly", dict()),
+    ("SignatureCosine", dict()), ("SignaturePoly", dict(degree=3, order=7)),
+])
+def test_dispatch_takes_general_kernels_elsewhere(ctor, kw):
+    kern = getattr(tsk, ctor)(D, 7, device="cpu", **kw)
+    assert kern._route(torch.device("cuda")) == "general"
+    assert kern._route(torch.device("cpu")) == "general"
+    assert kern._kind() == {"SignatureRBF": "rbf", "SignatureLinear": "linear",
+                            "SignatureCosine": "cosine"}.get(
+        ctor, f"poly{kw.get('degree', 2)}")
+
+
+def test_cpu_general_path_goes_through_the_wrappers():
+    """Order 2 on the CPU: the general wrappers' plain versions compute K
+    and Kuf (the Poly offset channel included) and launch nothing."""
+    jk, tk = kernel_pair("poly_order2")
+    rng = np.random.default_rng(6)
+    X = torch.as_tensor(walks(rng, 4))
+    Z = torch.as_tensor(0.4 * rng.standard_normal((3, 6, 2, D)))
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args):
+            seen.append((fn.__name__, tuple(tuple(a.shape) for a in args
+                                            if torch.is_tensor(a))))
+            return fn(*args)
+        return wrapped
+
+    before = (tfgho.launches, ttsg.launches, tsg.ho_launches)
+    with mock.patch.object(tfgho, "fused_gram_ho_levels_ref",
+                           spy(tfgho.fused_gram_ho_levels_ref)), \
+            mock.patch.object(ttsg, "fused_tens_seq_general_levels_ref",
+                              spy(ttsg.fused_tens_seq_general_levels_ref)), \
+            mock.patch.object(tsg, "sig_gram_levels_ho_ref",
+                              spy(tsg.sig_gram_levels_ho_ref)):
+        close(tk.K(X), jk.K(X.numpy()))
+        close(tk.K_tens_vs_seq(Z, X, True), jk.K_tens_vs_seq(Z.numpy(),
+                                                            X.numpy(), True))
+    names = [n for n, _ in seen]
+    assert names.count("fused_gram_ho_levels_ref") == 1
+    assert names.count("fused_tens_seq_general_levels_ref") == 1
+    assert names.count("sig_gram_levels_ho_ref") == 2
+    # the offset channel: D + 1 columns on both sides of the Gram and Kuf
+    assert ("fused_gram_ho_levels_ref", ((4, 8, D + 1),) * 2) in seen
+    assert ("fused_tens_seq_general_levels_ref",
+            ((3, 6, 2, D + 1), (4, 8, D + 1))) in seen
+    assert (tfgho.launches, ttsg.launches, tsg.ho_launches) == before
+
+
+GENERAL = [(ctor, order, difference)
+           for ctor in ("SignatureRBF", "SignatureLinear", "SignaturePoly",
+                        "SignatureCosine")
+           for order in (1, 2, 3) for difference in (True, False)]
+
+
+def general_pair(ctor, order, difference, engine="xla"):
+    """Both packages' kernel with ARD, and for the Linear base a lag and no
+    normalisation; a Poly offset of 0.6 and random variances."""
+    kw = dict(order=order, difference=difference, lengthscales=[0.7, 1.3])
+    if ctor == "SignatureLinear":
+        kw.update(num_lags=1, normalization=False)
+    if ctor == "SignaturePoly":
+        kw.update(offset=0.6)
+    jk = getattr(jsk, ctor)(D, NL, engine=engine, **kw)
+    rng = np.random.default_rng(order + 3 * difference)
+    jk = jk.replace(raw_variances=jnp.asarray(rng.normal(0.0, 0.5, NL + 1)))
+    tk = getattr(tsk, ctor)(D, NL, device="cpu", **kw)
+    convert.load_jax_arrays(tk, leaves(jk))
+    return jk, tk
+
+
+def general_calls(k, X, X2, Z):
+    return [k.K(X), k.K(X, X2), k.Kdiag(X), *k.seq_covariances(X2, X),
+            k.K_tens_vs_seq(Z, X, True, return_levels=True)]
+
+
+@pytest.mark.parametrize("ctor,order,difference", GENERAL)
+def test_general_configurations_match_jax(ctor, order, difference):
+    jk, tk = general_pair(ctor, order, difference)
+    rng = np.random.default_rng(7)
+    X, X2 = walks(rng, 5), walks(rng, 3)
+    width = D * (1 + tk.num_lags)
+    Z = 0.4 * rng.standard_normal((4, 6, 2, width))
+    got = general_calls(tk, *map(torch.as_tensor, (X, X2, Z)))
+    for g, w in zip(got, general_calls(jk, X, X2, Z)):
+        close(g, w)
+
+
+@pytest.mark.parametrize("ctor,order,difference", [
+    ("SignatureRBF", 2, True), ("SignatureLinear", 1, False),
+    ("SignaturePoly", 3, True), ("SignatureCosine", 2, False),
+])
+def test_general_configurations_match_jax_pallas_engine(ctor, order,
+                                                        difference):
+    jk, tk = general_pair(ctor, order, difference, engine="pallas")
+    rng = np.random.default_rng(8)
+    X, X2 = walks(rng, 4), walks(rng, 3)
+    width = D * (1 + tk.num_lags)
+    Z = 0.4 * rng.standard_normal((3, 6, 2, width))
+    got = general_calls(tk, *map(torch.as_tensor, (X, X2, Z)))
+    for g, w in zip(got, general_calls(jk, X, X2, Z)):
+        g, w = g.detach().numpy(), np.asarray(w)
+        assert np.max(np.abs(g - w)) <= 1e-5 * np.max(np.abs(w))
+
+
+def test_entry_points_default_to_the_card():
+    """device=None resolves through config.default_device() (the card);
+    device="cpu" builds on the CPU."""
+    from gpsig_tpu_torch import likelihoods
+    from gpsig_tpu_torch.models import gpr, svgp
+
+    assert tcfg.default_device() == torch.device("cuda")
+    Z = torch.zeros(3, 6, D, dtype=torch.float64)
+    feat = tind.InducingTensors.create(Z, NL)
+
+    def build(**dev):
+        kern = tsk.SignaturePoly(D, NL, **dev)
+        cos = tsk.SignatureCosine(D, NL, **dev)
+        model = svgp.SVGP.create(kern, likelihoods.MultiClass(3), feat, 3,
+                                 **dev)
+        reg = gpr.GPR.create(cos, **dev)
+        lik = likelihoods.Gaussian.create(0.5, **dev)
+        state = convert.from_jax_arrays({"a": np.ones(2)}, **dev)
+        return [kern.raw_sigma, kern.base.raw_offset, cos.raw_variances,
+                model.q_mu, reg.likelihood.raw_variance, lik.raw_variance,
+                state["a"]]
+
+    with mock.patch.object(tcfg, "default_device",
+                           lambda: torch.device("meta")):
+        assert {t.device.type for t in build()} == {"meta"}
+    assert {t.device.type for t in build(device="cpu")} == {"cpu"}
+    # the inducing features follow their input's device
+    assert feat.raw_Z.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            tsk.SignatureRBF(D, NL)

@@ -1,6 +1,8 @@
 """Parity of the port's GP layer (``gauss.py``, ``likelihoods.py``,
 ``models/svgp.py``, ``models/gpr.py``) with ``gpsig_tpu``, float64 on the
-CPU, with every parameter loaded through ``convert.load_jax_arrays``.
+CPU, with every parameter loaded through ``convert.load_jax_arrays``: the
+order-1 models, and the order-2 SVGP and GPR that run through the general
+engines' plain versions (with the ELBO's gradient against ``jax.grad``).
 
 Tolerance rtol 1e-8, for the same reason as in
 ``test_torch_signature_kernel.py``: the JAX XLA engine clamps the RBF
@@ -48,13 +50,15 @@ def walks(rng, n, L=8):
     return (0.3 * rng.standard_normal((n, L, D))).cumsum(1)
 
 
-def svgp_pair(whiten=True, q_diag=False, increments=True, seed=0):
-    """The same SVGP in both packages: RBF signature kernel with ARD,
-    inducing tensors, MultiClass(3), non-trivial q_mu / q_sqrt."""
+def svgp_pair(whiten=True, q_diag=False, increments=True, seed=0, order=1):
+    """The same SVGP in both packages: RBF signature kernel with ARD at
+    ``order``, inducing tensors, MultiClass(3), non-trivial q_mu /
+    q_sqrt."""
     rng = np.random.default_rng(seed)
     F = NL * (NL + 1) // 2
     Z = 0.4 * rng.standard_normal((M, F, 2, D) if increments else (M, F, D))
-    jk = jsk.SignatureRBF(D, NL, lengthscales=[0.8, 1.2], engine="xla")
+    jk = jsk.SignatureRBF(D, NL, lengthscales=[0.8, 1.2], engine="xla",
+                          order=order)
     jf = jind.InducingTensors.create(jnp.asarray(Z), NL, increments)
     jm = jsvgp.SVGP.create(jk, jlik.MultiClass(C), jf, C, whiten=whiten,
                            q_diag=q_diag)
@@ -63,10 +67,11 @@ def svgp_pair(whiten=True, q_diag=False, increments=True, seed=0):
               + 0.8 * np.eye(M))
     jm = jm.replace(q_mu=jnp.asarray(rng.standard_normal((M, C))),
                     q_sqrt=jnp.asarray(q_sqrt))
-    tk = tsk.SignatureRBF(D, NL, lengthscales=[0.8, 1.2])
+    tk = tsk.SignatureRBF(D, NL, lengthscales=[0.8, 1.2], order=order,
+                          device="cpu")
     tf = tind.InducingTensors.create(torch.as_tensor(Z), NL, increments)
     tm = tsvgp.SVGP.create(tk, tlik.MultiClass(C), tf, C, whiten=whiten,
-                           q_diag=q_diag)
+                           q_diag=q_diag, device="cpu")
     convert.load_jax_arrays(tm, leaves(jm))
     X = walks(rng, N)
     Y = rng.integers(0, C, N)
@@ -152,7 +157,7 @@ def test_likelihoods_match_jax(name):
     Fvar = rng.uniform(0.1, 2.0, (N, C))
     if name == "Gaussian":
         jl = jlik.Gaussian.create(0.7)
-        tl = tlik.Gaussian.create(0.7)
+        tl = tlik.Gaussian.create(0.7, device="cpu")
         convert.load_jax_arrays(tl, leaves(jl))
         Y = rng.standard_normal((N, C))
     elif name == "Bernoulli":
@@ -220,18 +225,33 @@ def test_identity_features_are_not_ported_yet():
         num_inducing = 3
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tsvgp.SVGP.create(tsk.SignatureRBF(D, NL), tlik.MultiClass(C),
-                          Identity(), C)
+        tsvgp.SVGP.create(tsk.SignatureRBF(D, NL, device="cpu"),
+                          tlik.MultiClass(C), Identity(), C, device="cpu")
 
 
 def test_gpr_matches_jax():
+    _gpr_parity("SignatureRBF", {})
+
+
+@pytest.mark.parametrize("ctor,kw", [
+    ("SignatureRBF", dict(order=2)),
+    ("SignaturePoly", dict(order=2, offset=0.8)),
+    ("SignatureCosine", dict(order=1, difference=False)),
+])
+def test_general_gpr_matches_jax(ctor, kw):
+    """GPR through the general Gram and sig_gram's plain versions."""
+    _gpr_parity(ctor, kw)
+
+
+def _gpr_parity(ctor, kw):
+    kw = dict(kw, lengthscales=[0.9, 1.1])
     rng = np.random.default_rng(5)
     X, Xnew = walks(rng, N), walks(rng, 4)
     Y = rng.standard_normal((N, 2))
-    jk = jsk.SignatureRBF(D, NL, lengthscales=[0.9, 1.1], engine="xla")
+    jk = getattr(jsk, ctor)(D, NL, engine="xla", **kw)
     jg = jgpr.GPR.create(jk, noise_variance=0.3)
-    tg = tgpr.GPR.create(tsk.SignatureRBF(D, NL, lengthscales=[0.9, 1.1]),
-                         noise_variance=0.3)
+    tg = tgpr.GPR.create(getattr(tsk, ctor)(D, NL, device="cpu", **kw),
+                         noise_variance=0.3, device="cpu")
     convert.load_jax_arrays(tg, leaves(jg))
     tX, tY, tXn = map(torch.as_tensor, (X, Y, Xnew))
     close(tg.log_marginal_likelihood(tX, tY),
@@ -243,3 +263,32 @@ def test_gpr_matches_jax():
     for got, want in zip(tg.predict_y(tX, tY, tXn),
                          jg.predict_y(X, Y, Xnew)):
         close(got, want)
+
+
+@pytest.mark.parametrize("whiten,increments", [(True, True), (False, False)])
+def test_order2_svgp_matches_jax(whiten, increments):
+    """The order-2 SVGP: Kuf through the general Kuf's plain version, the
+    normalisation diagonal through sig_gram's."""
+    jm, tm, X, Y = svgp_pair(whiten, increments=increments, seed=6, order=2)
+    tX, tY = torch.as_tensor(X), torch.as_tensor(Y)
+    close(tm.elbo(tX, tY, num_data=40), jm.elbo(X, Y, num_data=40))
+    for got, want in zip(tm.predict_f(tX), jm.predict_f(X)):
+        close(got, want)
+    for got, want in zip(tm.posterior().predict_y(tX),
+                         jm.posterior().predict_y(X)):
+        close(got, want)
+
+
+def test_order2_elbo_gradient_matches_jax_grad():
+    """CPU autograd through the order-2 plain path against jax.grad, every
+    parameter."""
+    jm, tm, X, Y = svgp_pair(seed=7, order=2)
+    want = leaves(jax.grad(lambda m: m.elbo(X, Y, num_data=40))(jm))
+    tm.elbo(torch.as_tensor(X), torch.as_tensor(Y), num_data=40).backward()
+    got = {n: p.grad for n, p in tm.named_parameters()}
+    assert set(got) == set(want)
+    for name in want:
+        g, w = got[name], want[name]
+        if name == "q_sqrt":  # only the lower triangle is used
+            g, w = torch.tril(g), np.tril(w)
+        close(g, w)

@@ -227,8 +227,9 @@ def test_gpr_adam_steps_match_jax():
     Y = np.sin(rng.standard_normal((7, 1)))
     jg = jgpr.GPR.create(jsk.SignatureRBF(2, 3, lengthscales=[0.9, 1.1],
                                           engine="xla"), noise_variance=0.3)
-    tg = tgpr.GPR.create(tsk.SignatureRBF(2, 3, lengthscales=[0.9, 1.1]),
-                         noise_variance=0.3)
+    tg = tgpr.GPR.create(tsk.SignatureRBF(2, 3, lengthscales=[0.9, 1.1],
+                                          device="cpu"),
+                         noise_variance=0.3, device="cpu")
     convert.load_jax_arrays(tg, leaves(jg))
     opt = optax.adam(5e-2)
 
