@@ -200,14 +200,39 @@ def dp_cell_ops(nl, p):
     return 1 + sum(2 * min(p, m) ** 2 + min(p, m) for m in range(2, nl + 1))
 
 
+def dp_self_ops(n, nl, p):
+    """The run-length column DP over one symmetric n × n increment matrix
+    (a self-kernel's): state (r, s) is the transpose of state (s, r), so
+    such a pair of states needs n² cells together and a state with r = s
+    only its triangle n(n+1)/2; the prefix-scan adds are counted over the
+    triangle. At p = 1 this is the triangle times dp_cell_ops."""
+    tri = n * (n + 1) // 2
+    ops = tri
+    for m in range(2, nl + 1):
+        R = min(p, m)
+        ops += 2 * (R * tri + R * (R - 1) // 2 * n * n) + R * tri
+    return ops
+
+
 def gram_work(N1, N2, L, d, nl, p=1, kind="rbf", difference=True):
-    """Gram (_fused_kernel, _diag_kernel with N2 = 1 per pair, _ho_kernel):
-    L² base values per pair, then (L-1)² increments (3 subtractions) or L²
-    raw entries through the DP."""
+    """Gram (_fused_kernel, _ho_kernel): L² base values per pair, then
+    (L-1)² increments (2 subtractions: along j, then along i) or L² raw
+    entries through the DP."""
     rows = L - 1 if difference else L
     per_pair = (L * L * base_ops(d, kind)
-                + rows * rows * (dp_cell_ops(nl, p) + 3 * difference))
+                + rows * rows * (dp_cell_ops(nl, p) + 2 * difference))
     return per_pair * N1 * N2
+
+
+def gram_self_work(N, L, d, nl, p=1, kind="rbf", difference=True):
+    """Self-kernels (_diag_kernel): the base Gram of a sequence with itself
+    is symmetric, and so are its increments, so a sequence needs L(L+1)/2
+    base values, the triangle of increments and dp_self_ops."""
+    rows = L - 1 if difference else L
+    per_seq = (L * (L + 1) // 2 * base_ops(d, kind)
+               + rows * (rows + 1) // 2 * 2 * difference
+               + dp_self_ops(rows, nl, p))
+    return per_seq * N
 
 
 def kuf_dp_point_ops(nl, p):
@@ -350,7 +375,8 @@ def kernel_phase(dev):
     gram_bytes = 4 * (512 * 50 * 2 + 5 * 256 * 256)
     works = {
         "gram": (gram_ops, gram_bytes),
-        "diag": (gram_work(2048, 1, 50, 3, 5), 4 * (2048 * 50 * 3 + 6 * 2048)),
+        "diag": (gram_self_work(2048, 50, 3, 5),
+                 4 * (2048 * 50 * 3 + 6 * 2048)),
         "tens_seq": (kuf_ops, 4 * (500 * 30 * 3 + 2048 * 50 * 3
                                    + 6 * 500 * 2048)),
         "gram_bwd": (3 * gram_ops, 2 * gram_bytes),
@@ -793,13 +819,14 @@ def slice1_kernel_phase(dev):
         500, 15, 2, 2)
     m_self = self_increments(seq_x)
     sg_bytes = 4 * (2048 * 49 * 49 + 6 * 2048)
+    # the self-increment matrices are symmetric: dp_self_ops
     works = {
         "gram_ho": (gram_work(256, 256, 50, 2, 4, p=2),
                     4 * (512 * 50 * 2 + 5 * 256 * 256)),
         "tsg": (kuf_work(500, 30, 2048, 50, 2, 5, p=2),
                 4 * (500 * 30 * 2 + 2048 * 50 * 2 + 6 * 500 * 2048)),
-        "sig_gram_ho": (2048 * 49 * 49 * dp_cell_ops(5, 2), sg_bytes),
-        "sig_gram": (2048 * 49 * 49 * dp_cell_ops(5, 1), sg_bytes),
+        "sig_gram_ho": (2048 * dp_self_ops(49, 5, 2), sg_bytes),
+        "sig_gram": (2048 * dp_self_ops(49, 5, 1), sg_bytes),
     }
     cases = [
         ("gram_ho", "general Gram RBF order 2 N=256x256 L=50 d=2 nl=4",

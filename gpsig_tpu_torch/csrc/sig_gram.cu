@@ -18,8 +18,8 @@
 // run lengths r and s, and the recursion treats them alike), so the warp
 // streams M's rows M[b, i, :] as its "columns" and spreads j over the
 // lanes: each read is a contiguous row, coalesced, with no shared-memory
-// staging and no transpose; the wrapper transposes only when L2 > 128 and
-// L1 <= 128. Templated on (P, R): 7 x 2 instantiations per dtype.
+// staging and no transpose; L2 > 128 is refused by the wrapper.
+// Templated on (P, R): 7 x 2 instantiations per dtype.
 //
 // What bounds it on the H100. It reads B L1 L2 values once and writes
 // (nl + 1) B: at the flagship diagonal (B = 2048, L1 = L2 = 49, float32)

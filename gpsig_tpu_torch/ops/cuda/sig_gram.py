@@ -4,7 +4,7 @@ its plain PyTorch version.
 Counterpart of ``gpsig_tpu/ops/pallas/sig_gram.py`` (``sig_gram_levels``,
 order 1, and ``sig_gram_levels_ho``, order >= 2); both are
 ``csrc/sig_gram.cu``, whose opening note gives the design. M [B, L1, L2]
-→ [nl+1, B], ``num_levels <= 7``, min(L1, L2) <= 128. The kernel layer
+→ [nl+1, B], ``num_levels <= 7``, L2 <= 128 (L1 any). The kernel layer
 uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
 in PyTorch (as the JAX package leaves them to XLA). No (8, 128) padding:
@@ -58,13 +58,10 @@ def _launch(M, num_levels, order):
         raise ValueError(f"{name}: num_levels must be 1..{MAX_LEVELS}")
     if order < 1:
         raise ValueError(f"{name}: order must be >= 1")
-    if M.shape[2] > MAX_LANE_AXIS:
-        if M.shape[1] > MAX_LANE_AXIS:
-            raise ValueError(f"{name}: L1 or L2 must be <= {MAX_LANE_AXIS}; "
-                             f"got {tuple(M.shape[1:])}")
-        # k_m(M) = k_m(Mᵀ): stream the other axis
-        M = M.transpose(1, 2).contiguous()
     B, L1, L2 = M.shape
+    if L2 > MAX_LANE_AXIS:
+        raise ValueError(f"{name}: L2 must be <= {MAX_LANE_AXIS}; got "
+                         f"{tuple(M.shape[1:])}")
     out = torch.empty((num_levels + 1, B), dtype=M.dtype, device=M.device)
     if B:
         _build.launch("gpsig_sig_gram", M.device, M, out, B, L1, L2,

@@ -267,31 +267,58 @@ def _offset_channel(X, Y, kind, c=0.7):
             torch.cat([Y, torch.full_like(Y[..., :1], c)], -1))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
-@pytest.mark.parametrize("kind", KINDS)
-def test_fused_gram_ho_kernel_matches_plain(cuda_device, dtype, tol, kind):
+def _gram_ho_inputs(kind):
+    """The general Gram kernel's test cases: (L, nl, order, difference,
+    X [9, L, 2], Y [6, L, 2], step scale). A raw (undifferenced) Poly Gram
+    of these walks exceeds float32's range at 7 levels, so that kind takes
+    steps 10× shorter there (test_raw_poly_gram_overflows_float32 checks
+    the reason)."""
     rng = np.random.default_rng(10)
     for L, nl, order in [(7, 3, 2), (20, 4, 1), (50, 4, 3), (66, 5, 2),
                          (100, 7, 7)]:
         for difference in (True, False):
-            # a raw (undifferenced) Poly Gram of long walks overflows
-            # float32 at 7 levels in the plain version too: shorter steps
             scale = 0.1 if kind.startswith("poly") and not difference else 1
-            X = torch.as_tensor(scale * _walks(rng, 9, L, 2), dtype=dtype,
-                                device=cuda_device)
-            Y = torch.as_tensor(scale * _walks(rng, 6, L, 2), dtype=dtype,
-                                device=cuda_device)
-            X, Y = _offset_channel(X, Y, kind)
-            with torch.no_grad():
-                n0 = tfgho.launches
-                got = tfgho.fused_gram_ho_levels(X, Y, nl, order, kind,
-                                                 difference)
-                assert tfgho.launches == n0 + 1
-                want = tfgho.fused_gram_ho_levels_ref(X, Y, nl, order, kind,
-                                                      difference)
-            assert got.shape == (nl + 1, 9, 6)
-            assert _scaled_err(got, want) < tol, (L, nl, order, difference)
+            yield (L, nl, order, difference, _walks(rng, 9, L, 2),
+                   _walks(rng, 6, L, 2), scale)
+
+
+@pytest.mark.parametrize("kind", ["poly2", "poly3"])
+def test_raw_poly_gram_overflows_float32(kind):
+    """At unit step scale the exact (float64) raw Poly Gram of the nl=7 case
+    exceeds float32's largest value, so the plain float32 version is not
+    finite there; at the test's scale it is well inside the range."""
+    f32_max = torch.finfo(torch.float32).max
+    *_, (L, nl, order, difference, X, Y, scale) = _gram_ho_inputs(kind)
+    assert (L, nl, difference) == (100, 7, False)
+
+    def plain(s, dtype):
+        a, b = _offset_channel(torch.as_tensor(s * X, dtype=dtype),
+                               torch.as_tensor(s * Y, dtype=dtype), kind)
+        return tfgho.fused_gram_ho_levels_ref(a, b, nl, order, kind,
+                                              difference)
+
+    assert plain(1, torch.float64).abs().max() > f32_max
+    assert not torch.isfinite(plain(1, torch.float32)).all()
+    assert plain(scale, torch.float64).abs().max() < 1e-6 * f32_max
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_gram_ho_kernel_matches_plain(cuda_device, dtype, tol, kind):
+    for L, nl, order, difference, Xn, Yn, scale in _gram_ho_inputs(kind):
+        X = torch.as_tensor(scale * Xn, dtype=dtype, device=cuda_device)
+        Y = torch.as_tensor(scale * Yn, dtype=dtype, device=cuda_device)
+        X, Y = _offset_channel(X, Y, kind)
+        with torch.no_grad():
+            n0 = tfgho.launches
+            got = tfgho.fused_gram_ho_levels(X, Y, nl, order, kind,
+                                             difference)
+            assert tfgho.launches == n0 + 1
+            want = tfgho.fused_gram_ho_levels_ref(X, Y, nl, order, kind,
+                                                  difference)
+        assert got.shape == (nl + 1, 9, 6)
+        assert _scaled_err(got, want) < tol, (L, nl, order, difference)
 
 
 @pytest.mark.cuda
@@ -328,8 +355,10 @@ def test_tens_seq_general_kernel_matches_plain(cuda_device, dtype, tol,
 @pytest.mark.parametrize("dtype,tol", GEN_TOLS)
 def test_sig_gram_kernels_match_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(12)
+    with pytest.raises(ValueError, match="L2 must be <= 128"):
+        tsg_.sig_gram_levels(torch.zeros(1, 5, 129, device=cuda_device), 3)
     for B, L1, L2, nl in [(5, 9, 12, 5), (9, 49, 49, 5), (3, 100, 70, 7),
-                          (4, 30, 140, 3), (2, 1, 1, 2)]:
+                          (4, 140, 30, 3), (2, 1, 1, 2)]:
         M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2)),
                             dtype=dtype, device=cuda_device)
         with torch.no_grad():
