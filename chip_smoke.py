@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``gpsig_tpu_torch``) on one NVIDIA GPU and check
 it end to end: slice 0 (the order-1 model, serving and training) and slice
-1's serving half (the general engines: order-2 SVGP and GPR).
+1 (the general engines: order-2 SVGP and GPR, serving and training).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -44,7 +44,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
    launch counters (the general kernels' must rise, the tuned order-1
    kernels' must not) and against the plain route; a small order-2 float64
    model on the card against the CPU;
-6. report: one JSON line with every kernel's launches, error, times and
+6. slice 1 training: the four general backward kernels (``_ho_bwd_kernel``,
+   ``_tsg_bwd_kernel``, the sig_gram ``_bwd_kernel`` and ``_bwd_kernel_ho``)
+   against their plain versions at the training paths' shapes in float32
+   and float64, timed; natgrad + Adam steps of the order-2 flagship SVGP
+   (B=50 of 500, Adam 1e-3, γ=0.05) and Adam steps on the log marginal
+   likelihood of the order-2 GPR and the order-1 Poly GPR (its offset
+   trained) at BASELINE config 1's width, float32, each path with its
+   launch counters (the general kernels and their backwards must rise,
+   the tuned order-1 kernels must not), ELBO and lml finite at every step,
+   the first step against the plain route, ms per step and a profiler
+   split of the SVGP step; small order-2 float64 models' three steps
+   against the CPU;
+7. report: one JSON line with every kernel's launches, error, times and
    bound, then the device line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
@@ -89,7 +101,19 @@ KERNELS = {
                  "gpsig_tpu/ops/pallas/sig_gram.py:80"),
     "sig_gram_ho": ("_fwd_kernel_ho", "gpsig_tpu_torch/csrc/sig_gram.cu",
                     "gpsig_tpu/ops/pallas/sig_gram.py:126"),
+    "gram_ho_bwd": ("_ho_bwd_kernel",
+                    "gpsig_tpu_torch/csrc/fused_gram_ho_bwd.cu",
+                    "gpsig_tpu/ops/pallas/fused_gram_ho_bwd.py:61"),
+    "tsg_bwd": ("_tsg_bwd_kernel",
+                "gpsig_tpu_torch/csrc/tens_seq_general_bwd.cu",
+                "gpsig_tpu/ops/pallas/tens_seq_general.py:364"),
+    "sig_gram_bwd": ("_bwd_kernel", "gpsig_tpu_torch/csrc/sig_gram_bwd.cu",
+                     "gpsig_tpu/ops/pallas/sig_gram.py:98"),
+    "sig_gram_ho_bwd": ("_bwd_kernel_ho",
+                        "gpsig_tpu_torch/csrc/sig_gram_bwd.cu",
+                        "gpsig_tpu/ops/pallas/sig_gram.py:229"),
 }
+TUNED = ("gram", "diag", "tens_seq", "gram_bwd", "tens_seq_bwd")
 # scaled error max|kernel - plain| / max|plain| allowed, per dtype
 TOL = {
     "float32": (1e-4, "float32 exp and up-to-49-step DP sums, summed in "
@@ -147,7 +171,7 @@ def abs_err(got, want):
 
 
 def counters():
-    """The launch counters of all nine kernels."""
+    """The launch counters of all thirteen kernels."""
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
     from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
     from gpsig_tpu_torch.ops.cuda import sig_gram as sg
@@ -158,7 +182,9 @@ def counters():
                 tens_seq=ts.launches, gram_bwd=fg.gram_bwd_launches,
                 tens_seq_bwd=ts.bwd_launches, gram_ho=fgho.launches,
                 tsg=tsg.launches, sig_gram=sg.launches,
-                sig_gram_ho=sg.ho_launches)
+                sig_gram_ho=sg.ho_launches, gram_ho_bwd=fgho.bwd_launches,
+                tsg_bwd=tsg.bwd_launches, sig_gram_bwd=sg.bwd_launches,
+                sig_gram_ho_bwd=sg.ho_bwd_launches)
 
 
 def reset_counters():
@@ -171,6 +197,8 @@ def reset_counters():
     fg.gram_launches = fg.diag_launches = fg.gram_bwd_launches = 0
     ts.launches = ts.bwd_launches = 0
     fgho.launches = tsg.launches = sg.launches = sg.ho_launches = 0
+    fgho.bwd_launches = tsg.bwd_launches = 0
+    sg.bwd_launches = sg.ho_bwd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +312,16 @@ def host_ms(fn, reps=5, warmup=1):
     return statistics.median(times)
 
 
+def timed(fn):
+    """(fn(), milliseconds to completion on the card by the host clock)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
 def profile_split(fn, label, reps=3):
     """Device time of ``fn()`` by ``torch.profiler`` (CPU and CUDA
     activities, ``reps`` calls after one warm-up): host wall per call
@@ -341,7 +379,12 @@ def plain_route():
                (tsg, "fused_tens_seq_general_levels",
                 tsg.fused_tens_seq_general_levels_ref),
                (sg, "sig_gram_levels", sg.sig_gram_levels_ref),
-               (sg, "sig_gram_levels_ho", sg.sig_gram_levels_ho_ref)]
+               (sg, "sig_gram_levels_ho", sg.sig_gram_levels_ho_ref),
+               (fgho, "fused_gram_ho_levels_bwd",
+                fgho.fused_gram_ho_levels_bwd_ref),
+               (tsg, "tens_seq_general_bwd", tsg.tens_seq_general_bwd_ref),
+               (sg, "sig_gram_levels_bwd", sg.sig_gram_levels_bwd_ref),
+               (sg, "sig_gram_levels_ho_bwd", sg.sig_gram_levels_ho_bwd_ref)]
     with contextlib.ExitStack() as stack:
         for module, name, plain in patches:
             stack.enter_context(mock.patch.object(module, name, plain))
@@ -690,12 +733,6 @@ def training_phase(dev):
     state = svgp_step.init(model)
     gpr_step = gpr_step_fn(torch, gpr, Xg, yg, 5e-2)
 
-    def timed(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
-
     reset_counters()
     elbos, svgp_ms, first = [], [], {}
     for k, idx in enumerate(batches):
@@ -748,10 +785,12 @@ def training_phase(dev):
     return launches
 
 
-def small_float64_training_check(dev):
+def small_float64_training_check(dev, order=1, gpr_ctor="SignatureRBF",
+                                 **gpr_kw):
     """Three float64 training steps of small models on the card against
-    the same steps on the CPU (plain path), rtol 1e-8: an SVGP
-    (natgrad + Adam) and a GPR (Adam)."""
+    the same steps on the CPU (plain path), rtol 1e-8: an SVGP at
+    ``order`` (natgrad + Adam) and a GPR (Adam) with ``gpr_ctor``'s
+    kernel."""
     import torch
 
     from gpsig_tpu_torch.training.loop import make_step_fn
@@ -759,10 +798,10 @@ def small_float64_training_check(dev):
     f64 = torch.float64
     rng = np.random.default_rng(SEED + 3)
     model, X, Y = build_svgp(torch, dev, f64, rng, M=20, nl=4, d=3, L=20,
-                             C=4, n_train=30)
+                             C=4, n_train=30, order=order)
     Xg, yg = regression_sequences(rng, N=24, L=20)
     Xg, yg = (torch.as_tensor(a, dtype=f64, device=dev) for a in (Xg, yg))
-    gpr = build_gpr(torch, dev, f64, Xg, nl=4)
+    gpr = build_gpr(torch, dev, f64, Xg, nl=4, ctor=gpr_ctor, **gpr_kw)
     setups = {
         "card": (model, gpr, X, Y, Xg, yg),
         "cpu": (copy.deepcopy(model).to("cpu"), copy.deepcopy(gpr).to("cpu"),
@@ -781,9 +820,9 @@ def small_float64_training_check(dev):
                                      *gpr.parameters())]
         runs[where] = [t.cpu() for t in out]
     err = max(scaled_err(g, w) for g, w in zip(runs["card"], runs["cpu"]))
-    print(f"small float64 training (3 SVGP + 3 GPR steps): card vs CPU "
-          f"scaled err {err:.3e} over every ELBO, lml and parameter, "
-          "tolerance 1e-8")
+    print(f"small float64 training (3 order-{order} SVGP + 3 {gpr_ctor} "
+          f"{gpr_kw} GPR steps): card vs CPU scaled err {err:.3e} over "
+          "every ELBO, lml and parameter, tolerance 1e-8")
     check(err <= 1e-8, f"small float64 training: {err}")
 
 
@@ -966,7 +1005,7 @@ def check_general_route(launches, need, label):
     print(f"{label} launches: {launches}")
     for key in need:
         check(launches[key] > 0, f"kernel {key} was not launched by {label}")
-    for key in ("gram", "diag", "tens_seq"):
+    for key in TUNED:
         check(launches[key] == 0, f"tuned kernel {key} ran in {label}")
 
 
@@ -1124,6 +1163,175 @@ def small_float64_gpr_check(dev):
     check(err <= 1e-8, f"small float64 GPR: {err}")
 
 
+def slice1_backward_kernel_phase(dev):
+    """(f) The four general backward kernels against their plain versions
+    at the training paths' shapes: the Gram backward at the order-2 GPR's
+    (N=150², L=50, d=2, nl=4, RBF, order 2) and the Poly GPR's (d=2 plus
+    the offset channel, order 1), the Kuf backward at the order-2 SVGP
+    step's (T=500 with increments, N=50, L=50, d=2, nl=5), the sig_gram
+    backwards on the self-increment matrices of the GPR's 150 sequences
+    (L'=49, nl=4) and the SVGP minibatch's 50 (nl=5)."""
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+    rng = np.random.default_rng(SEED + 13)
+    x150 = walks(rng, 150, 50, 2)
+    px, py = with_offset_channel(x150, x150, "poly2")
+    x50 = walks(rng, 50, 50, 2)
+    incs = np.diff(x50, axis=1).reshape(-1, 2)
+    z_inc = incs[rng.integers(0, len(incs), 500 * 15 * 2)].reshape(
+        500, 15, 2, 2)
+    g_gram = rng.standard_normal((5, 150, 150))
+    g_kuf = rng.standard_normal((6, 500, 50))
+    m150, m50 = self_increments(x150), self_increments(x50)
+    g150, g50 = rng.standard_normal((5, 150)), rng.standard_normal((6, 50))
+    # a backward counts 3 forwards (the forward recompute, the reverse
+    # sweep that rebuilds the states, the adjoint with the chain to the
+    # inputs); its bytes are the inputs and cotangent read and the
+    # gradients written once
+    gram_bytes = 4 * (2 * 2 * 150 * 50 * 2 + 5 * 150 * 150)
+    sg_bytes = 4 * (2 * 150 * 49 * 49 + 5 * 150)
+    works = {
+        "gram_ho_bwd": (3 * gram_work(150, 150, 50, 2, 4, p=2), gram_bytes),
+        "tsg_bwd": (3 * kuf_work(500, 30, 50, 50, 2, 5, p=2),
+                    4 * (2 * 500 * 30 * 2 + 2 * 50 * 50 * 2 + 6 * 500 * 50)),
+        "sig_gram_ho_bwd": (3 * 150 * dp_self_ops(49, 4, 2), sg_bytes),
+        "sig_gram_bwd": (3 * 150 * dp_self_ops(49, 4, 1), sg_bytes),
+    }
+    cases = [
+        ("gram_ho_bwd", "general Gram backward RBF order 2 N=150x150 L=50 "
+         "d=2 nl=4",
+         lambda a, g: fgho.fused_gram_ho_levels_bwd(a, a, g, 4, 2, "rbf"),
+         lambda a, g: fgho.fused_gram_ho_levels_bwd_ref(a, a, g, 4, 2,
+                                                        "rbf"),
+         (x150, g_gram)),
+        (None, "general Gram backward Poly order 1 N=150x150 L=50 d=2+1 "
+         "nl=4",
+         lambda a, b, g: fgho.fused_gram_ho_levels_bwd(a, b, g, 4, 1,
+                                                       "poly2"),
+         lambda a, b, g: fgho.fused_gram_ho_levels_bwd_ref(a, b, g, 4, 1,
+                                                           "poly2"),
+         (px, py, g_gram)),
+        ("tsg_bwd", "general Kuf backward RBF order 2 T=500 increments N=50 "
+         "L=50 d=2 nl=5",
+         lambda z, x, g: tsg.tens_seq_general_bwd(z, x, g, 5, 2, "rbf", True,
+                                                  True),
+         lambda z, x, g: tsg.tens_seq_general_bwd_ref(z, x, g, 5, 2, "rbf",
+                                                      True, True),
+         (z_inc, x50, g_kuf)),
+        ("sig_gram_ho_bwd", "sig_gram backward order 2 B=150 L'=49 nl=4",
+         lambda m, g: sg.sig_gram_levels_ho_bwd(m, g, 4, 2),
+         lambda m, g: sg.sig_gram_levels_ho_bwd_ref(m, g, 4, 2),
+         (m150, g150)),
+        (None, "sig_gram backward order 2 B=50 L'=49 nl=5",
+         lambda m, g: sg.sig_gram_levels_ho_bwd(m, g, 5, 2),
+         lambda m, g: sg.sig_gram_levels_ho_bwd_ref(m, g, 5, 2),
+         (m50, g50)),
+        ("sig_gram_bwd", "sig_gram backward order 1 B=150 L'=49 nl=4",
+         lambda m, g: sg.sig_gram_levels_bwd(m, g, 4),
+         lambda m, g: sg.sig_gram_levels_bwd_ref(m, g, 4), (m150, g150)),
+    ]
+    return run_cases(dev, cases, works, GEN_TOL)
+
+
+def slice1_training_phase(dev):
+    """(g) The three training paths of slice 1 at full width, float32, each
+    with its counters read just after it: natgrad + Adam steps of the
+    order-2 flagship SVGP (``job_flagship_o2``: M=500 with increments,
+    nl=5, order 2, d=2, L=50, C=10, B=50 of 500, Adam 1e-3, γ=0.05), and
+    Adam steps on the log marginal likelihood of the order-2 GPR and the
+    order-1 Poly GPR (offset 0.6, trained) at BASELINE config 1's width
+    (N=150 of 200, L=50, d=2, nl=4, Adam 5e-2). ELBO and lml finite at
+    every step; the general kernels and their backwards launch, the tuned
+    ones do not; the first step agrees with the plain route."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 14)
+    model, X, Y = build_svgp(torch, dev, f32, rng, M=500, nl=5, d=2, L=50,
+                             C=10, n_train=500, order=2)
+    batches = [torch.as_tensor(rng.choice(500, 50, replace=False),
+                               device=dev) for _ in range(6)]
+    Xg, yg = regression_sequences(np.random.default_rng(SEED))
+    Xg = torch.as_tensor(Xg[:150], dtype=f32, device=dev)
+    yg = torch.as_tensor(yg[:150], dtype=f32, device=dev)
+    gprs = {"order-2 GPR": build_gpr(torch, dev, f32, Xg, nl=4, order=2),
+            "Poly GPR": build_gpr(torch, dev, f32, Xg, nl=4,
+                                  ctor="SignaturePoly", offset=0.6)}
+    offset0 = gprs["Poly GPR"].kernel.base.offset.item()
+    plain = {"order-2 SVGP": copy.deepcopy(model),
+             **{k: copy.deepcopy(v) for k, v in gprs.items()}}
+    svgp_step = make_step_fn(1e-3, num_data=500, gamma=0.05)
+    state = svgp_step.init(model)
+
+    launches, first, ms = {}, {}, {}
+    reset_counters()
+    elbos, ms["order-2 SVGP"] = [], []
+    for k, idx in enumerate(batches):
+        (state, elbo), t = timed(lambda: svgp_step(state, X[idx], Y[idx]))
+        elbos.append(elbo.item())
+        ms["order-2 SVGP"].append(t)
+        if k == 0:
+            first["order-2 SVGP"] = grads_and_params(model)
+    launches["order-2 SVGP"] = counters()
+    check_general_route(launches["order-2 SVGP"],
+                        ("tsg", "tsg_bwd", "sig_gram_ho", "sig_gram_ho_bwd"),
+                        "order-2 SVGP training")
+    print(f"train order-2 svgp elbo per step: {elbos}")
+    check(all(np.isfinite(elbos)), "order-2 svgp elbo not finite")
+    need = {"order-2 GPR": ("gram_ho", "gram_ho_bwd", "sig_gram_ho",
+                            "sig_gram_ho_bwd"),
+            "Poly GPR": ("gram_ho", "gram_ho_bwd", "sig_gram",
+                         "sig_gram_bwd")}
+    for name, gpr in gprs.items():
+        step = gpr_step_fn(torch, gpr, Xg, yg, 5e-2)
+        reset_counters()
+        lmls, ms[name] = [], []
+        for k in range(10):
+            lml, t = timed(step)
+            lmls.append(lml.item())
+            ms[name].append(t)
+            if k == 0:
+                first[name] = grads_and_params(gpr)
+        launches[name] = counters()
+        check_general_route(launches[name], need[name], f"{name} training")
+        print(f"train {name} lml per step: {lmls}")
+        check(all(np.isfinite(lmls)), f"{name} lml not finite")
+        profile_split(step, f"{name} Adam step, N=150")
+    offset = gprs["Poly GPR"].kernel.base.offset.item()
+    print(f"Poly GPR offset after training: {offset:.6g} (from {offset0:.6g})")
+    check(offset != offset0, "the Poly offset did not train")
+    for m in (model, *gprs.values()):
+        for p in m.parameters():
+            check(bool(torch.isfinite(p).all()),
+                  "trained parameter not finite")
+
+    # the first step again, through the plain functions on the card
+    with plain_route():
+        pstep = make_step_fn(1e-3, num_data=500, gamma=0.05)
+        pstep(pstep.init(plain["order-2 SVGP"]), X[batches[0]],
+              Y[batches[0]])
+        for name in gprs:
+            gpr_step_fn(torch, plain[name], Xg, yg, 5e-2)()
+    torch.cuda.synchronize()
+    for name, lr in (("order-2 SVGP", 1e-3), ("order-2 GPR", 5e-2),
+                     ("Poly GPR", 5e-2)):
+        compare_first_step(name, first[name], grads_and_params(plain[name]),
+                           lr)
+    for name, times in ms.items():
+        print(f"time {name} step: {statistics.median(times[1:]):.3f} ms "
+              f"(median of {len(times) - 1}; all "
+              f"{[round(t, 3) for t in times]})")
+    profile_split(lambda: svgp_step(state, X[batches[1]], Y[batches[1]]),
+                  "order-2 SVGP natgrad+Adam step, B=50")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    return launches
+
+
 def main():
     import torch
 
@@ -1170,15 +1378,26 @@ def main():
     gpr_launches = slice1_gpr_phase(dev)
     small_float64_check(dev, order=2)
     small_float64_gpr_check(dev)
+    timings.update(slice1_backward_kernel_phase(dev))
+    train1 = slice1_training_phase(dev)
+    small_float64_training_check(dev, order=2, gpr_ctor="SignaturePoly",
+                                 offset=0.6)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the
     # backward kernels from its training run, Kuf and the order-2 diagonal
     # from the order-2 SVGP serving run, the general Gram and the order-1
-    # sig_gram from the GPR run
+    # sig_gram from the GPR run; slice 1's backwards from its training
+    # paths (Kuf's and the order-2 diagonal's from the order-2 SVGP steps,
+    # the general Gram's from the order-2 GPR's, the order-1 diagonal's
+    # from the Poly GPR's)
     source_of = dict(gram_bwd=train_launches, tens_seq_bwd=train_launches,
                      tsg=svgp2_launches, sig_gram_ho=svgp2_launches,
-                     gram_ho=gpr_launches, sig_gram=gpr_launches)
+                     gram_ho=gpr_launches, sig_gram=gpr_launches,
+                     tsg_bwd=train1["order-2 SVGP"],
+                     sig_gram_ho_bwd=train1["order-2 SVGP"],
+                     gram_ho_bwd=train1["order-2 GPR"],
+                     sig_gram_bwd=train1["Poly GPR"])
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         n = source_of.get(key, launches)[key]

@@ -13,6 +13,8 @@ __device__ __forceinline__ float tcos(float v) { return cosf(v); }
 __device__ __forceinline__ double tcos(double v) { return cos(v); }
 __device__ __forceinline__ float tsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double tsqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float tsin(float v) { return sinf(v); }
+__device__ __forceinline__ double tsin(double v) { return sin(v); }
 
 // Base-kernel kinds of the general engines (fused_gram_ho.cu,
 // tens_seq_general.cu), passed at run time: every thread of a launch takes
@@ -42,6 +44,56 @@ __device__ __forceinline__ T activate(T acc, int kind, int degree) {
       return out;
     }
     default: return acc;
+  }
+}
+
+// d activate / d acc, as autodiff of the plain versions gives it: the
+// cosine's clamp passes the gradient where -2 acc >= 0, i.e. acc <= 0.
+template <typename T>
+__device__ __forceinline__ T activate_grad(T acc, int kind, int degree) {
+  switch (kind) {
+    case kRbf: return texp(acc);
+    case kCosine: {
+      if (acc > T(0)) return T(0);
+      const T t = tsqrt(T(-2) * acc + T(1e-36));
+      return tsin(t) / t;
+    }
+    case kPoly: {
+      T out = T(degree);
+      for (int k = 1; k < degree; ++k) out *= acc;
+      return out;
+    }
+    default: return T(1);
+  }
+}
+
+// activate and activate_grad of one accumulator, in one call that is not
+// inlined: the Gram backward evaluates them at 2R + 3 unrolled sites per
+// column, and inlined there the four activations (the cosine's range
+// reduction above all) multiplied its compile time.
+template <typename T>
+struct KindValue {
+  T k, dk;
+};
+
+template <typename T>
+__device__ __noinline__ KindValue<T> kind_value(T acc, int kind, int degree) {
+  switch (kind) {
+    case kRbf: {
+      const T e = texp(acc);
+      return {e, e};
+    }
+    case kCosine: {
+      const T s = T(-2) * acc;
+      const T t = tsqrt((s > T(0) ? s : T(0)) + T(1e-36));
+      return {tcos(t), acc > T(0) ? T(0) : tsin(t) / t};
+    }
+    case kPoly: {
+      T pw = T(1);  // acc^(degree - 1)
+      for (int k = 1; k < degree; ++k) pw *= acc;
+      return {pw * acc, T(degree) * pw};
+    }
+    default: return {acc, T(1)};
   }
 }
 
@@ -261,11 +313,14 @@ __device__ __forceinline__ void rl_level(RunLengthState<T, R, P>& st,
 // Per-level kernels of one pair, computed by the calling (full) warp over
 // `ncols` columns; col(j, mcol) fills the lane's R rows of column j (zero
 // for rows past the matrix). Lane 0 writes level m to out[m * stride].
+// The forward sweep over `ncols` columns from zero carries; col(j, mcol)
+// fills the lane's R rows of column j (zero for rows past the matrix).
+// Afterwards st.tsum[m - 1] holds T_m and st.ra[m - 1][q] RA_m[q] over all
+// columns (m < nl), and st.tsum[nl - 1] the lane's share of k_nl.
 template <typename T, int R, int P, typename Col>
-__device__ void run_length_levels(Col& col, int ncols, int nl, T* out,
-                                  long long stride) {
-  const int lane = threadIdx.x & 31;
-  RunLengthState<T, R, P> st;
+__device__ __forceinline__ void rl_forward(RunLengthState<T, R, P>& st,
+                                           Col& col, int ncols, int nl,
+                                           int lane) {
 #pragma unroll
   for (int a = 0; a < P; ++a)
 #pragma unroll
@@ -288,6 +343,14 @@ __device__ void run_length_levels(Col& col, int ncols, int nl, T* out,
     col(j, mcol);
     rl_level<T, R, P, 1>(st, mcol, nl, lane);
   }
+}
+
+template <typename T, int R, int P, typename Col>
+__device__ void run_length_levels(Col& col, int ncols, int nl, T* out,
+                                  long long stride) {
+  const int lane = threadIdx.x & 31;
+  RunLengthState<T, R, P> st;
+  rl_forward<T, R, P>(st, col, ncols, nl, lane);
 
   if (lane == 0) out[0] = T(1);
 #pragma unroll
@@ -301,6 +364,262 @@ __device__ void run_length_levels(Col& col, int ncols, int nl, T* out,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Reverse of the run-length column DP: M̄ column by column, for the
+// backward kernels of fused_gram_ho_bwd.cu and sig_gram_bwd.cu (the
+// adjoint derived in gpsig_tpu/ops/pallas/fused_gram_ho_bwd.py). With
+// w_m the cotangent of k_m and Ā_m[r][s] that of state (r, s) of level m:
+//   Ā_m[r][s] = w_m + Rtot_m + Rrow_m[r] + inj_m[r][s]      (m < nl)
+//   Rtot_m  = exclusive row suffix, summed over later columns, of
+//             M ⊙ Ā_{m+1}[0][0]                (from the ecumsum2 carry)
+//   Rrow_m[q] = sum over later columns of M/(q+2) ⊙ Ā_{m+1}[q+1][0]
+//   inj_m[s][r-1] += row suffix of M/(r+1) ⊙ Ā_{m+1}[0][r]   (same column)
+//   inj_m[r-1][s-1] += M/((r+1)(s+1)) ⊙ Ā_{m+1}[r][s]         (same column)
+//   M̄ = Ā_1 + sum_{m>=2} [Ā_m[0][0] E_m + sum_r Ā_m[r][0]/(r+1) RA_{m-1}[r-1]
+//        + sum_r Ā_m[0][r]/(r+1) CP_m[r-1]
+//        + sum_{r,s} Ā_m[r][s]/((r+1)(s+1)) D_{m-1}[r-1][s-1]],
+// with E_m, CP_m the row prefixes the forward took at level m and RA the
+// row-cumsum carry before the column. The forward sweep runs first, to the
+// end carries; the reverse sweep rebuilds each column's states from them by
+// subtraction, ascending levels (level 1 is M itself, and level m's carries
+// lose column j's level m-1 totals before level m reads them), then walks
+// the levels down computing Ā. Rtot_m and Rrow_m are read by level m before
+// level m+1's pieces of the same column are added to them. Every state,
+// carry and adjoint stays in registers; nothing of size O(columns) is kept.
+// ---------------------------------------------------------------------------
+
+template <typename T, int R, int P>
+struct RunLengthBwd {
+  static constexpr int Q = P > 1 ? P - 1 : 1;
+  T st[kRlLevels - 1][P][P][R];  // D_m of this column at [m - 1], m < nl
+  T pre[kRlLevels - 1][R];       // E_m at [m - 2]
+  T colpre[kRlLevels - 1][Q][R];  // CP_m[q] at [m - 2]
+  T rtot[kRlLevels - 1][R];      // Rtot_m at [m - 1]
+  T rrow[kRlLevels - 1][Q][R];   // Rrow_m[q] at [m - 1]
+  T inj[P][P][R];                // same-column injection of the level below
+  T ptot[R];                     // M ⊙ Ā_{m+1}[0][0], not yet in Rtot_m
+  T prow[Q][R];                  // M/(q+2) ⊙ Ā_{m+1}[q+1][0], not in Rrow_m
+};
+
+// Rebuild level M's states of the current column (reverse sweep): take
+// column j's level M-1 totals off the carries, then the forward's formulas.
+template <typename T, int R, int P, int M>
+__device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P>& fw,
+                                           RunLengthBwd<T, R, P>& bw,
+                                           const T (&mcol)[R], int nl,
+                                           int lane) {
+  if constexpr (M <= kRlLevels) {
+    if (M > nl) return;
+    constexpr int Rm = P < M ? P : M;
+    constexpr int Rp = P < M - 1 ? P : M - 1;
+    constexpr int NQ = Rm > 1 ? Rm - 1 : 1;
+    T cs[NQ][R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      T tot = T(0);
+#pragma unroll
+      for (int a = 0; a < Rp; ++a)
+#pragma unroll
+        for (int b = 0; b < Rp; ++b) tot += bw.st[M - 2][a][b][r];
+      fw.tsum[M - 2][r] -= tot;
+    }
+#pragma unroll
+    for (int q = 0; q + 1 < Rm; ++q) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        T row = T(0);
+        cs[q][r] = T(0);
+#pragma unroll
+        for (int a = 0; a < Rp; ++a) {
+          cs[q][r] += bw.st[M - 2][a][q][r];
+          row += bw.st[M - 2][q][a][r];
+        }
+        fw.ra[M - 2][q][r] -= row;
+      }
+      warp_excl_prefix<T, R>(cs[q], bw.colpre[M - 2][q], lane);
+    }
+    warp_excl_prefix<T, R>(fw.tsum[M - 2], bw.pre[M - 2], lane);
+    if constexpr (M < kRlLevels) {
+      if (M < nl) {  // level nl's own states are never read
+#pragma unroll
+        for (int a = 1; a < Rm; ++a)
+#pragma unroll
+          for (int b = 1; b < Rm; ++b) {
+            const T c = T(1) / T((a + 1) * (b + 1));
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              bw.st[M - 1][a][b][r] =
+                  mcol[r] * c * bw.st[M - 2][a - 1][b - 1][r];
+          }
+#pragma unroll
+        for (int a = 1; a < Rm; ++a) {
+          const T c = T(1) / T(a + 1);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            bw.st[M - 1][a][0][r] = mcol[r] * c * fw.ra[M - 2][a - 1][r];
+            bw.st[M - 1][0][a][r] = mcol[r] * c * bw.colpre[M - 2][a - 1][r];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          bw.st[M - 1][0][0][r] = mcol[r] * bw.pre[M - 2][r];
+      }
+    }
+    rl_rebuild<T, R, P, M + 1>(fw, bw, mcol, nl, lane);
+  }
+}
+
+// Level M's adjoint of the current column, then the levels below (M from
+// kRlLevels down to 1; levels above nl are skipped). Adds into mbar.
+template <typename T, int R, int P, int M>
+__device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
+                                           RunLengthBwd<T, R, P>& bw,
+                                           const T (&mcol)[R],
+                                           const T (&w)[kRlLevels], int nl,
+                                           int lane, T (&mbar)[R]) {
+  if constexpr (M >= 1) {
+    if (M <= nl) {
+      constexpr int Rm = P < M ? P : M;
+      T A[Rm][Rm][R];
+#pragma unroll
+      for (int a = 0; a < Rm; ++a)
+#pragma unroll
+        for (int b = 0; b < Rm; ++b)
+#pragma unroll
+          for (int r = 0; r < R; ++r) A[a][b][r] = w[M - 1];
+      if constexpr (M < kRlLevels) {
+        if (M < nl) {
+          constexpr int Rn = P < M + 1 ? P : M + 1;  // extent at level M+1
+#pragma unroll
+          for (int a = 0; a < Rm; ++a)
+#pragma unroll
+            for (int b = 0; b < Rm; ++b)
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                T v = bw.rtot[M - 1][r] + bw.inj[a][b][r];
+                if (a + 1 < Rn) v += bw.rrow[M - 1][a][r];
+                A[a][b][r] += v;
+              }
+          // level M+1's pieces of this column join the carries only now
+          T sfx[R];
+          warp_excl_suffix<T, R>(bw.ptot, sfx, lane);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            bw.rtot[M - 1][r] += sfx[r];
+#pragma unroll
+            for (int q = 0; q + 1 < Rn; ++q)
+              bw.rrow[M - 1][q][r] += bw.prow[q][r];
+          }
+        }
+      }
+      if constexpr (M >= 2) {
+        constexpr int Rp = P < M - 1 ? P : M - 1;
+#pragma unroll
+        for (int a = 0; a < Rp; ++a)
+#pragma unroll
+          for (int b = 0; b < Rp; ++b)
+#pragma unroll
+            for (int r = 0; r < R; ++r) bw.inj[a][b][r] = T(0);
+#pragma unroll
+        for (int r = 0; r < R; ++r) mbar[r] += A[0][0][r] * bw.pre[M - 2][r];
+#pragma unroll
+        for (int q = 1; q < Rm; ++q) {
+          const T c = T(1) / T(q + 1);
+          T v[R], sfx[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            mbar[r] += c * (A[q][0][r] * fw.ra[M - 2][q - 1][r] +
+                            A[0][q][r] * bw.colpre[M - 2][q - 1][r]);
+            v[r] = mcol[r] * c * A[0][q][r];
+          }
+          warp_excl_suffix<T, R>(v, sfx, lane);
+#pragma unroll
+          for (int a = 0; a < Rp; ++a)
+#pragma unroll
+            for (int r = 0; r < R; ++r) bw.inj[a][q - 1][r] += sfx[r];
+        }
+#pragma unroll
+        for (int a = 1; a < Rm; ++a)
+#pragma unroll
+          for (int b = 1; b < Rm; ++b) {
+            const T c = T(1) / T((a + 1) * (b + 1));
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              mbar[r] += c * A[a][b][r] * bw.st[M - 2][a - 1][b - 1][r];
+              bw.inj[a - 1][b - 1][r] += mcol[r] * c * A[a][b][r];
+            }
+          }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          bw.ptot[r] = mcol[r] * A[0][0][r];
+#pragma unroll
+          for (int q = 0; q + 1 < Rm; ++q)
+            bw.prow[q][r] = mcol[r] * (T(1) / T(q + 2)) * A[q + 1][0][r];
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) mbar[r] += A[0][0][r];
+      }
+    }
+    rl_adjoint<T, R, P, M - 1>(fw, bw, mcol, w, nl, lane, mbar);
+  }
+}
+
+// Adjoint of run_length_levels for one pair, by the calling (full) warp:
+// w[m] is the cotangent of level m + 1. fwd(j, mcol) gives the columns in
+// ascending order, then rev(j, mcol) in descending order (each as col in
+// run_length_levels); sink(j, mbar) receives M̄ of column j, in descending
+// j, with the lane's R rows (rows past the matrix carry values the caller
+// drops).
+template <typename T, int R, int P, typename Fwd, typename Rev,
+          typename Sink>
+__device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
+                                      int ncols, int nl,
+                                      const T (&w)[kRlLevels]) {
+  const int lane = threadIdx.x & 31;
+  RunLengthState<T, R, P> fw;
+  rl_forward<T, R, P>(fw, fwd, ncols, nl, lane);
+  RunLengthBwd<T, R, P> bw;
+#pragma unroll
+  for (int m = 0; m + 1 < kRlLevels; ++m)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      bw.rtot[m][r] = T(0);
+#pragma unroll
+      for (int q = 0; q < RunLengthBwd<T, R, P>::Q; ++q)
+        bw.rrow[m][q][r] = T(0);
+    }
+  for (int j = ncols - 1; j >= 0; --j) {
+    T mcol[R], mbar[R];
+    rev(j, mcol);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      bw.st[0][0][0][r] = mcol[r];
+      mbar[r] = T(0);
+    }
+    rl_rebuild<T, R, P, 2>(fw, bw, mcol, nl, lane);
+    rl_adjoint<T, R, P, kRlLevels>(fw, bw, mcol, w, nl, lane, mbar);
+    sink(j, mbar);
+  }
+}
+
+// Rows of one increment matrix M_b [L1, L2] read as the DP's columns, lane
+// l holding entries l*R .. l*R+R-1 (sig_gram.cu, sig_gram_bwd.cu).
+template <typename T, int R>
+struct MatrixRows {
+  const T* Mb;
+  int L2, lane;
+
+  __device__ void operator()(int i, T (&mcol)[R]) const {
+    const T* row = Mb + static_cast<long long>(i) * L2;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int jj = lane * R + r;
+      mcol[r] = jj < L2 ? row[jj] : T(0);
+    }
+  }
+};
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 template <typename K>

@@ -36,22 +36,6 @@ using namespace gpsig;
 
 constexpr int kWarpsPerBlock = 4;
 
-// Rows of one matrix, lane l holding entries l*R .. l*R+R-1.
-template <typename T, int R>
-struct MatrixRows {
-  const T* Mb;
-  int L2, lane;
-
-  __device__ void operator()(int i, T (&mcol)[R]) const {
-    const T* row = Mb + static_cast<long long>(i) * L2;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int jj = lane * R + r;
-      mcol[r] = jj < L2 ? row[jj] : T(0);
-    }
-  }
-};
-
 // Warp w of block b handles matrix b * 4 + w. out: [nl + 1, B].
 template <typename T, int R, int P>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)

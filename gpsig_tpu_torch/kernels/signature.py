@@ -18,10 +18,12 @@ thresholds, for ``num_levels <= 7``:
   built in PyTorch and reduced by ``sig_gram.py``.
 
 A CPU tensor runs those entry points' plain versions through the same
-wrappers; a CUDA tensor launches the kernels. ``num_levels > 7`` runs
-plain PyTorch on the CPU and raises ``NotImplementedError`` on CUDA, as
-does a backward through a general kernel on CUDA; each names the ROADMAP
-item that ports it.
+wrappers; a CUDA tensor launches the kernels, forward and backward (every
+entry point's ``torch.autograd.Function`` has a backward kernel; the
+tuned diagonal's backward is autograd through its plain version, as in
+the JAX package). ``num_levels > 7`` runs plain PyTorch on the CPU and
+raises ``NotImplementedError`` on CUDA, naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -114,9 +116,8 @@ class SignatureKernel(nn.Module):
         raise TypeError(f"unknown base kernel {type(self.base).__name__}")
 
     def _cuda_gap(self):
-        """Why the CUDA kernels do not cover this configuration's forward,
-        or None. (Backwards through the general kernels raise in their
-        autograd Functions: ROADMAP Queue 2 items 7, 9 and 10.)"""
+        """Why the CUDA kernels do not cover this configuration, or
+        None."""
         if self.num_levels > fg.MAX_LEVELS:
             return _NL_GAP
         return None

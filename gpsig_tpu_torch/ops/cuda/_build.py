@@ -50,6 +50,9 @@ SIGNATURES = {
     "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 10, _P],
     "gpsig_sig_gram": [_P, _P, *[_I] * 6, _P],
     "gpsig_tens_seq_general": [_P, _P, _P, *[_I] * 11, _P],
+    "gpsig_fused_gram_ho_bwd": [*[_P] * 5, *[_I] * 10, _P],
+    "gpsig_sig_gram_bwd": [_P, _P, _P, *[_I] * 6, _P],
+    "gpsig_tens_seq_general_bwd": [*[_P] * 5, *[_I] * 11, _P],
 }
 
 _lib = None

@@ -2,19 +2,20 @@
 PyTorch version.
 
 Counterpart of ``gpsig_tpu/ops/pallas/fused_gram_ho.py``
-(``fused_gram_ho_levels``); the kernel is ``csrc/fused_gram_ho.cu``, whose
-opening note gives the design. Semantics: pre-scaled sequences, any
-``order``, ``difference`` True or False, base ``kind`` 'linear', 'rbf',
-'poly<K>' or 'cosine' (for 'poly<K>' the caller has appended the offset
-channel: x_extra = 1, y_extra = c), ``num_levels <= 7``, RBF exponent
+(``fused_gram_ho_levels``) and ``fused_gram_ho_bwd.py``
+(``fused_gram_ho_bwd_pallas``); the kernels are ``csrc/fused_gram_ho.cu``
+and ``csrc/fused_gram_ho_bwd.cu``, whose opening notes give the designs.
+Semantics: pre-scaled sequences, any ``order``, ``difference`` True or
+False, base ``kind`` 'linear', 'rbf', 'poly<K>' or 'cosine' (for
+'poly<K>' the caller has appended the offset channel: x_extra = 1,
+y_extra = c), ``num_levels <= 7``, RBF exponent
 unclamped. The tuned order-1 kernel (``fused_gram.py``) takes precedence
 where it applies; this one covers every other configuration.
 
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
 it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
-launches the kernel and whose backward raises ``NotImplementedError``
-(ROADMAP Queue 2 item 7, ``_ho_bwd_kernel``). ``launches`` counts the
-kernel's launches.
+launches the kernel and whose backward launches the backward kernel, or
+raises. ``launches`` and ``bwd_launches`` count the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -32,9 +33,7 @@ MAX_ROWS = 128
 _KIND_CODES = {"linear": 0, "rbf": 1, "cosine": 2, "poly": 3}
 
 launches = 0
-
-_BWD_GAP = ("gradients of the general Gram on CUDA: ROADMAP Queue 2 item 7 "
-            "(_ho_bwd_kernel), slice 1 training")
+bwd_launches = 0
 
 
 def kind_params(kind):
@@ -82,6 +81,18 @@ def fused_gram_ho_levels_ref(X, Y, num_levels, order, kind="rbf",
     return sigops.signature_kern(M, num_levels, order)
 
 
+def fused_gram_ho_levels_bwd_ref(X, Y, g, num_levels, order, kind="rbf",
+                                 difference=True):
+    """Plain version of :func:`fused_gram_ho_levels_bwd`: autograd through
+    :func:`fused_gram_ho_levels_ref`."""
+    with torch.enable_grad():
+        Xg = X.detach().requires_grad_()
+        Yg = Y.detach().requires_grad_()
+        out = fused_gram_ho_levels_ref(Xg, Yg, num_levels, order, kind,
+                                       difference)
+        return torch.autograd.grad(out, (Xg, Yg), g)
+
+
 def _check_shapes(name, num_levels, order, difference, X, Y):
     if X.ndim != 3 or Y.ndim != 3 or X.shape[1:] != Y.shape[1:]:
         raise ValueError(
@@ -117,15 +128,24 @@ def _launch(X, Y, num_levels, order, kind, difference):
 
 
 class _GramHoLevels(torch.autograd.Function):
-    """Forward: the kernel. Backward: not ported yet, raises."""
+    """Forward: the kernel. Backward: the backward kernel. X and Y may be
+    one tensor; both gradients are returned and autograd adds them."""
 
     @staticmethod
     def forward(ctx, X, Y, num_levels, order, kind, difference):
+        ctx.save_for_backward(X, Y)
+        ctx.args = (num_levels, order, kind, difference)
         return _launch(X, Y, num_levels, order, kind, difference)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(_BWD_GAP)
+        X, Y = ctx.saved_tensors
+        Xbar, Ybar = fused_gram_ho_levels_bwd(X, Y, g.contiguous(),
+                                              *ctx.args)
+        need_x, need_y = ctx.needs_input_grad[:2]
+        return (Xbar if need_x else None, Ybar if need_y else None, None,
+                None, None, None)
 
 
 def fused_gram_ho_levels(X, Y, num_levels, order, kind="rbf",
@@ -136,3 +156,30 @@ def fused_gram_ho_levels(X, Y, num_levels, order, kind="rbf",
         return fused_gram_ho_levels_ref(X, Y, num_levels, order, kind,
                                         difference)
     return _GramHoLevels.apply(X, Y, num_levels, order, kind, difference)
+
+
+def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
+                             difference=True):
+    """(X̄, Ȳ): the VJP of :func:`fused_gram_ho_levels` for the level
+    cotangents g [nl+1, N1, N2] (counterpart of
+    ``fused_gram_ho_bwd_pallas``)."""
+    global bwd_launches
+    if _on_cpu(X, Y, g):
+        return fused_gram_ho_levels_bwd_ref(X, Y, g, num_levels, order, kind,
+                                            difference)
+    name = "fused_gram_ho_levels_bwd"
+    _build.check_inputs(name, (X, Y, g))
+    _check_shapes(name, num_levels, order, difference, X, Y)
+    code, degree = _kind_code(kind)
+    (N1, L, d), N2 = X.shape, Y.shape[0]
+    if tuple(g.shape) != (num_levels + 1, N1, N2):
+        raise ValueError(f"{name}: g must be [{num_levels + 1}, {N1}, {N2}];"
+                         f" got {tuple(g.shape)}")
+    Xbar = torch.zeros_like(X)
+    Ybar = torch.zeros_like(Y)
+    if N1 and N2:
+        _build.launch("gpsig_fused_gram_ho_bwd", X.device, X, Y, g, Xbar,
+                      Ybar, N1, N2, L, d, num_levels, order, code, degree,
+                      difference, X.dtype == torch.float64)
+        bwd_launches += 1
+    return Xbar, Ybar

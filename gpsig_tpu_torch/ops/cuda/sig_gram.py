@@ -2,8 +2,9 @@
 its plain PyTorch version.
 
 Counterpart of ``gpsig_tpu/ops/pallas/sig_gram.py`` (``sig_gram_levels``,
-order 1, and ``sig_gram_levels_ho``, order >= 2); both are
-``csrc/sig_gram.cu``, whose opening note gives the design. M [B, L1, L2]
+order 1, and ``sig_gram_levels_ho``, order >= 2, with their custom VJPs);
+the forwards are ``csrc/sig_gram.cu``, the backwards
+``csrc/sig_gram_bwd.cu``, whose opening notes give the designs. M [B, L1, L2]
 → [nl+1, B], ``num_levels <= 7``, L2 <= 128 (L1 any). The kernel layer
 uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
@@ -13,10 +14,10 @@ the kernel reads M as it is.
 Dispatch: a CPU tensor runs the plain version (``signature_kern``,
 autograd differentiates it); a CUDA tensor goes through a
 ``torch.autograd.Function`` whose forward launches the kernel and whose
-backward raises ``NotImplementedError`` (ROADMAP Queue 2 item 10,
-``_bwd_kernel`` / ``_bwd_kernel_ho``). ``launches`` counts the order-1
-entry point's launches (the TPU's ``_fwd_kernel``), ``ho_launches`` the
-higher-order one's (``_fwd_kernel_ho``).
+backward launches the backward kernel, or raises. ``launches`` counts the
+order-1 forward's launches (the TPU's ``_fwd_kernel``), ``ho_launches`` the
+higher-order one's (``_fwd_kernel_ho``), ``bwd_launches`` and
+``ho_bwd_launches`` the backward's (``_bwd_kernel``, ``_bwd_kernel_ho``).
 """
 
 from __future__ import annotations
@@ -32,9 +33,8 @@ MAX_LANE_AXIS = 128
 
 launches = 0
 ho_launches = 0
-
-_BWD_GAP = ("gradients of the sig_gram DP on CUDA: ROADMAP Queue 2 item 10 "
-            "(_bwd_kernel, _bwd_kernel_ho), slice 1 training")
+bwd_launches = 0
+ho_bwd_launches = 0
 
 
 def sig_gram_levels_ref(M, num_levels):
@@ -47,10 +47,25 @@ def sig_gram_levels_ho_ref(M, num_levels, order):
     return sigops.signature_kern(M, num_levels, order)
 
 
-def _launch(M, num_levels, order):
-    global launches, ho_launches
-    name = "sig_gram_levels" if order == 1 else "sig_gram_levels_ho"
-    _build.check_inputs(name, (M,))
+def sig_gram_levels_bwd_ref(M, g, num_levels):
+    """Plain version of :func:`sig_gram_levels_bwd`: autograd through
+    :func:`sig_gram_levels_ref`."""
+    return sig_gram_levels_ho_bwd_ref(M, g, num_levels, 1)
+
+
+def sig_gram_levels_ho_bwd_ref(M, g, num_levels, order):
+    """Plain version of :func:`sig_gram_levels_ho_bwd`: autograd through
+    :func:`sig_gram_levels_ho_ref`."""
+    with torch.enable_grad():
+        Mg = M.detach().requires_grad_()
+        out = sigops.signature_kern(Mg, num_levels, order)
+        (Mbar,) = torch.autograd.grad(out, Mg, g)
+    return Mbar
+
+
+def _check(name, M, num_levels, order, *more):
+    """Validate M (and the other tensors ``more``); returns (B, L1, L2)."""
+    _build.check_inputs(name, (M, *more))
     if M.ndim != 3 or min(M.shape[1:]) < 1:
         raise ValueError(f"{name}: M must be [B, L1, L2]; got "
                          f"{tuple(M.shape)}")
@@ -62,6 +77,13 @@ def _launch(M, num_levels, order):
     if L2 > MAX_LANE_AXIS:
         raise ValueError(f"{name}: L2 must be <= {MAX_LANE_AXIS}; got "
                          f"{tuple(M.shape[1:])}")
+    return B, L1, L2
+
+
+def _launch(M, num_levels, order):
+    global launches, ho_launches
+    name = "sig_gram_levels" if order == 1 else "sig_gram_levels_ho"
+    B, L1, L2 = _check(name, M, num_levels, order)
     out = torch.empty((num_levels + 1, B), dtype=M.dtype, device=M.device)
     if B:
         _build.launch("gpsig_sig_gram", M.device, M, out, B, L1, L2,
@@ -74,15 +96,25 @@ def _launch(M, num_levels, order):
 
 
 class _SigGramLevels(torch.autograd.Function):
-    """Forward: the kernel. Backward: not ported yet, raises."""
+    """Forward: the kernel. Backward: the backward kernel."""
 
     @staticmethod
     def forward(ctx, M, num_levels, order):
+        ctx.save_for_backward(M)
+        ctx.args = (num_levels, order)
         return _launch(M, num_levels, order)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(_BWD_GAP)
+        (M,) = ctx.saved_tensors
+        num_levels, order = ctx.args
+        g = g.contiguous()
+        if order == 1:
+            Mbar = sig_gram_levels_bwd(M, g, num_levels)
+        else:
+            Mbar = sig_gram_levels_ho_bwd(M, g, num_levels, order)
+        return Mbar, None, None
 
 
 def sig_gram_levels(M, num_levels):
@@ -101,3 +133,36 @@ def sig_gram_levels_ho(M, num_levels, order):
     if _on_cpu(M):
         return sig_gram_levels_ho_ref(M, num_levels, order)
     return _SigGramLevels.apply(M, num_levels, order)
+
+
+def sig_gram_levels_bwd(M, g, num_levels):
+    """M̄: the VJP of :func:`sig_gram_levels` for the level cotangents
+    g [nl+1, B] (counterpart of the custom VJP's ``_bwd_kernel``)."""
+    if _on_cpu(M, g):
+        return sig_gram_levels_bwd_ref(M, g, num_levels)
+    return _launch_bwd(M, g, num_levels, 1)
+
+
+def sig_gram_levels_ho_bwd(M, g, num_levels, order):
+    """M̄: the VJP of :func:`sig_gram_levels_ho` (``_bwd_kernel_ho``)."""
+    if _on_cpu(M, g):
+        return sig_gram_levels_ho_bwd_ref(M, g, num_levels, order)
+    return _launch_bwd(M, g, num_levels, order)
+
+
+def _launch_bwd(M, g, num_levels, order):
+    global bwd_launches, ho_bwd_launches
+    name = "sig_gram_levels_bwd" if order == 1 else "sig_gram_levels_ho_bwd"
+    B, L1, L2 = _check(name, M, num_levels, order, g)
+    if tuple(g.shape) != (num_levels + 1, B):
+        raise ValueError(f"{name}: g must be [{num_levels + 1}, {B}]; got "
+                         f"{tuple(g.shape)}")
+    Mbar = torch.empty_like(M)
+    if B:
+        _build.launch("gpsig_sig_gram_bwd", M.device, M, g, Mbar, B, L1, L2,
+                      num_levels, order, M.dtype == torch.float64)
+        if order == 1:
+            bwd_launches += 1
+        else:
+            ho_bwd_launches += 1
+    return Mbar

@@ -2,8 +2,9 @@
 CUDA kernel and its plain PyTorch version.
 
 Counterpart of ``gpsig_tpu/ops/pallas/tens_seq_general.py``
-(``fused_tens_seq_general_levels``); the kernel is
-``csrc/tens_seq_general.cu``, whose opening note gives the design.
+(``fused_tens_seq_general_levels`` and ``tens_seq_general_bwd_pallas``);
+the kernels are ``csrc/tens_seq_general.cu`` and
+``csrc/tens_seq_general_bwd.cu``, whose opening notes give the designs.
 Semantics: pre-scaled inputs, any ``order``, ``difference`` and
 ``increments`` True or False, base ``kind`` as in ``fused_gram_ho.py``
 (for 'poly<K>' the caller has appended the offset channel: x_extra = 1,
@@ -12,9 +13,8 @@ order-1 kernel (``tens_seq.py``) takes precedence where it applies.
 
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
 it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
-launches the kernel and whose backward raises ``NotImplementedError``
-(ROADMAP Queue 2 item 9, ``_tsg_bwd_kernel``). ``launches`` counts the
-kernel's launches.
+launches the kernel and whose backward launches the backward kernel, or
+raises. ``launches`` and ``bwd_launches`` count the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -28,9 +28,7 @@ from gpsig_tpu_torch.ops.cuda.fused_gram_ho import _kind_code, base_gram
 from gpsig_tpu_torch.ops.cuda.tens_seq import _check
 
 launches = 0
-
-_BWD_GAP = ("gradients of the general Kuf on CUDA: ROADMAP Queue 2 item 9 "
-            "(_tsg_bwd_kernel), slice 1 training")
+bwd_launches = 0
 
 
 def fused_tens_seq_general_levels_ref(Z, X, num_levels, order, kind="rbf",
@@ -50,14 +48,34 @@ def fused_tens_seq_general_levels_ref(Z, X, num_levels, order, kind="rbf",
     return sigops.signature_kern_tens_vs_seq(U, num_levels, order)
 
 
-def _launch(Z, X, num_levels, order, kind, increments, difference):
-    global launches
-    name = "fused_tens_seq_general_levels"
-    T, N, L, d = _check(name, Z, X, num_levels, increments)
+def tens_seq_general_bwd_ref(Z, X, g, num_levels, order, kind="rbf",
+                             increments=False, difference=True):
+    """Plain version of :func:`tens_seq_general_bwd`: autograd through
+    :func:`fused_tens_seq_general_levels_ref`."""
+    with torch.enable_grad():
+        Zg = Z.detach().requires_grad_()
+        Xg = X.detach().requires_grad_()
+        out = fused_tens_seq_general_levels_ref(Zg, Xg, num_levels, order,
+                                                kind, increments, difference)
+        return torch.autograd.grad(out, (Zg, Xg), g)
+
+
+def _check_general(name, Z, X, num_levels, order, increments, difference,
+                   *more):
+    """_check plus the general kernels' own limits; returns (T, N, L, d)."""
+    T, N, L, d = _check(name, Z, X, num_levels, increments, *more)
     if order < 1:
         raise ValueError(f"{name}: order must be >= 1")
     if L < (2 if difference else 1):
         raise ValueError(f"{name}: sequence length {L} too short")
+    return T, N, L, d
+
+
+def _launch(Z, X, num_levels, order, kind, increments, difference):
+    global launches
+    name = "fused_tens_seq_general_levels"
+    T, N, L, d = _check_general(name, Z, X, num_levels, order, increments,
+                                difference)
     code, degree = _kind_code(kind)
     out = torch.empty((num_levels + 1, T, N), dtype=X.dtype, device=X.device)
     if T and N:
@@ -70,15 +88,22 @@ def _launch(Z, X, num_levels, order, kind, increments, difference):
 
 
 class _TensSeqGeneralLevels(torch.autograd.Function):
-    """Forward: the kernel. Backward: not ported yet, raises."""
+    """Forward: the kernel. Backward: the backward kernel."""
 
     @staticmethod
     def forward(ctx, Z, X, num_levels, order, kind, increments, difference):
+        ctx.save_for_backward(Z, X)
+        ctx.args = (num_levels, order, kind, increments, difference)
         return _launch(Z, X, num_levels, order, kind, increments, difference)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(_BWD_GAP)
+        Z, X = ctx.saved_tensors
+        Zbar, Xbar = tens_seq_general_bwd(Z, X, g.contiguous(), *ctx.args)
+        need_z, need_x = ctx.needs_input_grad[:2]
+        return (Zbar if need_z else None, Xbar if need_x else None, None,
+                None, None, None, None)
 
 
 def fused_tens_seq_general_levels(Z, X, num_levels, order, kind="rbf",
@@ -92,3 +117,30 @@ def fused_tens_seq_general_levels(Z, X, num_levels, order, kind="rbf",
                                                  difference)
     return _TensSeqGeneralLevels.apply(Z, X, num_levels, order, kind,
                                        increments, difference)
+
+
+def tens_seq_general_bwd(Z, X, g, num_levels, order, kind="rbf",
+                         increments=False, difference=True):
+    """(Z̄, X̄): the VJP of :func:`fused_tens_seq_general_levels` for the
+    level cotangents g [nl+1, T, N] (counterpart of
+    ``tens_seq_general_bwd_pallas``)."""
+    global bwd_launches
+    if _on_cpu(Z, X, g):
+        return tens_seq_general_bwd_ref(Z, X, g, num_levels, order, kind,
+                                        increments, difference)
+    name = "tens_seq_general_bwd"
+    T, N, L, d = _check_general(name, Z, X, num_levels, order, increments,
+                                difference, g)
+    if tuple(g.shape) != (num_levels + 1, T, N):
+        raise ValueError(f"{name}: g must be [{num_levels + 1}, {T}, {N}];"
+                         f" got {tuple(g.shape)}")
+    code, degree = _kind_code(kind)
+    Zbar = torch.zeros_like(Z)
+    XbarT = torch.zeros((L, d, N), dtype=X.dtype, device=X.device)
+    if T and N:
+        Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]
+        _build.launch("gpsig_tens_seq_general_bwd", X.device, Z, Xt, g, Zbar,
+                      XbarT, T, N, L, d, num_levels, order, code, degree,
+                      increments, difference, X.dtype == torch.float64)
+        bwd_launches += 1
+    return Zbar, XbarT.permute(2, 0, 1).contiguous()

@@ -55,6 +55,10 @@ def _scaled_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _scaled_errs(got, want):
+    return max(_scaled_err(a, b) for a, b in zip(got, want))
+
+
 def test_kernel_inputs_must_be_cuda_tensors():
     X = torch.zeros(2, 5, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -139,10 +143,6 @@ def test_signature_kernel_on_card_matches_cpu(cuda_device, ctor):
                                   increments=True))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-10, atol=1e-12)
-
-
-def _scaled_errs(got, want):
-    return max(_scaled_err(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -414,12 +414,123 @@ def test_general_signature_kernel_on_card_matches_cpu(cuda_device, ctor,
 
 
 @pytest.mark.cuda
-def test_general_backward_raises_on_card(cuda_device):
-    X = torch.as_tensor(_walks(np.random.default_rng(14), 4, 9, 2),
-                        device=cuda_device).requires_grad_()
-    kern = SignatureRBF(2, 3, order=2, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="Queue 2 item"):
-        kern.K(X).sum().backward()
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_gram_ho_backward_kernel_matches_plain(cuda_device, dtype, tol,
+                                                     kind):
+    rng = np.random.default_rng(15)
+    for L, nl, order, difference, Xn, Yn, scale in _gram_ho_inputs(kind):
+        X = torch.as_tensor(scale * Xn, dtype=dtype, device=cuda_device)
+        Y = torch.as_tensor(scale * Yn, dtype=dtype, device=cuda_device)
+        X, Y = _offset_channel(X, Y, kind)
+        g = torch.as_tensor(rng.standard_normal((nl + 1, 9, 6)), dtype=dtype,
+                            device=cuda_device)
+        args = (nl, order, kind, difference)
+        n0 = tfgho.bwd_launches
+        got = tfgho.fused_gram_ho_levels_bwd(X, Y, g, *args)
+        assert tfgho.bwd_launches == n0 + 1
+        want = tfgho.fused_gram_ho_levels_bwd_ref(X, Y, g, *args)
+        assert [t.shape for t in got] == [X.shape, Y.shape]
+        assert _scaled_errs(got, want) < tol, (L, nl, order, difference)
+        # X is Y: both gradients, from distinct buffers
+        xb, yb = tfgho.fused_gram_ho_levels_bwd(
+            X, X, g[:, :, :1].expand(nl + 1, 9, 9).contiguous(), *args)
+        assert xb.data_ptr() != yb.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_tens_seq_general_backward_kernel_matches_plain(cuda_device, dtype,
+                                                        tol, kind):
+    rng = np.random.default_rng(16)
+    for T, N, L, nl, order in [(3, 5, 7, 2, 2), (7, 130, 50, 5, 2),
+                               (4, 33, 20, 7, 3), (5, 20, 30, 4, 1),
+                               (2, 9, 12, 7, 7)]:
+        for increments in (False, True):
+            for difference in (True, False):
+                F = nl * (nl + 1) // 2
+                shape = (T, F, 2, 3) if increments else (T, F, 3)
+                Z = torch.as_tensor(0.4 * rng.standard_normal(shape),
+                                    dtype=dtype, device=cuda_device)
+                X = torch.as_tensor(_walks(rng, N, L, 3), dtype=dtype,
+                                    device=cuda_device)
+                X, Z = _offset_channel(X, Z, kind)
+                g = torch.as_tensor(rng.standard_normal((nl + 1, T, N)),
+                                    dtype=dtype, device=cuda_device)
+                args = (nl, order, kind, increments, difference)
+                n0 = ttsg.bwd_launches
+                got = ttsg.tens_seq_general_bwd(Z, X, g, *args)
+                assert ttsg.bwd_launches == n0 + 1
+                want = ttsg.tens_seq_general_bwd_ref(Z, X, g, *args)
+                assert [t.shape for t in got] == [Z.shape, X.shape]
+                assert _scaled_errs(got, want) < tol, (nl, order, increments,
+                                                       difference)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+def test_sig_gram_backward_kernels_match_plain(cuda_device, dtype, tol):
+    """Non-symmetric M with L1 != L2: M̄ must land on M's own entries."""
+    rng = np.random.default_rng(17)
+    for B, L1, L2, nl in [(5, 9, 12, 5), (9, 49, 49, 5), (3, 100, 70, 7),
+                          (4, 140, 30, 3), (2, 1, 1, 2)]:
+        M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2)),
+                            dtype=dtype, device=cuda_device)
+        g = torch.as_tensor(rng.standard_normal((nl + 1, B)), dtype=dtype,
+                            device=cuda_device)
+        n0 = (tsg_.bwd_launches, tsg_.ho_bwd_launches)
+        got = tsg_.sig_gram_levels_bwd(M, g, nl)
+        assert got.shape == M.shape
+        assert _scaled_err(got, tsg_.sig_gram_levels_bwd_ref(M, g, nl)) < tol
+        for order in (2, 3, nl):
+            got = tsg_.sig_gram_levels_ho_bwd(M, g, nl, max(order, 2))
+            want = tsg_.sig_gram_levels_ho_bwd_ref(M, g, nl, max(order, 2))
+            assert _scaled_err(got, want) < tol, (L1, L2, nl, order)
+        assert (tsg_.bwd_launches, tsg_.ho_bwd_launches) == (n0[0] + 1,
+                                                             n0[1] + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctor,kw", [
+    (SignatureRBF, dict(order=2)),
+    (SignatureRBF, dict(order=1, difference=False)),
+    (SignaturePoly, dict(order=1, offset=0.6)),
+    (SignatureCosine, dict(order=3, difference=False)),
+])
+def test_general_gradients_flow_through_the_backward_kernels(cuda_device,
+                                                             ctor, kw):
+    """K(X), K(X, X2) and Kuf through the general kernels on the card:
+    autograd reaches every input and parameter (a Poly base's offset too)
+    through the backward kernels, whose counters rise while the tuned
+    order-1 ones stay put, and matches the CPU, float64."""
+    rng = np.random.default_rng(14)
+    X = torch.tensor(_walks(rng, 6, 12, 2), requires_grad=True)
+    X2 = torch.tensor(_walks(rng, 4, 12, 2), requires_grad=True)
+    Z = torch.tensor(0.4 * rng.standard_normal((5, 10, 2, 2)),
+                     requires_grad=True)
+    kern = ctor(2, 4, lengthscales=[0.8, 1.3], device="cpu", **kw)
+
+    def grads(X, X2, Z):
+        loss = ((kern.K(X) ** 2).sum() + kern.K(X, X2).sum()
+                + (kern.K_tens_vs_seq(Z, X, increments=True) ** 2).sum())
+        return torch.autograd.grad(loss, [X, X2, Z, *kern.parameters()])
+
+    def counts():
+        return ((tfg.gram_bwd_launches, tts.bwd_launches),
+                (tfgho.bwd_launches, ttsg.bwd_launches,
+                 tsg_.bwd_launches + tsg_.ho_bwd_launches))
+
+    want = grads(X, X2, Z)
+    kern.to(cuda_device)
+    tuned0, general0 = counts()
+    got = grads(*(t.detach().to(cuda_device).requires_grad_()
+                  for t in (X, X2, Z)))
+    tuned1, general1 = counts()
+    assert tuned1 == tuned0
+    assert all(a > b for a, b in zip(general1, general0))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)
 
 
 @pytest.mark.cuda

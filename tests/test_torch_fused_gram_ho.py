@@ -13,6 +13,8 @@ The CUDA kernel itself is checked on the card by
 ``test_torch_cuda_kernels.py``.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,5 +110,17 @@ def test_kernel_shape_checks():
 
 
 def test_backward_on_card_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        tfgho._GramHoLevels.backward(None, torch.zeros(3))
+    """The backward is ported: ``_GramHoLevels.backward`` hands the saved
+    inputs and the cotangent to ``fused_gram_ho_levels_bwd`` (the kernel on
+    the card, the plain VJP for these CPU tensors) and returns a gradient
+    only for the inputs that need one."""
+    X, Y = map(torch.as_tensor, _inputs(np.random.default_rng(7), 3, 2, 6,
+                                        2, "cosine"))
+    g = torch.as_tensor(np.random.default_rng(8).standard_normal((4, 3, 2)))
+    args = (3, 2, "cosine", False)
+    ctx = SimpleNamespace(saved_tensors=(X, Y), args=args,
+                          needs_input_grad=(True, False) + (False,) * 4)
+    gx, gy, *rest = tfgho._GramHoLevels.backward(ctx, g)
+    want, _ = tfgho.fused_gram_ho_levels_bwd_ref(X, Y, g, *args)
+    torch.testing.assert_close(gx, want, rtol=1e-12, atol=0)
+    assert gy is None and rest == [None] * 4

@@ -14,6 +14,8 @@ The CUDA kernel itself is checked on the card by
 ``test_torch_cuda_kernels.py``.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,5 +83,17 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
 
 
 def test_backward_on_card_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
-        tsg._SigGramLevels.backward(None, torch.zeros(3))
+    """The backward is ported: ``_SigGramLevels.backward`` hands M and the
+    cotangent to ``sig_gram_levels_bwd`` (order 1) or
+    ``sig_gram_levels_ho_bwd`` (the kernels on the card, the plain VJP for
+    these CPU tensors)."""
+    rng = np.random.default_rng(9)
+    M = torch.as_tensor(0.4 * rng.standard_normal((2, 5, 4)))
+    g = torch.as_tensor(rng.standard_normal((4, 2)))
+    for order in (1, 2):
+        ctx = SimpleNamespace(saved_tensors=(M,), args=(3, order))
+        gm, *rest = tsg._SigGramLevels.backward(ctx, g)
+        torch.testing.assert_close(
+            gm, tsg.sig_gram_levels_ho_bwd_ref(M, g, 3, order), rtol=1e-12,
+            atol=0)
+        assert rest == [None, None]

@@ -12,6 +12,8 @@ The CUDA kernel itself is checked on the card by
 ``test_torch_cuda_kernels.py``.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,5 +91,17 @@ def test_wrapper_takes_plain_path_on_cpu_without_launching():
 
 
 def test_backward_on_card_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
-        ttsg._TensSeqGeneralLevels.backward(None, torch.zeros(3))
+    """The backward is ported: ``_TensSeqGeneralLevels.backward`` hands the
+    saved inputs and the cotangent to ``tens_seq_general_bwd`` (the kernel
+    on the card, the plain VJP for these CPU tensors) and returns a
+    gradient only for the inputs that need one."""
+    Z, X = map(torch.as_tensor,
+               _inputs(np.random.default_rng(7), 3, 2, 6, 2, 2, "rbf", True))
+    g = torch.as_tensor(np.random.default_rng(8).standard_normal((3, 3, 2)))
+    args = (2, 2, "rbf", True, True)
+    ctx = SimpleNamespace(saved_tensors=(Z, X), args=args,
+                          needs_input_grad=(False, True) + (False,) * 5)
+    gz, gx, *rest = ttsg._TensSeqGeneralLevels.backward(ctx, g)
+    _, want = ttsg.tens_seq_general_bwd_ref(Z, X, g, *args)
+    torch.testing.assert_close(gx, want, rtol=1e-12, atol=0)
+    assert gz is None and rest == [None] * 5

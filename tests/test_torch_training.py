@@ -222,13 +222,28 @@ def test_fit_early_stopping_returns_the_best_model():
 def test_gpr_adam_steps_match_jax():
     """Type-II ML as benchmarks/config1_gram_gpr.py writes it: Adam on
     −log_marginal_likelihood over every parameter, here 5 steps."""
+    _gpr_adam_parity("SignatureRBF", {})
+
+
+@pytest.mark.parametrize("ctor,kw", [
+    ("SignatureRBF", dict(order=2)),
+    ("SignaturePoly", dict(order=1, offset=0.6)),
+])
+def test_general_gpr_adam_steps_match_jax(ctor, kw):
+    """The same through the general Gram's and sig_gram's plain versions:
+    an order-2 RBF kernel, and a Poly base whose offset
+    (``base.raw_offset``) trains too."""
+    _gpr_adam_parity(ctor, kw)
+
+
+def _gpr_adam_parity(ctor, kw):
     rng = np.random.default_rng(9)
     X = walks(rng, 7)
     Y = np.sin(rng.standard_normal((7, 1)))
-    jg = jgpr.GPR.create(jsk.SignatureRBF(2, 3, lengthscales=[0.9, 1.1],
-                                          engine="xla"), noise_variance=0.3)
-    tg = tgpr.GPR.create(tsk.SignatureRBF(2, 3, lengthscales=[0.9, 1.1],
-                                          device="cpu"),
+    kw = dict(kw, lengthscales=[0.9, 1.1])
+    jg = jgpr.GPR.create(getattr(jsk, ctor)(2, 3, engine="xla", **kw),
+                         noise_variance=0.3)
+    tg = tgpr.GPR.create(getattr(tsk, ctor)(2, 3, device="cpu", **kw),
                          noise_variance=0.3, device="cpu")
     convert.load_jax_arrays(tg, leaves(jg))
     opt = optax.adam(5e-2)
@@ -251,5 +266,24 @@ def test_gpr_adam_steps_match_jax():
         topt.step()
         close(-loss, jlml)
     want = leaves(jg)
+    assert set(want) == {n for n, _ in tg.named_parameters()}
     for name, p in tg.named_parameters():
         close(p, want[name])
+
+
+def test_order2_step_fn_matches_jax():
+    """Natgrad + Adam steps of the order-2 SVGP (Kuf and the normalisation
+    diagonal through the general engines' plain versions), as
+    ``job_flagship_o2`` trains it."""
+    jm, tm, X, Y = svgp_pair(seed=4, order=2)
+    opt = optax.adam(1e-2)
+    jstep = jloop.make_step_fn(opt, num_data=40, gamma=0.05)
+    jstate = jloop.init_state(jm, opt)
+    tstep = tloop.make_step_fn(1e-2, num_data=40, gamma=0.05)
+    tstate = tstep.init(tm)
+    tX, tY = torch.as_tensor(X), torch.as_tensor(Y)
+    for _ in range(3):
+        jstate, jelbo = jstep(jstate, X, Y, KEY)
+        tstate, telbo = tstep(tstate, tX, tY)
+        close(telbo, jelbo)
+        close_models(tstate.model, jstate.model)
