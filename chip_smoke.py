@@ -56,7 +56,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the first step against the plain route, ms per step and a profiler
    split of the SVGP step; small order-2 float64 models' three steps
    against the CPU;
-7. report: one JSON line with every kernel's launches, error, times and
+7. PDE kernels: the three Goursat routes (the given-grid wavefront
+   ``_kernel``, ``_fused_kernel``'s forward with in-kernel refinement and
+   its adjoint gradient) against their plain versions in float32 and
+   float64 at (Su, Tu) in {(49, 49), (7, 49), (1, 1), (13, 5)} x dyadic
+   order 0-2 and (199, 199) at orders 2 and 3, timed, with Gcell/s
+   (refined cells per second) and bounds;
+8. PDE serving: the SigGPDE SVGP of ``job_pde_train``
+   (``scripts/validate_tpu.py``: untruncated Linear-base kernel,
+   lengthscale 1.5, normalised, dyadic order 1, M=32 inducing sequences of
+   length 8 with ``joint_psd``, MultiClass C=2, N=200 training sequences of
+   L=50, d=2, float32): the ELBO on 50 under both ``joint_psd`` settings,
+   ``posterior()`` + ``predict_y`` on 2048 test sequences, ``predict_y`` on
+   the cached posterior, and one ``engine="scan"`` Kuf held against
+   ``engine="auto"``; outputs finite, probabilities sum to 1, variances
+   >= 0, against the plain route; the Goursat counters rise, no truncated
+   kernel's does;
+9. PDE training: 6 natgrad + Adam steps of the same model (B=50, Adam
+   2e-3, γ=0.05), ELBO finite at every step, the adjoint counter rises, the
+   first step against the plain route, ms per step and a profiler split;
+   a small float64 SigGPDE model's three steps against the CPU;
+10. report: one JSON line with every kernel's launches, error, times and
    bound, then the device line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
@@ -112,7 +132,16 @@ KERNELS = {
     "sig_gram_ho_bwd": ("_bwd_kernel_ho",
                         "gpsig_tpu_torch/csrc/sig_gram_bwd.cu",
                         "gpsig_tpu/ops/pallas/sig_gram.py:229"),
+    "goursat": ("_kernel", "gpsig_tpu_torch/csrc/goursat.cu",
+                "gpsig_tpu/ops/pallas/goursat_pallas.py:42"),
+    "goursat_fused": ("_fused_kernel (forward)",
+                      "gpsig_tpu_torch/csrc/goursat.cu",
+                      "gpsig_tpu/ops/pallas/goursat_pallas.py:227"),
+    "goursat_grad": ("_fused_kernel (with_grad)",
+                     "gpsig_tpu_torch/csrc/goursat_bwd.cu",
+                     "gpsig_tpu/ops/pallas/goursat_pallas.py:227"),
 }
+GOURSAT = ("goursat", "goursat_fused", "goursat_grad")
 TUNED = ("gram", "diag", "tens_seq", "gram_bwd", "tens_seq_bwd")
 # scaled error max|kernel - plain| / max|plain| allowed, per dtype
 TOL = {
@@ -171,9 +200,10 @@ def abs_err(got, want):
 
 
 def counters():
-    """The launch counters of all thirteen kernels."""
+    """The launch counters of all sixteen kernels."""
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
     from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import goursat as gs
     from gpsig_tpu_torch.ops.cuda import sig_gram as sg
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
     from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
@@ -184,12 +214,15 @@ def counters():
                 tsg=tsg.launches, sig_gram=sg.launches,
                 sig_gram_ho=sg.ho_launches, gram_ho_bwd=fgho.bwd_launches,
                 tsg_bwd=tsg.bwd_launches, sig_gram_bwd=sg.bwd_launches,
-                sig_gram_ho_bwd=sg.ho_bwd_launches)
+                sig_gram_ho_bwd=sg.ho_bwd_launches, goursat=gs.launches,
+                goursat_fused=gs.fused_launches,
+                goursat_grad=gs.grad_launches)
 
 
 def reset_counters():
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
     from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import goursat as gs
     from gpsig_tpu_torch.ops.cuda import sig_gram as sg
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
     from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
@@ -199,6 +232,7 @@ def reset_counters():
     fgho.launches = tsg.launches = sg.launches = sg.ho_launches = 0
     fgho.bwd_launches = tsg.bwd_launches = 0
     sg.bwd_launches = sg.ho_bwd_launches = 0
+    gs.launches = gs.fused_launches = gs.grad_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +400,7 @@ def plain_route():
     (explicitly, for the reference run on the card)."""
     from gpsig_tpu_torch.ops.cuda import fused_gram as fg
     from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import goursat as gs
     from gpsig_tpu_torch.ops.cuda import sig_gram as sg
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
     from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
@@ -384,7 +419,10 @@ def plain_route():
                 fgho.fused_gram_ho_levels_bwd_ref),
                (tsg, "tens_seq_general_bwd", tsg.tens_seq_general_bwd_ref),
                (sg, "sig_gram_levels_bwd", sg.sig_gram_levels_bwd_ref),
-               (sg, "sig_gram_levels_ho_bwd", sg.sig_gram_levels_ho_bwd_ref)]
+               (sg, "sig_gram_levels_ho_bwd", sg.sig_gram_levels_ho_bwd_ref),
+               (gs, "goursat_corner_fast", gs.goursat_corner_ref),
+               (gs, "goursat_corner_refined", gs.goursat_corner_refined_ref),
+               (gs, "goursat_grad_refined", gs.goursat_grad_refined_ref)]
     with contextlib.ExitStack() as stack:
         for module, name, plain in patches:
             stack.enter_context(mock.patch.object(module, name, plain))
@@ -677,7 +715,10 @@ def grads_and_params(model):
             {n: p.detach().clone() for n, p in model.named_parameters()})
 
 
-def compare_first_step(label, got, want, lr):
+def compare_first_step(label, got, want, lr,
+                       why="float32 Kuf/Gram rounding carried through the "
+                       "M=500 / N=150 Cholesky, whose f32 jitter 1e-4 lets "
+                       "L⁻¹ grow to 100"):
     """The first step through the kernels against the same step through
     the plain functions on the card (float32), each parameter's gradient
     and new value."""
@@ -688,9 +729,7 @@ def compare_first_step(label, got, want, lr):
     for n in sorted(w_grad):
         err = scaled_err(g_grad[n], w_grad[n])
         print(f"train {label} step 1 grad {n}: kernel vs plain route scaled "
-              f"err {err:.3e}, tolerance {grad_tol:g} (float32 Kuf/Gram "
-              "rounding carried through the M=500 / N=150 Cholesky, whose "
-              "f32 jitter 1e-4 lets L⁻¹ grow to 100)")
+              f"err {err:.3e}, tolerance {grad_tol:g} ({why})")
         check(err <= grad_tol, f"{label} grad {n}: {err} > {grad_tol}")
     for n in sorted(w_par):
         if n in w_grad:
@@ -1331,6 +1370,358 @@ def slice1_training_phase(dev):
           " GiB")
     return launches
 
+# ---------------------------------------------------------------------------
+# The PDE slice: the SigGPDE SVGP (untruncated Goursat kernel, inducing
+# sequences)
+# ---------------------------------------------------------------------------
+
+# scaled error allowed for the Goursat routes, (forward, gradient)
+GOURSAT_TOL = {
+    "float32": ((1e-3, 3e-3), "float32 sweeps over up to 3,184 dependent "
+                "diagonals whose values cancel, with fused multiply-adds "
+                "where the plain version rounds each product (the plain "
+                "float32 sweep is itself 1.2e-4 from float64 at L=200, "
+                "o=2); the gradient adds its terms with atomics"),
+    "float64": ((1e-10, 1e-10), "the plain version's arithmetic per cell; "
+                "fused multiply-adds and the gradient's atomics round "
+                "otherwise"),
+}
+# per refined cell: the forward's 3 adds, 2 multiplies and the increment's
+# scale; the gradient's forward recompute, adjoint step (11) and emitted
+# term (5)
+GOURSAT_CELL_OPS = {"fwd": 6, "grad": 22}
+
+
+def pde_data(N=200, L=50, seed=0):
+    """``job_pde_train``'s data (``classification_sequences``, d=2, two
+    classes), float64 numpy."""
+    from gpsig_tpu_torch.data.synthetic import classification_sequences
+
+    return classification_sequences(seed=seed, N=N, L=L, d=2, num_classes=2)
+
+
+def pde_increments(X, Y):
+    """The PDE kernel's increment grids (Linear base, lengthscale 1.5) of
+    every pair of X [N1, L1, d] and Y [N2, L2, d]: [N1 N2, L1-1, L2-1]."""
+    dx, dy = np.diff(X / 1.5, axis=1), np.diff(Y / 1.5, axis=1)
+    return np.einsum("nid,mjd->nmij", dx, dy).reshape(
+        -1, dx.shape[1], dy.shape[1])
+
+
+def goursat_route(gs, goursat, route, inc, o, gbar):
+    """(kernel call, plain call) of one Goursat route on inc at dyadic
+    order o: the given-grid kernel on the grid refined in memory, the
+    in-kernel refinement forward, or the adjoint gradient seeded with
+    gbar."""
+    if route == "fast":
+        fine = goursat.refine_increments(inc, o)
+        return (lambda: gs.goursat_corner_fast(fine),
+                lambda: gs.goursat_corner_ref(fine))
+    if route == "fused":
+        return (lambda: gs.goursat_corner_refined(inc, o),
+                lambda: gs.goursat_corner_refined_ref(inc, o))
+    return (lambda: gs.goursat_grad_refined(inc, o, gbar),
+            lambda: gs.goursat_grad_refined_ref(inc, o, gbar))
+
+
+def goursat_kernel_phase(dev):
+    """(g) The three Goursat routes against their plain versions, float32
+    and float64, at the slice's grids: (49, 49) the training step's joint
+    Gram ([Z; X_batch], 82² pairs), (7, 49) Kuf at prediction (32 inducing
+    sequences of length 8 against 2048 test sequences), (1, 1) and (13, 5)
+    at 4096 pairs, each at dyadic order 0-2, and (199, 199) (L=200, 64
+    pairs) at orders 2 and 3. The given-grid route runs on the grid refined
+    in memory (the ``scan`` engine's input). Float32 timed: Gcell/s counts
+    refined cells; bounds as ``bound``."""
+    import torch
+
+    from gpsig_tpu_torch.inducing import make_inducing_sequences_from_data
+    from gpsig_tpu_torch.ops import goursat
+    from gpsig_tpu_torch.ops.cuda import goursat as gs
+
+    rng = np.random.default_rng(SEED + 20)
+    Xtr, _ = pde_data()
+    Xte, _ = pde_data(N=2048, seed=1)
+    # the serving path's inducing sequences (build_pde_svgp draws the same)
+    Z = make_inducing_sequences_from_data(
+        torch.Generator().manual_seed(SEED), torch.as_tensor(Xtr), 32, 8,
+        2).raw_Z.detach().numpy()
+    pad = np.repeat(Z[:, -1:], Xtr.shape[1] - Z.shape[1], 1)
+    J = np.concatenate([np.concatenate([Z, pad], 1), Xtr[:50]])
+    X200, _ = pde_data(N=16, L=200, seed=2)
+    grids = [("joint Gram", pde_increments(J, J), (0, 1, 2)),
+             ("Kuf", pde_increments(Z, Xte), (0, 1, 2)),
+             ("", pde_increments(Xte[:64, :2], Xte[64:128, :2]), (0, 1, 2)),
+             ("", pde_increments(Xte[:64, :14], Xte[64:128, :6]), (0, 1, 2)),
+             ("L=200", pde_increments(X200[:8], X200[8:]), (2, 3))]
+    # the reported cases: the main path's dyadic order 1 on its grids
+    report_at = {"goursat": ("Kuf", 1, "fast"),
+                 "goursat_fused": ("Kuf", 1, "fused"),
+                 "goursat_grad": ("joint Gram", 1, "grad")}
+    for name, ((ftol, gtol), why) in GOURSAT_TOL.items():
+        print(f"goursat tolerance {name}: scaled err <= {ftol:g} forward, "
+              f"{gtol:g} gradient: {why}")
+    report = {}
+    for role, inc_np, orders in grids:
+        B, Su, Tu = inc_np.shape
+        gbar_np = rng.standard_normal(B)
+        for o in orders:
+            cells = B * (Su << o) * (Tu << o)
+            for route in ("fast", "fused", "grad"):
+                errs, times = {}, {}
+                for dtype in (torch.float32, torch.float64):
+                    name = str(dtype).split(".")[1]
+                    inc = torch.as_tensor(inc_np, dtype=dtype, device=dev)
+                    gbar = torch.as_tensor(gbar_np, dtype=dtype, device=dev)
+                    kern, plain = goursat_route(gs, goursat, route, inc, o,
+                                                gbar)
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape
+                          and bool(torch.isfinite(got).all()),
+                          f"goursat {route} {(Su, Tu)} o={o} {name}: "
+                          f"{got.shape}, finite {torch.isfinite(got).all()}")
+                    errs[name] = (scaled_err(got, want), abs_err(got, want))
+                    if dtype == torch.float32:
+                        times["ms"] = cuda_ms(kern)
+                        big = cells > 1e9
+                        times["plain_ms"] = cuda_ms(plain, reps=1 if big
+                                                    else 3, warmup=1)
+                    del got, want, inc, gbar, kern, plain
+                    torch.cuda.empty_cache()
+                kind = "grad" if route == "grad" else "fwd"
+                read = B * (Su * Tu if route != "fast" else
+                            (Su << o) * (Tu << o))
+                nbytes = 4 * (read + B) if kind == "fwd" else \
+                    4 * (2 * read + B)
+                bd = bound(GOURSAT_CELL_OPS[kind] * cells, nbytes)
+                gcells = cells / times["ms"] / 1e6
+                label = f"goursat {route} ({Su}, {Tu}) o={o} B={B} {role}"
+                print(f"{label}: scaled err float32 "
+                      f"{errs['float32'][0]:.3e} (max abs "
+                      f"{errs['float32'][1]:.3e}), float64 "
+                      f"{errs['float64'][0]:.3e}; float32 kernel "
+                      f"{times['ms']:.4f} ms ({gcells:.2f} Gcell/s), plain "
+                      f"{times['plain_ms']:.4f} ms, bound {bd['bound_ms']:.4f}"
+                      f" ms ({bd['bound_by']})")
+                for name, (err, _) in errs.items():
+                    tol = GOURSAT_TOL[name][0][kind == "grad"]
+                    check(err <= tol, f"{label} {name}: {err} > {tol}")
+                for key, where in report_at.items():
+                    if where == (role, o, route):
+                        report[key] = dict(max_abs_err=errs["float32"][1],
+                                           ms=times["ms"],
+                                           plain_ms=times["plain_ms"], **bd,
+                                           library_ms=None)
+    return report
+
+
+def build_pde_svgp(torch, dev, dtype, rng, N=200, L=50, M=32, Lz=8,
+                   fresh=False):
+    """``job_pde_train``'s SigGPDE SVGP: the untruncated kernel (Linear
+    base, lengthscale 1.5, normalised, dyadic order 1), M inducing
+    sequences of length Lz drawn from the data with ``joint_psd`` (as the
+    reference's ``@pde`` accuracy window builds them), MultiClass C=2;
+    q(u) fresh (q_mu = 0, q_sqrt = I) or drawn from ``rng``."""
+    from gpsig_tpu_torch.inducing import (InducingSequences,
+                                          make_inducing_sequences_from_data)
+    from gpsig_tpu_torch.kernels.pde import UntruncatedSignatureKernel
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+
+    Xn, yn = pde_data(N=N, L=L)
+    X = torch.as_tensor(Xn, dtype=dtype, device=dev)
+    Y = torch.as_tensor(yn, dtype=torch.int64, device=dev)
+    kern = UntruncatedSignatureKernel.create(
+        2, lengthscales=1.5, normalization=True, dyadic_order=1, dtype=dtype,
+        device=dev)
+    Z = make_inducing_sequences_from_data(
+        torch.Generator().manual_seed(SEED), X, M, Lz, 2).raw_Z.detach()
+    feat = InducingSequences.create(Z, joint_psd=True)
+    model = SVGP.create(kern, MultiClass(2), feat, num_latent=2, dtype=dtype,
+                        device=dev)
+    if not fresh:
+        q_mu = 0.5 * rng.standard_normal((M, 2))
+        q_sqrt = (np.tril(0.02 * rng.standard_normal((2, M, M)))
+                  + 0.9 * np.eye(M))
+        with torch.no_grad():
+            model.q_mu.copy_(torch.as_tensor(q_mu))
+            model.q_sqrt.copy_(torch.as_tensor(q_sqrt))
+    return model, X, Y
+
+
+def check_pde_route(launches, need, label):
+    """The Goursat kernels in ``need`` ran; no truncated kernel did."""
+    print(f"{label} launches: {launches}")
+    for key in need:
+        check(launches[key] > 0, f"kernel {key} was not launched by {label}")
+    for key in KERNELS:
+        if key not in GOURSAT:
+            check(launches[key] == 0, f"truncated kernel {key} ran in {label}")
+
+
+def pde_serving_phase(dev):
+    """(h) The SigGPDE SVGP serving path at ``job_pde_train``'s width,
+    float32: ELBO on 50 of 200 under ``joint_psd`` on (one 82² joint solve
+    and an 82 x 82 eigh) and off (Kuu, Kuf and Kdiag), ``posterior()`` +
+    ``predict_y`` on N_test=2048 (Kuf: 65,536 pairs of 14 x 98 refined
+    cells; the test diagonal: 2048 of 98 x 98), and Kuf through
+    ``engine="scan"`` held against ``engine="auto"``."""
+    import torch
+
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 21)
+    model, X, Y = build_pde_svgp(torch, dev, f32, rng)
+    Xb, Yb = X[:50], Y[:50]
+    Xtest = torch.as_tensor(pde_data(N=2048, seed=1)[0], dtype=f32,
+                            device=dev)
+    scan_kern = copy.deepcopy(model.kernel)
+    scan_kern.engine = "scan"
+
+    def serve():
+        elbo = model.elbo(Xb, Yb, num_data=200)
+        model.inducing.joint_psd = False
+        try:
+            elbo_sep = model.elbo(Xb, Yb, num_data=200)
+        finally:
+            model.inducing.joint_psd = True
+        post = model.posterior()
+        probs, pvar = post.predict_y(Xtest)
+        fmean, fvar = post.predict_f(Xtest)
+        Kuf = model.inducing.Kuf(model.kernel, Xtest)
+        Kuf_scan = model.inducing.Kuf(scan_kern, Xtest)
+        torch.cuda.synchronize()
+        return dict(elbo=elbo, elbo_sep=elbo_sep, probs=probs, pvar=pvar,
+                    fmean=fmean, fvar=fvar, Kuf=Kuf, Kuf_scan=Kuf_scan)
+
+    with torch.no_grad():
+        reset_counters()
+        out = serve()
+        launches = counters()
+        check_pde_route(launches, ("goursat", "goursat_fused"),
+                        "SigGPDE serving")
+        for k, v in out.items():
+            check(bool(torch.isfinite(v).all()), f"SigGPDE {k} not finite")
+        check(out["probs"].shape == (Xtest.shape[0], 2),
+              "SigGPDE predict_y shape")
+        sums = out["probs"].sum(-1)
+        check(bool(torch.allclose(sums, torch.ones_like(sums), atol=1e-5)),
+              "SigGPDE class probabilities do not sum to 1")
+        for k in ("pvar", "fvar"):
+            check(bool((out[k] >= 0).all()), f"SigGPDE {k} has negatives")
+        err = scaled_err(out["Kuf_scan"], out["Kuf"])
+        print(f"SigGPDE Kuf engine='scan' vs 'auto': scaled err {err:.3e}, "
+              "tolerance 1e-6 (the same sweep: inc/4 refined in memory or "
+              "inc·(1/4) in the kernel, both exact)")
+        check(err <= 1e-6, f"SigGPDE scan vs auto Kuf: {err}")
+        print(f"SigGPDE elbo {out['elbo'].item():.6g} (joint_psd), "
+              f"{out['elbo_sep'].item():.6g} (separate), mean max prob "
+              f"{out['probs'].max(-1).values.mean().item():.4f}")
+        with plain_route():
+            ref = serve()
+        # Kuf: both routes' float32 sweeps from the same inputs; the rest
+        # carries Kuf's rounding through the M=32 Cholesky (f32 jitter
+        # 1e-4) and, in the ELBO, the eigh of the joint projection
+        compare_routes("SigGPDE", out, ref,
+                       dict(Kuf=1e-4, Kuf_scan=1e-4, fmean=1e-3, fvar=1e-3,
+                            probs=1e-3, pvar=1e-3, elbo=1e-3,
+                            elbo_sep=1e-3))
+        ms_predict = host_ms(lambda: model.posterior().predict_y(Xtest))
+        post = model.posterior()
+        ms_cached = host_ms(lambda: post.predict_y(Xtest))
+        ms_elbo = host_ms(lambda: model.elbo(Xb, Yb, num_data=200))
+        with plain_route():
+            ms_plain = host_ms(lambda: post.predict_y(Xtest), reps=3)
+        print(f"time SigGPDE posterior()+predict_y N_test=2048: "
+              f"{ms_predict:.3f} ms; predict_y on a cached posterior: "
+              f"{ms_cached:.3f} ms (plain route {ms_plain:.3f} ms); elbo "
+              f"B=50 (joint_psd): {ms_elbo:.3f} ms")
+        profile_split(lambda: post.predict_y(Xtest),
+                      "SigGPDE predict_y, cached posterior, N_test=2048")
+        profile_split(lambda: model.elbo(Xb, Yb, num_data=200),
+                      "SigGPDE ELBO (joint_psd), B=50")
+    return launches
+
+
+def pde_training_phase(dev):
+    """(i) ``job_pde_train``'s training loop at its width, float32: 6
+    natgrad + Adam steps (B=50 of 200, Adam 2e-3, γ=0.05, joint_psd) from a
+    fresh q(u); each step solves the 82² joint Gram twice forward (natgrad
+    ELBO, loss) and runs the adjoint once (the loss's backward)."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    rng = np.random.default_rng(SEED + 22)
+    model, X, Y = build_pde_svgp(torch, dev, torch.float32, rng, fresh=True)
+    plain_model = copy.deepcopy(model)
+    N = X.shape[0]
+    batches = [torch.as_tensor(rng.choice(N, 50, replace=False),
+                               device=dev) for _ in range(6)]
+    step = make_step_fn(2e-3, num_data=N, gamma=0.05)
+    state = step.init(model)
+    reset_counters()
+    elbos, ms, first = [], [], None
+    for k, idx in enumerate(batches):
+        (state, elbo), t = timed(lambda: step(state, X[idx], Y[idx]))
+        elbos.append(elbo.item())
+        ms.append(t)
+        if k == 0:
+            first = grads_and_params(model)
+    launches = counters()
+    check_pde_route(launches, ("goursat_fused", "goursat_grad"),
+                    "SigGPDE training")
+    print(f"train SigGPDE elbo per step: {elbos}")
+    check(all(np.isfinite(elbos)), "SigGPDE elbo not finite")
+    for p in model.parameters():
+        check(bool(torch.isfinite(p).all()), "trained parameter not finite")
+    with plain_route():
+        pstep = make_step_fn(2e-3, num_data=N, gamma=0.05)
+        pstep(pstep.init(plain_model), X[batches[0]], Y[batches[0]])
+    torch.cuda.synchronize()
+    compare_first_step("SigGPDE", first, grads_and_params(plain_model), 2e-3,
+                       why="float32 Goursat sweeps carried through the eigh "
+                       "of the 82 x 82 joint projection and the M=32 "
+                       "Cholesky")
+    print(f"time SigGPDE natgrad+Adam step (M=32, Lz=8, L=50, B=50, "
+          f"dyadic order 1): {statistics.median(ms[1:]):.3f} ms (median of "
+          f"{len(ms) - 1}; all {[round(t, 3) for t in ms]})")
+    profile_split(lambda: step(state, X[batches[1]], Y[batches[1]]),
+                  "SigGPDE natgrad+Adam step, B=50")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    return launches
+
+
+def small_float64_pde_check(dev):
+    """(j) A small float64 SigGPDE model (M=6 inducing sequences of length
+    4, N=12 sequences of L=10): three natgrad + Adam steps on the card
+    against the same steps on the CPU (plain path), rtol 1e-8."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    rng = np.random.default_rng(SEED + 23)
+    model, X, Y = build_pde_svgp(torch, dev, torch.float64, rng, N=12, L=10,
+                                 M=6, Lz=4)
+    runs = {}
+    for where, (m, Xw, Yw) in {
+            "card": (model, X, Y),
+            "cpu": (copy.deepcopy(model).to("cpu"), X.cpu(), Y.cpu())}.items():
+        step = make_step_fn(1e-2, num_data=12, gamma=0.05)
+        state = step.init(m)
+        out = []
+        for _ in range(3):
+            state, elbo = step(state, Xw, Yw)
+            out.append(elbo)
+        out += [p.detach() for p in m.parameters()]
+        runs[where] = [t.cpu() for t in out]
+    err = max(scaled_err(g, w) for g, w in zip(runs["card"], runs["cpu"]))
+    print(f"small float64 SigGPDE training (3 natgrad+Adam steps): card vs "
+          f"CPU scaled err {err:.3e} over every ELBO and parameter, "
+          "tolerance 1e-8")
+    check(err <= 1e-8, f"small float64 SigGPDE training: {err}")
+
 
 def main():
     import torch
@@ -1382,6 +1773,10 @@ def main():
     train1 = slice1_training_phase(dev)
     small_float64_training_check(dev, order=2, gpr_ctor="SignaturePoly",
                                  offset=0.6)
+    timings.update(goursat_kernel_phase(dev))
+    pde_launches = pde_serving_phase(dev)
+    pde_train = pde_training_phase(dev)
+    small_float64_pde_check(dev)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the
@@ -1390,14 +1785,18 @@ def main():
     # sig_gram from the GPR run; slice 1's backwards from its training
     # paths (Kuf's and the order-2 diagonal's from the order-2 SVGP steps,
     # the general Gram's from the order-2 GPR's, the order-1 diagonal's
-    # from the Poly GPR's)
+    # from the Poly GPR's); the Goursat forwards from the SigGPDE serving
+    # run (the given-grid kernel by its engine="scan" Kuf), the adjoint from
+    # its training steps
     source_of = dict(gram_bwd=train_launches, tens_seq_bwd=train_launches,
                      tsg=svgp2_launches, sig_gram_ho=svgp2_launches,
                      gram_ho=gpr_launches, sig_gram=gpr_launches,
                      tsg_bwd=train1["order-2 SVGP"],
                      sig_gram_ho_bwd=train1["order-2 SVGP"],
                      gram_ho_bwd=train1["order-2 GPR"],
-                     sig_gram_bwd=train1["Poly GPR"])
+                     sig_gram_bwd=train1["Poly GPR"],
+                     goursat=pde_launches, goursat_fused=pde_launches,
+                     goursat_grad=pde_train)
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         n = source_of.get(key, launches)[key]

@@ -15,7 +15,10 @@ thresholds, for ``num_levels <= 7``:
 - otherwise the general kernels: the Gram ``fused_gram_ho.py``, Kuf
   ``tens_seq_general.py`` (the Poly offset folded in as a constant
   channel), and for the normalisation diagonal the self-increment matrices
-  built in PyTorch and reduced by ``sig_gram.py``.
+  built in PyTorch and reduced by ``sig_gram.py``;
+- a Gram between sequences of two lengths (inducing sequences against
+  data) through increment matrices built in PyTorch and ``sig_gram.py``,
+  as the JAX package's XLA route: the fused Grams take one length.
 
 A CPU tensor runs those entry points' plain versions through the same
 wrappers; a CUDA tensor launches the kernels, forward and backward (every
@@ -189,6 +192,11 @@ class SignatureKernel(nn.Module):
 
     def _K_levels(self, X, Y):
         route = self._route(X.device)
+        if route is not None and X.shape[1] != Y.shape[1]:
+            # sequences of two lengths (inducing sequences against data):
+            # the fused Grams take one length, so the increment matrices
+            # are built in PyTorch and reduced by the per-pair DP
+            route = "pairs"
         if route == "tuned":
             return fg.fused_gram_levels(X, Y, self.num_levels, self._rbf())
         if route == "general":
@@ -196,23 +204,29 @@ class SignatureKernel(nn.Module):
             return fgho.fused_gram_ho_levels(Xq, Yq, self.num_levels,
                                              self.order, self._kind(),
                                              self.difference)
-        # num_levels > 7, CPU only
         N1, L1, d = X.shape
         N2, L2, _ = Y.shape
         G = self.base.gram(X.reshape(N1 * L1, d), Y.reshape(N2 * L2, d))
-        G = G.reshape(N1, L1, N2, L2).permute(0, 2, 1, 3)
-        return sigops.signature_kern(self._increments(G), self.num_levels,
-                                     self.order)
+        M = self._increments(G.reshape(N1, L1, N2, L2).permute(0, 2, 1, 3))
+        if route == "pairs":
+            levels = self._sig_gram(M.reshape((N1 * N2,) + M.shape[2:]))
+            return levels.reshape(-1, N1, N2)
+        # num_levels > 7, CPU only
+        return sigops.signature_kern(M, self.num_levels, self.order)
+
+    def _sig_gram(self, M):
+        """[nl+1, B] from increment matrices M [B, l1, l2] by the per-pair
+        DP."""
+        if self.order == 1:
+            return sg.sig_gram_levels(M, self.num_levels)
+        return sg.sig_gram_levels_ho(M, self.num_levels, self.order)
 
     def _K_levels_diag(self, X):
         if self._route(X.device) == "tuned":
             return fg.fused_diag_levels(X, self.num_levels, self._rbf())
         # the self-increment matrices [N, l, l] in PyTorch (as the JAX
         # package leaves them to XLA), then the per-pair DP
-        M = self._increments(self.base.gram(X, X))
-        if self.order == 1:
-            return sg.sig_gram_levels(M, self.num_levels)
-        return sg.sig_gram_levels_ho(M, self.num_levels, self.order)
+        return self._sig_gram(self._increments(self.base.gram(X, X)))
 
     def K(self, X, X2=None, return_levels=False):
         """Signature-kernel Gram matrix [N1, N2]."""

@@ -54,6 +54,8 @@ class SVGP(nn.Module):
 
     def _covariances(self, X):
         # jitter=None → the inducing object resolves a dtype-aware default
+        if hasattr(self.inducing, "covariances"):
+            return self.inducing.covariances(self.kernel, X, None)
         return self.inducing.Kuu(self.kernel, None), \
             self.inducing.Kuf(self.kernel, X)
 
@@ -69,8 +71,15 @@ class SVGP(nn.Module):
     def elbo(self, X, Y, num_data=None):
         """Evidence lower bound on a (mini)batch; ``num_data`` is the total
         dataset size for minibatch scaling (default: the batch size)."""
-        Knn = self.kernel.Kdiag(X)
-        Kuu, Kuf = self._covariances(X)
+        if hasattr(self.inducing, "covariances_full"):
+            # a joint (Kuu, Kuf, Knn) batch covariance: the joint-PSD
+            # guarantee for finite-difference kernels
+            # (InducingSequences.covariances_full)
+            Kuu, Kuf, Knn = self.inducing.covariances_full(self.kernel, X,
+                                                           None)
+        else:
+            Knn = self.kernel.Kdiag(X)
+            Kuu, Kuf = self._covariances(X)
         L = gauss.stable_cholesky(Kuu)
         q_sqrt = self._tril_q_sqrt()
         fmean, fvar = gauss.conditional(Kuf, Kuu, Knn, self.q_mu, q_sqrt,

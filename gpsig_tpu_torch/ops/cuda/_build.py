@@ -53,6 +53,9 @@ SIGNATURES = {
     "gpsig_fused_gram_ho_bwd": [*[_P] * 5, *[_I] * 10, _P],
     "gpsig_sig_gram_bwd": [_P, _P, _P, *[_I] * 6, _P],
     "gpsig_tens_seq_general_bwd": [*[_P] * 5, *[_I] * 11, _P],
+    "gpsig_goursat": [_P, _P, *[_I] * 4, _P],
+    "gpsig_goursat_refined": [_P, _P, *[_I] * 5, _P],
+    "gpsig_goursat_grad": [*[_P] * 4, *[_I] * 5, _P],
 }
 
 _lib = None

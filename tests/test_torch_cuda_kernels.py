@@ -550,3 +550,154 @@ def test_entry_points_default_to_the_card(cuda_device):
             Gaussian.create().raw_variance,
             from_jax_arrays({"a": np.ones(2)})["a"]]
     assert {t.device.type for t in made} == {"cuda"}
+
+
+# -- the Goursat (signature-PDE) kernels ------------------------------------
+
+def _path_increments(rng, B, S, T):
+    """B increment grids [S, T] of the PDE slice's data:
+    ⟨δx_i, δy_j⟩ of ``classification_sequences`` paths of lengths S + 1
+    and T + 1 at lengthscale 1.5."""
+    from gpsig_tpu_torch.data.synthetic import classification_sequences
+
+    seed = int(rng.integers(1 << 30))
+    X, _ = classification_sequences(seed, B, S + 1, 2, 2)
+    Y, _ = classification_sequences(seed + 1, B, T + 1, 2, 2)
+    return np.einsum("bid,bjd->bij", np.diff(X, axis=1),
+                     np.diff(Y, axis=1)) / 1.5**2
+
+
+# (Su, Tu, dyadic order): chip_smoke.py's grids (the main path's joint
+# Gram (49, 49) and Kuf (7, 49) pairs, tiny and uneven sides) at orders
+# 0-2 and L=200 at orders 2-3 (1,592 refined rows over 512 threads), a
+# length-1 sequence, and (199, 160) at order 0, whose float64 gradient
+# keeps neither its u store nor its sums in shared memory
+GOURSAT_CASES = [(Su, Tu, o) for Su, Tu in [(49, 49), (7, 49), (1, 1),
+                                            (13, 5)] for o in (0, 1, 2)]
+GOURSAT_CASES += [(199, 199, 2), (199, 199, 3), (0, 3, 1), (199, 160, 0)]
+# (dtype, forward tol, gradient tol), scaled: the kernels repeat the plain
+# sweep's arithmetic per cell, with fused multiply-adds, over up to 3,184
+# dependent diagonals whose values cancel; the gradient adds its terms
+# with atomics in an order that changes from run to run
+GOURSAT_TOLS = [(torch.float64, 1e-10, 1e-10), (torch.float32, 1e-4, 1e-3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ftol,gtol", GOURSAT_TOLS)
+def test_goursat_kernels_match_plain(cuda_device, dtype, ftol, gtol):
+    from gpsig_tpu_torch.ops import goursat as tg
+    from gpsig_tpu_torch.ops.cuda import goursat as tgs
+
+    rng = np.random.default_rng(18)
+    for Su, Tu, o in GOURSAT_CASES:
+        inc = torch.as_tensor(_path_increments(rng, 5, Su, Tu), dtype=dtype,
+                              device=cuda_device)
+        gbar = torch.as_tensor(rng.standard_normal(5), dtype=dtype,
+                               device=cuda_device)
+        n0 = (tgs.launches, tgs.fused_launches, tgs.grad_launches)
+        fast = tgs.goursat_corner_fast(tg.refine_increments(inc, o))
+        refined = tgs.goursat_corner_refined(inc, o)
+        grad = tgs.goursat_grad_refined(inc, o, gbar)
+        assert (tgs.launches, tgs.fused_launches,
+                tgs.grad_launches) == tuple(n + 1 for n in n0)
+        want = tgs.goursat_corner_refined_ref(inc, o)
+        want_g = tgs.goursat_grad_refined_ref(inc, o, gbar)
+        assert grad.shape == inc.shape and refined.shape == (5,)
+        if Su * Tu == 0:
+            assert bool((refined == 1).all() and (fast == 1).all())
+            assert not grad.any()
+            continue
+        assert _scaled_err(fast, want) < ftol, (Su, Tu, o)
+        assert _scaled_err(refined, want) < ftol, (Su, Tu, o)
+        assert _scaled_err(grad, want_g) < gtol, (Su, Tu, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "scan"])
+def test_untruncated_kernel_on_card_matches_cpu(cuda_device, engine):
+    """K(X), K(X, X2), K_sym_psd and their gradients through the Goursat
+    kernels, float64, against the CPU: 'auto' launches the in-kernel
+    refinement kernel, 'scan' the given-grid kernel on the refined grid,
+    and both backwards the adjoint kernel."""
+    from gpsig_tpu_torch.kernels.pde import UntruncatedSignatureKernel
+    from gpsig_tpu_torch.ops.cuda import goursat as tgs
+
+    rng = np.random.default_rng(19)
+    X = torch.tensor(_walks(rng, 5, 9, 2), requires_grad=True)
+    X2 = torch.tensor(_walks(rng, 3, 6, 2), requires_grad=True)
+    kern = UntruncatedSignatureKernel.create(
+        2, lengthscales=[0.9, 1.4], normalization=True, dyadic_order=2,
+        engine=engine, device="cpu")
+
+    def grads(X, X2):
+        loss = ((kern.K(X) ** 2).sum() + kern.K(X, X2).sum()
+                + kern.K_sym_psd(X2).trace())
+        return torch.autograd.grad(loss, [X, X2, *kern.parameters()])
+
+    want = grads(X, X2)
+    kern.to(cuda_device)
+    n0 = (tgs.launches, tgs.fused_launches, tgs.grad_launches)
+    got = grads(*(t.detach().to(cuda_device).requires_grad_()
+                  for t in (X, X2)))
+    moved = [b > a for a, b in zip(n0, (tgs.launches, tgs.fused_launches,
+                                        tgs.grad_launches))]
+    assert moved == ([True, False, True] if engine == "scan"
+                     else [False, True, True])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_goursat_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A CUDA tensor the kernels do not take raises: it never runs the
+    plain sweep."""
+    from gpsig_tpu_torch.ops.cuda import goursat as tgs
+
+    inc = torch.zeros(2, 3, 3, dtype=torch.float16, device=cuda_device)
+    gbar = torch.zeros(2, dtype=torch.float16, device=cuda_device)
+    n0 = (tgs.launches, tgs.fused_launches, tgs.grad_launches)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tgs.goursat_corner_fast(inc)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tgs.goursat_corner_refined(inc, 1)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tgs.goursat_grad_refined(inc, 1, gbar)
+    with pytest.raises(ValueError, match="dyadic_order"):
+        tgs.goursat_corner_refined(inc.float(), tgs.MAX_ORDER + 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        tgs.goursat_corner_refined(
+            torch.zeros(1, 5000, 2, device=cuda_device), 3)
+    assert (tgs.launches, tgs.fused_launches, tgs.grad_launches) == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2])
+def test_inducing_sequences_with_the_truncated_kernel_on_card(cuda_device,
+                                                              order):
+    """Kuf between inducing sequences and longer data sequences goes through
+    increment matrices and the sig_gram kernels (forward and backward) on
+    the card, and matches the CPU in float64, gradients included."""
+    from gpsig_tpu_torch.inducing import InducingSequences
+
+    rng = np.random.default_rng(20)
+    X = torch.tensor(_walks(rng, 6, 12, 2), requires_grad=True)
+    feat = InducingSequences.create(torch.tensor(_walks(rng, 4, 5, 2)))
+    kern = SignatureRBF(2, 3, order=order, lengthscales=[0.8, 1.3],
+                        device="cpu")
+
+    def run(X):
+        Kuu, Kuf = feat.covariances(kern, X)
+        loss = (Kuf ** 2).sum() + Kuu.sum()
+        return (Kuu, Kuf, *torch.autograd.grad(
+            loss, [X, feat.raw_Z, *kern.parameters()]))
+
+    want = run(X)
+    kern.to(cuda_device)
+    feat.to(cuda_device)
+    n0 = (tsg_.launches + tsg_.ho_launches,
+          tsg_.bwd_launches + tsg_.ho_bwd_launches)
+    got = run(X.detach().to(cuda_device).requires_grad_())
+    assert tsg_.launches + tsg_.ho_launches > n0[0]
+    assert tsg_.bwd_launches + tsg_.ho_bwd_launches > n0[1]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)
