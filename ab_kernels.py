@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Time the truncated-kernel wrappers of two checkouts of this repository on
+one CUDA card, in turns (A, B, B, A), so that a kernel change is measured
+against its parent within one machine and one card.
+
+    python3 ab_kernels.py PARENT_DIR [CHANGE_DIR]   # CHANGE_DIR: this one
+
+Each checkout's kernels are built (both builds at once), then each turn
+runs in its own process (the two packages share a name), times every case
+below in float32 by CUDA events (the median of 7 after 2 warm-ups) and
+prints one JSON line; the script ends with the card's name and power limit
+and a table of the per-case medians over each checkout's two turns. The
+cases are ``chip_smoke.py``'s shapes at L = 50 (the bench Gram, the
+flagship diagonal, the general Gram and sig_gram at the shapes of their
+serving and training checks) and the order-1 Gram and its backward at L = 150, where a parent
+that refuses the length reports null. Needs a CUDA card; exits non-zero
+without one.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# (name, function path, argument builder); arrays from a fixed seed
+CASES = [
+    ("gram L=50 N=256x256 d=2 nl=4", "fused_gram.fused_gram_levels", "gram"),
+    ("diag L=50 N=2048 d=3 nl=5", "fused_gram.fused_diag_levels", "diag"),
+    ("gram_bwd L=50 N=256x256 d=2 nl=4", "fused_gram.fused_gram_levels_bwd",
+     "gram_bwd"),
+    ("gram_ho order 2 L=50 N=256x256", "fused_gram_ho.fused_gram_ho_levels",
+     "gram_ho"),
+    ("gram_ho_bwd order 2 L=50 N=150x150",
+     "fused_gram_ho.fused_gram_ho_levels_bwd", "gram_ho_bwd"),
+    ("sig_gram order 1 B=2048 L'=49", "sig_gram.sig_gram_levels", "sg1"),
+    ("sig_gram order 2 B=2048 L'=49", "sig_gram.sig_gram_levels_ho", "sg2"),
+    ("sig_gram_bwd order 1 B=150 L'=49", "sig_gram.sig_gram_levels_bwd",
+     "sg1_bwd"),
+    ("sig_gram_bwd order 2 B=150 L'=49", "sig_gram.sig_gram_levels_ho_bwd",
+     "sg2_bwd"),
+    ("gram L=150 N=150x150 d=2 nl=4", "fused_gram.fused_gram_levels",
+     "gram150"),
+    ("gram_bwd L=150 N=150x150 d=2 nl=4", "fused_gram.fused_gram_levels_bwd",
+     "gram_bwd150"),
+]
+
+
+def _walks(rng, n, L, d):
+    import numpy as np
+
+    return (0.3 * np.sqrt(50 / L) * rng.standard_normal((n, L, d))).cumsum(1)
+
+
+def _args(kind, torch, dev):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def self_inc(X):
+        sq = np.sum(X * X, -1)
+        G = np.exp(-0.5 * (sq[:, :, None] + sq[:, None, :]
+                           - 2 * X @ X.transpose(0, 2, 1)))
+        return np.diff(np.diff(G, axis=1), axis=2)
+
+    x256 = t(_walks(rng, 256, 50, 2))
+    if kind == "gram":
+        return (x256, x256, 4, True)
+    if kind == "diag":
+        return (t(_walks(rng, 2048, 50, 3)), 5, True)
+    if kind == "gram_bwd":
+        return (x256, x256, t(rng.standard_normal((5, 256, 256))), 4, True)
+    if kind == "gram_ho":
+        return (x256, x256, 4, 2, "rbf", True)
+    if kind == "gram_ho_bwd":
+        x = x256[:150].contiguous()
+        return (x, x, t(rng.standard_normal((5, 150, 150))), 4, 2, "rbf",
+                True)
+    if kind in ("sg1", "sg2"):
+        m = t(self_inc(_walks(rng, 2048, 50, 2)))
+        return (m, 5) if kind == "sg1" else (m, 5, 2)
+    if kind in ("sg1_bwd", "sg2_bwd"):
+        m = t(self_inc(_walks(rng, 150, 50, 2)))
+        g = t(rng.standard_normal((5, 150)))
+        return (m, g, 4) if kind == "sg1_bwd" else (m, g, 4, 2)
+    x150 = t(_walks(rng, 150, 150, 2))
+    if kind == "gram150":
+        return (x150, x150, 4, True)
+    return (x150, x150, t(rng.standard_normal((5, 150, 150))), 4, True)
+
+
+def _turn(root):
+    """Time every case with the package under ``root``; one JSON line."""
+    import importlib
+
+    import torch
+
+    sys.path.insert(0, str(root))
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, path, kind in CASES:
+        mod, fn = path.rsplit(".", 1)
+        f = getattr(importlib.import_module(f"gpsig_tpu_torch.ops.cuda.{mod}"),
+                    fn)
+        args = _args(kind, torch, dev)
+        try:
+            f(*args)
+        except ValueError:  # a length the checkout refuses
+            out[name] = None
+            continue
+        for _ in range(2):
+            f(*args)
+        times = []
+        for _ in range(7):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            f(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        out[name] = statistics.median(times)
+    print(json.dumps(out))
+
+
+def main():
+    import torch
+
+    if len(sys.argv) == 3 and sys.argv[1] == "--turn":
+        _turn(Path(sys.argv[2]).resolve())
+        return 0
+    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    roots = {"A": Path(sys.argv[1]).resolve(),
+             "B": Path(sys.argv[2] if len(sys.argv) == 3 else
+                       Path(__file__).parent).resolve()}
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from gpsig_tpu_torch.ops.cuda import _build; _build.build()",
+         str(root)]) for root in roots.values()]
+    if any(p.wait() != 0 for p in builds):
+        return 1
+    runs = {"A": [], "B": []}
+    for label in ("A", "B", "B", "A"):
+        proc = subprocess.run([sys.executable, __file__, "--turn",
+                               str(roots[label])], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return 1
+        print(f"turn {label}: {proc.stdout.strip()}")
+        runs[label].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card)
+    print(f"{'case':40s} {'A ms':>10s} {'B ms':>10s} {'B/A':>6s}")
+    for name, _, _ in CASES:
+        med = {k: [r[name] for r in v] for k, v in runs.items()}
+        a = None if None in med["A"] else statistics.median(med["A"])
+        b = None if None in med["B"] else statistics.median(med["B"])
+        ratio = f"{b / a:6.3f}" if a and b else "     -"
+        print(f"{name:40s} {a if a is None else round(a, 4)!s:>10s} "
+              f"{b if b is None else round(b, 4)!s:>10s} {ratio}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``gpsig_tpu_torch``) on one NVIDIA GPU and check
-it end to end: slice 0 (the order-1 model, serving and training) and slice
-1 (the general engines: order-2 SVGP and GPR, serving and training).
+it end to end: slice 0 (the order-1 model, serving and training), slice 1
+(the general engines: order-2 SVGP and GPR, serving and training), the PDE
+slice (the SigGPDE SVGP) and sequences past 129 steps (the GunPoint-length
+path, L = 150, serving and training).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -76,8 +78,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
    2e-3, γ=0.05), ELBO finite at every step, the adjoint counter rises, the
    first step against the plain route, ms per step and a profiler split;
    a small float64 SigGPDE model's three steps against the CPU;
-10. report: one JSON line with every kernel's launches, error, times and
-   bound, then the device line.
+10. long sequences (L > 129): (k) rows 1-3, 6-7 and 10-13 against their
+   plain versions at L in {130, 150, 300} (sig_gram at L2 in {130, 150,
+   300} and the inducing-sequence shape M [B, 8, 150]), rows 1-3 at
+   L = 512 (d = 8), rows 4, 5, 8 and 9 at L = 150, float32 and float64;
+   (l) each at L = 150 at the GunPoint-length path's shapes, timed, with
+   its bound; (m) the SynthGunPoint window model (order 1, nl=4, 64
+   inducing tensors with increments, MultiClass(2)) on its own data
+   (scaled, time added, L = 150, d = 2): ELBO on the 50 training
+   sequences, ``posterior()`` + ``predict_y`` on the 150 test sequences
+   and 2048 more, 6 natgrad + Adam steps, then its order-3 variant's
+   serving and 3 steps, each with its counters and against the plain
+   route; (n) exact GPR at L = 150 (order-1 RBF, order-2 RBF, order-1
+   Poly; 5 Adam steps each, counters, ms per step, a profile of the
+   order-1 step, the first step against the plain route on 48
+   sequences); (o) a small float64 GunPoint-length model on the card
+   against the CPU, serving and 3 steps;
+11. report: one JSON line with every kernel's launches, error, times and
+   bound (rows 1-13 also with their L = 150 time, plain time, bound and
+   launches on the long path, under "long"), then the device line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
 beside it, it exits non-zero before printing any result.
@@ -122,15 +141,15 @@ KERNELS = {
     "sig_gram_ho": ("_fwd_kernel_ho", "gpsig_tpu_torch/csrc/sig_gram.cu",
                     "gpsig_tpu/ops/pallas/sig_gram.py:126"),
     "gram_ho_bwd": ("_ho_bwd_kernel",
-                    "gpsig_tpu_torch/csrc/fused_gram_ho_bwd.cu",
+                    "gpsig_tpu_torch/csrc/fused_gram_ho_bwd.cuh",
                     "gpsig_tpu/ops/pallas/fused_gram_ho_bwd.py:61"),
     "tsg_bwd": ("_tsg_bwd_kernel",
                 "gpsig_tpu_torch/csrc/tens_seq_general_bwd.cu",
                 "gpsig_tpu/ops/pallas/tens_seq_general.py:364"),
-    "sig_gram_bwd": ("_bwd_kernel", "gpsig_tpu_torch/csrc/sig_gram_bwd.cu",
+    "sig_gram_bwd": ("_bwd_kernel", "gpsig_tpu_torch/csrc/sig_gram_bwd.cuh",
                      "gpsig_tpu/ops/pallas/sig_gram.py:98"),
     "sig_gram_ho_bwd": ("_bwd_kernel_ho",
-                        "gpsig_tpu_torch/csrc/sig_gram_bwd.cu",
+                        "gpsig_tpu_torch/csrc/sig_gram_bwd.cuh",
                         "gpsig_tpu/ops/pallas/sig_gram.py:229"),
     "goursat": ("_kernel", "gpsig_tpu_torch/csrc/goursat.cu",
                 "gpsig_tpu/ops/pallas/goursat_pallas.py:42"),
@@ -1723,6 +1742,544 @@ def small_float64_pde_check(dev):
     check(err <= 1e-8, f"small float64 SigGPDE training: {err}")
 
 
+# ---------------------------------------------------------------------------
+# Long sequences: the truncated kernels past one warp's 128 rows, and the
+# GunPoint-length path (L = 150) end to end
+# ---------------------------------------------------------------------------
+
+# scaled error allowed in float32 at L = 300 and 512, where the earlier
+# tolerances hold up to L = 150: the DP sums run over up to 511 columns (at
+# most 99 in the earlier phases), each state carrying the rounding of every
+# column before it; float64 keeps the earlier tolerances
+LONG_F32_TOL = (1e-3, "float32 DP sums over 299-511 columns, each state "
+                "carrying the rounding of every earlier column (at most 99 "
+                "in the earlier phases)")
+
+
+# the GunPoint-length path's sizes: GPR training set, the order-2 Gram
+# backward's timed batch, test sequences, minibatch, inducing tensors
+LONG_SIZES = dict(gpr=150, gpr_bwd=64, test=2048, batch=50, T=64)
+
+
+def long_walks(rng, n, L, d=2):
+    """Walks whose steps shrink like 1/√L, so that the unnormalised levels
+    stay as far inside float32's range as L = 50's do."""
+    return (0.3 * np.sqrt(50 / L) * rng.standard_normal((n, L, d))).cumsum(1)
+
+
+def long_correctness_phase(dev):
+    """(k) Rows 1-3, 6-7 and 10-13 against their plain versions at
+    L in {130, 150, 300} (sig_gram on the self-increment matrices of those
+    lengths, L2 = L - 1, and the inducing-sequence shape M [B, 8, 150]),
+    rows 1-3 at L = 512 with d = 8, rows 4, 5, 8 and 9 at L = 150; float32
+    and float64, small batches."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+    rng = np.random.default_rng(SEED + 30)
+    calls = []  # (label, length, kernel call, plain call, numpy inputs)
+    for L in (130, 150, 300, 512):
+        d = 8 if L == 512 else 2
+        X, Y = long_walks(rng, 6, L, d), long_walks(rng, 5, L, d)
+        g = rng.standard_normal((5, 6, 5))
+        calls += [
+            ("gram", L, lambda a, b: fg.fused_gram_levels(a, b, 4),
+             lambda a, b: fg.fused_gram_levels_ref(a, b, 4), (X, Y)),
+            ("diag", L, lambda a: fg.fused_diag_levels(a, 4),
+             lambda a: fg.fused_diag_levels_ref(a, 4), (X,)),
+            ("gram_bwd", L,
+             lambda a, b, c: fg.fused_gram_levels_bwd(a, b, c, 4),
+             lambda a, b, c: fg.fused_gram_levels_bwd_ref(a, b, c, 4),
+             (X, Y, g)),
+        ]
+        if L == 512:
+            continue
+        px, py = with_offset_channel(X, Y, "poly2")
+        for kind, order, x, y in (("rbf", 2, X, Y), ("poly2", 1, px, py)):
+            a = (4, order, kind, True)
+            calls += [
+                ("gram_ho", L, lambda u, v, a=a: fgho.fused_gram_ho_levels(
+                    u, v, *a),
+                 lambda u, v, a=a: fgho.fused_gram_ho_levels_ref(u, v, *a),
+                 (x, y)),
+                ("gram_ho_bwd", L,
+                 lambda u, v, c, a=a: fgho.fused_gram_ho_levels_bwd(
+                     u, v, c, *a),
+                 lambda u, v, c, a=a: fgho.fused_gram_ho_levels_bwd_ref(
+                     u, v, c, *a), (x, y, g)),
+            ]
+        for shape in ((6, L - 1, L - 1),) + (((6, 8, 150),) if L == 150
+                                            else ()):
+            M = rng.standard_normal(shape) * 4 / np.sqrt(shape[1] * shape[2])
+            gm = rng.standard_normal((5, 6))
+            for order in (1, 2, 3):
+                fwd = (lambda m: sg.sig_gram_levels(m, 4)) if order == 1 \
+                    else (lambda m, o=order: sg.sig_gram_levels_ho(m, 4, o))
+                bwd = (lambda m, c: sg.sig_gram_levels_bwd(m, c, 4)) \
+                    if order == 1 else (lambda m, c, o=order:
+                                        sg.sig_gram_levels_ho_bwd(m, c, 4, o))
+                key = "sig_gram" if order == 1 else "sig_gram_ho"
+                # the self-increment shape at L, or the inducing-sequence
+                # Kuf's [8, 150] (labelled by its longer side)
+                at = L if shape[1] == L - 1 else shape[2]
+                calls += [
+                    (key, at, fwd,
+                     lambda m, o=order: sg.sig_gram_levels_ho_ref(m, 4, o),
+                     (M,)),
+                    (key + "_bwd", at, bwd,
+                     lambda m, c, o=order: sg.sig_gram_levels_ho_bwd_ref(
+                         m, c, 4, o), (M, gm)),
+                ]
+    X = long_walks(rng, 7, 150)
+    Z = 0.4 * rng.standard_normal((5, 10, 2, 2))
+    gk = rng.standard_normal((5, 5, 7))
+    calls += [
+        ("tens_seq", 150, lambda z, x: ts.fused_tens_seq_levels(
+            z, x, 4, True, True),
+         lambda z, x: ts.fused_tens_seq_levels_ref(z, x, 4, True, True),
+         (Z, X)),
+        ("tens_seq_bwd", 150, lambda z, x, c: ts.tens_seq_bwd(
+            z, x, c, 4, True, True),
+         lambda z, x, c: ts.tens_seq_bwd_ref(z, x, c, 4, True, True),
+         (Z, X, gk)),
+        ("tsg", 150, lambda z, x: tsg.fused_tens_seq_general_levels(
+            z, x, 4, 3, "rbf", True, True),
+         lambda z, x: tsg.fused_tens_seq_general_levels_ref(
+             z, x, 4, 3, "rbf", True, True), (Z, X)),
+        ("tsg_bwd", 150, lambda z, x, c: tsg.tens_seq_general_bwd(
+            z, x, c, 4, 3, "rbf", True, True),
+         lambda z, x, c: tsg.tens_seq_general_bwd_ref(
+             z, x, c, 4, 3, "rbf", True, True), (Z, X, gk)),
+    ]
+    print(f"long tolerances: up to L = 150 and in float64 the earlier "
+          f"phases' (TOL, GEN_TOL, BWD_TOL); float32 past L = 150 "
+          f"{LONG_F32_TOL[0]:g}: {LONG_F32_TOL[1]}")
+    worst, lengths = {}, {}
+    for key, length, *_ in calls:
+        lengths.setdefault(key, set()).add(length)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        for key, length, kern, plain, arrays in calls:
+            args = [torch.as_tensor(a, dtype=dtype, device=dev)
+                    for a in arrays]
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            pairs = (list(zip(got, want)) if isinstance(want, tuple)
+                     else [(got, want)])
+            for g_, w_ in pairs:
+                check(g_.shape == w_.shape and bool(torch.isfinite(g_).all()),
+                      f"long {key} L={length} {name}: {g_.shape}")
+            err = scaled_err(got, want)
+            k = (key, name)
+            if err >= worst.get(k, (-1.0, None))[0]:
+                worst[k] = (err, length)
+            # the earlier phases' tolerances, but in float32 past L = 150
+            tol = (BWD_TOL if key.endswith("bwd") else
+                   TOL if key in TUNED else GEN_TOL)[name][0]
+            if name == "float32" and length > 150:
+                tol = LONG_F32_TOL[0]
+            check(err <= tol, f"long {key} L={length} {name}: {err} > {tol}")
+    for (key, name), (err, length) in sorted(worst.items()):
+        print(f"long {key} {name}: worst scaled err {err:.3e} (at "
+              f"L={length}) over L in {sorted(lengths[key])}")
+
+
+def long_timing_phase(dev):
+    """(l) Each truncated kernel at L = 150 at the GunPoint-length path's
+    shapes, float32, against its plain version on the same inputs, timed,
+    with its bound: the order-1 and order-2 GPR Grams at N = 150 (the
+    order-2 backward at N = 64: its plain version under autograd would hold
+    some 80 GB at N = 150), the diagonal of 2048 test sequences, Kuf of 64
+    inducing tensors against 2048 (backward: 50), the order-3 Kuf and
+    diagonal of the order-3 variant, the Poly GPR's order-1 diagonal."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+    rng = np.random.default_rng(SEED + 31)
+    L = 150
+    N, Nb, Nt = LONG_SIZES["gpr"], LONG_SIZES["gpr_bwd"], LONG_SIZES["test"]
+    B, T = LONG_SIZES["batch"], LONG_SIZES["T"]
+    x150, x64 = long_walks(rng, N, L), long_walks(rng, Nb, L)
+    x2048 = long_walks(rng, Nt, L)
+    x50 = x2048[:B]
+    incs = np.diff(x2048, axis=1).reshape(-1, 2)
+    z = incs[rng.integers(0, len(incs), T * 10 * 2)].reshape(T, 10, 2, 2)
+    g150 = rng.standard_normal((5, N, N))
+    g64 = np.ascontiguousarray(g150[:, :Nb, :Nb])
+    gk = rng.standard_normal((5, T, B))
+    m150, m2048 = self_increments(x150), self_increments(x2048)
+    gm150, gm50 = rng.standard_normal((5, N)), rng.standard_normal((5, B))
+    rows = L - 1
+    gram_bytes = 4 * (2 * N * L * 2 + 5 * N * N)
+    kuf_bytes = 4 * (T * 20 * 2 + Nt * L * 2 + 5 * T * Nt)
+    kuf_bwd_bytes = 4 * (2 * T * 20 * 2 + 2 * B * L * 2 + 5 * T * B)
+    sg_bytes = lambda n: 4 * (n * rows * rows + 5 * n)  # noqa: E731
+    sg_bwd_bytes = lambda n: 4 * (2 * n * rows * rows + 5 * n)  # noqa: E731
+    # a backward counts 3 forwards (as in the earlier phases); the Gram
+    # backward reads X, Y and g and writes X̄ and Ȳ
+    works = {
+        "gram": (gram_work(N, N, L, 2, 4), gram_bytes),
+        "diag": (gram_self_work(Nt, L, 2, 4), 4 * (Nt * L * 2 + 5 * Nt)),
+        "gram_bwd": (3 * gram_work(N, N, L, 2, 4),
+                     4 * (2 * 2 * N * L * 2 + 5 * N * N)),
+        "tens_seq": (kuf_work(T, 20, Nt, L, 2, 4), kuf_bytes),
+        "tens_seq_bwd": (3 * kuf_work(T, 20, B, L, 2, 4), kuf_bwd_bytes),
+        "gram_ho": (gram_work(N, N, L, 2, 4, p=2), gram_bytes),
+        "gram_ho_bwd": (3 * gram_work(Nb, Nb, L, 2, 4, p=2),
+                        4 * (2 * 2 * Nb * L * 2 + 5 * Nb * Nb)),
+        "tsg": (kuf_work(T, 20, Nt, L, 2, 4, p=3), kuf_bytes),
+        "tsg_bwd": (3 * kuf_work(T, 20, B, L, 2, 4, p=3), kuf_bwd_bytes),
+        "sig_gram": (N * dp_self_ops(rows, 4, 1), sg_bytes(N)),
+        "sig_gram_ho": (Nt * dp_self_ops(rows, 4, 3), sg_bytes(Nt)),
+        "sig_gram_bwd": (3 * N * dp_self_ops(rows, 4, 1), sg_bwd_bytes(N)),
+        "sig_gram_ho_bwd": (3 * B * dp_self_ops(rows, 4, 3),
+                            sg_bwd_bytes(B)),
+    }
+    cases = [
+        ("gram", "Gram RBF N=150x150 L=150 d=2 nl=4",
+         lambda a: fg.fused_gram_levels(a, a, 4),
+         lambda a: fg.fused_gram_levels_ref(a, a, 4), (x150,)),
+        ("diag", "diag RBF N=2048 L=150 d=2 nl=4",
+         lambda a: fg.fused_diag_levels(a, 4),
+         lambda a: fg.fused_diag_levels_ref(a, 4), (x2048,)),
+        ("gram_bwd", "Gram backward RBF N=150x150 L=150 d=2 nl=4",
+         lambda a, c: fg.fused_gram_levels_bwd(a, a, c, 4),
+         lambda a, c: fg.fused_gram_levels_bwd_ref(a, a, c, 4),
+         (x150, g150)),
+        ("tens_seq", "Kuf RBF T=64 increments N=2048 L=150 d=2 nl=4",
+         lambda q, a: ts.fused_tens_seq_levels(q, a, 4, True, True),
+         lambda q, a: ts.fused_tens_seq_levels_ref(q, a, 4, True, True),
+         (z, x2048)),
+        ("tens_seq_bwd", "Kuf backward RBF T=64 increments N=50 L=150 d=2 "
+         "nl=4",
+         lambda q, a, c: ts.tens_seq_bwd(q, a, c, 4, True, True),
+         lambda q, a, c: ts.tens_seq_bwd_ref(q, a, c, 4, True, True),
+         (z, x50, gk)),
+        ("gram_ho", "general Gram RBF order 2 N=150x150 L=150 d=2 nl=4",
+         lambda a: fgho.fused_gram_ho_levels(a, a, 4, 2),
+         lambda a: fgho.fused_gram_ho_levels_ref(a, a, 4, 2), (x150,)),
+        ("gram_ho_bwd", "general Gram backward RBF order 2 N=64x64 L=150 "
+         "d=2 nl=4",
+         lambda a, c: fgho.fused_gram_ho_levels_bwd(a, a, c, 4, 2),
+         lambda a, c: fgho.fused_gram_ho_levels_bwd_ref(a, a, c, 4, 2),
+         (x64, g64)),
+        ("tsg", "general Kuf RBF order 3 T=64 increments N=2048 L=150 d=2 "
+         "nl=4",
+         lambda q, a: tsg.fused_tens_seq_general_levels(q, a, 4, 3, "rbf",
+                                                        True, True),
+         lambda q, a: tsg.fused_tens_seq_general_levels_ref(
+             q, a, 4, 3, "rbf", True, True), (z, x2048)),
+        ("tsg_bwd", "general Kuf backward RBF order 3 T=64 increments N=50 "
+         "L=150 d=2 nl=4",
+         lambda q, a, c: tsg.tens_seq_general_bwd(q, a, c, 4, 3, "rbf", True,
+                                                  True),
+         lambda q, a, c: tsg.tens_seq_general_bwd_ref(q, a, c, 4, 3, "rbf",
+                                                      True, True),
+         (z, x50, gk)),
+        ("sig_gram", "sig_gram order 1 B=150 L'=149 nl=4",
+         lambda m: sg.sig_gram_levels(m, 4),
+         lambda m: sg.sig_gram_levels_ref(m, 4), (m150,)),
+        ("sig_gram_ho", "sig_gram order 3 B=2048 L'=149 nl=4",
+         lambda m: sg.sig_gram_levels_ho(m, 4, 3),
+         lambda m: sg.sig_gram_levels_ho_ref(m, 4, 3), (m2048,)),
+        ("sig_gram_bwd", "sig_gram backward order 1 B=150 L'=149 nl=4",
+         lambda m, c: sg.sig_gram_levels_bwd(m, c, 4),
+         lambda m, c: sg.sig_gram_levels_bwd_ref(m, c, 4), (m150, gm150)),
+        ("sig_gram_ho_bwd", "sig_gram backward order 3 B=50 L'=149 nl=4",
+         lambda m, c: sg.sig_gram_levels_ho_bwd(m, c, 4, 3),
+         lambda m, c: sg.sig_gram_levels_ho_bwd_ref(m, c, 4, 3),
+         (np.ascontiguousarray(m2048[:B]), gm50)),
+    ]
+    report = {}
+    for key, label, kern, plain, arrays in cases:
+        args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in arrays]
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err, max_abs = scaled_err(got, want), abs_err(got, want)
+        del got, want
+        tol = (BWD_TOL if "backward" in label else
+               TOL if key in TUNED else GEN_TOL)["float32"][0]
+        check(err <= tol, f"long {label}: scaled err {err} > {tol}")
+        ms = cuda_ms(lambda: kern(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+        report[key] = dict(L=L, ms=ms, plain_ms=plain_ms,
+                           max_abs_err=max_abs, **bound(*works[key]))
+        print(f"long time {label} float32: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {report[key]['bound_ms']:.4f} ms "
+              f"({report[key]['bound_by']}), scaled err {err:.3e}")
+        del args
+        torch.cuda.empty_cache()
+    return report
+
+
+def gunpoint_data(torch, dev, dtype, n_extra=0):
+    """``SynthGunPoint`` as the window protocol prepares it
+    (``benchmarks/common.py``'s get_classification_data): scaler fitted on
+    train, a time channel added, tabulated to L = 150: d = 2, 50 train and
+    150 test sequences; and ``n_extra`` ``classification_sequences`` of
+    L = 150 (d = 1) prepared the same way, for the serving batch."""
+    from gpsig_tpu_torch.data import preprocessing as prep
+    from gpsig_tpu_torch.data import uea_like
+    from gpsig_tpu_torch.data.synthetic import classification_sequences
+
+    Xtr_l, ytr, Xte_l, yte = uea_like.load_dataset("SynthGunPoint")
+    scaler = prep.SequenceScaler().fit(Xtr_l)
+
+    def table(seqs):
+        return torch.as_tensor(prep.tabulate_list_of_sequences(
+            prep.add_time_to_list(scaler.transform(seqs)), 150), dtype=dtype,
+            device=dev)
+
+    out = [table(Xtr_l), torch.as_tensor(ytr, dtype=torch.int64, device=dev),
+           table(Xte_l), torch.as_tensor(yte, dtype=torch.int64, device=dev)]
+    if n_extra:
+        Xn, _ = classification_sequences(seed=SEED, N=n_extra, L=150, d=1,
+                                         num_classes=2)
+        out.append(table(list(Xn)))
+    return out
+
+
+def build_gunpoint_svgp(torch, dev, dtype, X, order=1, T=64):
+    """The SynthGunPoint window's model (``benchmarks/run_all.py``): the
+    order-``order`` RBF signature kernel, nl=4, lengthscales √d,
+    normalised, T inducing tensors with increments drawn from the data,
+    MultiClass(2); q(u) drawn from a seed (not SVGP.create's q_mu = 0, so
+    that the predictive means compared with the plain route are not 0)."""
+    from gpsig_tpu_torch.inducing import make_inducing_tensors_from_data
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+
+    d = X.shape[-1]
+    kern = SignatureRBF(d, 4, lengthscales=float(np.sqrt(d)), order=order,
+                        normalization=True, dtype=dtype, device=dev)
+    feat = make_inducing_tensors_from_data(
+        torch.Generator().manual_seed(SEED), X, num_tensors=T, num_levels=4,
+        num_features=d, increments=True)
+    model = SVGP.create(kern, MultiClass(2), feat, num_latent=2, dtype=dtype,
+                        device=dev)
+    rng = np.random.default_rng(SEED + 32)
+    with torch.no_grad():
+        model.q_mu.copy_(torch.as_tensor(0.5 * rng.standard_normal((T, 2))))
+        model.q_sqrt.copy_(torch.as_tensor(
+            np.tril(0.02 * rng.standard_normal((2, T, T))) + 0.9 * np.eye(T)))
+    return model
+
+
+def long_svgp_phase(dev, order, steps, need):
+    """(m) The SynthGunPoint window model at ``order`` on its own data,
+    float32: serving (ELBO on the 50 training sequences, ``posterior()`` +
+    ``predict_y`` on the 150 test sequences and on 2048 more of L = 150),
+    then ``steps`` natgrad + Adam steps (lr 0.01, γ = 0.1, B = 50), counters
+    read after each; the kernels of ``need`` must launch in each, the
+    tuned order-1 ones must not at order >= 2; Kuf, the predictive means
+    and the first step against the plain route."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    Xtr, ytr, Xte, _, Xn = gunpoint_data(torch, dev, f32,
+                                         n_extra=LONG_SIZES["test"])
+    model = build_gunpoint_svgp(torch, dev, f32, Xtr, order=order,
+                                T=LONG_SIZES["T"])
+    plain_model = copy.deepcopy(model)
+    label = f"GunPoint order-{order} SVGP"
+
+    def serve():
+        elbo = model.elbo(Xtr, ytr, num_data=50)
+        post = model.posterior()
+        probs, pvar = post.predict_y(Xte)
+        probs_n, pvar_n = post.predict_y(Xn)
+        fmean, fvar = post.predict_f(Xte)
+        Kuf = model.inducing.Kuf(model.kernel, Xn)
+        torch.cuda.synchronize()
+        return dict(elbo=elbo, probs=probs, pvar=pvar, probs_n=probs_n,
+                    pvar_n=pvar_n, fmean=fmean, fvar=fvar, Kuf=Kuf)
+
+    launches = {}
+    with torch.no_grad():
+        reset_counters()
+        out = serve()
+        launches["serving"] = counters()
+        for k, v in out.items():
+            check(bool(torch.isfinite(v).all()), f"{label} {k} not finite")
+        for k in ("probs", "probs_n"):
+            sums = out[k].sum(-1)
+            check(bool(torch.allclose(sums, torch.ones_like(sums),
+                                      atol=1e-5)),
+                  f"{label} {k}: class probabilities do not sum to 1")
+        for k in ("pvar", "pvar_n", "fvar"):
+            check(bool((out[k] >= 0).all()), f"{label} {k} has negatives")
+        check(out["probs_n"].shape == (LONG_SIZES["test"], 2),
+              f"{label} predict_y shape")
+        with plain_route():
+            ref = serve()
+        compare_routes(label, out, ref,
+                       dict(Kuf=1e-4 if order == 1 else 1e-3, fmean=1e-3,
+                            probs=1e-3, probs_n=1e-3, elbo=1e-3))
+        acc = (out["probs"].argmax(-1).cpu()
+               == gunpoint_data(torch, "cpu", f32)[3]).float().mean().item()
+        print(f"{label}: elbo {out['elbo'].item():.6g}, untrained test "
+              f"accuracy {acc:.3f}")
+        ms_predict = host_ms(lambda: model.posterior().predict_y(Xn))
+        post = model.posterior()
+        ms_cached = host_ms(lambda: post.predict_y(Xn))
+        ms_elbo = host_ms(lambda: model.elbo(Xtr, ytr, num_data=50))
+        print(f"time {label} posterior()+predict_y N_test=2048 L=150: "
+              f"{ms_predict:.3f} ms; predict_y on a cached posterior: "
+              f"{ms_cached:.3f} ms; elbo B=50: {ms_elbo:.3f} ms")
+    step = make_step_fn(1e-2, num_data=50, gamma=0.1)
+    state = step.init(model)
+    reset_counters()
+    elbos, ms, first = [], [], None
+    for k in range(steps):
+        (state, elbo), t = timed(lambda: step(state, Xtr, ytr))
+        elbos.append(elbo.item())
+        ms.append(t)
+        if k == 0:
+            first = grads_and_params(model)
+    launches["training"] = counters()
+    print(f"train {label} elbo per step: {elbos}")
+    check(all(np.isfinite(elbos)), f"{label} elbo not finite")
+    for p in model.parameters():
+        check(bool(torch.isfinite(p).all()), "trained parameter not finite")
+    with plain_route():
+        pstep = make_step_fn(1e-2, num_data=50, gamma=0.1)
+        pstep(pstep.init(plain_model), Xtr, ytr)
+    torch.cuda.synchronize()
+    compare_first_step(label, first, grads_and_params(plain_model), 1e-2,
+                       why="float32 Kuf rounding over 149 steps carried "
+                       "through the T=64 Cholesky (f32 jitter 1e-4)")
+    print(f"time {label} natgrad+Adam step (T=64, B=50, L=150): "
+          f"{statistics.median(ms[1:]):.3f} ms (median of {len(ms) - 1}; "
+          f"all {[round(t, 3) for t in ms]})")
+    for phase, counts in launches.items():
+        if order == 1:
+            print(f"{label} {phase} launches: {counts}")
+            for key in need[phase]:
+                check(counts[key] > 0,
+                      f"kernel {key} was not launched by {label} {phase}")
+        else:
+            check_general_route(counts, need[phase], f"{label} {phase}")
+    return launches
+
+
+def long_gpr_phase(dev):
+    """(n) Exact GPR at L = 150 (``regression_sequences(N=200, L=150,
+    d=2)``, 150 to train, nl=4, noise 0.05, Adam 5e-2), float32: order-1
+    RBF (rows 1-3), order-2 RBF (rows 6, 7, 12, 13) and order-1 Poly (rows
+    6, 7, 10, 11); 5 Adam steps each with its counters and ms per step, a
+    profile of the order-1 step; the first step against the plain route
+    on the first 48 sequences (the plain Gram at N = 150 is a
+    [150, 150, 150, 150] tensor, several times that under autograd)."""
+    import torch
+
+    from gpsig_tpu_torch.data.synthetic import regression_sequences as rs
+
+    f32 = torch.float32
+    N = LONG_SIZES["gpr"]
+    Xn, yn = rs(seed=SEED, N=200, L=150, d=2)
+    X = torch.as_tensor(Xn[:N], dtype=f32, device=dev)
+    Y = torch.as_tensor(yn[:N], dtype=f32, device=dev)
+    specs = {"order-1 RBF": dict(),
+             "order-2 RBF": dict(order=2),
+             "order-1 Poly": dict(ctor="SignaturePoly", offset=0.6)}
+    need = {"order-1 RBF": ("gram", "diag", "gram_bwd"),
+            "order-2 RBF": ("gram_ho", "gram_ho_bwd", "sig_gram_ho",
+                            "sig_gram_ho_bwd"),
+            "order-1 Poly": ("gram_ho", "gram_ho_bwd", "sig_gram",
+                             "sig_gram_bwd")}
+    launches = {}
+    for name, kw in specs.items():
+        gpr = build_gpr(torch, dev, f32, X, nl=4, **kw)
+        small, plain_small = (build_gpr(torch, dev, f32, X, nl=4, **kw)
+                              for _ in range(2))
+        step = gpr_step_fn(torch, gpr, X, Y, 5e-2)
+        reset_counters()
+        lmls, ms = [], []
+        for _ in range(5):
+            lml, t = timed(step)
+            lmls.append(lml.item())
+            ms.append(t)
+        launches[name] = counters()
+        if name == "order-1 RBF":
+            print(f"GPR L=150 {name} launches: {launches[name]}")
+            for key in need[name]:
+                check(launches[name][key] > 0,
+                      f"kernel {key} was not launched by GPR L=150 {name}")
+        else:
+            check_general_route(launches[name], need[name],
+                                f"GPR L=150 {name}")
+        print(f"train GPR L=150 {name} lml per step: {lmls}")
+        check(all(np.isfinite(lmls)), f"GPR L=150 {name} lml not finite")
+        for p in gpr.parameters():
+            check(bool(torch.isfinite(p).all()), "trained parameter not finite")
+        print(f"time GPR L=150 {name} Adam step (N=150): "
+              f"{statistics.median(ms[1:]):.3f} ms (median of {len(ms) - 1}; "
+              f"all {[round(t, 3) for t in ms]})")
+        if name == "order-1 RBF":
+            profile_split(step, "GPR L=150 order-1 RBF Adam step, N=150")
+        # the first step on 48 sequences, kernels against the plain route
+        gpr_step_fn(torch, small, X[:48], Y[:48], 5e-2)()
+        with plain_route():
+            gpr_step_fn(torch, plain_small, X[:48], Y[:48], 5e-2)()
+        torch.cuda.synchronize()
+        compare_first_step(f"GPR L=150 {name} (N=48)",
+                           grads_and_params(small),
+                           grads_and_params(plain_small), 5e-2,
+                           why="float32 Gram rounding over 149 steps carried "
+                           "through the N=48 Cholesky")
+        del gpr, small, plain_small
+        torch.cuda.empty_cache()
+    return launches
+
+
+def long_float64_check(dev):
+    """(o) A small float64 GunPoint-length model (T=6 inducing tensors,
+    N=12 sequences of L=150, order 1) on the card against the CPU: the
+    ELBO and predictions, then three natgrad + Adam steps, rtol 1e-8."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f64 = torch.float64
+    Xtr, ytr, Xte, _ = gunpoint_data(torch, dev, f64)
+    X, Y = Xtr[:12], ytr[:12]
+    model = build_gunpoint_svgp(torch, dev, f64, X, T=6)
+    runs = {}
+    for where, (m, Xw, Yw, Tw) in {
+            "card": (model, X, Y, Xte[:12]),
+            "cpu": (copy.deepcopy(model).to("cpu"), X.cpu(), Y.cpu(),
+                    Xte[:12].cpu())}.items():
+        with torch.no_grad():
+            out = [m.elbo(Xw, Yw, num_data=50),
+                   *m.posterior().predict_y(Tw)]
+        step = make_step_fn(1e-2, num_data=50, gamma=0.1)
+        state = step.init(m)
+        for _ in range(3):
+            state, elbo = step(state, Xw, Yw)
+            out.append(elbo)
+        out += [p.detach() for p in m.parameters()]
+        runs[where] = [t.cpu() for t in out]
+    err = max(scaled_err(g, w) for g, w in zip(runs["card"], runs["cpu"]))
+    print(f"small float64 GunPoint-length model (L=150): card vs CPU scaled "
+          f"err {err:.3e} over the ELBO, predictions, 3 steps' ELBOs and "
+          "every parameter, tolerance 1e-8")
+    check(err <= 1e-8, f"small float64 L=150 model: {err}")
+
+
 def main():
     import torch
 
@@ -1777,6 +2334,16 @@ def main():
     pde_launches = pde_serving_phase(dev)
     pde_train = pde_training_phase(dev)
     small_float64_pde_check(dev)
+    long_correctness_phase(dev)
+    long_timings = long_timing_phase(dev)
+    gp1 = long_svgp_phase(dev, 1, 6, {
+        "serving": ("diag", "tens_seq"),
+        "training": ("diag", "tens_seq", "tens_seq_bwd")})
+    gp3 = long_svgp_phase(dev, 3, 3, {
+        "serving": ("tsg", "sig_gram_ho"),
+        "training": ("tsg", "tsg_bwd", "sig_gram_ho", "sig_gram_ho_bwd")})
+    gpr150 = long_gpr_phase(dev)
+    long_float64_check(dev)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the
@@ -1797,11 +2364,30 @@ def main():
                      sig_gram_bwd=train1["Poly GPR"],
                      goursat=pde_launches, goursat_fused=pde_launches,
                      goursat_grad=pde_train)
+    # the long path's launches (L = 150): the order-1 kernels' from the
+    # order-1 GPR's steps (Gram, diagonal, backward) and the GunPoint
+    # SVGP's serving and steps (Kuf and its backward), the general ones
+    # from the order-3 GunPoint SVGP (Kuf, the order-3 diagonal) and the
+    # order-2 and Poly GPRs (the general Gram, both sig_grams)
+    long_source = dict(
+        gram=gpr150["order-1 RBF"], diag=gp1["serving"],
+        gram_bwd=gpr150["order-1 RBF"], tens_seq=gp1["serving"],
+        tens_seq_bwd=gp1["training"], gram_ho=gpr150["order-2 RBF"],
+        gram_ho_bwd=gpr150["order-2 RBF"], tsg=gp3["serving"],
+        tsg_bwd=gp3["training"], sig_gram=gpr150["order-1 Poly"],
+        sig_gram_bwd=gpr150["order-1 Poly"], sig_gram_ho=gp3["serving"],
+        sig_gram_ho_bwd=gp3["training"])
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         n = source_of.get(key, launches)[key]
-        kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=n, **timings[key]))
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces=replaces, launches=n, **timings[key])
+        if key in long_timings:
+            entry["long"] = dict(launches=long_source[key][key],
+                                 **long_timings[key])
+        kernels.append(entry)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build's "
+          "start to the report")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

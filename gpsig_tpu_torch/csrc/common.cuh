@@ -128,52 +128,6 @@ __device__ void half_sqnorms(const T* xs, T* nxs, int L, int d, int tid,
   }
 }
 
-// Exclusive prefix over the warp's rows (lane l holds rows l*R .. l*R+R-1):
-// out[r] = sum of v over all rows before row lane*R + r.
-template <typename T, int R>
-__device__ __forceinline__ void warp_excl_prefix(const T (&v)[R], T (&out)[R],
-                                                 int lane) {
-  T run = T(0);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    out[r] = run;
-    run += v[r];
-  }
-  T incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const T t = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += t;
-  }
-  T excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = T(0);
-#pragma unroll
-  for (int r = 0; r < R; ++r) out[r] += excl;
-}
-
-// Exclusive suffix over the warp's rows: out[r] = sum of v over all rows
-// after row lane*R + r.
-template <typename T, int R>
-__device__ __forceinline__ void warp_excl_suffix(const T (&v)[R], T (&out)[R],
-                                                 int lane) {
-  T run = T(0);
-#pragma unroll
-  for (int r = R - 1; r >= 0; --r) {
-    out[r] = run;
-    run += v[r];
-  }
-  T incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const T t = __shfl_down_sync(kFull, incl, off);
-    if (lane + off < 32) incl += t;
-  }
-  T excl = __shfl_down_sync(kFull, incl, 1);
-  if (lane == 31) excl = T(0);
-#pragma unroll
-  for (int r = 0; r < R; ++r) out[r] += excl;
-}
-
 // Sum over the warp, returned to every lane.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -182,21 +136,166 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Rows per lane for L - 1 increment rows; 0 when no instantiation covers L.
-inline int rows_per_lane(int L) {
-  const int rows = L - 1;
-  if (rows <= 32) return 1;
-  if (rows <= 64) return 2;
-  if (rows <= 128) return 4;
-  return 0;
-}
+// ---------------------------------------------------------------------------
+// Row partition. The DP rows of one pair are spread over a group of
+// threads; group thread t holds rows t*R .. t*R+R-1. Two kinds of group,
+// passed to the DP code as a type:
+// - WarpGroup<T, S>: one warp (S = 32) or a segment of S = 16 lanes of
+//   one (fused_gram_bwd.cu puts two pairs on a warp). A row scan is a chain
+//   of shuffles, as the kernels always did; nothing else is in its way, so
+//   the compiler interleaves the independent scans of a column.
+// - BlockGroup<T>: a block of W warps (up to 8) for more than 128 rows.
+//   Each scan is the warp's shuffle chain plus an exchange of the warp
+//   totals through shared memory with one barrier. The buffer buf[2][W]
+//   alternates halves: an exchange's reads end before its threads reach
+//   the next exchange's barrier, so the one after may overwrite the half.
+//   Every thread of the block runs the same exchanges (W, nl and the column
+//   count are uniform), so a block group never returns early.
+// The two are separate instantiations: weaving the exchange into the
+// single-warp code, even behind a branch, cost 40-70% at L <= 129
+// (measured), because it splits the shuffle chains that the scheduler
+// interleaves. Each group names the block size its kernels launch with
+// (kMaxThreads, their __launch_bounds__): the bound steers ptxas's
+// register choice, so the warp instantiations keep the four-warp bound
+// they always had (a 256-thread bound moved the order-2 Gram backward from
+// 168 to 172 registers, three blocks an SM to two, 1.4x slower at L = 50).
+// ---------------------------------------------------------------------------
 
-// Rows per lane of the run-length kernels (2 or 4); 0 when rows > 128.
-inline int rl_rows_per_lane(int rows) {
-  if (rows <= 64) return 2;
-  if (rows <= 128) return 4;
-  return 0;
-}
+// A launch plan (ops/cuda/plan.py): one warp per pair, kPairsPerBlock
+// pairs to a block, R = 1, 2 or 4 rows a lane; or one block of W warps
+// per pair (a BlockGroup), R = 4.
+constexpr int kPairsPerBlock = 4;
+constexpr int kMaxWarps = 8;
+
+template <typename T, int S = 32>
+struct WarpGroup {
+  static constexpr bool kBlock = false;
+  static constexpr int kLanes = S;
+  static constexpr int kMaxThreads = 32 * kPairsPerBlock;
+  int lane;
+
+  __device__ explicit WarpGroup(int = 1, T* = nullptr)
+      : lane(static_cast<int>(threadIdx.x) % S) {}
+  __device__ int thread() const { return lane; }
+  __device__ int size() const { return S; }
+  __device__ void sync() const { __syncwarp(); }
+
+  // Exclusive prefix over the group's rows: out[r] = sum of v over all
+  // rows before row t*R + r.
+  template <int R>
+  __device__ __forceinline__ void prefix(const T (&v)[R], T (&out)[R]) {
+    T run = T(0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      out[r] = run;
+      run += v[r];
+    }
+    T incl = run;
+#pragma unroll
+    for (int off = 1; off < S; off <<= 1) {
+      const T t = __shfl_up_sync(kFull, incl, off, S);
+      if (lane >= off) incl += t;
+    }
+    T excl = __shfl_up_sync(kFull, incl, 1, S);
+    if (lane == 0) excl = T(0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] += excl;
+  }
+
+  // Exclusive suffix over the group's rows: out[r] = sum of v over all
+  // rows after row t*R + r.
+  template <int R>
+  __device__ __forceinline__ void suffix(const T (&v)[R], T (&out)[R]) {
+    T run = T(0);
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      out[r] = run;
+      run += v[r];
+    }
+    T incl = run;
+#pragma unroll
+    for (int off = 1; off < S; off <<= 1) {
+      const T t = __shfl_down_sync(kFull, incl, off, S);
+      if (lane + off < S) incl += t;
+    }
+    T excl = __shfl_down_sync(kFull, incl, 1, S);
+    if (lane == S - 1) excl = T(0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] += excl;
+  }
+
+  // Sum over the group, returned to every thread.
+  __device__ __forceinline__ T sum(T v) {
+#pragma unroll
+    for (int off = S / 2; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFull, v, off, S);
+    return v;
+  }
+
+  // The value v of group thread t + 1, and 0 at the group's last thread.
+  __device__ __forceinline__ T next(T v) {
+    T n = __shfl_down_sync(kFull, v, 1, S);
+    return lane == S - 1 ? T(0) : n;
+  }
+};
+
+template <typename T>
+struct BlockGroup {
+  static constexpr bool kBlock = true;
+  static constexpr int kLanes = 32;
+  static constexpr int kMaxThreads = 32 * kMaxWarps;
+  WarpGroup<T> w;  // this warp
+  int warp, W, phase;
+  T* buf;  // shared [2][W]
+
+  __device__ BlockGroup(int W_, T* buf_)
+      : w(), warp(static_cast<int>(threadIdx.x) >> 5), W(W_), phase(0),
+        buf(buf_) {}
+  __device__ int thread() const { return warp * 32 + w.lane; }
+  __device__ int size() const { return 32 * W; }
+  __device__ void sync() const { __syncthreads(); }
+
+  // Publish this warp's value v (from lane `src`) and return the sum of
+  // the published values of the warps w' with lo <= w' < hi.
+  __device__ __forceinline__ T exchange(T v, int src, int lo, int hi) {
+    T* b = buf + phase * W;
+    if (w.lane == src) b[warp] = v;
+    __syncthreads();
+    T s = T(0);
+    for (int k = lo; k < hi; ++k) s += b[k];
+    phase ^= 1;
+    return s;
+  }
+
+  template <int R>
+  __device__ __forceinline__ void prefix(const T (&v)[R], T (&out)[R]) {
+    w.template prefix<R>(v, out);
+    // lane 31's inclusive total is out[R-1] + v[R-1]
+    const T total = out[R - 1] + v[R - 1];
+    const T before = exchange(total, 31, 0, warp);
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] += before;
+  }
+
+  template <int R>
+  __device__ __forceinline__ void suffix(const T (&v)[R], T (&out)[R]) {
+    w.template suffix<R>(v, out);
+    const T total = out[0] + v[0];  // lane 0's inclusive total
+    const T after = exchange(total, 0, warp + 1, W);
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] += after;
+  }
+
+  __device__ __forceinline__ T sum(T v) {
+    return exchange(w.sum(v), 0, 0, W);
+  }
+
+  __device__ __forceinline__ T next(T v) {
+    const T n = __shfl_down_sync(kFull, v, 1);
+    const T first = exchange(v, 0, warp + 1, warp + 2 <= W ? warp + 2 : W);
+    return w.lane == 31 ? first : n;
+  }
+};
 
 constexpr int kRlLevels = 7;
 
@@ -210,14 +309,16 @@ constexpr int kRlLevels = 7;
 //     D'[r][0] = M/(r+1) * (row cumsum, exclusive, of sum_s D[r-1][s])
 //     D'[0][r] = M/(r+1) * (column cumsum, exclusive, of sum_s D[s][r-1])
 //     D'[r][s] = M/((r+1)(s+1)) * D[r-1][s-1]
-// A warp sweeps the columns j; lane l holds rows l*R .. l*R+R-1. The
+// A group (WarpGroup or BlockGroup) sweeps the columns j; its thread t
+// holds rows
+// t*R .. t*R+R-1. The
 // current column's states of all levels are computed level by level into
 // one in-place P x P grid; only states with r, s < R_m exist at level m,
 // and the grid's extents are compile-time, so no dead state is computed.
 // Per level two carries persist across columns: T_m[i] = sum over j' < j
-// of all states (its exclusive row prefix, a warp scan, gives ecumsum2)
+// of all states (its exclusive row prefix, a row scan, gives ecumsum2)
 // and RA_m[q][i] = sum over j' < j of sum_s D[q][s] (the row cumsum). The
-// column cumsums are warp scans of the current column. k_m = sum_i T_m[i]
+// column cumsums are row scans of the current column. k_m = sum_i T_m[i]
 // at the end.
 // ---------------------------------------------------------------------------
 
@@ -228,10 +329,10 @@ struct RunLengthState {
   T ra[kRlLevels - 1][P > 1 ? P - 1 : 1][R];
 };
 
-template <typename T, int R, int P, int M>
+template <typename T, int R, int P, int M, typename G>
 __device__ __forceinline__ void rl_level(RunLengthState<T, R, P>& st,
                                          const T (&mcol)[R], int nl,
-                                         int lane) {
+                                         G& g) {
   if constexpr (M <= kRlLevels) {
     if (M > nl) return;
     constexpr int Rm = P < M ? P : M;
@@ -263,9 +364,9 @@ __device__ __forceinline__ void rl_level(RunLengthState<T, R, P>& st,
             rowsum[q][r] += st.grid[q][a][r];
           }
         }
-        warp_excl_prefix<T, R>(cs, colpre[q], lane);
+        g.template prefix<R>(cs, colpre[q]);
       }
-      warp_excl_prefix<T, R>(st.tsum[M - 2], pre, lane);
+      g.template prefix<R>(st.tsum[M - 2], pre);
       // in place, descending, so that D[a-1][b-1] is read before it is
       // overwritten
 #pragma unroll
@@ -306,21 +407,18 @@ __device__ __forceinline__ void rl_level(RunLengthState<T, R, P>& st,
       }
       return;
     }
-    rl_level<T, R, P, M + 1>(st, mcol, nl, lane);
+    rl_level<T, R, P, M + 1>(st, mcol, nl, g);
   }
 }
 
-// Per-level kernels of one pair, computed by the calling (full) warp over
-// `ncols` columns; col(j, mcol) fills the lane's R rows of column j (zero
-// for rows past the matrix). Lane 0 writes level m to out[m * stride].
 // The forward sweep over `ncols` columns from zero carries; col(j, mcol)
-// fills the lane's R rows of column j (zero for rows past the matrix).
+// fills the thread's R rows of column j (zero for rows past the matrix).
 // Afterwards st.tsum[m - 1] holds T_m and st.ra[m - 1][q] RA_m[q] over all
-// columns (m < nl), and st.tsum[nl - 1] the lane's share of k_nl.
-template <typename T, int R, int P, typename Col>
+// columns (m < nl), and st.tsum[nl - 1] the thread's share of k_nl.
+template <typename T, int R, int P, typename Col, typename G>
 __device__ __forceinline__ void rl_forward(RunLengthState<T, R, P>& st,
                                            Col& col, int ncols, int nl,
-                                           int lane) {
+                                           G& g) {
 #pragma unroll
   for (int a = 0; a < P; ++a)
 #pragma unroll
@@ -341,26 +439,28 @@ __device__ __forceinline__ void rl_forward(RunLengthState<T, R, P>& st,
   for (int j = 0; j < ncols; ++j) {
     T mcol[R];
     col(j, mcol);
-    rl_level<T, R, P, 1>(st, mcol, nl, lane);
+    rl_level<T, R, P, 1>(st, mcol, nl, g);
   }
 }
 
-template <typename T, int R, int P, typename Col>
+// Per-level kernels of one pair, computed by the calling group over
+// `ncols` columns. Group thread 0 writes level m to out[m * stride].
+template <typename T, int R, int P, typename Col, typename G>
 __device__ void run_length_levels(Col& col, int ncols, int nl, T* out,
-                                  long long stride) {
-  const int lane = threadIdx.x & 31;
+                                  long long stride, G& g) {
   RunLengthState<T, R, P> st;
-  rl_forward<T, R, P>(st, col, ncols, nl, lane);
+  rl_forward<T, R, P>(st, col, ncols, nl, g);
 
-  if (lane == 0) out[0] = T(1);
+  const bool first = g.thread() == 0;
+  if (first) out[0] = T(1);
 #pragma unroll
   for (int m = 0; m < kRlLevels; ++m) {
     if (m < nl) {
       T s = T(0);
 #pragma unroll
       for (int r = 0; r < R; ++r) s += st.tsum[m][r];
-      s = warp_sum(s);
-      if (lane == 0) out[(m + 1) * stride] = s;
+      s = g.sum(s);
+      if (first) out[(m + 1) * stride] = s;
     }
   }
 }
@@ -404,11 +504,11 @@ struct RunLengthBwd {
 
 // Rebuild level M's states of the current column (reverse sweep): take
 // column j's level M-1 totals off the carries, then the forward's formulas.
-template <typename T, int R, int P, int M>
+template <typename T, int R, int P, int M, typename G>
 __device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P>& fw,
                                            RunLengthBwd<T, R, P>& bw,
                                            const T (&mcol)[R], int nl,
-                                           int lane) {
+                                           G& g) {
   if constexpr (M <= kRlLevels) {
     if (M > nl) return;
     constexpr int Rm = P < M ? P : M;
@@ -437,9 +537,9 @@ __device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P>& fw,
         }
         fw.ra[M - 2][q][r] -= row;
       }
-      warp_excl_prefix<T, R>(cs[q], bw.colpre[M - 2][q], lane);
+      g.template prefix<R>(cs[q], bw.colpre[M - 2][q]);
     }
-    warp_excl_prefix<T, R>(fw.tsum[M - 2], bw.pre[M - 2], lane);
+    g.template prefix<R>(fw.tsum[M - 2], bw.pre[M - 2]);
     if constexpr (M < kRlLevels) {
       if (M < nl) {  // level nl's own states are never read
 #pragma unroll
@@ -466,18 +566,18 @@ __device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P>& fw,
           bw.st[M - 1][0][0][r] = mcol[r] * bw.pre[M - 2][r];
       }
     }
-    rl_rebuild<T, R, P, M + 1>(fw, bw, mcol, nl, lane);
+    rl_rebuild<T, R, P, M + 1>(fw, bw, mcol, nl, g);
   }
 }
 
 // Level M's adjoint of the current column, then the levels below (M from
 // kRlLevels down to 1; levels above nl are skipped). Adds into mbar.
-template <typename T, int R, int P, int M>
+template <typename T, int R, int P, int M, typename G>
 __device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
                                            RunLengthBwd<T, R, P>& bw,
                                            const T (&mcol)[R],
                                            const T (&w)[kRlLevels], int nl,
-                                           int lane, T (&mbar)[R]) {
+                                           G& g, T (&mbar)[R]) {
   if constexpr (M >= 1) {
     if (M <= nl) {
       constexpr int Rm = P < M ? P : M;
@@ -503,7 +603,7 @@ __device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
               }
           // level M+1's pieces of this column join the carries only now
           T sfx[R];
-          warp_excl_suffix<T, R>(bw.ptot, sfx, lane);
+          g.template suffix<R>(bw.ptot, sfx);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             bw.rtot[M - 1][r] += sfx[r];
@@ -533,7 +633,7 @@ __device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
                             A[0][q][r] * bw.colpre[M - 2][q - 1][r]);
             v[r] = mcol[r] * c * A[0][q][r];
           }
-          warp_excl_suffix<T, R>(v, sfx, lane);
+          g.template suffix<R>(v, sfx);
 #pragma unroll
           for (int a = 0; a < Rp; ++a)
 #pragma unroll
@@ -562,24 +662,24 @@ __device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
         for (int r = 0; r < R; ++r) mbar[r] += A[0][0][r];
       }
     }
-    rl_adjoint<T, R, P, M - 1>(fw, bw, mcol, w, nl, lane, mbar);
+    rl_adjoint<T, R, P, M - 1>(fw, bw, mcol, w, nl, g, mbar);
   }
 }
 
-// Adjoint of run_length_levels for one pair, by the calling (full) warp:
+// Adjoint of run_length_levels for one pair, by the calling group:
 // w[m] is the cotangent of level m + 1. fwd(j, mcol) gives the columns in
 // ascending order, then rev(j, mcol) in descending order (each as col in
 // run_length_levels); sink(j, mbar) receives M̄ of column j, in descending
-// j, with the lane's R rows (rows past the matrix carry values the caller
-// drops).
+// j, with the thread's R rows (rows past the matrix carry values the
+// caller drops), and the group, for exchanges of its own.
 template <typename T, int R, int P, typename Fwd, typename Rev,
-          typename Sink>
+          typename Sink, typename G>
 __device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
                                       int ncols, int nl,
-                                      const T (&w)[kRlLevels]) {
-  const int lane = threadIdx.x & 31;
+                                      const T (&w)[kRlLevels],
+                                      G& g) {
   RunLengthState<T, R, P> fw;
-  rl_forward<T, R, P>(fw, fwd, ncols, nl, lane);
+  rl_forward<T, R, P>(fw, fwd, ncols, nl, g);
   RunLengthBwd<T, R, P> bw;
 #pragma unroll
   for (int m = 0; m + 1 < kRlLevels; ++m)
@@ -598,28 +698,41 @@ __device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
       bw.st[0][0][0][r] = mcol[r];
       mbar[r] = T(0);
     }
-    rl_rebuild<T, R, P, 2>(fw, bw, mcol, nl, lane);
-    rl_adjoint<T, R, P, kRlLevels>(fw, bw, mcol, w, nl, lane, mbar);
-    sink(j, mbar);
+    rl_rebuild<T, R, P, 2>(fw, bw, mcol, nl, g);
+    rl_adjoint<T, R, P, kRlLevels>(fw, bw, mcol, w, nl, g, mbar);
+    sink(j, mbar, g);
   }
 }
 
-// Rows of one increment matrix M_b [L1, L2] read as the DP's columns, lane
-// l holding entries l*R .. l*R+R-1 (sig_gram.cu, sig_gram_bwd.cu).
+// Rows of one increment matrix M_b [L1, L2] read as the DP's columns,
+// group thread t holding entries t*R .. t*R+R-1 (sig_gram.cu,
+// sig_gram_bwd.cu): each row is read contiguously, coalesced.
 template <typename T, int R>
 struct MatrixRows {
   const T* Mb;
-  int L2, lane;
+  int L2, t;
 
   __device__ void operator()(int i, T (&mcol)[R]) const {
     const T* row = Mb + static_cast<long long>(i) * L2;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int jj = lane * R + r;
+      const int jj = t * R + r;
       mcol[r] = jj < L2 ? row[jj] : T(0);
     }
   }
 };
+
+// The plan (W, R) covers `rows` and is one the kernels take.
+inline bool plan_ok(int rows, int W, int R) {
+  return W >= 1 && W <= kMaxWarps && rows <= 32 * W * R &&
+         (W == 1 || R == 4);
+}
+
+// Shared memory of a BlockGroup's exchange buffer (none for a warp).
+template <typename T>
+inline size_t exchange_bytes(int W) {
+  return W > 1 ? sizeof(T) * 2 * W : 0;
+}
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 template <typename K>

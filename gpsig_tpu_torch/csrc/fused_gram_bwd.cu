@@ -19,7 +19,7 @@
 // forward sweep to get the end states C_m, then sweeps the columns
 // backwards, rebuilding the states by subtraction in ascending m
 // (C_m(before j) = C_m(after j) - A_m[:, j], and A_m needs P_{m-1} of the
-// level below, already rebuilt), so nothing of size O(L) per pair is kept.
+// level below, already rebuilt), so nothing of size O(L) per level is kept.
 // M̄ chains through the double difference (K̄[:, j] = D̄(j-1) - D̄(j),
 // D̄(j)[p] = M̄[p-1, j] - M̄[p, j]) and the base kernel:
 //     RBF:    ∂k/∂x_i = k (y_j - x_i),   ∂k/∂y_j = k (x_i - y_j);
@@ -27,25 +27,47 @@
 // With u = K̄ k (RBF) or K̄ (Linear), X̄_i = sum_j u_ij y_j - x_i sum_j u_ij
 // (second term RBF only), and Ȳ likewise.
 //
-// Design. The forward kernel's layout: one warp per (x, y) pair, lanes hold
-// R = 1, 2 or 4 consecutive increment rows and the R + 1 points around
-// them; a block is 4 warps sharing x. The row prefixes are
-// __shfl_up_sync scans as in the forward, and the suffixes of R_m are
-// __shfl_down_sync scans. A point at a lane boundary is held by two lanes;
-// it is owned by the upper lane (point lane*R + r for r >= 1, and point 0
-// by lane 0), so its cotangent is counted once. Per column the warp sums
-// the Ȳ row with butterfly shuffles and lane 0 adds it to global memory
-// (atomics: N1 blocks share a y). The X̄ sums live in shared memory per
-// warp, indexed by owned point; at the end the 4 warps' sums are added and
-// atomically accumulated across the y blocks. X and Y may be the same
-// tensor: X̄ and Ȳ are separate buffers and autograd adds them.
+// What bounds it on the H100. Instruction issue and latency, not memory:
+// per pair it reads 2 L d values and g's nl + 1 and does about three
+// forwards' work (the forward recompute, the reverse sweep, the chain), no
+// tensor-core work at all: the contractions have width d <= 8 and the
+// recursions are elementwise, so wgmma has nothing to take; the resources
+// are the FP32 pipe, shuffles and shared memory. The first design spent
+// most of its issue slots off the DP: one warp per pair with R = 2 rows a
+// lane at L = 50 (64 slots for 49 rows, a 5-shuffle scan per level and
+// column), and per column d + 1 butterfly warp sums and d global atomics
+// for the Ȳ row, plus (R + 1)(d + 1) shared-memory updates of X̄.
 //
-// What bounds it on the H100. As the forward: instruction throughput, not
-// memory. Per pair it evaluates 2 L^2 base kernels (forward recompute and
-// reverse sweep), and per column 2 (nl - 1) warp scans, d + 1 butterfly
-// sums and R (d + 1) shared-memory updates per lane: about 3-4x the
-// forward's work. Global traffic is the inputs, g, and one atomic per
-// (pair-block, point, channel).
+// Design (Hopper redesign).
+// - Rows over a group (common.cuh), R = 4 rows a lane. Up to 64 rows a
+//   segment of 16 lanes takes a pair, two pairs to a warp: the 4-step
+//   scans of one warp serve two pairs, and at L = 50 a lane's R + 1 base
+//   kernels cover 4 rows, not 2. Up to 128 rows one warp takes a pair;
+//   above, one block of W <= 8 warps (a BlockGroup), its scans crossing
+//   the warps through shared memory. The plan (S, W) and the tile width
+//   come from the wrapper (ops/cuda/plan.py).
+// - The chain leaves the column loop. The reverse sweep writes
+//   u[p, j] = K̄[p, j] k(x_p, y_j) (RBF) or K̄[p, j] (Linear) at the
+//   thread's own points into a shared tile of CH columns (8, or for a
+//   W-warp pair 32/16/8, the most that fits). When the tile is full the
+//   group contracts it: threads over points add sum_j u y_j and sum_j u
+//   into X̄ sums in shared memory, threads over the tile's columns (and
+//   over point ranges when the group is wider than the tile) reduce
+//   sum_p u x_p and sum_p u and add Ȳ of those columns to global memory,
+//   one atomic per (pair, point, channel) and range: no warp sums and no
+//   atomics per column. The tile's row stride is odd, so threads reading a
+//   point of different columns hit different banks.
+// - Registers bound the occupancy, so the kernel is templated on the
+//   level count (its state arrays C, R, P hold nl - 1 levels, not 6) and
+//   capped at 128 registers (two 256-thread blocks an SM; four-warp blocks
+//   then keep at least four to an SM).
+// - A block shares x: it holds 8 pairs (16-lane segments), 4 (one warp
+//   each) or 1 (W warps), the same x against consecutive y. At the end the
+//   pairs' X̄ sums are added and accumulated across blocks atomically. A
+//   pair past N2 in the last block runs on the last y, so that the two
+//   halves of a warp shuffle alike, and writes nothing.
+// X and Y may be the same tensor: X̄ and Ȳ are separate buffers and
+// autograd adds them.
 
 #include "common.cuh"
 
@@ -54,58 +76,66 @@ namespace {
 using namespace gpsig;
 
 constexpr int kMaxLevels = 7;
-constexpr int kWarpsPerBlock = 4;
 
-// X̄ and Ȳ contributions of one base-kernel column j of the calling warp's
-// pair. kv: k(x_p, y_j) at the lane's R + 1 points; kbar: K̄[p, j] there
-// (meaningful at owned points only).
-template <typename T, int R>
-__device__ __forceinline__ void chain_column(
-    const T* xs, const T* ys, const int (&xi)[R + 1],
-    const bool (&own)[R + 1], const T (&kv)[R + 1], const T (&kbar)[R + 1],
-    int j, int d, bool rbf, T* xacc, T* ybar, int lane) {
-  T u[R + 1];
-  T su = T(0);
-#pragma unroll
-  for (int r = 0; r <= R; ++r) {
-    u[r] = own[r] ? (rbf ? kbar[r] * kv[r] : kbar[r]) : T(0);
-    su += u[r];
-    if (own[r]) xacc[xi[r] * (d + 1) + d] += u[r];
-  }
-  const T* yj = ys + j * d;
-  const T su_all = rbf ? warp_sum(su) : T(0);
-  for (int c = 0; c < d; ++c) {
-    const T yc = yj[c];
-    T s = T(0);
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-      if (own[r]) xacc[xi[r] * (d + 1) + c] += u[r] * yc;
-      s += u[r] * xs[xi[r] * d + c];
+// Contract the tile's n columns (slot s holds column c0 - s) into X̄ sums
+// (xacc [L][d + 1], the pair's, in shared memory) and Ȳ (ybar [L][d],
+// global; null for a pair that writes nothing).
+template <typename T, typename G>
+__device__ __forceinline__ void contract_tile(const T* xs, const T* ys,
+                                              const T* u, int Lu, int n,
+                                              int c0, int chunk, int L, int d,
+                                              bool rbf, T* xacc, T* ybar,
+                                              const G& g) {
+  g.sync();
+  const int t = g.thread(), GT = g.size();
+  for (int p = t; p < L; p += GT) {
+    T su = T(0);
+    for (int s = 0; s < n; ++s) su += u[s * Lu + p];
+    xacc[p * (d + 1) + d] += su;
+    for (int c = 0; c < d; ++c) {
+      T a = T(0);
+      for (int s = 0; s < n; ++s) a += u[s * Lu + p] * ys[(c0 - s) * d + c];
+      xacc[p * (d + 1) + c] += a;
     }
-    s = warp_sum(s);
-    if (lane == 0) atomicAdd(ybar + j * d + c, rbf ? s - yc * su_all : s);
   }
+  const int s = t % chunk, part = t / chunk, parts = GT / chunk;
+  if (ybar != nullptr && s < n) {
+    const int col = c0 - s;
+    const T* us = u + s * Lu;
+    T su = T(0);
+    for (int p = part; p < L; p += parts) su += us[p];
+    for (int c = 0; c < d; ++c) {
+      T a = T(0);
+      for (int p = part; p < L; p += parts) a += us[p] * xs[p * d + c];
+      atomicAdd(ybar + col * d + c, rbf ? a - ys[col * d + c] * su : a);
+    }
+  }
+  g.sync();
 }
 
-// Adjoint of one pair's per-level kernels, by the calling (full) warp.
+// Adjoint of one pair's NL per-level kernels, by the calling group.
 // xs, ys: [L][d] staged sequences; nxs, nys: their -|.|^2/2 (RBF only);
 // w[m]: cotangent of level m + 1. Adds Σ_j u y_j and Σ_j u for each point
-// into xacc [L][d + 1] (shared, this warp's) and Ȳ into ybar [L][d]
-// (global).
-template <typename T, int R>
-__device__ void pair_levels_bwd(const T* xs, const T* nxs, const T* ys,
-                                const T* nys, int L, int d, int nl, bool rbf,
-                                const T (&w)[kMaxLevels], T* xacc, T* ybar) {
-  const int lane = threadIdx.x & 31;
+// into xacc [L][d + 1] (shared) and Ȳ into ybar [L][d] (global), through
+// the tile u [chunk][Lu] (shared).
+template <typename T, int R, int NL, typename G>
+__device__ __forceinline__ void pair_levels_bwd(
+    const T* xs, const T* nxs, const T* ys, const T* nys, int L, int d,
+    bool rbf, const T (&w)[NL], T* xacc, T* u, int Lu, int chunk, T* ybar,
+    G& g) {
+  constexpr int NC = NL > 1 ? NL - 1 : 1;  // states C_1 .. C_{NL-1}
+  const int t = g.thread();
   const int rows = L - 1;
   int xi[R + 1];
   bool own[R + 1];
   T nx[R + 1];
 #pragma unroll
   for (int r = 0; r <= R; ++r) {
-    const int p = lane * R + r;
+    const int p = t * R + r;
     xi[r] = min(p, L - 1);
-    own[r] = p <= L - 1 && (r > 0 || lane == 0);
+    // a point shared with the next thread is owned by this one's last
+    // slot; point 0 by thread 0
+    own[r] = p <= L - 1 && (r > 0 || t == 0);
     nx[r] = rbf ? nxs[xi[r]] : T(0);
   }
   auto column = [&](int j, T (&k)[R + 1]) {
@@ -119,14 +149,14 @@ __device__ void pair_levels_bwd(const T* xs, const T* nxs, const T* ys,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const T v = (hi[r + 1] - lo[r + 1]) - (hi[r] - lo[r]);
-      mcol[r] = (lane * R + r < rows) ? v : T(0);
+      mcol[r] = (t * R + r < rows) ? v : T(0);
     }
   };
 
-  // ---- phase 1: forward sweep to the end states C_1 .. C_{nl-1} ----------
-  T C[kMaxLevels - 1][R];
+  // ---- phase 1: forward sweep to the end states C_1 .. C_{NL-1} ----------
+  T C[NC][R];
 #pragma unroll
-  for (int m = 0; m < kMaxLevels - 1; ++m)
+  for (int m = 0; m < NC; ++m)
 #pragma unroll
     for (int r = 0; r < R; ++r) C[m][r] = T(0);
   T khi[R + 1];
@@ -137,30 +167,42 @@ __device__ void pair_levels_bwd(const T* xs, const T* nxs, const T* ys,
     increments(knew, khi, mcol);
 #pragma unroll
     for (int r = 0; r <= R; ++r) khi[r] = knew[r];
-    T pre[kMaxLevels - 1][R];
+    T pre[NC][R];
 #pragma unroll
-    for (int m = 0; m + 2 < kMaxLevels; ++m)
-      if (m + 2 < nl) warp_excl_prefix<T, R>(C[m], pre[m], lane);
+    for (int m = 0; m + 2 < NL; ++m) g.template prefix<R>(C[m], pre[m]);
+    if constexpr (NL > 1) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) C[0][r] += mcol[r];
+      for (int r = 0; r < R; ++r) C[0][r] += mcol[r];
+    }
 #pragma unroll
-    for (int m = 1; m < kMaxLevels - 1; ++m)
-      if (m + 1 < nl) {
+    for (int m = 1; m + 1 < NL; ++m)
 #pragma unroll
-        for (int r = 0; r < R; ++r) C[m][r] += mcol[r] * pre[m - 1][r];
-      }
+      for (int r = 0; r < R; ++r) C[m][r] += mcol[r] * pre[m - 1][r];
   }
 
   // ---- phase 2: reverse column sweep --------------------------------------
   // khi holds k at column j + 1 (y_{L-1} to start); Rs[m] is R_{m+1}.
-  T Rs[kMaxLevels - 1][R];
+  T Rs[NC][R];
 #pragma unroll
-  for (int m = 0; m < kMaxLevels - 1; ++m)
+  for (int m = 0; m < NC; ++m)
 #pragma unroll
     for (int r = 0; r < R; ++r) Rs[m][r] = T(0);
   T dprev[R + 1];
 #pragma unroll
   for (int r = 0; r <= R; ++r) dprev[r] = T(0);
+  int filled = 0, c0 = L - 1;  // tile: columns c0, c0 - 1, ...
+  auto store = [&](const T (&kbar)[R + 1], const T (&kv)[R + 1]) {
+    T* us = u + filled * Lu;
+#pragma unroll
+    for (int r = 0; r <= R; ++r)
+      if (own[r]) us[xi[r]] = rbf ? kbar[r] * kv[r] : kbar[r];
+    if (++filled == chunk) {
+      contract_tile(xs, ys, u, Lu, filled, c0, chunk, L, d, rbf, xacc, ybar,
+                    g);
+      c0 -= filled;
+      filled = 0;
+    }
+  };
 
   for (int j = rows - 1; j >= 0; --j) {
     T klo[R + 1], mcol[R];
@@ -168,175 +210,200 @@ __device__ void pair_levels_bwd(const T* xs, const T* nxs, const T* ys,
     increments(khi, klo, mcol);
 
     // rebuild C_m and P_m = prefix(C_m) before column j, ascending m
-    T P[kMaxLevels - 1][R];
+    T P[NC][R];
     T a[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) a[r] = mcol[r];  // A_1
 #pragma unroll
-    for (int m = 0; m < kMaxLevels - 1; ++m) {
-      if (m + 1 < nl) {
+    for (int m = 0; m + 1 < NL; ++m) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) C[m][r] -= a[r];
-        warp_excl_prefix<T, R>(C[m], P[m], lane);
+      for (int r = 0; r < R; ++r) C[m][r] -= a[r];
+      g.template prefix<R>(C[m], P[m]);
 #pragma unroll
-        for (int r = 0; r < R; ++r) a[r] = mcol[r] * P[m][r];  // A_{m+2}
-      }
+      for (int r = 0; r < R; ++r) a[r] = mcol[r] * P[m][r];  // A_{m+2}
     }
 
-    // M̄ = Ā_1 + Σ_{m>=2} Ā_m P_{m-1}, with Ā_m = w_m + R_m (R_nl = 0)
+    // M̄ = Ā_1 + Σ_{m>=2} Ā_m P_{m-1}, with Ā_m = w_m + R_m (R_NL = 0)
     T Mbar[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) Mbar[r] = w[0] + (nl > 1 ? Rs[0][r] : T(0));
-#pragma unroll
-    for (int m = 1; m < kMaxLevels; ++m) {
-      if (m < nl) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const T abar = w[m] + (m + 1 < nl ? Rs[m][r] : T(0));
-          Mbar[r] += abar * P[m - 1][r];
-        }
-      }
+    for (int r = 0; r < R; ++r) {
+      Mbar[r] = w[0];
+      if constexpr (NL > 1) Mbar[r] += Rs[0][r];
     }
+#pragma unroll
+    for (int m = 1; m < NL; ++m)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        Mbar[r] += (w[m] + (m + 1 < NL ? Rs[m < NC ? m : 0][r] : T(0))) *
+                   P[m - 1][r];
     // R_m += SLᵀ (M ⊙ Ā_{m+1}), ascending m so Ā_{m+1} reads the old R
 #pragma unroll
-    for (int m = 0; m + 1 < kMaxLevels; ++m) {
-      if (m + 1 < nl) {
-        T v[R], sfx[R];
+    for (int m = 0; m + 1 < NL; ++m) {
+      T v[R], sfx[R];
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          v[r] = mcol[r] * (w[m + 1] + (m + 2 < nl ? Rs[m + 1][r] : T(0)));
-        warp_excl_suffix<T, R>(v, sfx, lane);
+      for (int r = 0; r < R; ++r)
+        v[r] = mcol[r] *
+               (w[m + 1] + (m + 2 < NL ? Rs[m + 1 < NC ? m + 1 : 0][r] : T(0)));
+      g.template suffix<R>(v, sfx);
 #pragma unroll
-        for (int r = 0; r < R; ++r) Rs[m][r] += sfx[r];
-      }
+      for (int r = 0; r < R; ++r) Rs[m][r] += sfx[r];
     }
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      if (lane * R + r >= rows) Mbar[r] = T(0);
+      if (t * R + r >= rows) Mbar[r] = T(0);
 
-    // D̄(j)[p] = M̄[p-1] - M̄[p] at the lane's points (point lane*R + R
-    // reads the next lane's first row; point 0 has no row above it)
-    T mnext = __shfl_down_sync(kFull, Mbar[0], 1);
-    if (lane == 31) mnext = T(0);
-    T dcol[R + 1], kbar[R + 1];
+    // D̄(j)[p] = M̄[p-1] - M̄[p] at the thread's points (point t*R + R
+    // reads the next thread's first row; point 0 has no row above it)
+    const T mnext = g.next(Mbar[0]);
+    T kbar[R + 1];
 #pragma unroll
     for (int r = 0; r <= R; ++r) {
       const T lo = r > 0 ? Mbar[r - 1] : T(0);
       const T hi = r < R ? Mbar[r] : mnext;
-      dcol[r] = lo - hi;
-      kbar[r] = dcol[r] - dprev[r];  // K̄ at column j + 1
-      dprev[r] = dcol[r];
+      const T dcol = lo - hi;
+      kbar[r] = dcol - dprev[r];  // K̄ at column j + 1
+      dprev[r] = dcol;
     }
-    chain_column<T, R>(xs, ys, xi, own, khi, kbar, j + 1, d, rbf, xacc, ybar,
-                       lane);
+    store(kbar, khi);
 #pragma unroll
     for (int r = 0; r <= R; ++r) khi[r] = klo[r];
   }
   T kbar[R + 1];
 #pragma unroll
   for (int r = 0; r <= R; ++r) kbar[r] = -dprev[r];  // K̄ at column 0
-  chain_column<T, R>(xs, ys, xi, own, khi, kbar, 0, d, rbf, xacc, ybar, lane);
+  store(kbar, khi);
+  if (filled > 0)
+    contract_tile(xs, ys, u, Lu, filled, c0, chunk, L, d, rbf, xacc, ybar, g);
 }
 
-// Block b: x = X[b / nyb] against the 4 y sequences (b % nyb) * 4 + warp.
-// Xbar, Ybar: [N1, L, d], [N2, L, d], zeroed by the caller.
-template <typename T, int R>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Block b: x = X[b / nyb] against the y sequences (b % nyb) * pairs + p.
+// Xbar, Ybar: [N1, L, d], [N2, L, d], zeroed by the caller. At most 128
+// registers a thread (the launch bound: two 256-thread blocks an SM), so
+// that 4-warp blocks keep at least four to an SM.
+template <typename T, int R, int NL, typename G>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
 fused_gram_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                       const T* __restrict__ g, T* __restrict__ Xbar,
                       T* __restrict__ Ybar, int N1, int N2, int L, int d,
-                      int nl, int rbf) {
+                      int rbf, int W, int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nyb = (N2 + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int GT = G::kBlock ? 32 * W : G::kLanes;  // threads per pair
+  const int pairs = G::kBlock ? 1 : 32 * kPairsPerBlock / G::kLanes;
+  const int p = threadIdx.x / GT;
+  const int t = threadIdx.x % GT;
+  const int nyb = (N2 + pairs - 1) / pairs;
   const int n1 = blockIdx.x / nyb;
-  const int n2 = (blockIdx.x % nyb) * kWarpsPerBlock + warp;
+  const int n2base = (blockIdx.x % nyb) * pairs;
+  const int n2 = n2base + p;
+  const bool active = n2 < N2;
+  const int n2c = active ? n2 : N2 - 1;
   const int Ld = L * d;
   const int La = L * (d + 1);
-  T* xs = smem;                              // [L][d]
-  T* nxs = xs + Ld;                          // [L]
-  T* ys = nxs + L + warp * (Ld + L + La);    // [L][d], this warp's y
-  T* nys = ys + Ld;                          // [L]
-  T* xacc = nys + L;                         // [L][d + 1]
-  const bool active = n2 < N2;
+  const int Lu = L | 1;
+  const int per_pair = Ld + L + La + chunk * Lu;
+  T* xs = smem;                        // [L][d]
+  T* nxs = xs + Ld;                    // [L]
+  T* ys = nxs + L + p * per_pair;      // [L][d], this pair's y
+  T* nys = ys + Ld;                    // [L]
+  T* xacc = nys + L;                   // [L][d + 1]
+  T* u = xacc + La;                    // [chunk][Lu]
+  T* buf = nxs + L + pairs * per_pair;
 
   const T* xg = X + static_cast<long long>(n1) * Ld;
   for (int k = threadIdx.x; k < Ld; k += blockDim.x) xs[k] = xg[k];
-  for (int k = lane; k < La; k += 32) xacc[k] = T(0);
-  if (active) {
-    const T* yg = Y + static_cast<long long>(n2) * Ld;
-    for (int k = lane; k < Ld; k += 32) ys[k] = yg[k];
-  }
+  const T* yg = Y + static_cast<long long>(n2c) * Ld;
+  for (int k = t; k < Ld; k += GT) ys[k] = yg[k];
+  for (int k = t; k < La; k += GT) xacc[k] = T(0);
   __syncthreads();
   if (rbf) {
     half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
-    if (active) half_sqnorms(ys, nys, L, d, lane, 32);
+    half_sqnorms(ys, nys, L, d, t, GT);
   }
   __syncthreads();
-  if (active) {
+  {
     const long long plane = static_cast<long long>(N1) * N2;
-    const long long pair = static_cast<long long>(n1) * N2 + n2;
-    T w[kMaxLevels];
+    const long long pair = static_cast<long long>(n1) * N2 + n2c;
+    T w[NL];
 #pragma unroll
-    for (int m = 0; m < kMaxLevels; ++m)
-      w[m] = m < nl ? g[(m + 1) * plane + pair] : T(0);
-    pair_levels_bwd<T, R>(xs, nxs, ys, nys, L, d, nl, rbf != 0, w, xacc,
-                          Ybar + static_cast<long long>(n2) * Ld);
+    for (int m = 0; m < NL; ++m) w[m] = g[(m + 1) * plane + pair];
+    G grp(W, buf);
+    pair_levels_bwd<T, R, NL>(
+        xs, nxs, ys, nys, L, d, rbf != 0, w, xacc, u, Lu, chunk,
+        active ? Ybar + static_cast<long long>(n2) * Ld : nullptr, grp);
   }
   __syncthreads();
-  // X̄ of this block's x: add the 4 warps' sums, then across y blocks
-  const int wstride = Ld + L + La;
-  const T* acc0 = nxs + L + Ld + L;  // warp 0's xacc
+  // X̄ of this block's x: add the live pairs' sums, then across y blocks
+  const int live = min(pairs, N2 - n2base);
+  const T* acc0 = nxs + L + Ld + L;  // pair 0's xacc
   T* xb = Xbar + static_cast<long long>(n1) * Ld;
   for (int q = threadIdx.x; q < Ld; q += blockDim.x) {
-    const int p = q / d, c = q - p * d;
+    const int pt = q / d, c = q - pt * d;
     T s = T(0), su = T(0);
-    for (int w = 0; w < kWarpsPerBlock; ++w) {
-      s += acc0[w * wstride + p * (d + 1) + c];
-      su += acc0[w * wstride + p * (d + 1) + d];
+    for (int k = 0; k < live; ++k) {
+      s += acc0[k * per_pair + pt * (d + 1) + c];
+      su += acc0[k * per_pair + pt * (d + 1) + d];
     }
     atomicAdd(xb + q, rbf ? s - xs[q] * su : s);
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, int NL, typename G>
 cudaError_t launch_gram_bwd(const void* X, const void* Y, const void* g,
                             void* Xbar, void* Ybar, int N1, int N2, int L,
-                            int d, int nl, int rbf, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * static_cast<size_t>(L) *
-                      ((d + 1) + kWarpsPerBlock * (2 * d + 2));
-  cudaError_t e = allow_smem(fused_gram_bwd_kernel<T, R>, smem);
+                            int d, int rbf, int W, int chunk,
+                            cudaStream_t stream) {
+  const int threads = G::kBlock ? 32 * W : 32 * kPairsPerBlock;
+  const int pairs = G::kBlock ? 1 : threads / G::kLanes;
+  const size_t Lz = static_cast<size_t>(L);
+  const size_t smem =
+      sizeof(T) * (Lz * (d + 1) +
+                   pairs * (2 * Lz * (d + 1) + chunk * (Lz | 1))) +
+      exchange_bytes<T>(W);
+  cudaError_t e = allow_smem(fused_gram_bwd_kernel<T, R, NL, G>, smem);
   if (e != cudaSuccess) return e;
-  const long long nyb = (N2 + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long nyb = (N2 + pairs - 1) / pairs;
   const long long blocks = static_cast<long long>(N1) * nyb;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  fused_gram_bwd_kernel<T, R><<<static_cast<unsigned>(blocks),
-                                kWarpsPerBlock * 32, smem, stream>>>(
+  fused_gram_bwd_kernel<T, R, NL, G><<<static_cast<unsigned>(blocks),
+                                       threads, smem, stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(Y),
       static_cast<const T*>(g), static_cast<T*>(Xbar), static_cast<T*>(Ybar),
-      N1, N2, L, d, nl, rbf);
+      N1, N2, L, d, rbf, W, chunk);
   return cudaGetLastError();
 }
 
+template <typename T, typename G>
+cudaError_t by_levels(int nl, const void* X, const void* Y, const void* g,
+                      void* Xbar, void* Ybar, int N1, int N2, int L, int d,
+                      int rbf, int W, int chunk, cudaStream_t s) {
+#define GPSIG_NL(n)                                                        \
+  case n:                                                                  \
+    return launch_gram_bwd<T, 4, n, G>(X, Y, g, Xbar, Ybar, N1, N2, L, d, \
+                                       rbf, W, chunk, s);
+  switch (nl) {
+    GPSIG_NL(1) GPSIG_NL(2) GPSIG_NL(3) GPSIG_NL(4) GPSIG_NL(5) GPSIG_NL(6)
+    GPSIG_NL(7)
+    default: return cudaErrorInvalidValue;
+  }
+#undef GPSIG_NL
+}
+
+// The plan: 16-lane segments (two pairs a warp), one warp, or W warps; four
+// rows a lane in each.
 template <typename T>
 cudaError_t gram_bwd_dispatch(const void* X, const void* Y, const void* g,
                               void* Xbar, void* Ybar, int N1, int N2, int L,
-                              int d, int nl, int rbf, cudaStream_t s) {
-  switch (rows_per_lane(L)) {
-    case 1:
-      return launch_gram_bwd<T, 1>(X, Y, g, Xbar, Ybar, N1, N2, L, d, nl, rbf,
-                                   s);
-    case 2:
-      return launch_gram_bwd<T, 2>(X, Y, g, Xbar, Ybar, N1, N2, L, d, nl, rbf,
-                                   s);
-    case 4:
-      return launch_gram_bwd<T, 4>(X, Y, g, Xbar, Ybar, N1, N2, L, d, nl, rbf,
-                                   s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                              int d, int nl, int rbf, int S, int W, int chunk,
+                              cudaStream_t s) {
+  if (W > 1)
+    return by_levels<T, BlockGroup<T>>(nl, X, Y, g, Xbar, Ybar, N1, N2, L, d,
+                                       rbf, W, chunk, s);
+  if (S == 16)
+    return by_levels<T, WarpGroup<T, 16>>(nl, X, Y, g, Xbar, Ybar, N1, N2, L,
+                                          d, rbf, 1, chunk, s);
+  return by_levels<T, WarpGroup<T, 32>>(nl, X, Y, g, Xbar, Ybar, N1, N2, L, d,
+                                        rbf, 1, chunk, s);
 }
 
 }  // namespace
@@ -344,17 +411,25 @@ cudaError_t gram_bwd_dispatch(const void* X, const void* Y, const void* g,
 extern "C" {
 
 // X [N1, L, d], Y [N2, L, d], g [nl + 1, N1, N2] contiguous; Xbar, Ybar
-// zero-filled [N1, L, d], [N2, L, d], distinct buffers. Returns
-// cudaGetLastError() after the launch (0 on success).
+// zero-filled [N1, L, d], [N2, L, d], distinct buffers. The plan: segments
+// of S lanes (16: two pairs a warp; 32: one warp, or W warps a pair), four
+// rows a lane, tiles of `chunk` columns. Returns cudaGetLastError() after
+// the launch (0 on success).
 int gpsig_fused_gram_bwd(const void* X, const void* Y, const void* g,
                          void* Xbar, void* Ybar, int N1, int N2, int L, int d,
-                         int nl, int rbf, int f64, void* stream) {
-  if (L < 2 || d < 1 || nl < 1 || nl > kMaxLevels) return cudaErrorInvalidValue;
+                         int nl, int rbf, int S, int W, int chunk, int f64,
+                         void* stream) {
+  const bool plan = (S == 16 && W == 1) || (S == 32 && W >= 1 &&
+                                            W <= kMaxWarps);
+  if (L < 2 || d < 1 || nl < 1 || nl > kMaxLevels || !plan ||
+      L - 1 > S * W * 4 || (chunk != 8 && chunk != 16 && chunk != 32) ||
+      (S * W) % chunk != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? gram_bwd_dispatch<double>(X, Y, g, Xbar, Ybar, N1, N2, L, d,
-                                         nl, rbf, s)
+                                         nl, rbf, S, W, chunk, s)
              : gram_bwd_dispatch<float>(X, Y, g, Xbar, Ybar, N1, N2, L, d, nl,
-                                        rbf, s);
+                                        rbf, S, W, chunk, s);
 }
 
 }  // extern "C"

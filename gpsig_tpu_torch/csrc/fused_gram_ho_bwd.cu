@@ -1,365 +1,31 @@
-// Backward of the general fused signature Gram, for Hopper (sm_90a): any
-// order, difference True or False, linear / RBF / poly<K> / cosine base.
-//
-// Replaces the TPU kernel gpsig_tpu/ops/pallas/fused_gram_ho_bwd.py:
-// _ho_bwd_kernel (entry point fused_gram_ho_bwd_pallas): given X
-// [N1, L, d], Y [N2, L, d] and the cotangents g [nl + 1, N1, N2] of the
-// per-level Gram of fused_gram_ho.cu, it returns X̄ and Ȳ, the VJP of the
-// plain version fused_gram_ho_levels_ref (_xla_reference_ho in the JAX
-// package), num_levels <= 7, RBF exponent unclamped. A Poly offset is a
-// constant channel of X and Y, so its gradient is Ȳ's last channel.
-//
-// Math. M̄ column by column from common.cuh's run_length_levels_bwd (the
-// adjoint of the run-length DP; its derivation there), then the chain to
-// the base-kernel values K[p, q] = k(x_p, y_q): with difference=True
-// K̄[:, q] = D̄(q-1) - D̄(q), D̄(j)[p] = M̄[p-1, j] - M̄[p, j] (as
-// fused_gram_bwd.cu); with difference=False K̄ = M̄ on the real rows. Then
-// through the activation, u = K̄ · dk/dacc (exp for RBF, sin t / t for
-// cosine, K acc^(K-1) for poly<K>, 1 for linear), and the accumulator:
-// acc = <x, y> (- |x|²/2 - |y|²/2 for RBF and cosine), so
-//     X̄_p = sum_q u y_q (- x_p sum_q u),   Ȳ_q = sum_p u x_p (- y_q sum_p u).
-//
-// Design. fused_gram_bwd.cu's with fused_gram_ho.cu's state grid: one warp
-// per (x, y) pair, 4 per block sharing x, lanes holding R = 2 or 4
-// consecutive rows; the warp runs the forward sweep to the end carries,
-// then the reverse sweep, rebuilding the states by subtraction (the JAX
-// kernel's own scheme). Columns of M are rebuilt from the staged sequences
-// in both sweeps; in the reverse sweep the lane keeps k and dk/dacc at its
-// points for the column the chain needs. Rows past the matrix are exactly
-// zero in M (RBF and cosine are not zero at zero input) and their M̄ is
-// dropped. With difference a lane holds R + 1 points and the one it shares
-// with the next lane is owned by the upper lane's last slot. Ȳ of a column
-// is a warp sum added atomically (N1 blocks share a y); X̄ sums live in
-// shared memory per warp and are added across warps, then atomically
-// across y blocks. X and Y may be one tensor: X̄ and Ȳ are separate
-// buffers and autograd adds them.
-//
-// What bounds it on the H100. Instruction throughput and latency, not
-// memory (it reads 2 L d values and g's nl + 1 per pair): about 2 L² base
-// kernels and their derivatives per pair, the forward DP twice (sweep and
-// rebuild) and its adjoint, about 3x the forward's DP work, with about
-// twice its warp scans, and d + 1 warp sums per column for Ȳ.
+// Backward of the general fused signature Gram, one warp a pair (up to
+// 128 rows): the float32 instantiations and the entry point for WarpGroup
+// (float64 in fused_gram_ho_bwd_f64.cu). The design note, kernel and launch
+// are in fused_gram_ho_bwd.cuh.
 
-#include "common.cuh"
-
-namespace {
-
-using namespace gpsig;
-
-constexpr int kWarpsPerBlock = 4;
-
-// One warp's pair: columns of M in both sweeps, and the chain of M̄ to X̄
-// (xacc, this warp's [L][d + 1] shared sums) and Ȳ (ybar, global).
-template <typename T, int R>
-struct GramBwdColumns {
-  const T* xs;
-  const T* ys;
-  const T* nys;
-  T* xacc;
-  T* ybar;
-  int L, d, kind, degree, rows, lane;
-  bool diff, norms;
-  int xi[R + 1];
-  bool own[R + 1];
-  T nx[R + 1];
-  T kprev[R + 1];            // forward sweep: k at column j
-  T khi[R + 1], dkhi[R + 1];  // reverse sweep: k, dk at column j + 1
-  T klo[R + 1], dklo[R + 1];  // reverse sweep: k, dk at column j
-  T dprev[R + 1];            // D̄(j + 1)
-
-  __device__ GramBwdColumns(const T* xs_, const T* nxs, const T* ys_,
-                            const T* nys_, T* xacc_, T* ybar_, int L_,
-                            int d_, int kind_, int degree_, bool diff_)
-      : xs(xs_), ys(ys_), nys(nys_), xacc(xacc_), ybar(ybar_), L(L_), d(d_),
-        kind(kind_), degree(degree_), rows(diff_ ? L_ - 1 : L_),
-        lane(threadIdx.x & 31), diff(diff_), norms(kind_norms(kind_)) {
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-      const int p = lane * R + r;
-      xi[r] = min(p, L - 1);
-      own[r] = diff ? (p <= L - 1 && (r > 0 || lane == 0)) : (r < R && p < L);
-      nx[r] = norms ? nxs[xi[r]] : T(0);
-    }
-    if (diff) {
-#pragma unroll
-      for (int r = 0; r <= R; ++r) kprev[r] = kv(r, 0).k;
-    }
-  }
-
-  // k(x_p, y_j) and dk/dacc at the lane's point r
-  __device__ KindValue<T> kv(int r, int j) const {
-    T a = norms ? nx[r] + nys[j] : T(0);
-    for (int c = 0; c < d; ++c) a += xs[xi[r] * d + c] * ys[j * d + c];
-    return kind_value(a, kind, degree);
-  }
-
-  // k and dk/dacc at the lane's points against y_j (points 0..R-1 without
-  // difference, 0..R with)
-  __device__ void eval(int j, T (&k)[R + 1], T (&dk)[R + 1]) const {
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-      k[r] = dk[r] = T(0);
-      if (r < R || diff) {
-        const KindValue<T> v = kv(r, j);
-        k[r] = v.k;
-        dk[r] = v.dk;
-      }
-    }
-  }
-
-  __device__ void mask(T (&mcol)[R]) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (lane * R + r >= rows) mcol[r] = T(0);
-  }
-
-  // forward sweep, ascending j (as fused_gram_ho.cu's GramColumns)
-  __device__ void fwd(int j, T (&mcol)[R]) {
-    if (diff) {
-      T knew[R + 1];
-#pragma unroll
-      for (int r = 0; r <= R; ++r) knew[r] = kv(r, j + 1).k;
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        mcol[r] = (knew[r + 1] - kprev[r + 1]) - (knew[r] - kprev[r]);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) kprev[r] = knew[r];
-    } else {
-#pragma unroll
-      for (int r = 0; r < R; ++r) mcol[r] = kv(r, j).k;
-    }
-    mask(mcol);
-  }
-
-  __device__ void start_reverse() {
-    if (diff) {
-      eval(L - 1, khi, dkhi);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) dprev[r] = T(0);
-    }
-  }
-
-  // reverse sweep, descending j
-  __device__ void rev(int j, T (&mcol)[R]) {
-    eval(j, klo, dklo);
-    if (diff) {
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        mcol[r] = (khi[r + 1] - klo[r + 1]) - (khi[r] - klo[r]);
-    } else {
-#pragma unroll
-      for (int r = 0; r < R; ++r) mcol[r] = klo[r];
-    }
-    mask(mcol);
-  }
-
-  // X̄ and Ȳ contributions of base-kernel column j, K̄ = kbar at the
-  // lane's points (owned ones count), dk/dacc = dk
-  __device__ void chain(int j, const T (&kbar)[R + 1],
-                        const T (&dk)[R + 1]) const {
-    T u[R + 1];
-    T su = T(0);
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-      u[r] = own[r] ? kbar[r] * dk[r] : T(0);
-      su += u[r];
-      if (own[r]) xacc[xi[r] * (d + 1) + d] += u[r];
-    }
-    const T* yj = ys + j * d;
-    const T su_all = norms ? warp_sum(su) : T(0);
-    for (int c = 0; c < d; ++c) {
-      const T yc = yj[c];
-      T s = T(0);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) {
-        if (own[r]) xacc[xi[r] * (d + 1) + c] += u[r] * yc;
-        s += u[r] * xs[xi[r] * d + c];
-      }
-      s = warp_sum(s);
-      if (lane == 0) atomicAdd(ybar + j * d + c, norms ? s - yc * su_all : s);
-    }
-  }
-
-  __device__ void sink(int j, T (&mbar)[R]) {
-    mask(mbar);
-    T kbar[R + 1];
-    if (diff) {
-      // D̄(j)[p] = M̄[p-1] - M̄[p] at the lane's points (point lane*R + R
-      // reads the next lane's first row; point 0 has no row above it)
-      T mnext = __shfl_down_sync(kFull, mbar[0], 1);
-      if (lane == 31) mnext = T(0);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) {
-        const T dcol =
-            (r > 0 ? mbar[r - 1] : T(0)) - (r < R ? mbar[r] : mnext);
-        kbar[r] = dcol - dprev[r];  // K̄ at column j + 1
-        dprev[r] = dcol;
-      }
-      chain(j + 1, kbar, dkhi);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) {
-        khi[r] = klo[r];
-        dkhi[r] = dklo[r];
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r <= R; ++r) kbar[r] = r < R ? mbar[r] : T(0);
-      chain(j, kbar, dklo);
-    }
-  }
-
-  __device__ void finish() const {
-    if (!diff) return;
-    T kbar[R + 1];
-#pragma unroll
-    for (int r = 0; r <= R; ++r) kbar[r] = -dprev[r];  // K̄ at column 0
-    chain(0, kbar, dkhi);
-  }
-};
-
-// Block b: x = X[b / nyb] against the 4 y sequences (b % nyb) * 4 + warp.
-// Xbar, Ybar: [N1, L, d], [N2, L, d], zeroed by the caller.
-template <typename T, int R, int P>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gram_ho_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-                   const T* __restrict__ g, T* __restrict__ Xbar,
-                   T* __restrict__ Ybar, int N1, int N2, int L, int d,
-                   int nl, int kind, int degree, int diff) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nyb = (N2 + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int n1 = blockIdx.x / nyb;
-  const int n2 = (blockIdx.x % nyb) * kWarpsPerBlock + warp;
-  const int Ld = L * d;
-  const int La = L * (d + 1);
-  const bool norms = kind_norms(kind);
-  T* xs = smem;                              // [L][d]
-  T* nxs = xs + Ld;                          // [L]
-  T* ys = nxs + L + warp * (Ld + L + La);    // [L][d], this warp's y
-  T* nys = ys + Ld;                          // [L]
-  T* xacc = nys + L;                         // [L][d + 1]
-  const bool active = n2 < N2;
-
-  const T* xg = X + static_cast<long long>(n1) * Ld;
-  for (int k = threadIdx.x; k < Ld; k += blockDim.x) xs[k] = xg[k];
-  for (int k = lane; k < La; k += 32) xacc[k] = T(0);
-  if (active) {
-    const T* yg = Y + static_cast<long long>(n2) * Ld;
-    for (int k = lane; k < Ld; k += 32) ys[k] = yg[k];
-  }
-  __syncthreads();
-  if (norms) {
-    half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
-    if (active) half_sqnorms(ys, nys, L, d, lane, 32);
-  }
-  __syncthreads();
-  if (active) {
-    const long long plane = static_cast<long long>(N1) * N2;
-    const long long pair = static_cast<long long>(n1) * N2 + n2;
-    T w[kRlLevels];
-#pragma unroll
-    for (int m = 0; m < kRlLevels; ++m)
-      w[m] = m < nl ? g[(m + 1) * plane + pair] : T(0);
-    GramBwdColumns<T, R> col(xs, nxs, ys, nys, xacc,
-                             Ybar + static_cast<long long>(n2) * Ld, L, d,
-                             kind, degree, diff != 0);
-    const int ncols = diff ? L - 1 : L;
-    auto fwd = [&](int j, T (&mcol)[R]) { col.fwd(j, mcol); };
-    auto rev = [&](int j, T (&mcol)[R]) {
-      if (j == ncols - 1) col.start_reverse();
-      col.rev(j, mcol);
-    };
-    auto sink = [&](int j, T (&mbar)[R]) { col.sink(j, mbar); };
-    run_length_levels_bwd<T, R, P>(fwd, rev, sink, ncols, nl, w);
-    col.finish();
-  }
-  __syncthreads();
-  // X̄ of this block's x: add the 4 warps' sums, then across y blocks
-  const int wstride = Ld + L + La;
-  const T* acc0 = nxs + L + Ld + L;  // warp 0's xacc
-  T* xb = Xbar + static_cast<long long>(n1) * Ld;
-  for (int q = threadIdx.x; q < Ld; q += blockDim.x) {
-    const int p = q / d, c = q - p * d;
-    T s = T(0), su = T(0);
-    for (int k = 0; k < kWarpsPerBlock; ++k) {
-      s += acc0[k * wstride + p * (d + 1) + c];
-      su += acc0[k * wstride + p * (d + 1) + d];
-    }
-    atomicAdd(xb + q, norms ? s - xs[q] * su : s);
-  }
-}
-
-template <typename T, int R, int P>
-cudaError_t launch(const void* X, const void* Y, const void* g, void* Xbar,
-                   void* Ybar, int N1, int N2, int L, int d, int nl, int kind,
-                   int degree, int diff, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * static_cast<size_t>(L) *
-                      ((d + 1) + kWarpsPerBlock * (2 * d + 2));
-  cudaError_t e = allow_smem(gram_ho_bwd_kernel<T, R, P>, smem);
-  if (e != cudaSuccess) return e;
-  const long long nyb = (N2 + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const long long blocks = static_cast<long long>(N1) * nyb;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gram_ho_bwd_kernel<T, R, P><<<static_cast<unsigned>(blocks),
-                                kWarpsPerBlock * 32, smem, stream>>>(
-      static_cast<const T*>(X), static_cast<const T*>(Y),
-      static_cast<const T*>(g), static_cast<T*>(Xbar), static_cast<T*>(Ybar),
-      N1, N2, L, d, nl, kind, degree, diff);
-  return cudaGetLastError();
-}
-
-template <typename T, int R>
-cudaError_t by_order(int P, const void* X, const void* Y, const void* g,
-                     void* Xbar, void* Ybar, int N1, int N2, int L, int d,
-                     int nl, int kind, int degree, int diff, cudaStream_t s) {
-#define GPSIG_P(p)                                                      \
-  case p:                                                               \
-    return launch<T, R, p>(X, Y, g, Xbar, Ybar, N1, N2, L, d, nl, kind, \
-                           degree, diff, s);
-  switch (P) {
-    GPSIG_P(1) GPSIG_P(2) GPSIG_P(3) GPSIG_P(4) GPSIG_P(5) GPSIG_P(6)
-    GPSIG_P(7)
-    default: return cudaErrorInvalidValue;
-  }
-#undef GPSIG_P
-}
-
-template <typename T>
-cudaError_t by_rows(int P, const void* X, const void* Y, const void* g,
-                    void* Xbar, void* Ybar, int N1, int N2, int L, int d,
-                    int nl, int kind, int degree, int diff, cudaStream_t s) {
-  switch (rl_rows_per_lane(diff ? L - 1 : L)) {
-    case 2: return by_order<T, 2>(P, X, Y, g, Xbar, Ybar, N1, N2, L, d, nl,
-                                  kind, degree, diff, s);
-    case 4: return by_order<T, 4>(P, X, Y, g, Xbar, Ybar, N1, N2, L, d, nl,
-                                  kind, degree, diff, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
+#include "fused_gram_ho_bwd.cuh"
 
 extern "C" {
 
 // X [N1, L, d], Y [N2, L, d], g [nl + 1, N1, N2] contiguous; Xbar, Ybar
 // zero-filled [N1, L, d], [N2, L, d], distinct buffers; order, kind,
-// degree and diff as gpsig_fused_gram_ho. Returns cudaGetLastError() after
-// the launch (0 on success).
+// degree and diff as gpsig_fused_gram_ho; R rows a lane of one warp (at
+// most 128 rows). Returns cudaGetLastError() after the launch (0 on
+// success).
 int gpsig_fused_gram_ho_bwd(const void* X, const void* Y, const void* g,
                             void* Xbar, void* Ybar, int N1, int N2, int L,
                             int d, int nl, int order, int kind, int degree,
-                            int diff, int f64, void* stream) {
+                            int diff, int R, int f64, void* stream) {
   if (L < 2 || d < 1 || nl < 1 || nl > kRlLevels || order < 1 ||
-      kind < kLinear || kind > kPoly || (kind == kPoly && degree < 1))
+      kind < kLinear || kind > kPoly || (kind == kPoly && degree < 1) ||
+      !plan_ok(diff ? L - 1 : L, 1, R))
     return cudaErrorInvalidValue;
   const int P = order < nl ? order : nl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? by_rows<double>(P, X, Y, g, Xbar, Ybar, N1, N2, L, d, nl,
-                               kind, degree, diff, s)
+  return f64 ? gram_ho_bwd_warp_f64(P, X, Y, g, Xbar, Ybar, N1, N2, L, d, nl,
+                                    kind, degree, diff, R, s)
              : by_rows<float>(P, X, Y, g, Xbar, Ybar, N1, N2, L, d, nl, kind,
-                              degree, diff, s);
+                              degree, diff, R, s);
 }
 
 }  // extern "C"

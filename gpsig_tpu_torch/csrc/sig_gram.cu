@@ -13,13 +13,15 @@
 //
 // Design. The run-length column DP of fused_gram_ho.cu (common.cuh's
 // run_length_levels), with its columns read from M instead of built: one
-// warp per matrix, 4 per block. The truncated signature kernel is
-// symmetric under transposing M (swapping the roles of i and j swaps the
-// run lengths r and s, and the recursion treats them alike), so the warp
-// streams M's rows M[b, i, :] as its "columns" and spreads j over the
-// lanes: each read is a contiguous row, coalesced, with no shared-memory
-// staging and no transpose; L2 > 128 is refused by the wrapper.
-// Templated on (P, R): 7 x 2 instantiations per dtype.
+// warp per matrix, 4 per block, up to L2 = 128; above, one block of W <= 8
+// warps per matrix (the wrapper's plan), the row scans crossing the warps
+// through shared memory. The truncated signature kernel is symmetric under
+// transposing M (swapping the roles of i and j swaps the run lengths r and
+// s, and the recursion treats them alike), so the group streams M's rows
+// M[b, i, :] as its "columns" and spreads j over its threads: each read is
+// a contiguous row, coalesced, with no shared-memory staging and no
+// transpose. Templated on (P, R) and the group: 7 x 3 instantiations per
+// dtype (R = 2, 4 on a warp, 4 on a block).
 //
 // What bounds it on the H100. It reads B L1 L2 values once and writes
 // (nl + 1) B: at the flagship diagonal (B = 2048, L1 = L2 = 49, float32)
@@ -34,52 +36,62 @@ namespace {
 
 using namespace gpsig;
 
-constexpr int kWarpsPerBlock = 4;
-
-// Warp w of block b handles matrix b * 4 + w. out: [nl + 1, B].
-template <typename T, int R, int P>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// Matrix b = blockIdx.x * pairs + p (one warp each, or the whole block
+// for a BlockGroup). out: [nl + 1, B].
+template <typename T, int R, int P, typename G>
+__global__ void __launch_bounds__(G::kMaxThreads)
 sig_gram_kernel(const T* __restrict__ M, T* __restrict__ out, int B, int L1,
-                int L2, int nl) {
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarpsPerBlock + warp;
-  if (b >= B) return;  // whole warps only
+                int L2, int nl, int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int pairs = G::kBlock ? 1 : kPairsPerBlock;
+  const int p = G::kBlock ? 0 : static_cast<int>(threadIdx.x) >> 5;
+  const int b = blockIdx.x * pairs + p;
+  if (b >= B) return;  // whole warps only; a block group is always live
+  G g(W, reinterpret_cast<T*>(smem_raw));
   MatrixRows<T, R> rows{M + static_cast<long long>(b) * L1 * L2, L2,
-                        static_cast<int>(threadIdx.x & 31)};
+                        g.thread()};
   run_length_levels<T, R, P>(rows, L1, nl, out + b,
-                             static_cast<long long>(B));
+                             static_cast<long long>(B), g);
 }
 
-template <typename T, int R, int P>
+template <typename T, int R, int P, typename G>
 cudaError_t launch(const void* M, void* out, int B, int L1, int L2, int nl,
-                   cudaStream_t stream) {
-  const unsigned blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  sig_gram_kernel<T, R, P><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(M), static_cast<T*>(out), B, L1, L2, nl);
+                   int W, cudaStream_t stream) {
+  const int pairs = G::kBlock ? 1 : kPairsPerBlock;
+  const unsigned blocks = (B + pairs - 1) / pairs;
+  sig_gram_kernel<T, R, P, G><<<blocks,
+                                G::kBlock ? 32 * W : 32 * kPairsPerBlock,
+                                exchange_bytes<T>(W), stream>>>(
+      static_cast<const T*>(M), static_cast<T*>(out), B, L1, L2, nl, W);
   return cudaGetLastError();
 }
 
-template <typename T, int R>
+template <typename T, int R, typename G>
 cudaError_t by_order(int P, const void* M, void* out, int B, int L1, int L2,
-                     int nl, cudaStream_t s) {
+                     int nl, int W, cudaStream_t s) {
   switch (P) {
-    case 1: return launch<T, R, 1>(M, out, B, L1, L2, nl, s);
-    case 2: return launch<T, R, 2>(M, out, B, L1, L2, nl, s);
-    case 3: return launch<T, R, 3>(M, out, B, L1, L2, nl, s);
-    case 4: return launch<T, R, 4>(M, out, B, L1, L2, nl, s);
-    case 5: return launch<T, R, 5>(M, out, B, L1, L2, nl, s);
-    case 6: return launch<T, R, 6>(M, out, B, L1, L2, nl, s);
-    case 7: return launch<T, R, 7>(M, out, B, L1, L2, nl, s);
+    case 1: return launch<T, R, 1, G>(M, out, B, L1, L2, nl, W, s);
+    case 2: return launch<T, R, 2, G>(M, out, B, L1, L2, nl, W, s);
+    case 3: return launch<T, R, 3, G>(M, out, B, L1, L2, nl, W, s);
+    case 4: return launch<T, R, 4, G>(M, out, B, L1, L2, nl, W, s);
+    case 5: return launch<T, R, 5, G>(M, out, B, L1, L2, nl, W, s);
+    case 6: return launch<T, R, 6, G>(M, out, B, L1, L2, nl, W, s);
+    case 7: return launch<T, R, 7, G>(M, out, B, L1, L2, nl, W, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// One warp a matrix at R = 2 or 4, or a block of W warps at R = 4.
 template <typename T>
 cudaError_t by_rows(int P, const void* M, void* out, int B, int L1, int L2,
-                    int nl, cudaStream_t s) {
-  switch (rl_rows_per_lane(L2)) {
-    case 2: return by_order<T, 2>(P, M, out, B, L1, L2, nl, s);
-    case 4: return by_order<T, 4>(P, M, out, B, L1, L2, nl, s);
+                    int nl, int W, int R, cudaStream_t s) {
+  if (W > 1)
+    return by_order<T, 4, BlockGroup<T>>(P, M, out, B, L1, L2, nl, W, s);
+  switch (R) {
+    case 2: return by_order<T, 2, WarpGroup<T>>(P, M, out, B, L1, L2, nl, 1,
+                                                s);
+    case 4: return by_order<T, 4, WarpGroup<T>>(P, M, out, B, L1, L2, nl, 1,
+                                                s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -88,16 +100,18 @@ cudaError_t by_rows(int P, const void* M, void* out, int B, int L1, int L2,
 
 extern "C" {
 
-// M [B, L1, L2] contiguous (L2 <= 128) -> out [nl + 1, B] at order
-// p = min(order, nl); returns cudaGetLastError() after the launch.
+// M [B, L1, L2] contiguous -> out [nl + 1, B] at order p = min(order, nl),
+// L2 spread as the plan (W warps, R entries a lane) says; returns
+// cudaGetLastError() after the launch.
 int gpsig_sig_gram(const void* M, void* out, int B, int L1, int L2, int nl,
-                   int order, int f64, void* stream) {
-  if (B < 1 || L1 < 1 || L2 < 1 || nl < 1 || nl > kRlLevels || order < 1)
+                   int order, int W, int R, int f64, void* stream) {
+  if (B < 1 || L1 < 1 || L2 < 1 || nl < 1 || nl > kRlLevels || order < 1 ||
+      !plan_ok(L2, W, R))
     return cudaErrorInvalidValue;
   const int P = order < nl ? order : nl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? by_rows<double>(P, M, out, B, L1, L2, nl, s)
-             : by_rows<float>(P, M, out, B, L1, L2, nl, s);
+  return f64 ? by_rows<double>(P, M, out, B, L1, L2, nl, W, R, s)
+             : by_rows<float>(P, M, out, B, L1, L2, nl, W, R, s);
 }
 
 }  // extern "C"

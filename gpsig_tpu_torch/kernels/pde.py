@@ -36,7 +36,7 @@ from gpsig_tpu_torch.ops import goursat
 from gpsig_tpu_torch.ops.signature import incremental_gram
 
 _VOSF = ("VOSF features under the untruncated prior (ops/explicit.py) are "
-         "not ported yet: ROADMAP Queue 1 item 13")
+         "not ported yet: ROADMAP: VOSF and low-rank")
 
 
 def _psd_project(K, floor):

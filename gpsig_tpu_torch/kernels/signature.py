@@ -24,9 +24,13 @@ A CPU tensor runs those entry points' plain versions through the same
 wrappers; a CUDA tensor launches the kernels, forward and backward (every
 entry point's ``torch.autograd.Function`` has a backward kernel; the
 tuned diagonal's backward is autograd through its plain version, as in
-the JAX package). ``num_levels > 7`` runs plain PyTorch on the CPU and
-raises ``NotImplementedError`` on CUDA, naming the ROADMAP item that
-ports it.
+the JAX package). The kernels take any sequence length up to the launch
+plan's bound (``ops/cuda/plan.py``: 1024 DP rows, L = 1025 with
+``difference``, and a block's shared memory, which binds first only for
+the order-1 Gram backward in float64 at d > 5, e.g. L = 829 at d = 8);
+above it the wrapper raises ``ValueError``. The gaps that remain on
+CUDA: ``num_levels > 7`` runs plain PyTorch on the CPU and raises
+``NotImplementedError`` on CUDA, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -44,9 +48,8 @@ from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 from gpsig_tpu_torch.ops.cuda import tens_seq as ts
 from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
 
-_NL_GAP = ("num_levels > 7 on CUDA: ROADMAP Queue 2 item 10 (the sig_gram "
-           "kernels beyond 7 levels, over an increment tensor built in "
-           "PyTorch)")
+_NL_GAP = ("ROADMAP: num_levels > 7 on CUDA (the DP state beyond 7 levels "
+           "moves from registers to shared memory)")
 
 
 class SignatureKernel(nn.Module):

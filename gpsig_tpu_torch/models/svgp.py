@@ -3,8 +3,8 @@
 Counterpart of ``gpsig_tpu/models/svgp.py``:
 ELBO = (N/B) Σ_batch E_q[log p(y_i | f_i)] − KL[q(u) ‖ p(u)], prediction,
 and the cached :class:`Posterior`. Training (natural gradients + Adam) is
-``gpsig_tpu_torch.training``; the Kuu = I (VOSF) fast path is ROADMAP
-Queue 1 item 13.
+``gpsig_tpu_torch.training``; the Kuu = I (VOSF) fast path is the ROADMAP
+item "VOSF and low-rank".
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ from torch import nn
 from gpsig_tpu_torch import config, gauss
 from gpsig_tpu_torch.config import precise_linalg
 
-_IDENTITY = ("Kuu = I inducing features (VOSF) are not ported yet: ROADMAP "
-             "Queue 1 item 13")
+_IDENTITY = ("Kuu = I inducing features (VOSF) are not ported yet: ROADMAP: "
+             "VOSF and low-rank")
 
 
 class SVGP(nn.Module):

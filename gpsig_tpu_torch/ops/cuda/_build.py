@@ -1,9 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
-(``sm_90a``), all of them at once, and the objects are linked into one
-shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library's name carries a hash of the sources, the shared
+(``sm_90a``), as many at once as there are cores, the slowest first, and
+the objects are linked into one shared library with a plain C interface,
+at first use, and loaded with ``ctypes``. The library's name carries a hash of the sources, the shared
 header and the flags, so an edited ``.cu`` or ``.cuh`` file builds anew.
 Builds go to ``gpsig_tpu_torch/.build/`` (git-ignored). A failed build
 raises with nvcc's output; nothing falls back to another implementation.
@@ -40,23 +40,35 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points and their argument types (every pointer and the stream
 #: as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "gpsig_fused_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gpsig_fused_diag": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gpsig_fused_gram": [_P, _P, _P, *[_I] * 9, _P],
+    "gpsig_fused_diag": [_P, _P, *[_I] * 8, _P],
     "gpsig_tens_seq": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gpsig_fused_gram_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _P],
+    "gpsig_fused_gram_bwd": [*[_P] * 5, *[_I] * 10, _P],
     "gpsig_tens_seq_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P],
-    "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 10, _P],
-    "gpsig_sig_gram": [_P, _P, *[_I] * 6, _P],
+    "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 12, _P],
+    "gpsig_sig_gram": [_P, _P, *[_I] * 8, _P],
     "gpsig_tens_seq_general": [_P, _P, _P, *[_I] * 11, _P],
-    "gpsig_fused_gram_ho_bwd": [*[_P] * 5, *[_I] * 10, _P],
-    "gpsig_sig_gram_bwd": [_P, _P, _P, *[_I] * 6, _P],
+    "gpsig_fused_gram_ho_bwd": [*[_P] * 5, *[_I] * 11, _P],
+    "gpsig_fused_gram_ho_bwd_block": [*[_P] * 5, *[_I] * 11, _P],
+    "gpsig_sig_gram_bwd": [_P, _P, _P, *[_I] * 8, _P],
     "gpsig_tens_seq_general_bwd": [*[_P] * 5, *[_I] * 11, _P],
     "gpsig_goursat": [_P, _P, *[_I] * 4, _P],
     "gpsig_goursat_refined": [_P, _P, *[_I] * 5, _P],
     "gpsig_goursat_grad": [*[_P] * 4, *[_I] * 5, _P],
 }
+
+#: the sources that take longest to compile, slowest first, as measured on
+#: an 8-core H100 machine (each of the others takes a fraction of their
+#: time). They start first, the others after them in name order, and no
+#: more nvcc run than there are cores, so that a long compile neither starts
+#: late nor shares its core with the short ones.
+SLOWEST_FIRST = (
+    "fused_gram_ho_bwd_block_f64.cu", "tens_seq_bwd.cu",
+    "fused_gram_ho_bwd_f64.cu", "tens_seq_general_bwd.cu", "fused_gram_ho.cu",
+    "sig_gram_bwd_block_f64.cu", "sig_gram_bwd_f64.cu", "sig_gram_bwd.cu",
+    "fused_gram_ho_bwd_block.cu", "fused_gram_bwd.cu", "fused_gram_ho_bwd.cu",
+)
 
 _lib = None
 
@@ -86,41 +98,57 @@ def library_path():
     return BUILD_DIR / f"libgpsig_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _compile(cmds, outs):
+    """Run the commands, at most one per core the process may use, in the
+    order given, each writing to its file in ``outs``. Returns each one's
+    exit code and wall time from its own start."""
+    jobs = len(os.sched_getaffinity(0))
+    pending = list(range(len(cmds)))
+    running, started = {}, {}
+    codes, seconds = [None] * len(cmds), [None] * len(cmds)
+    while pending or running:
+        while pending and len(running) < jobs:
+            i = pending.pop(0)
+            with open(outs[i], "w") as f:
+                running[i] = subprocess.Popen(cmds[i], stdout=f,
+                                              stderr=subprocess.STDOUT)
+            started[i] = time.perf_counter()
+        # polled: the output goes to a file, so no process waits on a pipe
+        for i, proc in list(running.items()):
+            if proc.poll() is not None:
+                codes[i] = proc.returncode
+                seconds[i] = time.perf_counter() - started[i]
+                del running[i]
+        time.sleep(0.1)
+    return codes, seconds
+
+
 def build():
     """Compile the sources unless a library of the same hash exists: one
-    ``nvcc -c`` per source, all started together, then one link. Returns
-    the library's path. nvcc's reports (registers, spills) and each
-    source's compile time are kept beside it as ``<lib>.log``."""
+    ``nvcc -c`` per source (as many at once as there are cores, the
+    slowest first), then one link. Returns the library's path. nvcc's
+    reports (registers, spills) and each source's compile time are kept
+    beside it as ``<lib>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    srcs = sorted(_sources(), key=lambda src: (
+        SLOWEST_FIRST.index(src.name) if src.name in SLOWEST_FIRST
+        else len(SLOWEST_FIRST)))
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(_sources(), objs)]
+                for src, obj in zip(srcs, objs)]
         outs = [obj.with_suffix(".txt") for obj in objs]
-        t0 = time.perf_counter()
-        procs = []
-        for cmd, path in zip(cmds, outs):
-            with open(path, "w") as f:
-                procs.append(subprocess.Popen(cmd, stdout=f,
-                                              stderr=subprocess.STDOUT))
-        # each source's own wall time, polled (its output goes to a file,
-        # so no process waits on a full pipe)
-        seconds = [None] * len(procs)
-        while None in seconds:
-            for i, proc in enumerate(procs):
-                if seconds[i] is None and proc.poll() is not None:
-                    seconds[i] = time.perf_counter() - t0
-            time.sleep(0.1)
+        codes, seconds = _compile(cmds, outs)
         logs = [f"{path.read_text()}{cmd[-1]}: {sec:.1f} s\n"
                 for cmd, path, sec in zip(cmds, outs, seconds)]
-        for cmd, proc, log in zip(cmds, procs, logs):
-            if proc.returncode != 0:
+        for cmd, code, log in zip(cmds, codes, logs):
+            if code != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+                    f"nvcc failed ({code}): {' '.join(cmd)}\n{log}")
         lib = Path(tmp) / out.name
         cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -7,7 +7,9 @@ are in ``csrc/fused_gram.cu`` (forward, diagonal) and
 ``csrc/fused_gram_bwd.cu`` (Gram backward), whose opening notes give the
 designs. Semantics: pre-scaled sequences, order 1, ``difference=True``, RBF
 (``rbf=True``) or Linear base, ``num_levels <= 7``, RBF distance
-unclamped.
+unclamped, any length the launch plan takes (``plan.py``: at most
+``plan.MAX_ROWS`` increment rows and the block's shared memory; at d <= 8
+that is beyond L = 800 in float32 and float64).
 
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
 it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
@@ -23,12 +25,9 @@ from __future__ import annotations
 import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
-from gpsig_tpu_torch.ops.cuda import _build
+from gpsig_tpu_torch.ops.cuda import _build, plan
 
 MAX_LEVELS = 7
-#: longest sequence the compiled kernels take: L - 1 increment rows over
-#: 32 lanes at 4 rows per lane, the largest instantiation
-MAX_LENGTH = 32 * 4 + 1
 
 gram_launches = 0
 diag_launches = 0
@@ -83,11 +82,34 @@ def _check_shapes(name, num_levels, *seqs):
             )
     if not 1 <= num_levels <= MAX_LEVELS:
         raise ValueError(f"{name}: num_levels must be 1..{MAX_LEVELS}")
-    if not 2 <= L <= MAX_LENGTH:
-        raise ValueError(
-            f"{name}: sequence length {L} outside the compiled range "
-            f"2..{MAX_LENGTH}"
-        )
+    if L < 2:
+        raise ValueError(f"{name}: sequence length {L} < 2")
+
+
+def _forward_plan(name, X, diag):
+    """(W, R) of the forward kernels for X [N, L, d]; raises where no
+    launch takes the shape."""
+    L, d = X.shape[1:]
+    rows = L - 1
+    wr = plan.row_plan(rows, (1, 2, 4))
+    smem = (plan.diag_smem if diag else plan.gram_smem)(
+        L, d, wr[0] if wr else 1, X.element_size())
+    plan.check_fits(name, rows, wr, smem, f"L={L}, d={d}")
+    return wr
+
+
+def _backward_plan(name, X):
+    """(S, W, chunk) of the backward kernel for X [N, L, d]; raises where
+    no launch takes the shape."""
+    L, d = X.shape[1:]
+    item = X.element_size()
+    p = plan.gram_bwd_plan(L)
+    S, W = p or (32, 1)
+    chunk = plan.gram_bwd_chunk(L, d, S, W, item)
+    plan.check_fits(name, L - 1, p, plan.gram_bwd_smem(L, d, S, W, chunk,
+                                                       item),
+                    f"L={L}, d={d}")
+    return S, W, chunk
 
 
 def _on_cpu(*tensors):
@@ -99,12 +121,13 @@ def _launch_gram(X, Y, num_levels, rbf):
     name = "fused_gram_levels"
     _build.check_inputs(name, (X, Y))
     _check_shapes(name, num_levels, X, Y)
+    W, R = _forward_plan(name, X, diag=False)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     out = torch.empty((num_levels + 1, N1, N2), dtype=X.dtype,
                       device=X.device)
     if N1 and N2:
         _build.launch("gpsig_fused_gram", X.device, X, Y, out, N1, N2, L, d,
-                      num_levels, rbf, X.dtype == torch.float64)
+                      num_levels, rbf, W, R, X.dtype == torch.float64)
         gram_launches += 1
     return out
 
@@ -114,11 +137,12 @@ def _launch_diag(X, num_levels, rbf):
     name = "fused_diag_levels"
     _build.check_inputs(name, (X,))
     _check_shapes(name, num_levels, X)
+    W, R = _forward_plan(name, X, diag=True)
     N, L, d = X.shape
     out = torch.empty((num_levels + 1, N), dtype=X.dtype, device=X.device)
     if N:
         _build.launch("gpsig_fused_diag", X.device, X, out, N, L, d,
-                      num_levels, rbf, X.dtype == torch.float64)
+                      num_levels, rbf, W, R, X.dtype == torch.float64)
         diag_launches += 1
     return out
 
@@ -193,6 +217,7 @@ def fused_gram_levels_bwd(X, Y, g, num_levels, rbf=True):
     name = "fused_gram_levels_bwd"
     _build.check_inputs(name, (X, Y, g))
     _check_shapes(name, num_levels, X, Y)
+    S, W, chunk = _backward_plan(name, X)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     if tuple(g.shape) != (num_levels + 1, N1, N2):
         raise ValueError(f"{name}: g must be [{num_levels + 1}, {N1}, {N2}];"
@@ -201,7 +226,7 @@ def fused_gram_levels_bwd(X, Y, g, num_levels, rbf=True):
     Ybar = torch.zeros_like(Y)
     if N1 and N2:
         _build.launch("gpsig_fused_gram_bwd", X.device, X, Y, g, Xbar, Ybar,
-                      N1, N2, L, d, num_levels, rbf,
+                      N1, N2, L, d, num_levels, rbf, S, W, chunk,
                       X.dtype == torch.float64)
         gram_bwd_launches += 1
     return Xbar, Ybar

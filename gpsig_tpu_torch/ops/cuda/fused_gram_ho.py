@@ -4,12 +4,12 @@ PyTorch version.
 Counterpart of ``gpsig_tpu/ops/pallas/fused_gram_ho.py``
 (``fused_gram_ho_levels``) and ``fused_gram_ho_bwd.py``
 (``fused_gram_ho_bwd_pallas``); the kernels are ``csrc/fused_gram_ho.cu``
-and ``csrc/fused_gram_ho_bwd.cu``, whose opening notes give the designs.
+and ``csrc/fused_gram_ho_bwd.cuh``, whose opening notes give the designs.
 Semantics: pre-scaled sequences, any ``order``, ``difference`` True or
 False, base ``kind`` 'linear', 'rbf', 'poly<K>' or 'cosine' (for
 'poly<K>' the caller has appended the offset channel: x_extra = 1,
 y_extra = c), ``num_levels <= 7``, RBF exponent
-unclamped. The tuned order-1 kernel (``fused_gram.py``) takes precedence
+unclamped, any length the launch plan takes (``plan.py``). The tuned order-1 kernel (``fused_gram.py``) takes precedence
 where it applies; this one covers every other configuration.
 
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
@@ -23,12 +23,9 @@ from __future__ import annotations
 import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
-from gpsig_tpu_torch.ops.cuda import _build
+from gpsig_tpu_torch.ops.cuda import _build, plan
 from gpsig_tpu_torch.ops.cuda.fused_gram import MAX_LEVELS, _on_cpu
 
-#: most rows (L - 1 with difference, L without) the compiled kernels take:
-#: 32 lanes at 4 rows per lane
-MAX_ROWS = 128
 #: codes of csrc/common.cuh's BaseKind
 _KIND_CODES = {"linear": 0, "rbf": 1, "cosine": 2, "poly": 3}
 
@@ -102,12 +99,20 @@ def _check_shapes(name, num_levels, order, difference, X, Y):
         raise ValueError(f"{name}: num_levels must be 1..{MAX_LEVELS}")
     if order < 1:
         raise ValueError(f"{name}: order must be >= 1")
-    L = X.shape[1]
+    if X.shape[1] < 2:
+        raise ValueError(f"{name}: sequence length {X.shape[1]} < 2")
+
+
+def _plan(name, X, difference, backward):
+    """(W, R) for X [N, L, d]'s L - 1 (difference) or L rows; raises
+    where no launch takes the shape."""
+    L, d = X.shape[1:]
     rows = L - 1 if difference else L
-    if L < 2 or rows > MAX_ROWS:
-        raise ValueError(
-            f"{name}: sequence length {L} outside the compiled range "
-            f"2..{MAX_ROWS + 1 if difference else MAX_ROWS}")
+    wr = plan.row_plan(rows)
+    smem = (plan.gram_ho_bwd_smem if backward else plan.gram_smem)(
+        L, d, wr[0] if wr else 1, X.element_size())
+    plan.check_fits(name, rows, wr, smem, f"L={L}, d={d}")
+    return wr
 
 
 def _launch(X, Y, num_levels, order, kind, difference):
@@ -115,13 +120,14 @@ def _launch(X, Y, num_levels, order, kind, difference):
     name = "fused_gram_ho_levels"
     _build.check_inputs(name, (X, Y))
     _check_shapes(name, num_levels, order, difference, X, Y)
+    W, R = _plan(name, X, difference, backward=False)
     code, degree = _kind_code(kind)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     out = torch.empty((num_levels + 1, N1, N2), dtype=X.dtype,
                       device=X.device)
     if N1 and N2:
         _build.launch("gpsig_fused_gram_ho", X.device, X, Y, out, N1, N2, L,
-                      d, num_levels, order, code, degree, difference,
+                      d, num_levels, order, code, degree, difference, W, R,
                       X.dtype == torch.float64)
         launches += 1
     return out
@@ -170,6 +176,7 @@ def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
     name = "fused_gram_ho_levels_bwd"
     _build.check_inputs(name, (X, Y, g))
     _check_shapes(name, num_levels, order, difference, X, Y)
+    W, R = _plan(name, X, difference, backward=True)
     code, degree = _kind_code(kind)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     if tuple(g.shape) != (num_levels + 1, N1, N2):
@@ -178,8 +185,12 @@ def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
     Xbar = torch.zeros_like(X)
     Ybar = torch.zeros_like(Y)
     if N1 and N2:
-        _build.launch("gpsig_fused_gram_ho_bwd", X.device, X, Y, g, Xbar,
-                      Ybar, N1, N2, L, d, num_levels, order, code, degree,
-                      difference, X.dtype == torch.float64)
+        # one warp a pair (R rows a lane), or a block of W warps: the two
+        # are compiled apart (csrc/fused_gram_ho_bwd*.cu)
+        entry, spread = (("gpsig_fused_gram_ho_bwd", R) if W == 1 else
+                         ("gpsig_fused_gram_ho_bwd_block", W))
+        _build.launch(entry, X.device, X, Y, g, Xbar, Ybar, N1, N2, L, d,
+                      num_levels, order, code, degree, difference, spread,
+                      X.dtype == torch.float64)
         bwd_launches += 1
     return Xbar, Ybar

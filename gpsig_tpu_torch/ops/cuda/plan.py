@@ -1,0 +1,120 @@
+"""Launch plans of the truncated-kernel DPs: how a pair's rows are spread
+over threads, and the shared memory each launch takes.
+
+Every truncated kernel (``csrc/fused_gram*.cu``, ``csrc/sig_gram*.cu``)
+sweeps the columns of one pair's increment matrix with the rows spread
+over a group of threads, R consecutive rows per thread. Up to 128 rows one
+warp takes a pair (four pairs to a block), as the kernels always did;
+above, a block of W warps takes one pair and the exclusive row scans cross
+the warps through shared memory (``csrc/common.cuh``, ``BlockGroup``). The
+order-1 Gram backward also puts two pairs on one warp, 16 lanes each, up
+to 64 rows (``csrc/fused_gram_bwd.cu``). A block of warps takes 4 rows a
+lane: fewer warps, fewer barriers.
+
+The wrappers compute the plan and the bytes here, pass the plan to the
+kernel, and raise ``ValueError`` above what a launch can take: more than
+``MAX_ROWS`` rows, or more shared memory than a block may use. Nothing
+here needs a card.
+"""
+
+from __future__ import annotations
+
+#: most warps one pair's block takes (256 threads: registers stay uncapped)
+MAX_WARPS = 8
+#: most rows a pair may have: MAX_WARPS warps of 32 lanes at 4 rows a lane
+MAX_ROWS = 32 * MAX_WARPS * 4
+#: shared memory one block may use on Hopper (opt-in above 48 KB)
+SMEM_BYTES = 227 * 1024
+#: warps per block when one warp takes a pair
+PAIRS_PER_BLOCK = 4
+
+
+def row_plan(rows, rows_per_lane=(2, 4)):
+    """(W, R) for ``rows`` DP rows: one warp (W = 1) at the fewest rows
+    per lane of ``rows_per_lane`` that covers them up to 128 rows; above,
+    W = ceil(rows / 128) warps at 4 rows a lane. None above
+    ``MAX_ROWS``."""
+    if rows <= 128:
+        return 1, min(r for r in rows_per_lane if 32 * r >= rows)
+    if rows > MAX_ROWS:
+        return None
+    return -(-rows // 128), 4
+
+
+def exchange_bytes(W, itemsize):
+    """The cross-warp exchange buffer of a W-warp group: two halves of one
+    value a warp (common.cuh's BlockGroup)."""
+    return itemsize * 2 * W if W > 1 else 0
+
+
+def gram_smem(L, d, W, itemsize):
+    """fused_gram.cu and fused_gram_ho.cu: x and its half norms staged
+    once, y and its half norms once per pair in the block."""
+    pairs = PAIRS_PER_BLOCK if W == 1 else 1
+    return itemsize * L * (d + 1) * (1 + pairs) + exchange_bytes(W, itemsize)
+
+
+def diag_smem(L, d, W, itemsize):
+    """fused_gram.cu's diagonal: one sequence per pair."""
+    pairs = PAIRS_PER_BLOCK if W == 1 else 1
+    return itemsize * L * (d + 1) * pairs + exchange_bytes(W, itemsize)
+
+
+def gram_ho_bwd_smem(L, d, W, itemsize):
+    """fused_gram_ho_bwd.cu: the forward's staging plus X̄ sums [L][d + 1]
+    per pair."""
+    pairs = PAIRS_PER_BLOCK if W == 1 else 1
+    return (itemsize * L * (d + 1) * (1 + 2 * pairs)
+            + exchange_bytes(W, itemsize))
+
+
+def sig_gram_smem(W, itemsize):
+    """sig_gram.cu, sig_gram_bwd.cu: nothing staged."""
+    return exchange_bytes(W, itemsize)
+
+
+def gram_bwd_plan(L):
+    """(S, W) of fused_gram_bwd.cu for L - 1 rows at 4 rows a lane:
+    segments of S = 16 lanes (two pairs to a warp) up to 64 rows, one warp
+    to 128, W warps above. None above ``MAX_ROWS``."""
+    rows = L - 1
+    if rows <= 64:
+        return 16, 1
+    plan = row_plan(rows)
+    return None if plan is None else (32, plan[0])
+
+
+def gram_bwd_smem(L, d, S, W, chunk, itemsize):
+    """fused_gram_bwd.cu: x staged once; per pair y, X̄ sums [L][d + 1] and
+    a tile of u = K̄ ⊙ ∂k for ``chunk`` columns at an odd row stride."""
+    pairs = 128 // S if W == 1 else 1
+    stride = L | 1
+    per_pair = 2 * L * (d + 1) + chunk * stride
+    return (itemsize * (L * (d + 1) + pairs * per_pair)
+            + exchange_bytes(W, itemsize))
+
+
+def gram_bwd_chunk(L, d, S, W, itemsize):
+    """Columns per u tile: 8 when a warp or less takes a pair (the smaller
+    tile leaves room for more blocks an SM), else the most of 32, 16, 8
+    that fits the block's shared memory."""
+    if W == 1:
+        return 8
+    for chunk in (32, 16, 8):
+        if gram_bwd_smem(L, d, S, W, chunk, itemsize) <= SMEM_BYTES:
+            return chunk
+    return 8
+
+
+def check_fits(name, rows, plan, smem, what):
+    """Raise ValueError when a launch cannot take the shape: no plan for
+    ``rows`` rows, or ``smem`` bytes of shared memory above the block's
+    budget. ``what`` names the shape in the message."""
+    if plan is None:
+        raise ValueError(
+            f"{name}: {what} gives {rows} DP rows; the kernels take at most "
+            f"{MAX_ROWS} ({MAX_WARPS} warps of 32 lanes at 4 rows a lane)")
+    if smem > SMEM_BYTES:
+        raise ValueError(
+            f"{name}: {what} needs {smem} bytes of shared memory per block; "
+            f"the kernels take at most {SMEM_BYTES}")

@@ -4,8 +4,10 @@ its plain PyTorch version.
 Counterpart of ``gpsig_tpu/ops/pallas/sig_gram.py`` (``sig_gram_levels``,
 order 1, and ``sig_gram_levels_ho``, order >= 2, with their custom VJPs);
 the forwards are ``csrc/sig_gram.cu``, the backwards
-``csrc/sig_gram_bwd.cu``, whose opening notes give the designs. M [B, L1, L2]
-→ [nl+1, B], ``num_levels <= 7``, L2 <= 128 (L1 any). The kernel layer
+``csrc/sig_gram_bwd.cuh``, whose opening notes give the designs. M [B, L1, L2]
+→ [nl+1, B], ``num_levels <= 7``, L1 any and L2 up to ``plan.MAX_ROWS``
+(spread over the lanes of one warp up to 128, of up to 8 warps above;
+``plan.py``). The kernel layer
 uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
 in PyTorch (as the JAX package leaves them to XLA). No (8, 128) padding:
@@ -25,11 +27,8 @@ from __future__ import annotations
 import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
-from gpsig_tpu_torch.ops.cuda import _build
+from gpsig_tpu_torch.ops.cuda import _build, plan
 from gpsig_tpu_torch.ops.cuda.fused_gram import MAX_LEVELS, _on_cpu
-
-#: most entries along the lane axis: 32 lanes at 4 per lane
-MAX_LANE_AXIS = 128
 
 launches = 0
 ho_launches = 0
@@ -64,7 +63,8 @@ def sig_gram_levels_ho_bwd_ref(M, g, num_levels, order):
 
 
 def _check(name, M, num_levels, order, *more):
-    """Validate M (and the other tensors ``more``); returns (B, L1, L2)."""
+    """Validate M (and the other tensors ``more``); returns (B, L1, L2) and
+    the plan (W, R) for L2."""
     _build.check_inputs(name, (M, *more))
     if M.ndim != 3 or min(M.shape[1:]) < 1:
         raise ValueError(f"{name}: M must be [B, L1, L2]; got "
@@ -74,20 +74,21 @@ def _check(name, M, num_levels, order, *more):
     if order < 1:
         raise ValueError(f"{name}: order must be >= 1")
     B, L1, L2 = M.shape
-    if L2 > MAX_LANE_AXIS:
-        raise ValueError(f"{name}: L2 must be <= {MAX_LANE_AXIS}; got "
-                         f"{tuple(M.shape[1:])}")
-    return B, L1, L2
+    wr = plan.row_plan(L2)
+    plan.check_fits(name, L2, wr,
+                    plan.sig_gram_smem(wr[0] if wr else 1, M.element_size()),
+                    f"M [{B}, {L1}, {L2}]")
+    return (B, L1, L2), wr
 
 
 def _launch(M, num_levels, order):
     global launches, ho_launches
     name = "sig_gram_levels" if order == 1 else "sig_gram_levels_ho"
-    B, L1, L2 = _check(name, M, num_levels, order)
+    (B, L1, L2), (W, R) = _check(name, M, num_levels, order)
     out = torch.empty((num_levels + 1, B), dtype=M.dtype, device=M.device)
     if B:
         _build.launch("gpsig_sig_gram", M.device, M, out, B, L1, L2,
-                      num_levels, order, M.dtype == torch.float64)
+                      num_levels, order, W, R, M.dtype == torch.float64)
         if order == 1:
             launches += 1
         else:
@@ -153,14 +154,14 @@ def sig_gram_levels_ho_bwd(M, g, num_levels, order):
 def _launch_bwd(M, g, num_levels, order):
     global bwd_launches, ho_bwd_launches
     name = "sig_gram_levels_bwd" if order == 1 else "sig_gram_levels_ho_bwd"
-    B, L1, L2 = _check(name, M, num_levels, order, g)
+    (B, L1, L2), (W, R) = _check(name, M, num_levels, order, g)
     if tuple(g.shape) != (num_levels + 1, B):
         raise ValueError(f"{name}: g must be [{num_levels + 1}, {B}]; got "
                          f"{tuple(g.shape)}")
     Mbar = torch.empty_like(M)
     if B:
         _build.launch("gpsig_sig_gram_bwd", M.device, M, g, Mbar, B, L1, L2,
-                      num_levels, order, M.dtype == torch.float64)
+                      num_levels, order, W, R, M.dtype == torch.float64)
         if order == 1:
             bwd_launches += 1
         else:

@@ -19,6 +19,8 @@ state carries the rounding of every later column) and add their results
 with atomics in an order that changes from run to run.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from gpsig_tpu_torch.kernels.signature import (SignatureCosine,
 from gpsig_tpu_torch.ops.cuda import _build
 from gpsig_tpu_torch.ops.cuda import fused_gram as tfg
 from gpsig_tpu_torch.ops.cuda import fused_gram_ho as tfgho
+from gpsig_tpu_torch.ops.cuda import plan
 from gpsig_tpu_torch.ops.cuda import sig_gram as tsg_
 from gpsig_tpu_torch.ops.cuda import tens_seq as tts
 from gpsig_tpu_torch.ops.cuda import tens_seq_general as ttsg
@@ -57,6 +60,20 @@ def _scaled_err(got, want):
 
 def _scaled_errs(got, want):
     return max(_scaled_err(a, b) for a, b in zip(got, want))
+
+
+def test_build_compiles_one_per_core_and_names_real_sources(tmp_path):
+    """The build's compile pool returns every command's exit code and time
+    in the order given, and its slowest-first list names sources that
+    exist."""
+    names = {src.name for src in _build._sources()}
+    assert set(_build.SLOWEST_FIRST) <= names
+    cmds = [[sys.executable, "-c", f"import sys; sys.exit({code})"]
+            for code in (0, 3, 0)]
+    codes, seconds = _build._compile(
+        cmds, [tmp_path / f"{i}.txt" for i in range(3)])
+    assert codes == [0, 3, 0]
+    assert all(s >= 0 for s in seconds)
 
 
 def test_kernel_inputs_must_be_cuda_tensors():
@@ -117,12 +134,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     X = torch.zeros(3, 8, 2, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         tfg.fused_diag_levels(X.transpose(0, 1), 3)
-    with pytest.raises(ValueError, match="compiled range"):
+    # above the launch plan's bound: 1024 DP rows (plan.MAX_ROWS)
+    with pytest.raises(ValueError, match="at most 1024"):
         tfg.fused_diag_levels(
-            torch.zeros(2, tfg.MAX_LENGTH + 1, 2, device=cuda_device), 3)
+            torch.zeros(2, plan.MAX_ROWS + 2, 2, device=cuda_device), 3)
     with pytest.raises(TypeError, match="float32 or float64"):
         tfg.fused_diag_levels(X.half(), 3)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+    with pytest.raises(NotImplementedError, match="num_levels > 7 on CUDA"):
         SignatureRBF(2, 8, order=2, device=cuda_device).K(X)
 
 
@@ -355,8 +373,9 @@ def test_tens_seq_general_kernel_matches_plain(cuda_device, dtype, tol,
 @pytest.mark.parametrize("dtype,tol", GEN_TOLS)
 def test_sig_gram_kernels_match_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(12)
-    with pytest.raises(ValueError, match="L2 must be <= 128"):
-        tsg_.sig_gram_levels(torch.zeros(1, 5, 129, device=cuda_device), 3)
+    with pytest.raises(ValueError, match="at most 1024"):
+        tsg_.sig_gram_levels(torch.zeros(1, 5, plan.MAX_ROWS + 1,
+                                         device=cuda_device), 3)
     for B, L1, L2, nl in [(5, 9, 12, 5), (9, 49, 49, 5), (3, 100, 70, 7),
                           (4, 140, 30, 3), (2, 1, 1, 2)]:
         M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2)),
@@ -699,5 +718,127 @@ def test_inducing_sequences_with_the_truncated_kernel_on_card(cuda_device,
     got = run(X.detach().to(cuda_device).requires_grad_())
     assert tsg_.launches + tsg_.ho_launches > n0[0]
     assert tsg_.bwd_launches + tsg_.ho_bwd_launches > n0[1]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)
+
+
+# -- sequences longer than one warp's 128 rows ------------------------------
+
+LONG = [130, 150, 300]
+
+
+def _long_walks(rng, n, L, d):
+    """Walks whose steps shrink like 1/√L, so that the unnormalised levels
+    at L = 300 stay as far inside float32's range as L = 50's do."""
+    return (0.3 * np.sqrt(50 / L) * rng.standard_normal((n, L, d))).cumsum(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("L", LONG + [512])
+def test_long_order1_kernels_match_plain(cuda_device, dtype, tol, L):
+    """The order-1 Gram, diagonal and Gram backward past 129 steps (the
+    rows over several warps of one block), RBF and Linear; L = 512 at
+    d = 8, the stated range."""
+    rng = np.random.default_rng(21)
+    d = 8 if L == 512 else 2
+    btol = dict(BWD_TOLS)[dtype]
+    for rbf in (True, False):
+        X = torch.as_tensor(_long_walks(rng, 5, L, d), dtype=dtype,
+                            device=cuda_device)
+        Y = torch.as_tensor(_long_walks(rng, 3, L, d), dtype=dtype,
+                            device=cuda_device)
+        g = torch.as_tensor(rng.standard_normal((5, 5, 3)), dtype=dtype,
+                            device=cuda_device)
+        with torch.no_grad():
+            got = tfg.fused_gram_levels(X, Y, 4, rbf)
+            dgot = tfg.fused_diag_levels(X, 4, rbf)
+        assert _scaled_err(got, tfg.fused_gram_levels_ref(X, Y, 4, rbf)) \
+            < tol, (L, rbf)
+        assert _scaled_err(dgot, tfg.fused_diag_levels_ref(X, 4, rbf)) \
+            < tol, (L, rbf)
+        bgot = tfg.fused_gram_levels_bwd(X, Y, g, 4, rbf)
+        bwant = tfg.fused_gram_levels_bwd_ref(X, Y, g, 4, rbf)
+        assert _scaled_errs(bgot, bwant) < btol, (L, rbf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("L", LONG)
+def test_long_general_gram_kernels_match_plain(cuda_device, dtype, tol, L):
+    """The general Gram and its backward past 128 rows: orders 1-3, with
+    and without difference, RBF and Poly."""
+    rng = np.random.default_rng(22)
+    btol = dict(BWD_TOLS)[dtype]
+    for kind, order, difference in [("rbf", 2, True), ("rbf", 3, False),
+                                    ("poly2", 1, True), ("poly2", 2, False)]:
+        X = torch.as_tensor(_long_walks(rng, 4, L, 2), dtype=dtype,
+                            device=cuda_device)
+        Y = torch.as_tensor(_long_walks(rng, 3, L, 2), dtype=dtype,
+                            device=cuda_device)
+        X, Y = _offset_channel(X, Y, kind)
+        g = torch.as_tensor(rng.standard_normal((5, 4, 3)), dtype=dtype,
+                            device=cuda_device)
+        args = (4, order, kind, difference)
+        with torch.no_grad():
+            got = tfgho.fused_gram_ho_levels(X, Y, *args)
+        want = tfgho.fused_gram_ho_levels_ref(X, Y, *args)
+        assert _scaled_err(got, want) < tol, (L, args)
+        bgot = tfgho.fused_gram_ho_levels_bwd(X, Y, g, *args)
+        bwant = tfgho.fused_gram_ho_levels_bwd_ref(X, Y, g, *args)
+        assert _scaled_errs(bgot, bwant) < btol, (L, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("shape", [(4, 130, 130), (4, 150, 150),
+                                   (3, 300, 300), (6, 8, 150)])
+def test_long_sig_gram_kernels_match_plain(cuda_device, dtype, tol, shape):
+    """The sig_gram DP and its backward with L2 past 128 (over several
+    warps), orders 1-3; (8, 150) is the inducing-sequence Kuf's shape."""
+    rng = np.random.default_rng(23)
+    B, L1, L2 = shape
+    M = torch.as_tensor(rng.standard_normal(shape) / np.sqrt(L1 * L2) * 4,
+                        dtype=dtype, device=cuda_device)
+    g = torch.as_tensor(rng.standard_normal((5, B)), dtype=dtype,
+                        device=cuda_device)
+    btol = dict(BWD_TOLS)[dtype]
+    for order in (1, 2, 3):
+        with torch.no_grad():
+            got = (tsg_.sig_gram_levels(M, 4) if order == 1
+                   else tsg_.sig_gram_levels_ho(M, 4, order))
+        want = tsg_.sig_gram_levels_ho_ref(M, 4, order)
+        assert _scaled_err(got, want) < tol, (shape, order)
+        bgot = (tsg_.sig_gram_levels_bwd(M, g, 4) if order == 1
+                else tsg_.sig_gram_levels_ho_bwd(M, g, 4, order))
+        bwant = tsg_.sig_gram_levels_ho_bwd_ref(M, g, 4, order)
+        assert _scaled_err(bgot, bwant) < btol, (shape, order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctor,kw", [
+    (SignatureRBF, dict()), (SignatureLinear, dict()),
+    (SignatureRBF, dict(order=2)), (SignaturePoly, dict(offset=0.6)),
+])
+def test_long_signature_kernel_on_card_matches_cpu(cuda_device, ctor, kw):
+    """K, Kdiag (unnormalised) and K_tens_vs_seq at L = 150 on the card
+    against the CPU, float64, gradients included."""
+    rng = np.random.default_rng(24)
+    X = torch.tensor(_long_walks(rng, 5, 150, 2), requires_grad=True)
+    Z = torch.tensor(0.4 * rng.standard_normal((4, 10, 2, 2)),
+                     requires_grad=True)
+    kern = ctor(2, 4, lengthscales=[0.8, 1.3], device="cpu", **kw)
+    raw = ctor(2, 4, normalization=False, device="cpu", **kw)
+
+    def calls(X, Z):
+        out = (kern.K(X), raw.Kdiag(X), kern.K_tens_vs_seq(Z, X, True))
+        loss = sum((o ** 2).sum() for o in out)
+        return (*out, *torch.autograd.grad(loss, [X, Z]))
+
+    want = calls(X, Z)
+    kern.to(cuda_device)
+    raw.to(cuda_device)
+    got = calls(*(t.detach().to(cuda_device).requires_grad_()
+                  for t in (X, Z)))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)

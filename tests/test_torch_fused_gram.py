@@ -82,10 +82,16 @@ def test_diag_matches_pallas_interpret():
 
 
 def test_kernel_shape_checks():
-    X = torch.zeros(2, tfg.MAX_LENGTH + 1, 2)
-    with pytest.raises(ValueError, match="compiled range"):
+    """Lengths beyond one warp's 128 rows are taken (the launch plan
+    spreads them over warps); num_levels, shapes and L >= 2 are checked."""
+    for L in (150, 300):
+        X = torch.zeros(2, L, 2)
         tfg._check_shapes("k", 3, X)
+        tfg._check_shapes("k", 3, X, X[:1])
+    X = torch.zeros(2, 150, 2)
     with pytest.raises(ValueError, match="num_levels"):
         tfg._check_shapes("k", 8, X[:, :5])
     with pytest.raises(ValueError, match=r"\[N, L, d\]"):
         tfg._check_shapes("k", 3, X[:, :5], X[:, :6])
+    with pytest.raises(ValueError, match="length 1"):
+        tfg._check_shapes("k", 3, X[:, :1])

@@ -97,10 +97,15 @@ def test_kind_parsing():
 
 
 def test_kernel_shape_checks():
-    X = torch.zeros(2, tfgho.MAX_ROWS + 1, 2)
-    with pytest.raises(ValueError, match="compiled range"):
-        tfgho._check_shapes("k", 3, 2, False, X, X)
-    tfgho._check_shapes("k", 3, 2, True, X, X)  # L - 1 rows fit
+    """Lengths beyond one warp's 128 rows are taken with and without
+    difference; num_levels, shapes, order and L >= 2 are checked."""
+    for L in (150, 300):
+        X = torch.zeros(2, L, 2)
+        for difference in (True, False):
+            tfgho._check_shapes("k", 3, 2, difference, X, X)
+    X = torch.zeros(2, 150, 2)
+    with pytest.raises(ValueError, match="length 1"):
+        tfgho._check_shapes("k", 3, 2, False, X[:, :1], X[:, :1])
     with pytest.raises(ValueError, match="num_levels"):
         tfgho._check_shapes("k", 8, 2, True, X[:, :5], X[:, :5])
     with pytest.raises(ValueError, match=r"\[N, L, d\]"):

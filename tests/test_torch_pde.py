@@ -149,7 +149,7 @@ def test_normalisation_floor_splits_the_gradient_at_a_tie():
 
 def test_feature_is_not_ported_yet():
     _, tk = kern_pair()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="VOSF and low-rank"):
         tk.feature(torch.zeros(2, 4, D), 3)
 
 

@@ -224,7 +224,7 @@ def test_identity_features_are_not_ported_yet():
         kuu_is_identity = True
         num_inducing = 3
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="VOSF and low-rank"):
         tsvgp.SVGP.create(tsk.SignatureRBF(D, NL, device="cpu"),
                           tlik.MultiClass(C), Identity(), C, device="cpu")
 
