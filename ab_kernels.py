@@ -4,6 +4,7 @@ one CUDA card, in turns (A, B, B, A), so that a kernel change is measured
 against its parent within one machine and one card.
 
     python3 ab_kernels.py PARENT_DIR [CHANGE_DIR]   # CHANGE_DIR: this one
+    python3 ab_kernels.py --builds PARENT_DIR [CHANGE_DIR]
 
 Each checkout's kernels are built (both builds at once), then each turn
 runs in its own process (the two packages share a name), times every case
@@ -12,8 +13,14 @@ prints one JSON line; the script ends with the card's name and power limit
 and a table of the per-case medians over each checkout's two turns. The
 cases are ``chip_smoke.py``'s shapes at L = 50 (the bench Gram, the
 flagship diagonal, the general Gram and sig_gram at the shapes of their
-serving and training checks) and the order-1 Gram and its backward at L = 150, where a parent
-that refuses the length reports null. Needs a CUDA card; exits non-zero
+serving and training checks), the order-1 Gram and its backward at
+L = 150, the general Gram backward at L = 150, the Goursat adjoint at the
+SigGPDE joint Gram (82² pairs of 49 x 49 increments, dyadic order 1) and
+at 64 pairs of 199 x 199 increments (order 2), and sig_gram past 7 levels
+(order 1 at num_levels 8), where a parent that refuses the shape reports
+null. With ``--builds`` it instead builds each checkout's kernels from
+scratch, alone on the machine, in turns A, B, A, and prints each build's
+wall time and the sum of its compiles. Needs a CUDA card; exits non-zero
 without one.
 """
 
@@ -45,6 +52,16 @@ CASES = [
      "gram150"),
     ("gram_bwd L=150 N=150x150 d=2 nl=4", "fused_gram.fused_gram_levels_bwd",
      "gram_bwd150"),
+    ("gram_ho_bwd order 2 L=150 N=64x64",
+     "fused_gram_ho.fused_gram_ho_levels_bwd", "gram_ho_bwd150"),
+    ("goursat_grad joint Gram 82x82 pairs 49x49 o=1",
+     "goursat.goursat_grad_refined", "goursat_joint"),
+    ("goursat_grad 64 pairs 199x199 o=2", "goursat.goursat_grad_refined",
+     "goursat199"),
+    ("sig_gram order 1 B=2048 L'=49 nl=8", "sig_gram.sig_gram_levels",
+     "sg1_nl8"),
+    ("sig_gram_bwd order 1 B=150 L'=49 nl=8",
+     "sig_gram.sig_gram_levels_bwd", "sg1_bwd_nl8"),
 ]
 
 
@@ -81,13 +98,28 @@ def _args(kind, torch, dev):
         x = x256[:150].contiguous()
         return (x, x, t(rng.standard_normal((5, 150, 150))), 4, 2, "rbf",
                 True)
-    if kind in ("sg1", "sg2"):
+    if kind in ("sg1", "sg2", "sg1_nl8"):
         m = t(self_inc(_walks(rng, 2048, 50, 2)))
-        return (m, 5) if kind == "sg1" else (m, 5, 2)
-    if kind in ("sg1_bwd", "sg2_bwd"):
+        return {"sg1": (m, 5), "sg2": (m, 5, 2), "sg1_nl8": (m, 8)}[kind]
+    if kind in ("sg1_bwd", "sg2_bwd", "sg1_bwd_nl8"):
         m = t(self_inc(_walks(rng, 150, 50, 2)))
+        if kind == "sg1_bwd_nl8":
+            return (m, t(rng.standard_normal((9, 150))), 8)
         g = t(rng.standard_normal((5, 150)))
         return (m, g, 4) if kind == "sg1_bwd" else (m, g, 4, 2)
+    if kind in ("goursat_joint", "goursat199"):
+        # the PDE kernel's increments (Linear base, lengthscale 1.5) of every
+        # pair of 82 sequences of L = 50, or 64 pairs of L = 200
+        joint = kind == "goursat_joint"
+        n, L, o = (82, 50, 1) if joint else (16, 200, 2)
+        dx = np.diff(_walks(rng, n, L, 2) / 1.5, axis=1)
+        a, b = (dx, dx) if joint else (dx[:8], dx[8:])
+        inc = np.einsum("nid,mjd->nmij", a, b).reshape(-1, L - 1, L - 1)
+        return (t(inc), o, t(rng.standard_normal(inc.shape[0])))
+    if kind == "gram_ho_bwd150":
+        x = t(_walks(rng, 64, 150, 2))
+        return (x, x, t(rng.standard_normal((5, 64, 64))), 4, 2, "rbf",
+                True)
     x150 = t(_walks(rng, 150, 150, 2))
     if kind == "gram150":
         return (x150, x150, 4, True)
@@ -110,7 +142,7 @@ def _turn(root):
         args = _args(kind, torch, dev)
         try:
             f(*args)
-        except ValueError:  # a length the checkout refuses
+        except ValueError:  # a shape the checkout refuses
             out[name] = None
             continue
         for _ in range(2):
@@ -128,18 +160,46 @@ def _turn(root):
     print(json.dumps(out))
 
 
+def _build_turns(roots):
+    """Each checkout's kernels built from scratch, one build at a time, in
+    turns A, B, A: the wall time and the sum of the per-source compile
+    times (from the build's log)."""
+    import shutil
+    import time
+
+    for label in ("A", "B", "A"):
+        build_dir = roots[label] / "gpsig_tpu_torch" / ".build"
+        shutil.rmtree(build_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); from gpsig_tpu_torch.ops.cuda import _build; "
+             "_build.build()", str(roots[label])], check=True)
+        wall = time.perf_counter() - t0
+        log = next(build_dir.glob("*.log")).read_text().splitlines()
+        compiles = sum(float(line.rsplit(": ", 1)[1][:-2]) for line in log
+                       if line.endswith(" s") and ".cu: " in line)
+        print(f"build {label}: wall {wall:.1f} s, compiles sum "
+              f"{compiles:.1f} s", flush=True)
+
+
 def main():
     import torch
 
     if len(sys.argv) == 3 and sys.argv[1] == "--turn":
         _turn(Path(sys.argv[2]).resolve())
         return 0
-    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
+    builds = sys.argv[1:2] == ["--builds"]
+    args = sys.argv[1 + builds:]
+    if not torch.cuda.is_available() or len(args) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
-    roots = {"A": Path(sys.argv[1]).resolve(),
-             "B": Path(sys.argv[2] if len(sys.argv) == 3 else
+    roots = {"A": Path(args[0]).resolve(),
+             "B": Path(args[1] if len(args) == 2 else
                        Path(__file__).parent).resolve()}
+    if builds:
+        _build_turns(roots)
+        return 0
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from gpsig_tpu_torch.ops.cuda import _build; _build.build()",

@@ -2,8 +2,8 @@
 """Drive the PyTorch port (``gpsig_tpu_torch``) on one NVIDIA GPU and check
 it end to end: slice 0 (the order-1 model, serving and training), slice 1
 (the general engines: order-2 SVGP and GPR, serving and training), the PDE
-slice (the SigGPDE SVGP) and sequences past 129 steps (the GunPoint-length
-path, L = 150, serving and training).
+slice (the SigGPDE SVGP), sequences past 129 steps (the GunPoint-length
+path, L = 150, serving and training) and num_levels 8-127.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -94,9 +94,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
    order-1 step, the first step against the plain route on 48
    sequences); (o) a small float64 GunPoint-length model on the card
    against the CPU, serving and 3 steps;
-11. report: one JSON line with every kernel's launches, error, times and
+11. num_levels 8-127: (p) the four sig_gram routes (forward and backward,
+   orders 1 and 2) against their plain versions at num_levels 8, 12 and
+   127, L' in {49, 149}, float32 and float64, one case whose DP state
+   takes the device workspace (order 1, 127 levels, L' = 600, float64),
+   each route timed at the nl = 10 GPR's Gram (B = 150², L' = 49);
+   (q) exact GPR at BASELINE config 1's shape with num_levels = 10: order
+   1, K, lml and gradients on the card against the CPU in float64, and
+   order 2 against the plain route on the card, each with its counters;
+12. the Goursat adjoint's redesign: (r) in phase 7 each gradient that one
+   warp a pair takes is run twice and held bitwise equal; the symmetric
+   joint Gram (the training step's [Z; X_batch], dyadic order 1) solves
+   its triangle of pairs: values and gradients against the full solve of
+   every pair, float64;
+13. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
-   launches on the long path, under "long"), then the device line.
+   launches on the long path, under "long"; rows 10-13 with the same
+   at num_levels = 10, under "deep"), then the device line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
 beside it, it exits non-zero before printing any result.
@@ -1400,10 +1414,11 @@ GOURSAT_TOL = {
                 "diagonals whose values cancel, with fused multiply-adds "
                 "where the plain version rounds each product (the plain "
                 "float32 sweep is itself 1.2e-4 from float64 at L=200, "
-                "o=2); the gradient adds its terms with atomics"),
+                "o=2); the gradient sums its terms per unrefined cell in "
+                "another order"),
     "float64": ((1e-10, 1e-10), "the plain version's arithmetic per cell; "
-                "fused multiply-adds and the gradient's atomics round "
-                "otherwise"),
+                "fused multiply-adds and the gradient's summation order "
+                "round otherwise"),
 }
 # per refined cell: the forward's 3 adds, 2 multiplies and the increment's
 # scale; the gradient's forward recompute, adjoint step (11) and emitted
@@ -1500,6 +1515,16 @@ def goursat_kernel_phase(dev):
                           and bool(torch.isfinite(got).all()),
                           f"goursat {route} {(Su, Tu)} o={o} {name}: "
                           f"{got.shape}, finite {torch.isfinite(got).all()}")
+                    if route == "grad":
+                        # each unrefined cell written once, no atomics: the
+                        # same bits on every launch
+                        again = kern()
+                        check(torch.equal(got, again), f"goursat grad "
+                              f"{(Su, Tu)} o={o} {name}: two launches differ")
+                        design = ("one warp" if gs.warp_plan(
+                            Su, Tu, o, inc.element_size()) else "one block")
+                        print(f"goursat grad ({Su}, {Tu}) o={o} {name}: "
+                              f"{design} a pair; two launches bitwise equal")
                     errs[name] = (scaled_err(got, want), abs_err(got, want))
                     if dtype == torch.float32:
                         times["ms"] = cuda_ms(kern)
@@ -2280,6 +2305,224 @@ def long_float64_check(dev):
     check(err <= 1e-8, f"small float64 L=150 model: {err}")
 
 
+def pde_triangle_check(dev):
+    """(r) The symmetric Gram solves only its pairs i <= j and mirrors
+    them: the training step's joint Gram ([Z; X_batch], 82 sequences of
+    L=50, dyadic order 1, ``job_pde_train``'s kernel) in float64, values
+    and gradients (inputs and parameters, of a weighted sum of K and of
+    K_sym_psd) against the full solve of all 82² pairs."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 24)
+    model, X, _ = build_pde_svgp(torch, dev, torch.float64, rng)
+    kern = model.kernel
+    Z = model.inducing.raw_Z.detach()
+    pad = Z[:, -1:].expand(-1, X.shape[1] - Z.shape[1], -1)
+    J = torch.cat([torch.cat([Z, pad], 1), X[:50]])
+    W = torch.as_tensor(rng.standard_normal((82, 82)), device=dev)
+    with torch.no_grad():
+        Js = kern._scaled(J)
+        tri, full = kern._solve_pairs(Js), kern._solve_pairs(Js, Js)
+    iu, ju = torch.triu_indices(82, 82, device=dev)
+    check(torch.equal(tri[iu, ju], full[iu, ju]),
+          "joint Gram: the solved triangle differs from the full solve")
+    err = scaled_err(tri, full)
+    solve = kern._solve_pairs
+
+    def grads(fn, full_solve):
+        Jg = J.clone().requires_grad_()
+        with mock.patch.object(kern, "_solve_pairs", (lambda A, B=None: solve(
+                A, A if B is None else B)) if full_solve else solve):
+            out = torch.sum(W * fn(Jg))
+        return torch.autograd.grad(out, [Jg, *kern.parameters()])
+
+    gerr = max(scaled_err(g, w) for fn in (kern.K, kern.K_sym_psd)
+               for g, w in zip(grads(fn, False), grads(fn, True)))
+    print(f"SigGPDE joint Gram (82 sequences, dyadic order 1, float64): "
+          f"triangle of {iu.shape[0]} pairs solved of {82 * 82}; solved "
+          f"entries bitwise equal to the full solve, all entries scaled err "
+          f"{err:.3e}, gradients of K and K_sym_psd scaled err {gerr:.3e}, "
+          "tolerance 1e-12 (the mirrored entries' double difference "
+          "rounds in the other order)")
+    check(err <= 1e-12 and gerr <= 1e-12,
+          f"joint Gram triangle: {err}, gradients {gerr}")
+
+
+# BASELINE config 1's GPR (N of its 200 sequences, L steps), which the
+# num_levels = 10 phases take
+DEEP_GPR = dict(N=150, L=50)
+
+# scaled error allowed past 7 levels (the stated bounds of the deep path)
+DEEP_TOL = {
+    "float32": (1e-4, "float32 DP sums over up to 149 columns and 127 "
+                "levels in another order than the plain version, the "
+                "backward's states rebuilt by subtraction"),
+    "float64": (1e-12, "the plain version's arithmetic, other summation "
+                "order only"),
+}
+
+
+def deep_levels_phase(dev):
+    """(p) The sig_gram kernels past 7 levels (``csrc/deep_levels.cuh``,
+    ``sig_gram_bwd_deep.cu``): forward and backward, orders 1 and 2,
+    against their plain versions at num_levels 8, 12 and 127 on the
+    self-increment matrices of 16 sequences of L' + 1 steps, L' in {49,
+    149}, float32 and float64; the workspace case; then each route timed at
+    the num_levels = 10 GPR's Gram (the increment matrices of its 150²
+    pairs, L' = 49), float32. Returns their report entries."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import plan
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+
+    rng = np.random.default_rng(SEED + 40)
+    for name, (tol, why) in DEEP_TOL.items():
+        print(f"deep tolerance {name}: scaled err <= {tol:g}: {why}")
+
+    def routes(order):
+        fwd = ((lambda m, nl: sg.sig_gram_levels(m, nl)) if order == 1 else
+               (lambda m, nl: sg.sig_gram_levels_ho(m, nl, order)))
+        bwd = ((lambda m, g, nl: sg.sig_gram_levels_bwd(m, g, nl))
+               if order == 1 else
+               (lambda m, g, nl: sg.sig_gram_levels_ho_bwd(m, g, nl, order)))
+        return fwd, bwd
+
+    cases = [(nl, order, Lp) for Lp in (49, 149) for nl in (8, 12, 127)
+             for order in (1, 2)]
+    cases.append((127, 1, 600))
+    for nl, order, Lp in cases:
+        M_np = self_increments(walks(rng, 16 if Lp < 600 else 3, Lp + 1, 2)
+                               * np.sqrt(50 / (Lp + 1)))
+        g_np = rng.standard_normal((nl + 1, M_np.shape[0]))
+        fwd, bwd = routes(order)
+        for dtype in ((torch.float32, torch.float64) if Lp < 600
+                      else (torch.float64,)):
+            name = str(dtype).split(".")[1]
+            M = torch.as_tensor(M_np, dtype=dtype, device=dev)
+            g = torch.as_tensor(g_np, dtype=dtype, device=dev)
+            lp = plan.deep_plan(M.shape[0], Lp, nl, min(order, nl),
+                                M.element_size(), backward=True)
+            got = (fwd(M, nl), bwd(M, g, nl))
+            want = (sg.sig_gram_levels_ho_ref(M, nl, order),
+                    sg.sig_gram_levels_ho_bwd_ref(M, g, nl, order))
+            torch.cuda.synchronize()
+            errs = [scaled_err(a, b) for a, b in zip(got, want)]
+            tol = DEEP_TOL[name][0]
+            where = "workspace" if lp["work"] else "shared memory"
+            print(f"deep sig_gram order {order} nl={nl} M {tuple(M.shape)} "
+                  f"{name}: scaled err forward {errs[0]:.3e}, backward "
+                  f"{errs[1]:.3e} (backward state in {where}), tolerance "
+                  f"{tol:g}")
+            for a in got:
+                check(bool(torch.isfinite(a).all()), "deep: not finite")
+            check(max(errs) <= tol, f"deep sig_gram order {order} nl={nl} "
+                  f"L'={Lp} {name}: {errs} > {tol}")
+            if Lp == 600:
+                check(lp["work"] > 0, "deep: the L'=600 case should take "
+                      "the workspace")
+            del M, g, got, want
+            torch.cuda.empty_cache()
+
+    # timed at the nl = 10 GPR's Gram: its N² increment matrices
+    N, L = DEEP_GPR["N"], DEEP_GPR["L"]
+    Xg, _ = regression_sequences(np.random.default_rng(SEED), L=L)
+    Xf = Xg[:N].reshape(-1, 2)
+    sq = np.sum(Xf * Xf, -1)
+    G = np.exp(-0.5 * np.maximum(sq[:, None] + sq[None, :] - 2 * Xf @ Xf.T,
+                                 0)).reshape(N, L, N, L)
+    M_np = np.diff(np.diff(G.transpose(0, 2, 1, 3), axis=2), axis=3)
+    l = L - 1
+    M = torch.as_tensor(M_np.reshape(-1, l, l), dtype=torch.float32,
+                        device=dev)
+    del G, M_np
+    B, nl = M.shape[0], 10
+    g = torch.as_tensor(rng.standard_normal((nl + 1, B)), dtype=torch.float32,
+                        device=dev)
+    report = {}
+    for key, order in (("sig_gram", 1), ("sig_gram_ho", 2)):
+        fwd, bwd = routes(order)
+        nbytes = 4 * (B * l * l + (nl + 1) * B)
+        ops = B * l * l * dp_cell_ops(nl, order)
+        for k, kern, plain, work in (
+                (key, lambda: fwd(M, nl),
+                 lambda: sg.sig_gram_levels_ho_ref(M, nl, order),
+                 (ops, nbytes)),
+                (f"{key}_bwd", lambda: bwd(M, g, nl),
+                 lambda: sg.sig_gram_levels_ho_bwd_ref(M, g, nl, order),
+                 (3 * ops, nbytes + 4 * B * l * l))):
+            got, want = kern(), plain()
+            err = abs_err(got, want)
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain, reps=3, warmup=1)
+            report[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             **bound(*work), library_ms=None)
+            print(f"time deep {k} (order {order}) nl={nl} B={B} L'={l} "
+                  f"float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {report[k]['bound_ms']:.4f} ms "
+                  f"({report[k]['bound_by']}), scaled err "
+                  f"{scaled_err(got, want):.3e}")
+            del got, want
+    del M, g
+    torch.cuda.empty_cache()
+    return report
+
+
+def deep_gpr_phase(dev):
+    """(q) Exact GPR at BASELINE config 1's shape (N=150 of 200, L=50,
+    d=2, noise 0.05) with num_levels = 10, float64, RBF base: order 1 on
+    the card against the same model on the CPU (K, lml and the gradient
+    of every parameter, rtol as the small float64 checks), order 2 against
+    the plain route on the card. Both run K's 150² pairs through increment
+    matrices and the sig_gram kernels past 7 levels; returns each order's
+    counters."""
+    import torch
+
+    f64 = torch.float64
+    N = DEEP_GPR["N"]
+    Xg, yg = regression_sequences(np.random.default_rng(SEED),
+                                  L=DEEP_GPR["L"])
+    X = torch.as_tensor(Xg[:N], dtype=f64, device=dev)
+    Y = torch.as_tensor(yg[:N], dtype=f64, device=dev)
+    launches = {}
+
+    def run(gpr, X, Y):
+        K = gpr.kernel.K(X)
+        loss = -gpr.log_marginal_likelihood(X, Y)
+        grads = torch.autograd.grad(loss, list(gpr.parameters()))
+        return [K.detach(), loss.detach(), *grads]
+
+    for order in (1, 2):
+        label = f"GPR order {order} num_levels=10"
+        gpr = build_gpr(torch, dev, f64, X, nl=10, order=order)
+        reference = copy.deepcopy(gpr)
+        reset_counters()
+        (got, ms) = timed(lambda: run(gpr, X, Y))
+        launches[order] = counters()
+        sg_keys = (("sig_gram", "sig_gram_bwd") if order == 1 else
+                   ("sig_gram_ho", "sig_gram_ho_bwd"))
+        check(all(launches[order][k] > 0 for k in sg_keys)
+              and not any(launches[order][k] for k in (
+                  "gram", "diag", "gram_bwd", "gram_ho", "gram_ho_bwd")),
+              f"{label}: counters {launches[order]}")
+        if order == 1:
+            t0 = time.perf_counter()
+            want = run(reference.to("cpu"), X.cpu(), Y.cpu())
+            where = (f"the CPU ({1e3 * (time.perf_counter() - t0):.0f} ms "
+                     "there)")
+        else:
+            with plain_route():
+                want = run(reference, X, Y)
+            where = "the plain route on the card"
+        err = max(scaled_err(a.cpu(), b.cpu()) for a, b in zip(got, want))
+        print(f"{label}: K, lml {got[1].item():.10g} and {len(got) - 2} "
+              f"gradients on the card ({ms:.1f} ms) against {where}: scaled "
+              f"err {err:.3e}, tolerance 1e-8; launches "
+              f"{ {k: launches[order][k] for k in sg_keys} }")
+        check(err <= 1e-8, f"{label}: {err}")
+        del gpr, reference, got, want
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2344,6 +2587,9 @@ def main():
         "training": ("tsg", "tsg_bwd", "sig_gram_ho", "sig_gram_ho_bwd")})
     gpr150 = long_gpr_phase(dev)
     long_float64_check(dev)
+    pde_triangle_check(dev)
+    deep_timings = deep_levels_phase(dev)
+    deep_gpr = deep_gpr_phase(dev)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the
@@ -2385,6 +2631,11 @@ def main():
         if key in long_timings:
             entry["long"] = dict(launches=long_source[key][key],
                                  **long_timings[key])
+        if key in deep_timings:
+            # past 7 levels: launches from the num_levels = 10 GPRs
+            order = 2 if key.startswith("sig_gram_ho") else 1
+            entry["deep"] = dict(launches=deep_gpr[order][key],
+                                 **deep_timings[key])
         kernels.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build's "
           "start to the report")

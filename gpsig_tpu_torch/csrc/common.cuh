@@ -67,36 +67,6 @@ __device__ __forceinline__ T activate_grad(T acc, int kind, int degree) {
   }
 }
 
-// activate and activate_grad of one accumulator, in one call that is not
-// inlined: the Gram backward evaluates them at 2R + 3 unrolled sites per
-// column, and inlined there the four activations (the cosine's range
-// reduction above all) multiplied its compile time.
-template <typename T>
-struct KindValue {
-  T k, dk;
-};
-
-template <typename T>
-__device__ __noinline__ KindValue<T> kind_value(T acc, int kind, int degree) {
-  switch (kind) {
-    case kRbf: {
-      const T e = texp(acc);
-      return {e, e};
-    }
-    case kCosine: {
-      const T s = T(-2) * acc;
-      const T t = tsqrt((s > T(0) ? s : T(0)) + T(1e-36));
-      return {tcos(t), acc > T(0) ? T(0) : tsin(t) / t};
-    }
-    case kPoly: {
-      T pw = T(1);  // acc^(degree - 1)
-      for (int k = 1; k < degree; ++k) pw *= acc;
-      return {pw * acc, T(degree) * pw};
-    }
-    default: return {acc, T(1)};
-  }
-}
-
 // k(a, b) of any kind for one point pair; na, nb are -|a|^2/2, -|b|^2/2
 // (used by the kinds that need them)
 template <typename T>
@@ -322,18 +292,20 @@ constexpr int kRlLevels = 7;
 // at the end.
 // ---------------------------------------------------------------------------
 
-template <typename T, int R, int P>
+// NLM bounds the levels a state holds (nl <= NLM): the register path's 7,
+// or fewer for an instantiation that takes only that many.
+template <typename T, int R, int P, int NLM = kRlLevels>
 struct RunLengthState {
   T grid[P][P][R];
-  T tsum[kRlLevels][R];
-  T ra[kRlLevels - 1][P > 1 ? P - 1 : 1][R];
+  T tsum[NLM][R];
+  T ra[NLM > 1 ? NLM - 1 : 1][P > 1 ? P - 1 : 1][R];
 };
 
-template <typename T, int R, int P, int M, typename G>
-__device__ __forceinline__ void rl_level(RunLengthState<T, R, P>& st,
+template <typename T, int R, int P, int M, typename G, int NLM>
+__device__ __forceinline__ void rl_level(RunLengthState<T, R, P, NLM>& st,
                                          const T (&mcol)[R], int nl,
                                          G& g) {
-  if constexpr (M <= kRlLevels) {
+  if constexpr (M <= NLM) {
     if (M > nl) return;
     constexpr int Rm = P < M ? P : M;
     if constexpr (M == 1) {
@@ -415,8 +387,8 @@ __device__ __forceinline__ void rl_level(RunLengthState<T, R, P>& st,
 // fills the thread's R rows of column j (zero for rows past the matrix).
 // Afterwards st.tsum[m - 1] holds T_m and st.ra[m - 1][q] RA_m[q] over all
 // columns (m < nl), and st.tsum[nl - 1] the thread's share of k_nl.
-template <typename T, int R, int P, typename Col, typename G>
-__device__ __forceinline__ void rl_forward(RunLengthState<T, R, P>& st,
+template <typename T, int R, int P, typename Col, typename G, int NLM>
+__device__ __forceinline__ void rl_forward(RunLengthState<T, R, P, NLM>& st,
                                            Col& col, int ncols, int nl,
                                            G& g) {
 #pragma unroll
@@ -426,11 +398,11 @@ __device__ __forceinline__ void rl_forward(RunLengthState<T, R, P>& st,
 #pragma unroll
       for (int r = 0; r < R; ++r) st.grid[a][b][r] = T(0);
 #pragma unroll
-  for (int m = 0; m < kRlLevels; ++m)
+  for (int m = 0; m < NLM; ++m)
 #pragma unroll
     for (int r = 0; r < R; ++r) st.tsum[m][r] = T(0);
 #pragma unroll
-  for (int m = 0; m + 1 < kRlLevels; ++m)
+  for (int m = 0; m + 1 < NLM; ++m)
 #pragma unroll
     for (int q = 0; q < (P > 1 ? P - 1 : 1); ++q)
 #pragma unroll
@@ -489,14 +461,15 @@ __device__ void run_length_levels(Col& col, int ncols, int nl, T* out,
 // carry and adjoint stays in registers; nothing of size O(columns) is kept.
 // ---------------------------------------------------------------------------
 
-template <typename T, int R, int P>
+template <typename T, int R, int P, int NLM = kRlLevels>
 struct RunLengthBwd {
   static constexpr int Q = P > 1 ? P - 1 : 1;
-  T st[kRlLevels - 1][P][P][R];  // D_m of this column at [m - 1], m < nl
-  T pre[kRlLevels - 1][R];       // E_m at [m - 2]
-  T colpre[kRlLevels - 1][Q][R];  // CP_m[q] at [m - 2]
-  T rtot[kRlLevels - 1][R];      // Rtot_m at [m - 1]
-  T rrow[kRlLevels - 1][Q][R];   // Rrow_m[q] at [m - 1]
+  static constexpr int NM = NLM > 1 ? NLM - 1 : 1;
+  T st[NM][P][P][R];  // D_m of this column at [m - 1], m < nl
+  T pre[NM][R];       // E_m at [m - 2]
+  T colpre[NM][Q][R];  // CP_m[q] at [m - 2]
+  T rtot[NM][R];      // Rtot_m at [m - 1]
+  T rrow[NM][Q][R];   // Rrow_m[q] at [m - 1]
   T inj[P][P][R];                // same-column injection of the level below
   T ptot[R];                     // M ⊙ Ā_{m+1}[0][0], not yet in Rtot_m
   T prow[Q][R];                  // M/(q+2) ⊙ Ā_{m+1}[q+1][0], not in Rrow_m
@@ -504,12 +477,12 @@ struct RunLengthBwd {
 
 // Rebuild level M's states of the current column (reverse sweep): take
 // column j's level M-1 totals off the carries, then the forward's formulas.
-template <typename T, int R, int P, int M, typename G>
-__device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P>& fw,
-                                           RunLengthBwd<T, R, P>& bw,
+template <typename T, int R, int P, int M, typename G, int NLM>
+__device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P, NLM>& fw,
+                                           RunLengthBwd<T, R, P, NLM>& bw,
                                            const T (&mcol)[R], int nl,
                                            G& g) {
-  if constexpr (M <= kRlLevels) {
+  if constexpr (M <= NLM) {
     if (M > nl) return;
     constexpr int Rm = P < M ? P : M;
     constexpr int Rp = P < M - 1 ? P : M - 1;
@@ -540,7 +513,7 @@ __device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P>& fw,
       g.template prefix<R>(cs[q], bw.colpre[M - 2][q]);
     }
     g.template prefix<R>(fw.tsum[M - 2], bw.pre[M - 2]);
-    if constexpr (M < kRlLevels) {
+    if constexpr (M < NLM) {
       if (M < nl) {  // level nl's own states are never read
 #pragma unroll
         for (int a = 1; a < Rm; ++a)
@@ -571,12 +544,12 @@ __device__ __forceinline__ void rl_rebuild(RunLengthState<T, R, P>& fw,
 }
 
 // Level M's adjoint of the current column, then the levels below (M from
-// kRlLevels down to 1; levels above nl are skipped). Adds into mbar.
-template <typename T, int R, int P, int M, typename G>
-__device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
-                                           RunLengthBwd<T, R, P>& bw,
+// NLM down to 1; levels above nl are skipped). Adds into mbar.
+template <typename T, int R, int P, int M, typename G, int NLM>
+__device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P, NLM>& fw,
+                                           RunLengthBwd<T, R, P, NLM>& bw,
                                            const T (&mcol)[R],
-                                           const T (&w)[kRlLevels], int nl,
+                                           const T (&w)[NLM], int nl,
                                            G& g, T (&mbar)[R]) {
   if constexpr (M >= 1) {
     if (M <= nl) {
@@ -588,7 +561,7 @@ __device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
         for (int b = 0; b < Rm; ++b)
 #pragma unroll
           for (int r = 0; r < R; ++r) A[a][b][r] = w[M - 1];
-      if constexpr (M < kRlLevels) {
+      if constexpr (M < NLM) {
         if (M < nl) {
           constexpr int Rn = P < M + 1 ? P : M + 1;  // extent at level M+1
 #pragma unroll
@@ -673,21 +646,21 @@ __device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P>& fw,
 // j, with the thread's R rows (rows past the matrix carry values the
 // caller drops), and the group, for exchanges of its own.
 template <typename T, int R, int P, typename Fwd, typename Rev,
-          typename Sink, typename G>
+          typename Sink, typename G, int NLM>
 __device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
                                       int ncols, int nl,
-                                      const T (&w)[kRlLevels],
+                                      const T (&w)[NLM],
                                       G& g) {
-  RunLengthState<T, R, P> fw;
+  RunLengthState<T, R, P, NLM> fw;
   rl_forward<T, R, P>(fw, fwd, ncols, nl, g);
-  RunLengthBwd<T, R, P> bw;
+  RunLengthBwd<T, R, P, NLM> bw;
 #pragma unroll
-  for (int m = 0; m + 1 < kRlLevels; ++m)
+  for (int m = 0; m + 1 < NLM; ++m)
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       bw.rtot[m][r] = T(0);
 #pragma unroll
-      for (int q = 0; q < RunLengthBwd<T, R, P>::Q; ++q)
+      for (int q = 0; q < RunLengthBwd<T, R, P, NLM>::Q; ++q)
         bw.rrow[m][q][r] = T(0);
     }
   for (int j = ncols - 1; j >= 0; --j) {
@@ -699,7 +672,7 @@ __device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
       mbar[r] = T(0);
     }
     rl_rebuild<T, R, P, 2>(fw, bw, mcol, nl, g);
-    rl_adjoint<T, R, P, kRlLevels>(fw, bw, mcol, w, nl, g, mbar);
+    rl_adjoint<T, R, P, NLM>(fw, bw, mcol, w, nl, g, mbar);
     sink(j, mbar, g);
   }
 }

@@ -1,8 +1,9 @@
-// Shared by four sources, compiled apart so that their instantiations
-// build in parallel: fused_gram_ho_bwd.cu (one warp a pair, float32, and
-// the entry point), fused_gram_ho_bwd_f64.cu (one warp, float64),
-// fused_gram_ho_bwd_block.cu (a block of warps a pair, float32, and its
-// entry point) and fused_gram_ho_bwd_block_f64.cu (a block, float64).
+// Shared by the sources of the general Gram backward, compiled apart so
+// that their instantiations build in parallel: fused_gram_ho_bwd.cu (the
+// two entry points, one warp a pair up to 7 levels, float32) and
+// fused_gram_ho_bwd_{nl4,f64,block,block_nl4,block_f64}.cu (one warp or a
+// block of warps a pair; float32 up to 4 or up to 7 levels, float64 up to
+// 7 at every level count).
 //
 // Backward of the general fused signature Gram, for Hopper (sm_90a): any
 // order, difference True or False, linear / RBF / poly<K> / cosine base.
@@ -25,175 +26,232 @@
 // acc = <x, y> (- |x|²/2 - |y|²/2 for RBF and cosine), so
 //     X̄_p = sum_q u y_q (- x_p sum_q u),   Ȳ_q = sum_p u x_p (- y_q sum_p u).
 //
-// Design. The order-1 Gram backward's first layout with fused_gram_ho.cu's
-// state grid: one group of threads per (x, y) pair (one warp, four pairs to a
-// block sharing x, up to 128 rows; above, a block of W <= 8 warps, the
-// wrapper's plan), group threads holding R = 2 or 4 consecutive rows; the
-// group runs the forward sweep to the end carries, then the reverse sweep,
-// rebuilding the states by subtraction (the JAX kernel's own scheme).
-// Columns of M are rebuilt from the staged sequences in both sweeps; in
-// the reverse sweep the thread keeps k and dk/dacc at its points for the
-// column the chain needs. Rows past the matrix are exactly zero in M (RBF
-// and cosine are not zero at zero input) and their M̄ is dropped. With
-// difference a thread holds R + 1 points and the one it shares with the
-// next thread is owned by its own last slot (the next thread's first row
-// of M̄ crosses a warp boundary through shared memory). Ȳ of a column is a
-// warp sum added atomically by each warp (N1 blocks share a y); X̄ sums
-// live in shared memory per pair and are added across the block's pairs,
-// then atomically across y blocks. X and Y may be one tensor: X̄ and Ȳ are
-// separate buffers and autograd adds them.
-//
 // What bounds it on the H100. Instruction throughput and latency, not
 // memory (it reads 2 L d values and g's nl + 1 per pair): about 2 L² base
 // kernels and their derivatives per pair, the forward DP twice (sweep and
 // rebuild) and its adjoint, about 3x the forward's DP work, with about
-// twice its warp scans, and d + 1 warp sums per column for Ȳ.
+// twice its warp scans.
+//
+// Design (Hopper redesign, fused_gram_bwd.cu's recipe for the general
+// engines). One group of threads per (x, y) pair: one warp, four pairs to
+// a block sharing x, up to 128 rows (R = 2 or 4 rows a lane); above, a
+// block of W <= 8 warps (the wrapper's plan). The group runs the forward
+// sweep to the end carries, then the reverse sweep, rebuilding the states
+// by subtraction (the JAX kernel's own scheme). The first design spent its
+// issue slots off the DP: per column an out-of-line call per base value
+// (2R + 3 of them, each saving and restoring registers), d + 1 warp sums
+// and d global atomics for Ȳ, and shared-memory adds for X̄. Now:
+// - Base values once per tile. The group fills a shared tile of k (and in
+//   the reverse sweep dk/dacc) for its points against CH + 1 columns, in
+//   one inlined loop over the tile's (point, column) pairs with the kind's
+//   switch outside it; the DP reads its columns of M from the tile.
+// - The chain leaves the column loop. The reverse sweep writes u = K̄ ·
+//   dk/dacc at the thread's own points into a shared tile of CH columns;
+//   when the tile is full, threads over points add sum_j u y_j and sum_j u
+//   into X̄ sums in shared memory, and threads over the tile's columns add
+//   Ȳ of those columns to global memory, one atomic per (pair, column,
+//   channel) and point range.
+// - Registers bound the occupancy, so the DP state is templated on a level
+//   bound NLM (4 or 7; the state arrays hold NLM levels, not 7) as well as
+//   the order, and the float32 one-warp instances at NLM = 4, p <= 2 are
+//   capped at 128 registers (four 128-thread blocks an SM). Two pairs a
+//   warp at four rows a lane (16-lane scans serving both, as
+//   fused_gram_bwd.cu does) measured slower at the order-2 bench shape
+//   (PERF.md).
+// Rows past the matrix are exactly zero in M (RBF and cosine are not zero
+// at zero input) and their M̄ is dropped. With difference a thread holds
+// R + 1 points and the one it shares with the next thread is owned by its
+// own last slot. X and Y may be one tensor: X̄ and Ȳ are separate buffers
+// and autograd adds them.
 
 #pragma once
 
 #include "common.cuh"
 
-namespace {
+namespace gpsig {
 
-using namespace gpsig;
+// k(x_p, y_j) and dk/dacc for the points p < npts against columns j0 ..
+// j0 + ncol - 1, into kt and dkt [c * ld + p] (dkt null: k only), by the
+// group's threads t of GT: one loop for the kind, inlined (the kind a
+// compile-time constant, common.cuh's activate and activate_grad fold to
+// its branch).
+template <typename T, int Kind>
+__device__ __forceinline__ void tile_kind(const T* xs, const T* nxs,
+                                          const T* ys, const T* nys,
+                                          int npts, int d, int degree,
+                                          int j0, int ncol, T* kt, T* dkt,
+                                          int ld, int t, int GT) {
+  for (int e = t; e < npts * ncol; e += GT) {
+    const int c = e / npts, p = e - c * npts, j = j0 + c;
+    T acc = (Kind == kRbf || Kind == kCosine) ? nxs[p] + nys[j] : T(0);
+    for (int q = 0; q < d; ++q) acc += xs[p * d + q] * ys[j * d + q];
+    kt[c * ld + p] = activate(acc, Kind, degree);
+    if (dkt) dkt[c * ld + p] = activate_grad(acc, Kind, degree);
+  }
+}
 
-// One warp's pair: columns of M in both sweeps, and the chain of M̄ to X̄
-// (xacc, this warp's [L][d + 1] shared sums) and Ȳ (ybar, global).
+template <typename T>
+__device__ void tile_values(int kind, const T* xs, const T* nxs, const T* ys,
+                            const T* nys, int npts, int d, int degree, int j0,
+                            int ncol, T* kt, T* dkt, int ld, int t, int GT) {
+  switch (kind) {
+    case kRbf:
+      tile_kind<T, kRbf>(xs, nxs, ys, nys, npts, d, degree, j0, ncol, kt,
+                         dkt, ld, t, GT);
+      break;
+    case kCosine:
+      tile_kind<T, kCosine>(xs, nxs, ys, nys, npts, d, degree, j0, ncol, kt,
+                            dkt, ld, t, GT);
+      break;
+    case kPoly:
+      tile_kind<T, kPoly>(xs, nxs, ys, nys, npts, d, degree, j0, ncol, kt,
+                          dkt, ld, t, GT);
+      break;
+    default:
+      tile_kind<T, kLinear>(xs, nxs, ys, nys, npts, d, degree, j0, ncol, kt,
+                            dkt, ld, t, GT);
+  }
+}
+
+// Contract the u tile's n columns (slot s holds column c0 - s) into X̄ sums
+// (xacc [L][d + 1], the pair's, in shared memory) and Ȳ (ybar [L][d],
+// global) by the group.
+template <typename T, typename G>
+__device__ __forceinline__ void contract_u(const T* xs, const T* ys,
+                                           const T* u, int lu, int n, int c0,
+                                           int ch, int L, int d, bool norms,
+                                           T* xacc, T* ybar, const G& g) {
+  g.sync();
+  const int t = g.thread(), GT = g.size();
+  for (int p = t; p < L; p += GT) {
+    T su = T(0);
+    for (int s = 0; s < n; ++s) su += u[s * lu + p];
+    xacc[p * (d + 1) + d] += su;
+    for (int c = 0; c < d; ++c) {
+      T a = T(0);
+      for (int s = 0; s < n; ++s) a += u[s * lu + p] * ys[(c0 - s) * d + c];
+      xacc[p * (d + 1) + c] += a;
+    }
+  }
+  const int s = t % ch, part = t / ch, parts = GT / ch;
+  if (s < n) {
+    const int col = c0 - s;
+    const T* us = u + s * lu;
+    T su = T(0);
+    for (int p = part; p < L; p += parts) su += us[p];
+    for (int c = 0; c < d; ++c) {
+      T a = T(0);
+      for (int p = part; p < L; p += parts) a += us[p] * xs[p * d + c];
+      atomicAdd(ybar + col * d + c, norms ? a - ys[col * d + c] * su : a);
+    }
+  }
+  g.sync();
+}
+
+// One group's pair: columns of M from the k tile in both sweeps, and the
+// chain of M̄ through the u tile to X̄ (xacc) and Ȳ (ybar).
 template <typename T, int R>
-struct GramBwdColumns {
+struct HoBwdColumns {
   const T* xs;
+  const T* nxs;
   const T* ys;
   const T* nys;
-  T* xacc;
-  T* ybar;
-  int L, d, kind, degree, rows, t;
+  T* kt;    // [CH + 1][L]: k of the tile's columns
+  T* dkt;   // [CH + 1][L]: dk/dacc (reverse sweep)
+  T* u;     // [CH][lu]
+  T* xacc;  // [L][d + 1]
+  T* ybar;  // [L][d] of this pair's y
+  int L, d, kind, degree, rows, t, ch, lu;
   bool diff, norms;
-  int xi[R + 1];
+  int lo, hi;       // the k tile's columns
+  int filled, c0;   // the u tile: slots 0 .. filled-1 hold c0, c0-1, ...
+  int pt[R + 1];    // the thread's points (clamped to L - 1)
   bool own[R + 1];
-  T nx[R + 1];
-  T kprev[R + 1];            // forward sweep: k at column j
-  T khi[R + 1], dkhi[R + 1];  // reverse sweep: k, dk at column j + 1
-  T klo[R + 1], dklo[R + 1];  // reverse sweep: k, dk at column j
-  T dprev[R + 1];            // D̄(j + 1)
+  T dprev[R + 1];   // D̄(j + 1)
 
-  __device__ GramBwdColumns(const T* xs_, const T* nxs, const T* ys_,
-                            const T* nys_, T* xacc_, T* ybar_, int t_,
-                            int L_, int d_, int kind_, int degree_,
-                            bool diff_)
-      : xs(xs_), ys(ys_), nys(nys_), xacc(xacc_), ybar(ybar_), L(L_), d(d_),
-        kind(kind_), degree(degree_), rows(diff_ ? L_ - 1 : L_), t(t_),
-        diff(diff_), norms(kind_norms(kind_)) {
+  __device__ void init() {
+    lo = 0;
+    hi = -1;  // an empty tile
+    filled = 0;
+    c0 = L - 1;
 #pragma unroll
     for (int r = 0; r <= R; ++r) {
       const int p = t * R + r;
-      xi[r] = min(p, L - 1);
+      pt[r] = min(p, L - 1);
       own[r] = diff ? (p <= L - 1 && (r > 0 || t == 0)) : (r < R && p < L);
-      nx[r] = norms ? nxs[xi[r]] : T(0);
-    }
-    if (diff) {
-#pragma unroll
-      for (int r = 0; r <= R; ++r) kprev[r] = kv(r, 0).k;
-    }
-  }
-
-  // k(x_p, y_j) and dk/dacc at the lane's point r
-  __device__ KindValue<T> kv(int r, int j) const {
-    T a = norms ? nx[r] + nys[j] : T(0);
-    for (int c = 0; c < d; ++c) a += xs[xi[r] * d + c] * ys[j * d + c];
-    return kind_value(a, kind, degree);
-  }
-
-  // k and dk/dacc at the lane's points against y_j (points 0..R-1 without
-  // difference, 0..R with)
-  __device__ void eval(int j, T (&k)[R + 1], T (&dk)[R + 1]) const {
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-      k[r] = dk[r] = T(0);
-      if (r < R || diff) {
-        const KindValue<T> v = kv(r, j);
-        k[r] = v.k;
-        dk[r] = v.dk;
-      }
-    }
-  }
-
-  __device__ void mask(T (&mcol)[R]) const {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (t * R + r >= rows) mcol[r] = T(0);
-  }
-
-  // forward sweep, ascending j (as fused_gram_ho.cu's GramColumns)
-  __device__ void fwd(int j, T (&mcol)[R]) {
-    if (diff) {
-      T knew[R + 1];
-#pragma unroll
-      for (int r = 0; r <= R; ++r) knew[r] = kv(r, j + 1).k;
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        mcol[r] = (knew[r + 1] - kprev[r + 1]) - (knew[r] - kprev[r]);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) kprev[r] = knew[r];
-    } else {
-#pragma unroll
-      for (int r = 0; r < R; ++r) mcol[r] = kv(r, j).k;
-    }
-    mask(mcol);
-  }
-
-  __device__ void start_reverse() {
-    if (diff) {
-      eval(L - 1, khi, dkhi);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) dprev[r] = T(0);
-    }
-  }
-
-  // reverse sweep, descending j
-  __device__ void rev(int j, T (&mcol)[R]) {
-    eval(j, klo, dklo);
-    if (diff) {
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        mcol[r] = (khi[r + 1] - klo[r + 1]) - (khi[r] - klo[r]);
-    } else {
-#pragma unroll
-      for (int r = 0; r < R; ++r) mcol[r] = klo[r];
-    }
-    mask(mcol);
-  }
-
-  // X̄ and Ȳ contributions of base-kernel column j, K̄ = kbar at the
-  // lane's points (owned ones count), dk/dacc = dk
-  __device__ void chain(int j, const T (&kbar)[R + 1],
-                        const T (&dk)[R + 1]) const {
-    T u[R + 1];
-    T su = T(0);
-#pragma unroll
-    for (int r = 0; r <= R; ++r) {
-      u[r] = own[r] ? kbar[r] * dk[r] : T(0);
-      su += u[r];
-      if (own[r]) xacc[xi[r] * (d + 1) + d] += u[r];
-    }
-    const T* yj = ys + j * d;
-    const T su_all = norms ? warp_sum(su) : T(0);
-    for (int c = 0; c < d; ++c) {
-      const T yc = yj[c];
-      T s = T(0);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) {
-        if (own[r]) xacc[xi[r] * (d + 1) + c] += u[r] * yc;
-        s += u[r] * xs[xi[r] * d + c];
-      }
-      s = warp_sum(s);
-      if ((threadIdx.x & 31) == 0)
-        atomicAdd(ybar + j * d + c, norms ? s - yc * su_all : s);
+      dprev[r] = T(0);
     }
   }
 
   template <typename G>
+  __device__ void load(int j0, int n, bool grad, G& g) {
+    g.sync();
+    tile_values<T>(kind, xs, nxs, ys, nys, L, d, degree, j0, n, kt,
+                   grad ? dkt : nullptr, L, g.thread(), g.size());
+    g.sync();
+    lo = j0;
+    hi = j0 + n - 1;
+  }
+
+  // column j of M from the tile (which holds j, and j + 1 with difference)
+  __device__ void column(int j, T (&mcol)[R]) const {
+    const T* k0 = kt + (j - lo) * L;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      T v;
+      if (diff) {
+        const T* k1 = k0 + L;
+        v = (k1[pt[r + 1]] - k0[pt[r + 1]]) - (k1[pt[r]] - k0[pt[r]]);
+      } else {
+        v = k0[pt[r]];
+      }
+      mcol[r] = t * R + r < rows ? v : T(0);
+    }
+  }
+
+  // forward sweep, ascending j
+  template <typename G>
+  __device__ void fwd(int j, T (&mcol)[R], G& g) {
+    const int top = diff ? j + 1 : j;
+    if (top > hi) load(j, min(ch + 1, L - j), false, g);
+    column(j, mcol);
+  }
+
+  // reverse sweep, descending j; the first call reloads with dk/dacc
+  template <typename G>
+  __device__ void rev(int j, T (&mcol)[R], G& g) {
+    const int top = diff ? j + 1 : j;
+    if (j < lo || top > hi) {
+      const int j0 = max(0, top - ch);
+      load(j0, top - j0 + 1, true, g);
+    }
+    column(j, mcol);
+  }
+
+  // u of base-kernel column col at the thread's own points, K̄ = kbar
+  template <typename G>
+  __device__ void store(int col, const T (&kbar)[R + 1], const G& g) {
+    const T* dk = dkt + (col - lo) * L;
+    T* us = u + filled * lu;
+#pragma unroll
+    for (int r = 0; r <= R; ++r)
+      if (own[r]) us[pt[r]] = kbar[r] * dk[pt[r]];
+    if (++filled == ch) flush(g);
+  }
+
+  template <typename G>
+  __device__ void flush(const G& g) {
+    if (filled == 0) return;
+    contract_u(xs, ys, u, lu, filled, c0, ch, L, d, norms, xacc, ybar, g);
+    c0 -= filled;
+    filled = 0;
+  }
+
+  template <typename G>
   __device__ void sink(int j, T (&mbar)[R], G& g) {
-    mask(mbar);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (t * R + r >= rows) mbar[r] = T(0);
     T kbar[R + 1];
     if (diff) {
       // D̄(j)[p] = M̄[p-1] - M̄[p] at the thread's points (point t*R + R
@@ -206,37 +264,50 @@ struct GramBwdColumns {
         kbar[r] = dcol - dprev[r];  // K̄ at column j + 1
         dprev[r] = dcol;
       }
-      chain(j + 1, kbar, dkhi);
-#pragma unroll
-      for (int r = 0; r <= R; ++r) {
-        khi[r] = klo[r];
-        dkhi[r] = dklo[r];
-      }
+      store(j + 1, kbar, g);
     } else {
 #pragma unroll
       for (int r = 0; r <= R; ++r) kbar[r] = r < R ? mbar[r] : T(0);
-      chain(j, kbar, dklo);
+      store(j, kbar, g);
     }
   }
 
-  __device__ void finish() const {
-    if (!diff) return;
-    T kbar[R + 1];
+  template <typename G>
+  __device__ void finish(const G& g) {
+    if (diff) {
+      T kbar[R + 1];
 #pragma unroll
-    for (int r = 0; r <= R; ++r) kbar[r] = -dprev[r];  // K̄ at column 0
-    chain(0, kbar, dkhi);
+      for (int r = 0; r <= R; ++r) kbar[r] = -dprev[r];  // K̄ at column 0
+      store(0, kbar, g);
+    }
+    flush(g);
   }
 };
+
+// Per-pair shared memory (values): y and its half norms, X̄ sums, the k
+// and dk tiles of CH + 1 columns and the u tile of CH columns at an odd
+// row stride (plan.py's gram_ho_bwd_smem).
+__host__ __device__ inline int ho_bwd_per_pair(int L, int d, int ch) {
+  return L * (d + 1) + L * (d + 1) + 2 * (ch + 1) * L + ch * (L | 1);
+}
+
+// Occupancy: the one-warp instances at up to 4 levels and order 2 are
+// capped at 128 registers (four 128-thread blocks an SM).
+template <typename G, int NLM, int P>
+constexpr int ho_bwd_min_blocks() {
+  return !G::kBlock && NLM <= 4 && P <= 2 ? 4 : 1;
+}
 
 // Block b: x = X[b / nyb] against the y sequences (b % nyb) * pairs + p
 // (one warp each, or the whole block when W > 1).
 // Xbar, Ybar: [N1, L, d], [N2, L, d], zeroed by the caller.
-template <typename T, int R, int P, typename G>
-__global__ void __launch_bounds__(G::kMaxThreads)
+template <typename T, int R, int P, int NLM, typename G>
+__global__ void __launch_bounds__(G::kMaxThreads,
+                                  (ho_bwd_min_blocks<G, NLM, P>()))
 gram_ho_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                    const T* __restrict__ g, T* __restrict__ Xbar,
                    T* __restrict__ Ybar, int N1, int N2, int L, int d,
-                   int nl, int kind, int degree, int diff, int W) {
+                   int nl, int kind, int degree, int diff, int W, int ch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int pairs = G::kBlock ? 1 : kPairsPerBlock;
@@ -249,12 +320,15 @@ gram_ho_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   const int gthreads = 32 * W;
   const int gt = static_cast<int>(threadIdx.x) - p * 32;
   const bool norms = kind_norms(kind);
-  const int per_pair = Ld + L + La;
+  const int per_pair = ho_bwd_per_pair(L, d, ch);
   T* xs = smem;                          // [L][d]
   T* nxs = xs + Ld;                      // [L]
   T* ys = nxs + L + p * per_pair;        // [L][d], this pair's y
   T* nys = ys + Ld;                      // [L]
   T* xacc = nys + L;                     // [L][d + 1]
+  T* kt = xacc + La;                     // [CH + 1][L]
+  T* dkt = kt + (ch + 1) * L;            // [CH + 1][L]
+  T* u = dkt + (ch + 1) * L;             // [CH][L | 1]
   T* buf = nxs + L + pairs * per_pair;
   const bool active = n2 < N2;
 
@@ -274,26 +348,41 @@ gram_ho_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   if (active) {  // whole groups; a W-warp block is always active
     const long long plane = static_cast<long long>(N1) * N2;
     const long long pair = static_cast<long long>(n1) * N2 + n2;
-    T w[kRlLevels];
+    T w[NLM];
 #pragma unroll
-    for (int m = 0; m < kRlLevels; ++m)
+    for (int m = 0; m < NLM; ++m)
       w[m] = m < nl ? g[(m + 1) * plane + pair] : T(0);
     G grp(W, buf);
-    GramBwdColumns<T, R> col(xs, nxs, ys, nys, xacc,
-                             Ybar + static_cast<long long>(n2) * Ld,
-                             grp.thread(), L, d, kind, degree, diff != 0);
+    HoBwdColumns<T, R> col{xs, nxs, ys, nys, kt, dkt, u, xacc,
+                           Ybar + static_cast<long long>(n2) * Ld};
+    col.L = L;
+    col.d = d;
+    col.kind = kind;
+    col.degree = degree;
+    col.diff = diff != 0;
+    col.norms = norms;
+    col.rows = diff ? L - 1 : L;
+    col.t = grp.thread();
+    col.ch = ch;
+    col.lu = L | 1;
+    col.init();
     const int ncols = diff ? L - 1 : L;
-    auto fwd = [&](int j, T (&mcol)[R]) { col.fwd(j, mcol); };
+    auto fwd = [&](int j, T (&mcol)[R]) { col.fwd(j, mcol, grp); };
+    bool first = true;
     auto rev = [&](int j, T (&mcol)[R]) {
-      if (j == ncols - 1) col.start_reverse();
-      col.rev(j, mcol);
+      if (first) {  // the forward's tile holds k only
+        col.hi = -1;
+        first = false;
+      }
+      col.rev(j, mcol, grp);
     };
-    auto sink = [&](int j, T (&mbar)[R], G& g) { col.sink(j, mbar, g); };
+    auto sink = [&](int j, T (&mbar)[R], G& gg) { col.sink(j, mbar, gg); };
     run_length_levels_bwd<T, R, P>(fwd, rev, sink, ncols, nl, w, grp);
-    col.finish();
+    col.finish(grp);
   }
   __syncthreads();
-  // X̄ of this block's x: add the pairs' sums, then across y blocks
+  // X̄ of this block's x: add the pairs' sums (zero for a pair past N2),
+  // then across y blocks
   const T* acc0 = nxs + L + Ld + L;  // pair 0's xacc
   T* xb = Xbar + static_cast<long long>(n1) * Ld;
   for (int q = threadIdx.x; q < Ld; q += blockDim.x) {
@@ -307,37 +396,48 @@ gram_ho_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   }
 }
 
-template <typename T, int R, int P, typename G>
-cudaError_t launch(const void* X, const void* Y, const void* g, void* Xbar,
-                   void* Ybar, int N1, int N2, int L, int d, int nl, int kind,
-                   int degree, int diff, int W, cudaStream_t stream) {
+// The launch arguments of one call.
+struct HoBwdArgs {
+  const void* X;
+  const void* Y;
+  const void* g;
+  void* Xbar;
+  void* Ybar;
+  int N1, N2, L, d, nl, kind, degree, diff, ch;
+};
+
+template <typename T, int R, int P, int NLM, typename G>
+cudaError_t launch_ho_bwd(const HoBwdArgs& a, int W, cudaStream_t stream) {
   const int pairs = G::kBlock ? 1 : kPairsPerBlock;
   const size_t smem =
-      sizeof(T) * static_cast<size_t>(L) * (d + 1) * (1 + 2 * pairs) +
+      sizeof(T) * (static_cast<size_t>(a.L) * (a.d + 1) +
+                   static_cast<size_t>(pairs) *
+                       ho_bwd_per_pair(a.L, a.d, a.ch)) +
       exchange_bytes<T>(W);
-  cudaError_t e = allow_smem(gram_ho_bwd_kernel<T, R, P, G>, smem);
+  cudaError_t e = allow_smem(gram_ho_bwd_kernel<T, R, P, NLM, G>, smem);
   if (e != cudaSuccess) return e;
-  const long long nyb = (N2 + pairs - 1) / pairs;
-  const long long blocks = static_cast<long long>(N1) * nyb;
+  const long long nyb = (a.N2 + pairs - 1) / pairs;
+  const long long blocks = static_cast<long long>(a.N1) * nyb;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gram_ho_bwd_kernel<T, R, P, G><<<static_cast<unsigned>(blocks),
-                                   G::kBlock ? 32 * W : 32 * kPairsPerBlock,
-                                   smem, stream>>>(
-      static_cast<const T*>(X), static_cast<const T*>(Y),
-      static_cast<const T*>(g), static_cast<T*>(Xbar), static_cast<T*>(Ybar),
-      N1, N2, L, d, nl, kind, degree, diff, W);
+  gram_ho_bwd_kernel<T, R, P, NLM, G><<<static_cast<unsigned>(blocks),
+                                        G::kBlock ? 32 * W
+                                                  : 32 * kPairsPerBlock,
+                                        smem, stream>>>(
+      static_cast<const T*>(a.X), static_cast<const T*>(a.Y),
+      static_cast<const T*>(a.g), static_cast<T*>(a.Xbar),
+      static_cast<T*>(a.Ybar), a.N1, a.N2, a.L, a.d, a.nl, a.kind, a.degree,
+      a.diff, W, a.ch);
   return cudaGetLastError();
 }
 
-template <typename T, int R, typename G>
-cudaError_t by_order(int P, const void* X, const void* Y, const void* g,
-                     void* Xbar, void* Ybar, int N1, int N2, int L, int d,
-                     int nl, int kind, int degree, int diff, int W,
-                     cudaStream_t s) {
-#define GPSIG_P(p)                                                         \
-  case p:                                                                  \
-    return launch<T, R, p, G>(X, Y, g, Xbar, Ybar, N1, N2, L, d, nl, kind, \
-                              degree, diff, W, s);
+template <typename T, int R, int NLM, typename G>
+cudaError_t ho_bwd_by_order(int P, const HoBwdArgs& a, int W,
+                            cudaStream_t s) {
+#define GPSIG_P(p)                                              \
+  case p:                                                       \
+    if constexpr (p <= NLM)                                     \
+      return launch_ho_bwd<T, R, p, NLM, G>(a, W, s);           \
+    return cudaErrorInvalidValue;
   switch (P) {
     GPSIG_P(1) GPSIG_P(2) GPSIG_P(3) GPSIG_P(4) GPSIG_P(5) GPSIG_P(6)
     GPSIG_P(7)
@@ -346,38 +446,40 @@ cudaError_t by_order(int P, const void* X, const void* Y, const void* g,
 #undef GPSIG_P
 }
 
-// One warp a pair at R = 2 or 4 rows a lane.
-template <typename T>
-cudaError_t by_rows(int P, const void* X, const void* Y, const void* g,
-                    void* Xbar, void* Ybar, int N1, int N2, int L, int d,
-                    int nl, int kind, int degree, int diff, int R,
-                    cudaStream_t s) {
+// One warp a pair at R = 2 or 4 rows a lane, up to NLM levels. Float64
+// takes four rows a lane at every length up to 128 rows, and the 7-level
+// instances at every level count: its other instances would add a fifth
+// of the build's compile work, for a dtype whose kernels are checked, not
+// timed.
+template <typename T, int NLM>
+cudaError_t ho_bwd_warp(int P, const HoBwdArgs& a, int R, cudaStream_t s) {
+  if constexpr (sizeof(T) == 8)
+    return ho_bwd_by_order<T, 4, NLM, WarpGroup<T>>(P, a, 1, s);
   switch (R) {
-    case 2: return by_order<T, 2, WarpGroup<T>>(P, X, Y, g, Xbar, Ybar, N1,
-                                                N2, L, d, nl, kind, degree,
-                                                diff, 1, s);
-    case 4: return by_order<T, 4, WarpGroup<T>>(P, X, Y, g, Xbar, Ybar, N1,
-                                                N2, L, d, nl, kind, degree,
-                                                diff, 1, s);
+    case 2: return ho_bwd_by_order<T, 2, NLM, WarpGroup<T>>(P, a, 1, s);
+    case 4: return ho_bwd_by_order<T, 4, NLM, WarpGroup<T>>(P, a, 1, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
+// A block of W warps a pair at 4 rows a lane, up to NLM levels.
+template <typename T, int NLM>
+cudaError_t ho_bwd_block(int P, const HoBwdArgs& a, int W, cudaStream_t s) {
+  return ho_bwd_by_order<T, 4, NLM, BlockGroup<T>>(P, a, W, s);
+}
 
-namespace gpsig {
-
-// The float64 launches, defined in fused_gram_ho_bwd_f64.cu (one warp a
-// pair, R rows a lane) and fused_gram_ho_bwd_block_f64.cu (W warps a pair).
-cudaError_t gram_ho_bwd_warp_f64(int P, const void* X, const void* Y,
-                                 const void* g, void* Xbar, void* Ybar,
-                                 int N1, int N2, int L, int d, int nl,
-                                 int kind, int degree, int diff, int R,
-                                 cudaStream_t s);
-cudaError_t gram_ho_bwd_block_f64(int P, const void* X, const void* Y,
-                                  const void* g, void* Xbar, void* Ybar,
-                                  int N1, int N2, int L, int d, int nl,
-                                  int kind, int degree, int diff, int W,
-                                  cudaStream_t s);
+// Each instantiation is compiled by one source (the file comment above).
+extern template cudaError_t ho_bwd_warp<float, 4>(int, const HoBwdArgs&,
+                                                  int, cudaStream_t);
+extern template cudaError_t ho_bwd_warp<float, 7>(int, const HoBwdArgs&,
+                                                  int, cudaStream_t);
+extern template cudaError_t ho_bwd_warp<double, 7>(int, const HoBwdArgs&,
+                                                   int, cudaStream_t);
+extern template cudaError_t ho_bwd_block<float, 4>(int, const HoBwdArgs&,
+                                                   int, cudaStream_t);
+extern template cudaError_t ho_bwd_block<float, 7>(int, const HoBwdArgs&,
+                                                   int, cudaStream_t);
+extern template cudaError_t ho_bwd_block<double, 7>(int, const HoBwdArgs&,
+                                                    int, cudaStream_t);
 
 }  // namespace gpsig

@@ -4,7 +4,7 @@
 // Replaces the TPU kernels gpsig_tpu/ops/pallas/sig_gram.py:_fwd_kernel
 // (order 1, entry point sig_gram_levels) and sig_gram.py:_fwd_kernel_ho
 // (order >= 2, entry point sig_gram_levels_ho): the same function for any
-// order p = min(order, num_levels) <= num_levels <= 7, order 1 being the
+// order p = min(order, num_levels) <= num_levels <= 127, order 1 being the
 // P = 1 instantiation of the same source. The plain version is
 // ops/signature.py's signature_kern. In the port it computes the
 // normalisation diagonal of every configuration that the tuned
@@ -23,6 +23,12 @@
 // transpose. Templated on (P, R) and the group: 7 x 3 instantiations per
 // dtype (R = 2, 4 on a warp, 4 on a block).
 //
+// Past 7 levels (up to 127, p <= 3) the same layout runs deep_levels.cuh's
+// loop over levels, the per-level carries (nl + (nl-1)(p-1) values a row)
+// in shared memory where the block's pairs fit, else in a device
+// workspace the wrapper allocates, the grid striding over the pairs: 3 x 3
+// instantiations per dtype, the level count a run-time value.
+//
 // What bounds it on the H100. It reads B L1 L2 values once and writes
 // (nl + 1) B: at the flagship diagonal (B = 2048, L1 = L2 = 49, float32)
 // that is 19.7 MB, 5.9 us at 3.35 TB/s, against about L1 L2 (R_m^2 +
@@ -31,6 +37,7 @@
 // warp also make it latency-bound when B is small.
 
 #include "common.cuh"
+#include "deep_levels.cuh"
 
 namespace {
 
@@ -96,6 +103,72 @@ cudaError_t by_rows(int P, const void* M, void* out, int B, int L1, int L2,
   }
 }
 
+// The deep path (num_levels 8 .. 127): state from shared memory at
+// per_pair elements a pair (work null) or from the workspace.
+template <typename T, int R, int P, typename G>
+__global__ void __launch_bounds__(G::kMaxThreads)
+sig_gram_deep_kernel(const T* __restrict__ M, T* __restrict__ out, T* work,
+                     int per_pair, int B, int L1, int L2, int nl, int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  deep_pairs<T, R, G>(
+      reinterpret_cast<T*>(smem_raw), work, per_pair, B, W,
+      [&](int b, const DeepStore<T, R>& mem, G& g) {
+        MatrixRows<T, R> rows{M + static_cast<long long>(b) * L1 * L2, L2,
+                              g.thread()};
+        deep_levels<T, R, P>(rows, L1, nl, out + b,
+                             static_cast<long long>(B), mem, g);
+      });
+}
+
+template <typename T, int R, int P, typename G>
+cudaError_t launch_deep(const void* M, void* out, void* work, int B, int L1,
+                        int L2, int nl, int W, int blocks, int per_pair,
+                        cudaStream_t stream) {
+  const int threads = G::kBlock ? 32 * W : 32 * kPairsPerBlock;
+  const int pairs = G::kBlock ? 1 : kPairsPerBlock;
+  size_t smem = exchange_bytes<T>(W);
+  if (!work) smem += sizeof(T) * static_cast<size_t>(pairs) * per_pair;
+  cudaError_t e = allow_smem(sig_gram_deep_kernel<T, R, P, G>, smem);
+  if (e != cudaSuccess) return e;
+  sig_gram_deep_kernel<T, R, P, G><<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(M), static_cast<T*>(out), static_cast<T*>(work),
+      per_pair, B, L1, L2, nl, W);
+  return cudaGetLastError();
+}
+
+template <typename T, int R, typename G>
+cudaError_t deep_by_order(int P, const void* M, void* out, void* work, int B,
+                          int L1, int L2, int nl, int W, int blocks,
+                          int per_pair, cudaStream_t s) {
+  switch (P) {
+    case 1: return launch_deep<T, R, 1, G>(M, out, work, B, L1, L2, nl, W,
+                                           blocks, per_pair, s);
+    case 2: return launch_deep<T, R, 2, G>(M, out, work, B, L1, L2, nl, W,
+                                           blocks, per_pair, s);
+    case 3: return launch_deep<T, R, 3, G>(M, out, work, B, L1, L2, nl, W,
+                                           blocks, per_pair, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t deep_by_rows(int P, const void* M, void* out, void* work, int B,
+                         int L1, int L2, int nl, int W, int R, int blocks,
+                         int per_pair, cudaStream_t s) {
+  if (W > 1)
+    return deep_by_order<T, 4, BlockGroup<T>>(P, M, out, work, B, L1, L2, nl,
+                                              W, blocks, per_pair, s);
+  switch (R) {
+    case 2: return deep_by_order<T, 2, WarpGroup<T>>(P, M, out, work, B, L1,
+                                                     L2, nl, 1, blocks,
+                                                     per_pair, s);
+    case 4: return deep_by_order<T, 4, WarpGroup<T>>(P, M, out, work, B, L1,
+                                                     L2, nl, 1, blocks,
+                                                     per_pair, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -112,6 +185,25 @@ int gpsig_sig_gram(const void* M, void* out, int B, int L1, int L2, int nl,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? by_rows<double>(P, M, out, B, L1, L2, nl, W, R, s)
              : by_rows<float>(P, M, out, B, L1, L2, nl, W, R, s);
+}
+
+// As gpsig_sig_gram for num_levels 1 .. 127 at p = min(order, nl) <= 3 by
+// deep_levels.cuh: work null (state in shared memory, per_pair elements a
+// pair) or a workspace of blocks x pairs-a-block x per_pair elements;
+// blocks is the grid (at least ceil(B / pairs-a-block) without work).
+int gpsig_sig_gram_deep(const void* M, void* out, void* work, int B, int L1,
+                        int L2, int nl, int order, int W, int R, int blocks,
+                        int per_pair, int f64, void* stream) {
+  const int P = order < nl ? order : nl;
+  if (B < 1 || L1 < 1 || L2 < 1 || nl < 1 || nl > kDeepLevels ||
+      order < 1 || P > kDeepOrder || blocks < 1 || per_pair < 1 ||
+      !plan_ok(L2, W, R))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f64 ? deep_by_rows<double>(P, M, out, work, B, L1, L2, nl, W, R,
+                                    blocks, per_pair, s)
+             : deep_by_rows<float>(P, M, out, work, B, L1, L2, nl, W, R,
+                                   blocks, per_pair, s);
 }
 
 }  // extern "C"

@@ -100,15 +100,32 @@ class UntruncatedSignatureKernel(nn.Module):
         ell = self.lengthscales
         return X if ell is None else X / ell
 
-    def _solve_pairs(self, X, Y):
-        """k_sig for all pairs (the whole N1 × N2 grid, as the JAX package
-        solves a symmetric Gram too): [N1, N2]."""
+    def _solve_pairs(self, X, Y=None):
+        """k_sig for all pairs: [N1, N2]. For a symmetric Gram (``Y`` None)
+        only the pairs i <= j are solved, and mirrored: the recursion is
+        symmetric in its two sequences, so this halves the solves (the JAX
+        package solves the whole grid). Autograd through the gather and the
+        mirror adds ḡ_ij + ḡ_ji into each solved pair. The mirrored entries
+        differ from a full solve's only by the rounding of the double
+        difference, whose two orders of subtraction are not equal in
+        floating point."""
+        sym = Y is None
+        Y = X if sym else Y
         N1, L1, d = X.shape
         N2, L2, _ = Y.shape
         G = self.base.gram(X.reshape(N1 * L1, d), Y.reshape(N2 * L2, d))
-        G = G.reshape(N1, L1, N2, L2).permute(0, 2, 1, 3)
-        return goursat.signature_kernel_pde(incremental_gram(G),
-                                            self.dyadic_order, self.engine)
+        inc = incremental_gram(G.reshape(N1, L1, N2, L2).permute(0, 2, 1, 3))
+        if not sym:
+            return goursat.signature_kernel_pde(inc, self.dyadic_order,
+                                                self.engine)
+        iu, ju = torch.triu_indices(N1, N1, device=X.device)
+        k = goursat.signature_kernel_pde(inc[iu, ju], self.dyadic_order,
+                                         self.engine)
+        pos = torch.empty((N1, N1), dtype=torch.long, device=X.device)
+        pair = torch.arange(iu.shape[0], device=X.device)
+        pos[iu, ju] = pair
+        pos[ju, iu] = pair
+        return k[pos]
 
     def _diag_raw(self, X):
         inc = incremental_gram(self.base.gram(X, X))  # [N, L-1, L-1]
@@ -127,7 +144,7 @@ class UntruncatedSignatureKernel(nn.Module):
         Xs = self._scaled(X)
         sym = X2 is None
         Ys = Xs if sym else self._scaled(X2)
-        K = self._solve_pairs(Xs, Ys)
+        K = self._solve_pairs(Xs, None if sym else Ys)
         if self.normalization:
             dx = self._floor_diag(Xs)
             dy = dx if sym else self._floor_diag(Ys)

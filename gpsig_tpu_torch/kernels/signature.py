@@ -20,6 +20,13 @@ thresholds, for ``num_levels <= 7``:
   data) through increment matrices built in PyTorch and ``sig_gram.py``,
   as the JAX package's XLA route: the fused Grams take one length.
 
+Past 7 levels (up to 127) the route is the JAX package's too: ``K``, the
+two-length Gram and both diagonals through increment matrices built in
+PyTorch and ``sig_gram.py`` (which takes ``num_levels + 1 <= 128``), and
+``K_tens_vs_seq`` through the plain ``signature_kern_tens_vs_seq`` on the
+tensor's device, as the JAX package computes it in XLA, outside any
+Pallas kernel; autograd is its backward.
+
 A CPU tensor runs those entry points' plain versions through the same
 wrappers; a CUDA tensor launches the kernels, forward and backward (every
 entry point's ``torch.autograd.Function`` has a backward kernel; the
@@ -28,9 +35,8 @@ the JAX package). The kernels take any sequence length up to the launch
 plan's bound (``ops/cuda/plan.py``: 1024 DP rows, L = 1025 with
 ``difference``, and a block's shared memory, which binds first only for
 the order-1 Gram backward in float64 at d > 5, e.g. L = 829 at d = 8);
-above it the wrapper raises ``ValueError``. The gaps that remain on
-CUDA: ``num_levels > 7`` runs plain PyTorch on the CPU and raises
-``NotImplementedError`` on CUDA, naming the ROADMAP item that ports it.
+above it the wrapper raises ``ValueError``, as ``sig_gram.py`` does past 7
+levels above p = min(order, num_levels) = 3.
 """
 
 from __future__ import annotations
@@ -47,10 +53,6 @@ from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
 from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 from gpsig_tpu_torch.ops.cuda import tens_seq as ts
 from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
-
-_NL_GAP = ("ROADMAP: num_levels > 7 on CUDA (the DP state beyond 7 levels "
-           "moves from registers to shared memory)")
-
 
 class SignatureKernel(nn.Module):
     def __init__(self, base, raw_sigma, raw_variances, raw_lengthscales,
@@ -121,24 +123,14 @@ class SignatureKernel(nn.Module):
             return "cosine"
         raise TypeError(f"unknown base kernel {type(self.base).__name__}")
 
-    def _cuda_gap(self):
-        """Why the CUDA kernels do not cover this configuration, or
-        None."""
-        if self.num_levels > fg.MAX_LEVELS:
-            return _NL_GAP
-        return None
-
     def _route(self, device):
-        """Which ops/cuda entry points (kernel on CUDA, plain version on
-        the CPU) compute this configuration: "tuned" (order 1,
-        difference, RBF/Linear), "general", or None for plain PyTorch,
-        which only a CPU device takes: on CUDA it raises
-        NotImplementedError."""
-        gap = self._cuda_gap()
-        if gap is not None:
-            if torch.device(device).type == "cuda":
-                raise NotImplementedError(gap)
-            return None
+        """Which ops/cuda entry points compute this configuration on
+        ``device``: "tuned" (order 1, difference, RBF/Linear), "general",
+        or past the fused kernels' 7 levels "pairs" (increment matrices and
+        sig_gram). Every device takes the same route; the entry points
+        launch the kernel on CUDA and run its plain version on the CPU."""
+        if self.num_levels > fg.MAX_LEVELS:
+            return "pairs"
         if (self.order == 1 and self.difference
                 and isinstance(self.base, (sk.RBFBase, sk.LinearBase))):
             return "tuned"
@@ -195,7 +187,7 @@ class SignatureKernel(nn.Module):
 
     def _K_levels(self, X, Y):
         route = self._route(X.device)
-        if route is not None and X.shape[1] != Y.shape[1]:
+        if X.shape[1] != Y.shape[1]:
             # sequences of two lengths (inducing sequences against data):
             # the fused Grams take one length, so the increment matrices
             # are built in PyTorch and reduced by the per-pair DP
@@ -211,11 +203,8 @@ class SignatureKernel(nn.Module):
         N2, L2, _ = Y.shape
         G = self.base.gram(X.reshape(N1 * L1, d), Y.reshape(N2 * L2, d))
         M = self._increments(G.reshape(N1, L1, N2, L2).permute(0, 2, 1, 3))
-        if route == "pairs":
-            levels = self._sig_gram(M.reshape((N1 * N2,) + M.shape[2:]))
-            return levels.reshape(-1, N1, N2)
-        # num_levels > 7, CPU only
-        return sigops.signature_kern(M, self.num_levels, self.order)
+        levels = self._sig_gram(M.reshape((N1 * N2,) + M.shape[2:]))
+        return levels.reshape(-1, N1, N2)
 
     def _sig_gram(self, M):
         """[nl+1, B] from increment matrices M [B, l1, l2] by the per-pair
@@ -330,7 +319,8 @@ class SignatureKernel(nn.Module):
                 Zq, Xq, self.num_levels, self.order, self._kind(),
                 increments, self.difference)
             return self._finish_tens_vs_seq(levels, Xs, return_levels)
-        # num_levels > 7, CPU only
+        # past 7 levels: the plain recursion on the tensor's device, as the
+        # JAX package leaves it to XLA
         N, L, d = Xs.shape
         T, F = Zs.shape[0], Zs.shape[1]
         if increments:

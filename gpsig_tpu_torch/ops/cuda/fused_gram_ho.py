@@ -104,15 +104,20 @@ def _check_shapes(name, num_levels, order, difference, X, Y):
 
 
 def _plan(name, X, difference, backward):
-    """(W, R) for X [N, L, d]'s L - 1 (difference) or L rows; raises
-    where no launch takes the shape."""
+    """(W, R) for X [N, L, d]'s L - 1 (difference) or L rows, and for the
+    backward the tiles' columns; raises where no launch takes the
+    shape."""
     L, d = X.shape[1:]
     rows = L - 1 if difference else L
     wr = plan.row_plan(rows)
-    smem = (plan.gram_ho_bwd_smem if backward else plan.gram_smem)(
-        L, d, wr[0] if wr else 1, X.element_size())
+    W, size = wr[0] if wr else 1, X.element_size()
+    if backward:
+        chunk = plan.gram_ho_bwd_chunk(L, d, W, size)
+        smem = plan.gram_ho_bwd_smem(L, d, W, chunk, size)
+    else:
+        smem = plan.gram_smem(L, d, W, size)
     plan.check_fits(name, rows, wr, smem, f"L={L}, d={d}")
-    return wr
+    return (*wr, chunk) if backward else wr
 
 
 def _launch(X, Y, num_levels, order, kind, difference):
@@ -176,7 +181,7 @@ def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
     name = "fused_gram_ho_levels_bwd"
     _build.check_inputs(name, (X, Y, g))
     _check_shapes(name, num_levels, order, difference, X, Y)
-    W, R = _plan(name, X, difference, backward=True)
+    W, R, chunk = _plan(name, X, difference, backward=True)
     code, degree = _kind_code(kind)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     if tuple(g.shape) != (num_levels + 1, N1, N2):
@@ -191,6 +196,6 @@ def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
                          ("gpsig_fused_gram_ho_bwd_block", W))
         _build.launch(entry, X.device, X, Y, g, Xbar, Ybar, N1, N2, L, d,
                       num_levels, order, code, degree, difference, spread,
-                      X.dtype == torch.float64)
+                      chunk, X.dtype == torch.float64)
         bwd_launches += 1
     return Xbar, Ybar

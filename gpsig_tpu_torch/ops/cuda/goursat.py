@@ -98,6 +98,41 @@ def _launch_fwd(inc, dyadic_order, refined):
     return out
 
 
+#: the gradient's warp design: one warp a pair up to this many refined
+#: rows (the shorter refined side) and up to 2^3 refined rows a unrefined
+#: row, while its boundary rows and checkpoints take at most
+#: WARP_SMEM_BYTES of shared memory
+WARP_MAX_ROWS = 256
+WARP_MAX_ORDER = 3
+WARP_SMEM_BYTES = 48 * 1024
+
+
+def warp_plan(Su, Tu, dyadic_order, itemsize):
+    """The gradient's warp design for a [Su, Tu] pair (``csrc/
+    goursat_bwd.cu``), or None where the block design takes it: a dict of
+    the refined rows a lane (``RL``: 2, 4 or 8, the fewest that cover the
+    rows over 32 lanes, and at least 2^o, so that a lane owns whole
+    unrefined rows), the columns a checkpoint segment spans (``K``: 16, or
+    8 in float64 past two rows a lane, where the K x RL values it
+    recomputes in registers are twice as wide), the lanes that hold rows
+    (``lanes``), the segments (``segments``) and the shared memory of one
+    warp (``smem``: the row above each lane's rows at every column, and
+    every lane's rows at its checkpoint columns; the kernel stages the
+    pair's increments beside them where WARP_SMEM_BYTES still takes
+    them)."""
+    R, C = sorted((Su << dyadic_order, Tu << dyadic_order))
+    if not (1 <= R <= WARP_MAX_ROWS and dyadic_order <= WARP_MAX_ORDER):
+        return None
+    RL = max(1 << dyadic_order, next(r for r in (2, 4, 8) if 32 * r >= R))
+    K = 16 if itemsize == 4 or RL == 2 else 8
+    lanes = -(-R // RL)
+    segments = -(-(C + lanes - 1) // K)
+    smem = itemsize * lanes * (C + 1 + segments * RL)
+    if smem > WARP_SMEM_BYTES:
+        return None
+    return dict(RL=RL, K=K, lanes=lanes, segments=segments, smem=smem)
+
+
 def grad_workspace_elems(Su, Tu, dyadic_order, itemsize):
     """Per-pair elements of the gradient's global u store, 0 where the
     store fits shared memory: the refined grid swept with its shorter side
@@ -114,8 +149,9 @@ def grad_workspace_elems(Su, Tu, dyadic_order, itemsize):
 def goursat_grad_refined(inc, dyadic_order, gbar):
     """ḡ[b] · ∂u_b(S·f, T·f)/∂inc_b for unrefined inc [B, Su, Tu] and
     gbar [B] → [B, Su, Tu] (the TPU's ``goursat_grad_fused`` times ḡ): a
-    forward recompute that keeps every u, then the adjoint sweep, summed
-    into unrefined cells."""
+    forward recompute, then the adjoint sweep, summed into unrefined cells
+    without atomics (two launches give the same bits); one warp a pair
+    where ``warp_plan`` takes the shape, else one block a pair."""
     global grad_launches
     if _on_cpu(inc, gbar):
         return goursat_grad_refined_ref(inc, dyadic_order, gbar)
@@ -125,14 +161,18 @@ def goursat_grad_refined(inc, dyadic_order, gbar):
     if tuple(gbar.shape) != (B,):
         raise ValueError(f"{name}: gbar must be [{B}]; got "
                          f"{tuple(gbar.shape)}")
-    out = torch.zeros_like(inc)
+    warp = warp_plan(Su, Tu, dyadic_order, inc.element_size())
+    out = torch.empty_like(inc)  # every cell written once
+    elems = 0 if warp else grad_workspace_elems(Su, Tu, dyadic_order,
+                                                inc.element_size())
+    # the block design's per-refined-row sums, after its u store
+    work = 0 if warp else torch.empty(
+        (B, elems + (Su * Tu << dyadic_order)), dtype=inc.dtype,
+        device=inc.device)
     if B:
-        elems = grad_workspace_elems(Su, Tu, dyadic_order,
-                                     inc.element_size())
-        work = (torch.empty((B, elems), dtype=inc.dtype, device=inc.device)
-                if elems else 0)
         _build.launch("gpsig_goursat_grad", inc.device, inc, gbar, out, work,
-                      B, Su, Tu, dyadic_order, inc.dtype == torch.float64)
+                      B, Su, Tu, dyadic_order, warp["RL"] if warp else 0,
+                      1 if elems else 0, inc.dtype == torch.float64)
         grad_launches += 1
     return out
 

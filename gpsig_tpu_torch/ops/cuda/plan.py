@@ -60,12 +60,26 @@ def diag_smem(L, d, W, itemsize):
     return itemsize * L * (d + 1) * pairs + exchange_bytes(W, itemsize)
 
 
-def gram_ho_bwd_smem(L, d, W, itemsize):
-    """fused_gram_ho_bwd.cu: the forward's staging plus X̄ sums [L][d + 1]
-    per pair."""
+def gram_ho_bwd_smem(L, d, W, chunk, itemsize):
+    """fused_gram_ho_bwd.cuh: x staged once; per pair y, X̄ sums [L][d + 1],
+    the k and dk/dacc tiles of ``chunk`` + 1 columns and the u tile of
+    ``chunk`` columns at an odd row stride."""
     pairs = PAIRS_PER_BLOCK if W == 1 else 1
-    return (itemsize * L * (d + 1) * (1 + 2 * pairs)
+    per_pair = 2 * L * (d + 1) + 2 * (chunk + 1) * L + chunk * (L | 1)
+    return (itemsize * (L * (d + 1) + pairs * per_pair)
             + exchange_bytes(W, itemsize))
+
+
+def gram_ho_bwd_chunk(L, d, W, itemsize):
+    """Columns per tile of the general Gram backward: 8 when a warp takes
+    a pair, else the most of 8, 4, 2 that fits the block's shared
+    memory."""
+    if W == 1:
+        return 8
+    for chunk in (8, 4, 2):
+        if gram_ho_bwd_smem(L, d, W, chunk, itemsize) <= SMEM_BYTES:
+            return chunk
+    return 2
 
 
 def sig_gram_smem(W, itemsize):
@@ -104,6 +118,51 @@ def gram_bwd_chunk(L, d, S, W, itemsize):
         if gram_bwd_smem(L, d, S, W, chunk, itemsize) <= SMEM_BYTES:
             return chunk
     return 8
+
+
+#: the sig_gram kernels' level bound (num_levels + 1 <= 128, as the JAX
+#: sig_gram kernels take) and, past the register path's 7 levels, their
+#: order bound: p = min(order, num_levels) <= 3
+SIG_GRAM_MAX_LEVELS = 127
+REGISTER_LEVELS = 7
+DEEP_MAX_ORDER = 3
+#: the deep path's workspace: at most this many bytes, and at most this many
+#: blocks in flight (the grid strides over the remaining pairs)
+DEEP_WORKSPACE_BYTES = 1 << 30
+DEEP_MAX_BLOCKS = 4 * 132
+
+
+def deep_slots(nl, p, backward):
+    """Values a DP row keeps in memory on the deep path
+    (``csrc/deep_levels.cuh``): the forward's carries nl + (nl-1)(p-1),
+    and for the backward the rebuilt states, scans and reverse carries,
+    (nl-1)(p² + 2p) more."""
+    fwd = nl + (nl - 1) * (p - 1)
+    return fwd + (nl - 1) * (p * p + 2 * p) if backward else fwd
+
+
+def deep_plan(B, rows, nl, p, itemsize, backward):
+    """The deep path's launch for B matrices of ``rows`` DP rows: a dict
+    of the row plan (W, R), the per-pair state elements, the grid
+    (``blocks``) and ``work`` elements of device workspace (0 when the
+    block's pairs fit shared memory, ``smem`` bytes). None above
+    ``MAX_ROWS``."""
+    wr = row_plan(rows)
+    if wr is None:
+        return None
+    W, R = wr
+    pairs = PAIRS_PER_BLOCK if W == 1 else 1
+    per_pair = deep_slots(nl, p, backward) * R * 32 * W
+    smem = exchange_bytes(W, itemsize) + pairs * per_pair * itemsize
+    blocks = -(-B // pairs)
+    plan = dict(W=W, R=R, per_pair=per_pair, blocks=blocks, work=0,
+                smem=smem)
+    if smem > SMEM_BYTES:
+        blocks = max(1, min(blocks, DEEP_MAX_BLOCKS, DEEP_WORKSPACE_BYTES
+                            // (pairs * per_pair * itemsize)))
+        plan.update(blocks=blocks, work=blocks * pairs * per_pair,
+                    smem=exchange_bytes(W, itemsize))
+    return plan
 
 
 def check_fits(name, rows, plan, smem, what):

@@ -5,12 +5,18 @@ Counterpart of ``gpsig_tpu/ops/pallas/sig_gram.py`` (``sig_gram_levels``,
 order 1, and ``sig_gram_levels_ho``, order >= 2, with their custom VJPs);
 the forwards are ``csrc/sig_gram.cu``, the backwards
 ``csrc/sig_gram_bwd.cuh``, whose opening notes give the designs. M [B, L1, L2]
-→ [nl+1, B], ``num_levels <= 7``, L1 any and L2 up to ``plan.MAX_ROWS``
-(spread over the lanes of one warp up to 128, of up to 8 warps above;
-``plan.py``). The kernel layer
+→ [nl+1, B], ``num_levels <= 127`` (``num_levels + 1 <= 128``, as the JAX
+kernels), L1 any and L2 up to ``plan.MAX_ROWS`` (spread over the lanes of
+one warp up to 128, of up to 8 warps above; ``plan.py``). Up to 7 levels
+the DP state lives in registers; past 7 the deep path
+(``csrc/deep_levels.cuh``, ``csrc/sig_gram_bwd_deep.cu``) keeps its
+per-level carries in shared memory where the block's pairs fit, else in a
+device workspace this wrapper allocates, and takes p = min(order,
+num_levels) <= 3 (``ValueError`` above). The kernel layer
 uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
-in PyTorch (as the JAX package leaves them to XLA). No (8, 128) padding:
+in PyTorch (as the JAX package leaves them to XLA), and for every Gram past
+7 levels. No (8, 128) padding:
 the kernel reads M as it is.
 
 Dispatch: a CPU tensor runs the plain version (``signature_kern``,
@@ -28,7 +34,10 @@ import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
 from gpsig_tpu_torch.ops.cuda import _build, plan
-from gpsig_tpu_torch.ops.cuda.fused_gram import MAX_LEVELS, _on_cpu
+from gpsig_tpu_torch.ops.cuda.fused_gram import _on_cpu
+
+#: most levels the kernels take (num_levels + 1 <= 128)
+MAX_LEVELS = plan.SIG_GRAM_MAX_LEVELS
 
 launches = 0
 ho_launches = 0
@@ -62,9 +71,10 @@ def sig_gram_levels_ho_bwd_ref(M, g, num_levels, order):
     return Mbar
 
 
-def _check(name, M, num_levels, order, *more):
+def _check(name, M, num_levels, order, backward, *more):
     """Validate M (and the other tensors ``more``); returns (B, L1, L2) and
-    the plan (W, R) for L2."""
+    the launch plan: (W, R) up to 7 levels, else ``plan.deep_plan``'s
+    dict."""
     _build.check_inputs(name, (M, *more))
     if M.ndim != 3 or min(M.shape[1:]) < 1:
         raise ValueError(f"{name}: M must be [B, L1, L2]; got "
@@ -74,21 +84,46 @@ def _check(name, M, num_levels, order, *more):
     if order < 1:
         raise ValueError(f"{name}: order must be >= 1")
     B, L1, L2 = M.shape
-    wr = plan.row_plan(L2)
-    plan.check_fits(name, L2, wr,
-                    plan.sig_gram_smem(wr[0] if wr else 1, M.element_size()),
-                    f"M [{B}, {L1}, {L2}]")
-    return (B, L1, L2), wr
+    what = f"M [{B}, {L1}, {L2}]"
+    if num_levels <= plan.REGISTER_LEVELS:
+        wr = plan.row_plan(L2)
+        plan.check_fits(name, L2, wr, plan.sig_gram_smem(
+            wr[0] if wr else 1, M.element_size()), what)
+        return (B, L1, L2), wr
+    p = min(order, num_levels)
+    if p > plan.DEEP_MAX_ORDER:
+        raise ValueError(
+            f"{name}: past {plan.REGISTER_LEVELS} levels the kernels take "
+            f"p = min(order, num_levels) <= {plan.DEEP_MAX_ORDER} (the "
+            f"order-p state grows as p² a level); got p = {p}")
+    deep = plan.deep_plan(B, L2, num_levels, p, M.element_size(), backward)
+    plan.check_fits(name, L2, deep and (deep["W"], deep["R"]),
+                    deep["smem"] if deep else 0, what)
+    return (B, L1, L2), deep
+
+
+def _workspace(M, deep):
+    """The deep path's workspace (0: the state fits shared memory)."""
+    if not deep["work"]:
+        return 0
+    return torch.empty((deep["work"],), dtype=M.dtype, device=M.device)
 
 
 def _launch(M, num_levels, order):
     global launches, ho_launches
     name = "sig_gram_levels" if order == 1 else "sig_gram_levels_ho"
-    (B, L1, L2), (W, R) = _check(name, M, num_levels, order)
+    (B, L1, L2), lp = _check(name, M, num_levels, order, False)
     out = torch.empty((num_levels + 1, B), dtype=M.dtype, device=M.device)
     if B:
-        _build.launch("gpsig_sig_gram", M.device, M, out, B, L1, L2,
-                      num_levels, order, W, R, M.dtype == torch.float64)
+        f64 = M.dtype == torch.float64
+        if num_levels <= plan.REGISTER_LEVELS:
+            _build.launch("gpsig_sig_gram", M.device, M, out, B, L1, L2,
+                          num_levels, order, *lp, f64)
+        else:
+            _build.launch("gpsig_sig_gram_deep", M.device, M, out,
+                          _workspace(M, lp), B, L1, L2, num_levels, order,
+                          lp["W"], lp["R"], lp["blocks"], lp["per_pair"],
+                          f64)
         if order == 1:
             launches += 1
         else:
@@ -154,14 +189,21 @@ def sig_gram_levels_ho_bwd(M, g, num_levels, order):
 def _launch_bwd(M, g, num_levels, order):
     global bwd_launches, ho_bwd_launches
     name = "sig_gram_levels_bwd" if order == 1 else "sig_gram_levels_ho_bwd"
-    (B, L1, L2), (W, R) = _check(name, M, num_levels, order, g)
+    (B, L1, L2), lp = _check(name, M, num_levels, order, True, g)
     if tuple(g.shape) != (num_levels + 1, B):
         raise ValueError(f"{name}: g must be [{num_levels + 1}, {B}]; got "
                          f"{tuple(g.shape)}")
     Mbar = torch.empty_like(M)
     if B:
-        _build.launch("gpsig_sig_gram_bwd", M.device, M, g, Mbar, B, L1, L2,
-                      num_levels, order, W, R, M.dtype == torch.float64)
+        f64 = M.dtype == torch.float64
+        if num_levels <= plan.REGISTER_LEVELS:
+            _build.launch("gpsig_sig_gram_bwd", M.device, M, g, Mbar, B, L1,
+                          L2, num_levels, order, *lp, f64)
+        else:
+            _build.launch("gpsig_sig_gram_bwd_deep", M.device, M, g, Mbar,
+                          _workspace(M, lp), B, L1, L2, num_levels, order,
+                          lp["W"], lp["R"], lp["blocks"], lp["per_pair"],
+                          f64)
         if order == 1:
             bwd_launches += 1
         else:

@@ -140,8 +140,15 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
             torch.zeros(2, plan.MAX_ROWS + 2, 2, device=cuda_device), 3)
     with pytest.raises(TypeError, match="float32 or float64"):
         tfg.fused_diag_levels(X.half(), 3)
-    with pytest.raises(NotImplementedError, match="num_levels > 7 on CUDA"):
-        SignatureRBF(2, 8, order=2, device=cuda_device).K(X)
+    # the sig_gram kernels take num_levels + 1 <= 128, and past 7 levels
+    # p = min(order, num_levels) <= 3
+    M = torch.zeros(2, 5, 6, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="num_levels must be 1..127"):
+        tsg_.sig_gram_levels(M, 128)
+    with pytest.raises(ValueError, match="p = min"):
+        tsg_.sig_gram_levels_ho(M, 8, 4)
+    assert torch.isfinite(SignatureRBF(2, 8, order=2,
+                                       device=cuda_device).K(X)).all()
 
 
 @pytest.mark.cuda
@@ -596,8 +603,8 @@ GOURSAT_CASES = [(Su, Tu, o) for Su, Tu in [(49, 49), (7, 49), (1, 1),
 GOURSAT_CASES += [(199, 199, 2), (199, 199, 3), (0, 3, 1), (199, 160, 0)]
 # (dtype, forward tol, gradient tol), scaled: the kernels repeat the plain
 # sweep's arithmetic per cell, with fused multiply-adds, over up to 3,184
-# dependent diagonals whose values cancel; the gradient adds its terms
-# with atomics in an order that changes from run to run
+# dependent diagonals whose values cancel; the gradient sums its terms per
+# unrefined cell in another order than the plain sweep
 GOURSAT_TOLS = [(torch.float64, 1e-10, 1e-10), (torch.float32, 1e-4, 1e-3)]
 
 
@@ -629,6 +636,49 @@ def test_goursat_kernels_match_plain(cuda_device, dtype, ftol, gtol):
         assert _scaled_err(fast, want) < ftol, (Su, Tu, o)
         assert _scaled_err(refined, want) < ftol, (Su, Tu, o)
         assert _scaled_err(grad, want_g) < gtol, (Su, Tu, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_goursat_gradient_is_deterministic(cuda_device, dtype):
+    """The gradient writes each unrefined cell once, with no atomics: two
+    launches give the same bits, in the warp design (the joint Gram's grid
+    at dyadic orders 0-2, Kuf's at 2, a small grid at 3) and the block
+    design (past 256 refined rows, or 2^4 refined rows a unrefined one)."""
+    from gpsig_tpu_torch.ops.cuda import goursat as tgs
+
+    rng = np.random.default_rng(28)
+    designs = set()
+    for Su, Tu, o in [(49, 49, 1), (49, 49, 0), (49, 49, 2), (7, 49, 2),
+                      (13, 5, 3), (70, 70, 2), (5, 7, 4)]:
+        designs.add(tgs.warp_plan(Su, Tu, o, dtype.itemsize) is not None)
+        inc = torch.as_tensor(_path_increments(rng, 64, Su, Tu), dtype=dtype,
+                              device=cuda_device)
+        gbar = torch.as_tensor(rng.standard_normal(64), dtype=dtype,
+                               device=cuda_device)
+        first = tgs.goursat_grad_refined(inc, o, gbar)
+        second = tgs.goursat_grad_refined(inc, o, gbar)
+        assert torch.equal(first, second), (Su, Tu, o)
+    assert designs == {True, False}
+
+
+@pytest.mark.cuda
+def test_symmetric_pde_gram_solves_the_triangle_on_card(cuda_device):
+    """K(X) solves the pairs i <= j and mirrors them: on the card, the
+    solved entries are bitwise those of the full solve of every pair, the
+    rest agree to rounding."""
+    from gpsig_tpu_torch.kernels.pde import UntruncatedSignatureKernel
+
+    rng = np.random.default_rng(29)
+    X = torch.as_tensor(_walks(rng, 12, 20, 2), device=cuda_device)
+    kern = UntruncatedSignatureKernel.create(
+        2, lengthscales=[0.9, 1.4], dyadic_order=1, device=cuda_device)
+    with torch.no_grad():
+        Xs = kern._scaled(X)
+        tri, full = kern._solve_pairs(Xs), kern._solve_pairs(Xs, Xs)
+    iu, ju = torch.triu_indices(12, 12, device=cuda_device)
+    assert torch.equal(tri[iu, ju], full[iu, ju])
+    torch.testing.assert_close(tri, full, rtol=1e-12, atol=0)
 
 
 @pytest.mark.cuda
@@ -840,5 +890,83 @@ def test_long_signature_kernel_on_card_matches_cpu(cuda_device, ctor, kw):
     raw.to(cuda_device)
     got = calls(*(t.detach().to(cuda_device).requires_grad_()
                   for t in (X, Z)))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("nl", [8, 127])
+def test_deep_sig_gram_kernels_match_plain(cuda_device, dtype, tol, nl):
+    """The sig_gram DP and its backward past 7 levels (the per-level state
+    in shared memory or, where the block's pairs do not fit, in the
+    workspace), orders 1-3, one warp and several warps a pair."""
+    rng = np.random.default_rng(25)
+    btol = dict(BWD_TOLS)[dtype]
+    for shape in [(5, 9, 12), (3, 20, 49), (2, 12, 140)]:
+        B, L1, L2 = shape
+        M = torch.as_tensor(rng.standard_normal(shape) / np.sqrt(L2) * 2,
+                            dtype=dtype, device=cuda_device)
+        g = torch.as_tensor(rng.standard_normal((nl + 1, B)), dtype=dtype,
+                            device=cuda_device)
+        for order in (1, 2, 3):
+            with torch.no_grad():
+                n0 = (tsg_.launches, tsg_.ho_launches)
+                got = (tsg_.sig_gram_levels(M, nl) if order == 1
+                       else tsg_.sig_gram_levels_ho(M, nl, order))
+                assert sum((tsg_.launches, tsg_.ho_launches)) == sum(n0) + 1
+            want = tsg_.sig_gram_levels_ho_ref(M, nl, order)
+            assert got.shape == (nl + 1, B)
+            assert _scaled_err(got, want) < tol, (shape, order)
+            bgot = (tsg_.sig_gram_levels_bwd(M, g, nl) if order == 1
+                    else tsg_.sig_gram_levels_ho_bwd(M, g, nl, order))
+            bwant = tsg_.sig_gram_levels_ho_bwd_ref(M, g, nl, order)
+            assert _scaled_err(bgot, bwant) < btol, (shape, order)
+
+
+@pytest.mark.cuda
+def test_deep_sig_gram_takes_the_workspace(cuda_device):
+    """Order 1 at 127 levels and L2 = 600 in float64: the forward's carries
+    take about 650 KB a pair, so the state goes to the device workspace."""
+    rng = np.random.default_rng(26)
+    M = torch.as_tensor(rng.standard_normal((3, 8, 600)) / 30,
+                        dtype=torch.float64, device=cuda_device)
+    g = torch.as_tensor(rng.standard_normal((128, 3)), dtype=torch.float64,
+                        device=cuda_device)
+    assert plan.deep_plan(3, 600, 127, 1, 8, False)["work"] > 0
+    got = tsg_.sig_gram_levels(M, 127)
+    assert _scaled_err(got, tsg_.sig_gram_levels_ref(M, 127)) < 1e-10
+    got = tsg_.sig_gram_levels_bwd(M, g, 127)
+    assert _scaled_err(got, tsg_.sig_gram_levels_bwd_ref(M, g, 127)) < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2])
+def test_deep_signature_kernel_on_card_matches_cpu(cuda_device, order):
+    """num_levels = 10 through the kernel layer: K, Kdiag (unnormalised),
+    the two-length Gram and K_tens_vs_seq on the card against the CPU,
+    float64, gradients included."""
+    rng = np.random.default_rng(27)
+    X = torch.tensor(_walks(rng, 5, 14, 2), requires_grad=True)
+    X2 = torch.as_tensor(_walks(rng, 3, 12, 2))
+    Z = torch.tensor(0.4 * rng.standard_normal((4, 55, 2, 2)),
+                     requires_grad=True)
+    kern = SignatureRBF(2, 10, order=order, lengthscales=[0.8, 1.3],
+                        device="cpu")
+    raw = SignatureRBF(2, 10, order=order, normalization=False,
+                       device="cpu")
+
+    def calls(X, X2, Z):
+        out = (kern.K(X), kern.K(X, X2), raw.Kdiag(X),
+               kern.K_tens_vs_seq(Z, X, True))
+        loss = sum((o ** 2).sum() for o in out)
+        return (*out, *torch.autograd.grad(loss, [X, Z]))
+
+    want = calls(X, X2, Z)
+    kern.to(cuda_device)
+    raw.to(cuda_device)
+    got = calls(X.detach().to(cuda_device).requires_grad_(),
+                X2.to(cuda_device),
+                Z.detach().to(cuda_device).requires_grad_())
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)

@@ -4,6 +4,11 @@ and the plain versions in ``ops/cuda/goursat.py``) with
 
 - The plain grid, corner and adjoint gradient against the JAX scan and its
   custom VJP in float64, rtol 1e-10: the same recursion in the same order.
+- A numpy model of the gradient kernel's warp design (``csrc/
+  goursat_bwd.cu``: skewed lanes, checkpoints every K columns and the
+  segment recompute, sums per unrefined cell in registers) against
+  autograd through the plain sweep, float64, rtol 1e-10 at dyadic orders
+  0-3, on square and rectangular grids.
 - The refined corner and its gradient against the TPU's ``_fused_kernel``
   (``_corner_refined_impl`` / ``_corner_refined_bwd_impl`` in interpret
   mode), and the given-grid corner against ``_kernel``
@@ -177,3 +182,160 @@ def test_plain_versions_agree():
         (want,) = torch.autograd.grad(grid[..., -1, -1], t, gbar)
         torch.testing.assert_close(tcg.goursat_grad_refined_ref(inc, o, gbar),
                                    want, rtol=1e-10, atol=1e-12)
+
+
+def warp_adjoint_model(inc, o, gbar):
+    """ḡ · ∂u(R, C)/∂inc for one unrefined grid inc [Su, Tu], computed as
+    the warp design of ``csrc/goursat_bwd.cu`` schedules it (numpy, one
+    Python loop body per lane and step). Returns the gradient and how many
+    times each unrefined cell was written.
+
+    The refined grid is swept with its shorter side R over the lanes, RL
+    consecutive rows a lane. Forward, skewed: at step s lane l solves
+    column s - l, taking u of the row above its rows from lane l - 1 (a
+    shuffle up) and keeping that row (``bnd``) and, every K columns at
+    columns of its own phase, its rows (``ck``). Reverse, skewed the other
+    way: at step s lane l is at column Q_l - s, Q_l = C + lanes - 1 - l, so
+    every lane starts a K-step segment at the same step; at a segment's
+    start each lane recomputes its rows' u over the segment's columns from
+    its checkpoint and ``bnd`` alone, then walks the adjoint μ down the
+    segment, taking μ of the row below from lane l + 1 (a shuffle down),
+    and adds each refined cell's term into its unrefined cell's sum, which
+    the lane writes once when the unrefined column is done."""
+    plan = tcg.warp_plan(*inc.shape, o, 4)  # float32 plan, as timed
+    swap = inc.shape[0] > inc.shape[1]
+    A = inc.T if swap else inc
+    f = 1 << o
+    R, C = A.shape[0] << o, A.shape[1] << o
+    RL, K, nL, G = plan["RL"], plan["K"], plan["lanes"], plan["segments"]
+
+    def a(i, j):  # refined cell (i, j), 0 past the last row
+        return A[i >> o, j >> o] / (f * f) if i < R else 0.0
+
+    # forward
+    bnd = np.ones((C + 1, nL))
+    ck = np.ones((G, nL, RL))
+    u = np.ones((nL, RL))
+    top_prev = np.ones(nL)
+    last = np.ones(nL)
+    for s in range(1, C + nL):
+        sent = last.copy()
+        for l in range(nL):
+            j = s - l
+            if not 1 <= j <= C:
+                continue
+            top = sent[l - 1] if l > 0 else 1.0
+            bnd[j, l] = top
+            up, upleft = top, top_prev[l]
+            for r in range(RL):
+                i = l * RL + r + 1
+                left = u[l, r]
+                v = left + up - upleft + a(i - 1, j - 1) * (left + up) * 0.5
+                upleft, up, u[l, r] = left, v, v
+            last[l], top_prev[l] = u[l, RL - 1], top
+            g = (C + nL - 1 - l - j) // K - 1
+            if (C + nL - 1 - l - j) % K == 0 and g >= 0:
+                ck[g, l] = u[l]
+    # reverse
+    out = np.zeros(((R + f - 1) >> o, C >> o))
+    writes = np.zeros(out.shape, dtype=int)
+    mu_prev = np.zeros((nL, RL))
+    below_prev = np.zeros(nL)
+    first = np.zeros(nL)
+    acc = np.zeros((nL, RL))
+    for g in range(G):
+        tiles = []
+        for l in range(nL):
+            c0 = C + nL - 1 - l - g * K - K
+            uu = np.ones((K + 1, RL + 1))
+            for k in range(K + 1):
+                if 1 <= c0 + k <= C:
+                    uu[k, 0] = bnd[c0 + k, l]
+            if c0 >= 1:
+                uu[0, 1:] = ck[g, l]
+            for k in range(1, K + 1):
+                if not 1 <= c0 + k <= C:
+                    continue
+                for r in range(1, RL + 1):
+                    i = l * RL + r
+                    left, up = uu[k - 1, r], uu[k, r - 1]
+                    uu[k, r] = (left + up - uu[k - 1, r - 1]
+                                + a(i - 1, c0 + k - 1) * (left + up) * 0.5)
+            tiles.append(uu)
+        for t in range(K):
+            sent = first.copy()
+            for l in range(nL):
+                c = C + nL - 1 - l - (g * K + t)
+                below = sent[l + 1] if l + 1 < nL else 0.0
+                if 1 <= c <= C:
+                    k, uu = K - t, tiles[l]
+                    mb, mbp = below, below_prev[l]
+                    for r in range(RL - 1, -1, -1):
+                        i = l * RL + r + 1
+                        mu = 0.0
+                        if i == R and c == C:
+                            mu = 1.0
+                        elif i <= R:
+                            if i < R and c < C:
+                                mu -= mbp
+                            if c < C:
+                                mu += mu_prev[l, r] * (1 + 0.5 * a(i - 1, c))
+                            if i < R:
+                                mu += mb * (1 + 0.5 * a(i, c - 1))
+                        acc[l, r] += mu * (uu[k - 1, r + 1] + uu[k, r]) * 0.5
+                        mbp, mb, mu_prev[l, r] = mu_prev[l, r], mu, mu
+                    first[l] = mu_prev[l, 0]
+                    if (c - 1) % f == 0:
+                        for r in range(0, RL, f):
+                            if l * RL + r < R:
+                                I, J = (l * RL + r) >> o, (c - 1) >> o
+                                out[I, J] = acc[l, r:r + f].sum() * gbar / (
+                                    f * f)
+                                writes[I, J] += 1
+                        acc[l] = 0.0
+                below_prev[l] = below
+    return (out.T, writes.T) if swap else (out, writes)
+
+
+@pytest.mark.parametrize("shape,order", [
+    ((4, 4), 0), ((5, 3), 0), ((3, 7), 1), ((1, 1), 0), ((13, 5), 1),
+    ((7, 12), 2), ((6, 6), 2), ((35, 40), 1), ((3, 5), 3), ((40, 9), 0),
+    ((35, 45), 2),
+])
+def test_warp_adjoint_model_matches_autograd(shape, order):
+    """The warp design's schedule (lanes of 2, 4 or 8 refined rows, K = 16
+    columns a segment, float32's plan) gives the plain gradient, and
+    writes every unrefined cell exactly once (no atomics)."""
+    rng = np.random.default_rng(11)
+    inc = 0.3 * rng.standard_normal(shape)
+    gbar = rng.standard_normal()
+    assert tcg.warp_plan(*shape, order, 4) is not None
+    got, writes = warp_adjoint_model(inc, order, gbar)
+    want = tcg.goursat_grad_refined_ref(
+        torch.as_tensor(inc[None]), order,
+        torch.tensor([gbar], dtype=torch.float64))[0]
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-10, atol=1e-12)
+    assert (writes == 1).all()
+
+
+def test_warp_plan_covers_the_slice_grids():
+    """One warp a pair at the SigGPDE grids up to 256 refined rows: the
+    joint Gram (49 x 49) at dyadic orders 0-2, Kuf (7 x 49) at orders 0-2;
+    the block design above, past a unrefined row of 8 refined rows, and
+    where the boundary rows and checkpoints pass 48 KB (float64 at 196
+    rows)."""
+    joint = tcg.warp_plan(49, 49, 1, 4)
+    assert (joint["RL"], joint["K"], joint["lanes"]) == (4, 16, 25)
+    assert joint["segments"] == -(-(98 + 24) // 16)
+    assert joint["smem"] == 4 * 25 * (99 + joint["segments"] * 4)
+    assert tcg.warp_plan(49, 49, 1, 8)["K"] == 8
+    assert tcg.warp_plan(49, 49, 0, 8)["RL"] == 2
+    assert tcg.warp_plan(49, 49, 0, 8)["K"] == 16
+    assert (tcg.warp_plan(49, 49, 2, 4)["RL"],
+            tcg.warp_plan(49, 49, 2, 4)["lanes"]) == (8, 25)
+    assert tcg.warp_plan(49, 49, 2, 8) is None
+    for o in (0, 1, 2):
+        assert tcg.warp_plan(7, 49, o, 4)["RL"] == max(2, 1 << o)
+    assert tcg.warp_plan(199, 199, 2, 4) is None
+    assert tcg.warp_plan(3, 5, 4, 4) is None
+    assert tcg.warp_plan(0, 5, 0, 4) is None

@@ -5,6 +5,11 @@ step, prediction) and a PDE GPR, every parameter loaded through
 ``convert.load_jax_arrays``; and the numpy data generators the slice runs
 on (``data/synthetic.py``).
 
+The symmetric Gram solves only its triangle of pairs and mirrors it: its
+values and gradients against the port's own full solve of every pair,
+the solved entries bitwise, the mirrored ones and the gradients to 1e-12
+(the double difference rounds otherwise when its two sequences swap).
+
 Tolerance rtol 1e-8 (as ``test_torch_svgp.py``): the Goursat solves agree
 to rounding (rtol 1e-10 in ``test_torch_goursat.py``), and the eigh of the
 PSD projections, the Cholesky factors, solves and quadratures round
@@ -330,3 +335,47 @@ def test_synthetic_data_matches_jax():
     for got, want in zip(tdata.regression_sequences(4, 5, 8),
                          jdata.regression_sequences(4, 5, 8)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("base,dyadic_order", [("linear", 0), ("rbf", 1),
+                                               ("poly", 2)])
+def test_symmetric_gram_solves_the_triangle(base, dyadic_order):
+    """K(X) solves the N(N+1)/2 pairs i <= j and mirrors them: against the
+    full solve of all N² pairs (``_solve_pairs(X, X)``), the solved
+    entries are bitwise equal and the rest, the gradients of a weighted
+    sum of K(X) and of K_sym_psd(X) (inputs and every parameter) agree to
+    1e-12."""
+    _, tk = kern_pair(base, dyadic_order=dyadic_order)
+    rng = np.random.default_rng(12)
+    X = torch.as_tensor(walks(rng, 5, 6))
+    W = torch.as_tensor(rng.standard_normal((5, 5)))
+    from gpsig_tpu_torch.ops import goursat as tg
+
+    solved = []
+    pde = tg.signature_kernel_pde
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tg, "signature_kernel_pde",
+                   lambda inc, *a: solved.append(inc.shape[:-2].numel())
+                   or pde(inc, *a))
+        Xs = tk._scaled(X)
+        tri = tk._solve_pairs(Xs)
+        full = tk._solve_pairs(Xs, Xs)
+    assert solved == [15, 25]
+    iu, ju = torch.triu_indices(5, 5)
+    assert torch.equal(tri[iu, ju], full[iu, ju])
+    torch.testing.assert_close(tri, full, rtol=1e-12, atol=0)
+
+    def grads(fn, full_solve):
+        params = [p for p in tk.parameters()]
+        Xg = X.clone().requires_grad_()
+        solve = tk._solve_pairs
+        with pytest.MonkeyPatch.context() as mp:
+            if full_solve:
+                mp.setattr(tk, "_solve_pairs",
+                           lambda A, B=None: solve(A, A if B is None else B))
+            out = torch.sum(W * fn(Xg))
+        return torch.autograd.grad(out, [Xg, *params])
+
+    for fn in (tk.K, tk.K_sym_psd):
+        for got, want in zip(grads(fn, False), grads(fn, True)):
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)

@@ -9,6 +9,10 @@
   float32 even on float64 inputs: scaled error 1e-5.
 - The symmetry k_m(M) = k_m(Mᵀ) that the CUDA kernel relies on to stream
   M's rows.
+- Past 7 levels (up to 127, the JAX kernels' bound): the plain versions
+  against ``signature_kern`` (rtol 1e-10) and the launch plan of the deep
+  path, whose state goes to shared memory or to a device workspace
+  (``plan.deep_plan``, ``csrc/deep_levels.cuh``).
 
 The CUDA kernel itself is checked on the card by
 ``test_torch_cuda_kernels.py``.
@@ -16,6 +20,7 @@ The CUDA kernel itself is checked on the card by
 
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +28,7 @@ import torch
 
 from gpsig_tpu.ops import signature as jsig
 from gpsig_tpu.ops.pallas import sig_gram as jsg
+from gpsig_tpu_torch.ops.cuda import plan
 from gpsig_tpu_torch.ops.cuda import sig_gram as tsg
 
 torch.set_num_threads(1)
@@ -97,3 +103,55 @@ def test_backward_on_card_is_not_ported_yet():
             gm, tsg.sig_gram_levels_ho_bwd_ref(M, g, 3, order), rtol=1e-12,
             atol=0)
         assert rest == [None, None]
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("nl", [8, 12, 127])
+def test_deep_refs_match_signature_kern(nl, order):
+    M = np.random.default_rng(nl + order).standard_normal((2, 9, 12)) / 4
+    want = np.asarray(jsig.signature_kern(M, nl, order=order))
+    Mt = torch.as_tensor(M)
+    got = (tsg.sig_gram_levels(Mt, nl) if order == 1
+           else tsg.sig_gram_levels_ho(Mt, nl, order))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-300)
+    g = np.random.default_rng(0).standard_normal((nl + 1, 2))
+    gt = torch.as_tensor(g)
+    jgrad = jax.grad(lambda m: jnp.sum(jnp.asarray(g) * jsig.signature_kern(
+        m, nl, order=order)))(jnp.asarray(M))
+    got = (tsg.sig_gram_levels_bwd(Mt, gt, nl) if order == 1
+           else tsg.sig_gram_levels_ho_bwd(Mt, gt, nl, order))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jgrad), rtol=1e-10,
+                               atol=1e-13)
+
+
+@pytest.mark.parametrize("nl,p,backward,slots", [
+    (8, 1, False, 8), (8, 1, True, 8 + 7 * 3), (10, 2, False, 19),
+    (10, 2, True, 19 + 9 * 8), (127, 3, True, 127 + 126 * 17),
+])
+def test_deep_slots_count_the_state(nl, p, backward, slots):
+    """Forward: T_m for every level and RA_m[q] below the top one;
+    backward also the rebuilt states (p²), E_m, CP_m[q], Rtot_m and
+    Rrow_m[q] below the top level (deep_levels.cuh's DeepSlots)."""
+    assert plan.deep_slots(nl, p, backward) == slots
+
+
+def test_deep_plan_takes_shared_memory_or_the_workspace():
+    # order 1 at 10 levels, L2 = 49: one warp a matrix at two rows a lane,
+    # 10 slots of 64 rows in float32, four matrices a block
+    small = plan.deep_plan(2048, 49, 10, 1, 4, False)
+    assert (small["W"], small["R"], small["work"]) == (1, 2, 0)
+    assert small["per_pair"] == 10 * 64
+    assert small["smem"] == 4 * 10 * 64 * 4
+    assert small["blocks"] == 512
+    # order 1 at 127 levels, L2 = 600, float64: 127 slots of 640 rows, 650
+    # KB a matrix, so the device workspace, the grid bounded by it
+    big = plan.deep_plan(2048, 600, 127, 1, 8, False)
+    assert (big["W"], big["R"]) == (5, 4)
+    assert big["per_pair"] == 127 * 640
+    assert big["per_pair"] * 8 > plan.SMEM_BYTES
+    assert big["blocks"] == plan.DEEP_MAX_BLOCKS
+    assert big["work"] == big["blocks"] * big["per_pair"]
+    assert big["smem"] == plan.exchange_bytes(5, 8)
+    huge = plan.deep_plan(10 ** 6, 1024, 127, 3, 8, True)
+    assert huge["work"] * 8 <= plan.DEEP_WORKSPACE_BYTES
+    assert plan.deep_plan(4, plan.MAX_ROWS + 1, 8, 1, 4, False) is None

@@ -196,17 +196,19 @@ def test_make_inducing_tensors_draws_data_increments(increments):
     assert torch.all(dist == 0)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(num_levels=8), "num_levels > 7 on CUDA"),
-    (dict(num_levels=8, order=2), "num_levels > 7 on CUDA"),
-    (dict(num_levels=9, difference=False), "num_levels > 7 on CUDA"),
+@pytest.mark.parametrize("kw,route", [
+    (dict(num_levels=8), "pairs"),
+    (dict(num_levels=8, order=2), "pairs"),
+    (dict(num_levels=9, difference=False), "pairs"),
 ])
-def test_cuda_dispatch_raises_for_uncovered_configurations(kw, item):
+def test_cuda_dispatch_raises_for_uncovered_configurations(kw, route):
+    """Past 7 levels nothing is uncovered any more: both devices take the
+    JAX package's route, increment matrices reduced by sig_gram (whose
+    kernels take num_levels + 1 <= 128)."""
     kw = dict(kw)
     kern = tsk.SignatureRBF(D, kw.pop("num_levels", NL), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        kern._route(torch.device("cuda"))
-    assert kern._route(torch.device("cpu")) is None
+    assert kern._route(torch.device("cuda")) == route
+    assert kern._route(torch.device("cpu")) == route
 
 
 @pytest.mark.parametrize("ctor", ["SignatureRBF", "SignatureLinear"])
@@ -355,3 +357,97 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             tsk.SignatureRBF(D, NL)
+
+
+# ---------------------------------------------------------------------------
+# Past 7 levels: K, Kdiag, the two-length Gram and the normalisation
+# diagonal through increment matrices and sig_gram, K_tens_vs_seq through
+# the plain recursion, values and gradients against the JAX package's XLA
+# route (rtol 1e-10: the same recursions, other summation order only), on
+# sequences of at least num_levels increments.
+# ---------------------------------------------------------------------------
+
+DEEP_RTOL = 1e-10
+
+
+def deep_pair(nl, order, normalization, ctor="SignatureRBF"):
+    kw = dict(order=order, lengthscales=[0.7, 1.3],
+              normalization=normalization)
+    if ctor == "SignaturePoly":
+        kw.update(offset=0.6)
+    jk = getattr(jsk, ctor)(D, nl, engine="xla", **kw)
+    rng = np.random.default_rng(nl + 10 * order)
+    jk = jk.replace(raw_variances=jnp.asarray(rng.normal(0.0, 0.5, nl + 1)))
+    tk = getattr(tsk, ctor)(D, nl, device="cpu", **kw)
+    convert.load_jax_arrays(tk, leaves(jk))
+    return jk, tk
+
+
+def deep_calls(k, X, X2, Z):
+    return [k.K(X), k.K(X, X2), k.Kdiag(X),
+            k.K_tens_vs_seq(Z, X, True, return_levels=True)]
+
+
+@pytest.mark.parametrize("normalization", [True, False])
+@pytest.mark.parametrize("nl,order", [(8, 1), (8, 2), (10, 1), (10, 2)])
+def test_deep_levels_match_jax(nl, order, normalization):
+    jk, tk = deep_pair(nl, order, normalization)
+    rng = np.random.default_rng(11)
+    X, X2 = walks(rng, 4, L=12), walks(rng, 3, L=11)
+    Z = 0.4 * rng.standard_normal((3, nl * (nl + 1) // 2, 2, D))
+    seen = []
+    ref = tsg.sig_gram_levels_ref if order == 1 else tsg.sig_gram_levels_ho_ref
+    with mock.patch.object(
+            tsg, ref.__name__,
+            lambda *a: seen.append(a[0].shape) or ref(*a)):
+        got = deep_calls(tk, *map(torch.as_tensor, (X, X2, Z)))
+    # K, the two-length Gram, and the diagonals behind the normalisation
+    # (or the unnormalised Kdiag) all reach sig_gram
+    assert {(16, 11, 11), (12, 11, 10), (4, 11, 11)} <= set(seen)
+    for g, w in zip(got, deep_calls(jk, X, X2, Z)):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=DEEP_RTOL, atol=1e-14)
+
+
+@pytest.mark.parametrize("ctor,normalization", [("SignatureLinear", True),
+                                                ("SignaturePoly", False)])
+@pytest.mark.parametrize("nl,order", [(8, 1), (8, 2), (10, 1), (10, 2)])
+def test_deep_levels_gradients_match_jax(nl, order, ctor, normalization):
+    """Autograd through sig_gram's backward (its plain VJP on the CPU) and
+    the plain Kuf recursion against ``jax.grad``: the inputs' and every
+    kernel parameter's gradient of a weighted sum of K, the two-length
+    Gram, Kdiag and Kuf. Linear and Poly bases: the RBF base's clamp of
+    the squared distance at 0 splits the gradient at a tie in JAX
+    (``jnp.maximum``) and not in PyTorch (``torch.clamp``), and the
+    self-Grams behind the normalisation and Kdiag have ties on their
+    diagonals. Every sequence has at least num_levels increments: past
+    that an order-1 level is identically zero, and normalising it divides
+    rounding noise by the clamp's 1e-30."""
+    jk, tk = deep_pair(nl, order, normalization, ctor)
+    rng = np.random.default_rng(12)
+    X, X2 = walks(rng, 4, L=12), walks(rng, 3, L=11)
+    Z = 0.4 * rng.standard_normal((3, nl * (nl + 1) // 2, 2, D))
+    W = [rng.standard_normal(s) for s in ((4, 4), (4, 3), (4,), (3, 4))]
+
+    def loss(k, X, X2, Z, W, lib):
+        return (lib.sum(W[0] * k.K(X)) + lib.sum(W[1] * k.K(X, X2))
+                + lib.sum(W[2] * k.Kdiag(X))
+                + lib.sum(W[3] * k.K_tens_vs_seq(Z, X, True)))
+
+    jg_k, jg_x, jg_z = jax.grad(
+        lambda k, x, z: loss(k, x, X2, z, W, jnp), argnums=(0, 1, 2))(
+            jk, jnp.asarray(X), jnp.asarray(Z))
+    tX = torch.as_tensor(X).requires_grad_()
+    tZ = torch.as_tensor(Z).requires_grad_()
+    loss(tk, tX, torch.as_tensor(X2), tZ, [torch.as_tensor(w) for w in W],
+         torch).backward()
+    np.testing.assert_allclose(tX.grad.numpy(), np.asarray(jg_x),
+                               rtol=DEEP_RTOL, atol=1e-12)
+    np.testing.assert_allclose(tZ.grad.numpy(), np.asarray(jg_z),
+                               rtol=DEEP_RTOL, atol=1e-12)
+    want = leaves(jg_k)
+    got = {k: v.grad.numpy() for k, v in tk.named_parameters()}
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=DEEP_RTOL,
+                                   atol=1e-12, err_msg=name)
