@@ -16,9 +16,19 @@ flagship diagonal, the general Gram and sig_gram at the shapes of their
 serving and training checks), the order-1 Gram and its backward at
 L = 150, the general Gram backward at L = 150, the Goursat adjoint at the
 SigGPDE joint Gram (82² pairs of 49 x 49 increments, dyadic order 1) and
-at 64 pairs of 199 x 199 increments (order 2), and sig_gram past 7 levels
+at 64 pairs of 199 x 199 increments (order 2), sig_gram past 7 levels
 (order 1 at num_levels 8), where a parent that refuses the shape reports
-null. With ``--builds`` it instead builds each checkout's kernels from
+null, the general Gram at order 2 and L = 150 and at order 3 and L = 50,
+the order-2 flagship's prediction Kuf, the general Gram where the state
+takes 2 rows a lane (order 4, and order 3 in float64, at L = 100), the
+order-1 Gram at the widest d = 231 that one warp took at L = 50 before
+segments, and one Adam step of the order-1 and order-2 RBF GPRs at L = 150
+(``chip_smoke.py``'s phase (n): N = 150, nl = 4, the whole step by CUDA
+events, host work included). Every Gram kernel is timed on its full grid
+of pairs (no triangle), so that both checkouts do the same work; the GPR
+steps go through ``K(X)``, which solves the triangle where the checkout
+does.
+With ``--builds`` it instead builds each checkout's kernels from
 scratch, alone on the machine, in turns A, B, A, and prints each build's
 wall time and the sum of its compiles. Needs a CUDA card; exits non-zero
 without one.
@@ -62,6 +72,20 @@ CASES = [
      "sg1_nl8"),
     ("sig_gram_bwd order 1 B=150 L'=49 nl=8",
      "sig_gram.sig_gram_levels_bwd", "sg1_bwd_nl8"),
+    ("gram_ho order 2 L=150 N=150x150", "fused_gram_ho.fused_gram_ho_levels",
+     "gram_ho150"),
+    ("gram_ho order 3 L=50 N=256x256", "fused_gram_ho.fused_gram_ho_levels",
+     "gram_ho3"),
+    ("tsg order 2 T=500 N=2048 L=50 nl=5",
+     "tens_seq_general.fused_tens_seq_general_levels", "tsg"),
+    ("gram_ho order 4 L=100 N=256x256", "fused_gram_ho.fused_gram_ho_levels",
+     "gram_ho4_100"),
+    ("gram_ho order 3 L=100 N=256x256 f64",
+     "fused_gram_ho.fused_gram_ho_levels", "gram_ho3_100_f64"),
+    ("gram L=50 N=64x64 d=231 nl=4", "fused_gram.fused_gram_levels",
+     "gram_wide"),
+    ("GPR Adam step order 1 RBF L=150 N=150", "step", "gpr1"),
+    ("GPR Adam step order 2 RBF L=150 N=150", "step", "gpr2"),
 ]
 
 
@@ -92,8 +116,26 @@ def _args(kind, torch, dev):
         return (t(_walks(rng, 2048, 50, 3)), 5, True)
     if kind == "gram_bwd":
         return (x256, x256, t(rng.standard_normal((5, 256, 256))), 4, True)
-    if kind == "gram_ho":
-        return (x256, x256, 4, 2, "rbf", True)
+    if kind in ("gram_ho", "gram_ho3"):
+        return (x256, x256, 4, 2 if kind == "gram_ho" else 3, "rbf", True)
+    if kind in ("gram_ho4_100", "gram_ho3_100_f64"):
+        x = torch.as_tensor(_walks(rng, 256, 100, 2), device=dev,
+                            dtype=torch.float32 if kind == "gram_ho4_100"
+                            else torch.float64)
+        return (x, x, 4, 4 if kind == "gram_ho4_100" else 3, "rbf", True)
+    if kind == "gram_wide":
+        x = t(_walks(rng, 64, 50, 231) * np.sqrt(2 / 231))
+        return (x, x, 4, True)
+    if kind in ("gpr1", "gpr2"):
+        return (_gpr_step(torch, dev, int(kind[-1])),)
+    if kind == "tsg":
+        # the order-2 flagship's prediction Kuf: 500 inducing tensors with
+        # increments (F = 15 factors) against 2048 sequences, d = 2
+        x = _walks(rng, 2048, 50, 2)
+        inc = np.diff(x, axis=1).reshape(-1, 2)
+        z = inc[rng.integers(0, len(inc), 500 * 15 * 2)].reshape(
+            500, 15, 2, 2)
+        return (t(z), t(x), 5, 2, "rbf", True, True)
     if kind == "gram_ho_bwd":
         x = x256[:150].contiguous()
         return (x, x, t(rng.standard_normal((5, 150, 150))), 4, 2, "rbf",
@@ -123,7 +165,37 @@ def _args(kind, torch, dev):
     x150 = t(_walks(rng, 150, 150, 2))
     if kind == "gram150":
         return (x150, x150, 4, True)
+    if kind == "gram_ho150":
+        return (x150, x150, 4, 2, "rbf", True)
     return (x150, x150, t(rng.standard_normal((5, 150, 150))), 4, True)
+
+
+def _gpr_step(torch, dev, order):
+    """One Adam step (lr 5e-2) on -log_marginal_likelihood of an exact RBF
+    GPR at L = 150, float32: regression_sequences(seed=0, N=200, L=150,
+    d=2), 150 to train, nl = 4, noise 0.05."""
+    from gpsig_tpu_torch.config import precise_linalg
+    from gpsig_tpu_torch.data.synthetic import regression_sequences
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.models.gpr import GPR
+
+    f32 = torch.float32
+    Xn, yn = regression_sequences(seed=0, N=200, L=150, d=2)
+    X = torch.as_tensor(Xn[:150], dtype=f32, device=dev)
+    Y = torch.as_tensor(yn[:150], dtype=f32, device=dev)
+    kern = SignatureRBF(2, 4, lengthscales=1.0, normalization=True,
+                        order=order, dtype=f32, device=dev)
+    gpr = GPR.create(kern, noise_variance=0.05, dtype=f32, device=dev)
+    opt = torch.optim.Adam(gpr.parameters(), lr=5e-2)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        with precise_linalg():
+            loss = -gpr.log_marginal_likelihood(X, Y)
+            loss.backward()
+        opt.step()
+
+    return step
 
 
 def _turn(root):
@@ -136,9 +208,13 @@ def _turn(root):
     dev = torch.device("cuda", 0)
     out = {}
     for name, path, kind in CASES:
-        mod, fn = path.rsplit(".", 1)
-        f = getattr(importlib.import_module(f"gpsig_tpu_torch.ops.cuda.{mod}"),
-                    fn)
+        if path == "step":
+            def f(step):
+                step()
+        else:
+            mod, fn = path.rsplit(".", 1)
+            f = getattr(importlib.import_module(
+                f"gpsig_tpu_torch.ops.cuda.{mod}"), fn)
         args = _args(kind, torch, dev)
         try:
             f(*args)

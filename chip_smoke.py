@@ -35,8 +35,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    agree with the CPU;
 5. slice 1: each general-engine kernel (``_ho_kernel``, ``_tsg_kernel``,
    the sig_gram ``_fwd_kernel`` and ``_fwd_kernel_ho``) against its plain
-   version at the main path's shapes in float32 and float64, timed; a
-   coverage sweep at small sizes over every base kind × ``difference`` ×
+   version at the main path's shapes in float32 and float64, timed; every
+   segment plan of the two Gram forwards (``gram_plan_sweep``: each lane
+   count at each rows-a-lane and level bound, the block design, the
+   symmetric Gram's triangle) against its plain version; a coverage
+   sweep at small sizes over every base kind × ``difference`` ×
    order 1-3 (× ``increments`` for Kuf, plus num_levels 7, and lags with
    ARD through the kernel layer); the order-2 flagship SVGP serving path
    (M=500 inducing tensors with increments, nl=5, order 2, d=2, L=50,
@@ -91,8 +94,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    serving and 3 steps, each with its counters and against the plain
    route; (n) exact GPR at L = 150 (order-1 RBF, order-2 RBF, order-1
    Poly; 5 Adam steps each, counters, ms per step, a profile of the
-   order-1 step, the first step against the plain route on 48
-   sequences); (o) a small float64 GunPoint-length model on the card
+   RBF steps, the Gram forward's triangle against every pair and the
+   plain version, both timed, the first step against the plain route on
+   48 sequences); (o) a small float64 GunPoint-length model on the card
    against the CPU, serving and 3 steps;
 11. num_levels 8-127: (p) the four sig_gram routes (forward and backward,
    orders 1 and 2) against their plain versions at num_levels 8, 12 and
@@ -146,7 +150,7 @@ KERNELS = {
     "tens_seq_bwd": ("_tens_seq_bwd_kernel",
                      "gpsig_tpu_torch/csrc/tens_seq_bwd.cu",
                      "gpsig_tpu/ops/pallas/tens_seq.py:281"),
-    "gram_ho": ("_ho_kernel", "gpsig_tpu_torch/csrc/fused_gram_ho.cu",
+    "gram_ho": ("_ho_kernel", "gpsig_tpu_torch/csrc/fused_gram_ho.cuh",
                 "gpsig_tpu/ops/pallas/fused_gram_ho.py:133"),
     "tsg": ("_tsg_kernel", "gpsig_tpu_torch/csrc/tens_seq_general.cu",
             "gpsig_tpu/ops/pallas/tens_seq_general.py:200"),
@@ -200,9 +204,11 @@ BWD_TOL = {
 
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): FP32 outside
-# the tensor cores, and HBM3
+# the tensor cores, and HBM3; the special-function pipe (exp, cos, sqrt)
+# at 16 results a clock an SM (Hopper's MUFU), 132 SMs at 1.98 GHz
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 
 class SmokeFailure(RuntimeError):
@@ -269,23 +275,50 @@ def reset_counters():
 
 
 # ---------------------------------------------------------------------------
-# Work of each kernel on its inputs, for its bound: the operations its
-# algorithm needs (an FMA counts 2, an exp or cos 1) over the FP32 peak,
+# Work of each kernel on its inputs, for its bound: the floating-point
+# operations its algorithm needs (an FMA counts 2) over the FP32 peak, its
+# exps, cosines and square roots over the special-function pipe's rate,
 # and its bytes (each input read once, each output written once) over the
-# HBM rate; the larger is the least time the card could take. Counted per
+# HBM rate; the largest is the least time the card could take. Counted per
 # float32 value (the timed dtype).
 # ---------------------------------------------------------------------------
 
+class Work:
+    """A kernel's operations: ``flops`` on the FP32 pipe and ``sfu``
+    special-function results; ``k * work`` and ``a + b`` as for numbers."""
+
+    def __init__(self, flops, sfu=0):
+        self.flops, self.sfu = flops, sfu
+
+    def __rmul__(self, k):
+        return Work(k * self.flops, k * self.sfu)
+
+    __mul__ = __rmul__
+
+    def __add__(self, other):
+        other = other if isinstance(other, Work) else Work(other)
+        return Work(self.flops + other.flops, self.sfu + other.sfu)
+
+    __radd__ = __add__
+
+
 def bound(ops, nbytes):
-    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    """The least time of ``ops`` (a Work, or FP32 flops) on ``nbytes``:
+    "operations" where the FP32 or the special-function pipe binds."""
+    ops = ops if isinstance(ops, Work) else Work(ops)
+    t_ops = max(ops.flops / F32_OPS_PER_S, ops.sfu / SFU_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def base_ops(d, kind):
-    """One base-kernel value: the dot product (d FMAs), the half norms and
-    the exp or cos where the kind has them."""
-    return 2 * d + (3 if kind in ("rbf", "cosine") else 0)
+    """One base-kernel value: the dot product (d FMAs), the half norms
+    where the kind has them, and its exp (RBF) or cos and sqrt (cosine) on
+    the special-function pipe."""
+    norms = kind in ("rbf", "cosine")
+    return Work(2 * d + 2 * norms,
+                {"rbf": 1, "cosine": 2}.get(kind, 0))
 
 
 def dp_cell_ops(nl, p):
@@ -438,12 +471,21 @@ def plain_route():
     from gpsig_tpu_torch.ops.cuda import tens_seq as ts
     from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
 
-    patches = [(fg, "fused_gram_levels", fg.fused_gram_levels_ref),
+    def gram_ref(X, Y, num_levels, rbf=True, symmetric=False):
+        return fg.fused_gram_levels_ref(X, Y, num_levels, rbf)
+
+    def gram_ho_ref(X, Y, num_levels, order, kind="rbf", difference=True,
+                    symmetric=False):
+        return fgho.fused_gram_ho_levels_ref(X, Y, num_levels, order, kind,
+                                             difference)
+
+    # (the plain Grams compute every pair: ``symmetric`` changes nothing)
+    patches = [(fg, "fused_gram_levels", gram_ref),
                (fg, "fused_diag_levels", fg.fused_diag_levels_ref),
                (fg, "fused_gram_levels_bwd", fg.fused_gram_levels_bwd_ref),
                (ts, "fused_tens_seq_levels", ts.fused_tens_seq_levels_ref),
                (ts, "tens_seq_bwd", ts.tens_seq_bwd_ref),
-               (fgho, "fused_gram_ho_levels", fgho.fused_gram_ho_levels_ref),
+               (fgho, "fused_gram_ho_levels", gram_ho_ref),
                (tsg, "fused_tens_seq_general_levels",
                 tsg.fused_tens_seq_general_levels_ref),
                (sg, "sig_gram_levels", sg.sig_gram_levels_ref),
@@ -962,7 +1004,138 @@ def slice1_kernel_phase(dev):
          lambda m: sg.sig_gram_levels(m, 5),
          lambda m: sg.sig_gram_levels_ref(m, 5), (m_self,)),
     ]
-    return run_cases(dev, cases, works, GEN_TOL)
+    report = run_cases(dev, cases, works, GEN_TOL)
+    gram_plan_sweep(dev)
+    return report
+
+
+def plan_lengths(R, lanes):
+    """Sequence lengths (with difference) at which each segment of
+    ``lanes`` is full at R rows a lane (S·R rows: the last lane's last row
+    is the matrix's), at R = 2 also 128 rows (32 lanes at 4 rows a lane),
+    and one past one warp (the block design)."""
+    return [S * R + 1 for S in lanes] + ([129] if R == 2 else []) + [300]
+
+
+def parent_widest_d(L, itemsize, smem_bytes):
+    """The widest d whose Gram forward the one-warp design before segments
+    took at L within ``smem_bytes`` of shared memory a block: x and four
+    pairs' y with their half norms up to 128 rows, x and y and the W warps'
+    exchange past that. The segment plan must take it too."""
+    W = -(-(L - 1) // 128)
+    pairs, ex = (4, 0) if W == 1 else (1, 2 * W * itemsize)
+    return (smem_bytes - ex) // (itemsize * L * (1 + pairs)) - 1
+
+
+def gram_plan_sweep(dev):
+    """(a) Every segment plan of the two Gram forwards (each S at each R
+    that ``plan.gram_fwd_plan`` gives: the order-1 kernel at level bounds 4
+    and 7, the general one at orders 1-4 and 7 with level bounds 4 and 7),
+    at the lengths where its segments are full, and the block design at
+    L = 300; every base kind and ``difference`` False in turn; against the
+    plain versions in float32 and float64, X [9, L, 2] against Y [7, L, 2]
+    (a pair count that is no multiple of a block's) and the symmetric Gram
+    of X (the triangle), which must also be exactly symmetric. Then the
+    widest d that the design before segments took at L = 50 and 150 (the
+    segments' y read from global memory where the block's y do not fit
+    its shared memory), at orders 1-3, RBF."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import plan
+
+    rng = np.random.default_rng(SEED + 13)
+    kinds = ["rbf", "cosine", "poly2", "linear", "poly3"]
+    calls = []  # (label, kernel, plan, kernel call, plain call)
+    for nl in (3, 4, 5, 7):
+        for dtype in (torch.float32, torch.float64):
+            R = plan.gram_fwd_rows_per_lane(1, nl, dtype.itemsize, True)
+            for i, L in enumerate(plan_lengths(R, plan.SEG_LANES)):
+                a = (nl, (i + nl) % 2 == 0)  # RBF and Linear in turn
+                calls.append((f"order-1 nl={nl} L={L}", "gram", dtype, L, 2,
+                              a, lambda x, a=a: fg._forward_plan(
+                                  "k", x, False, a[0]),
+                              lambda x, y, sym, a=a: fg.fused_gram_levels(
+                                  x, y, *a, symmetric=sym),
+                              lambda x, y, a=a: fg.fused_gram_levels_ref(
+                                  x, y, *a)))
+    for order, nl in ((1, 4), (2, 4), (2, 5), (3, 4), (4, 4), (7, 7)):
+        p = min(order, nl)
+        for dtype in (torch.float32, torch.float64):
+            R = plan.gram_fwd_rows_per_lane(p, nl, dtype.itemsize)
+            lanes = plan.SEG_LANES if p <= 3 else (32,)
+            lengths = plan_lengths(R, lanes)
+            for i, L in enumerate(lengths + [lanes[-1] * R]):
+                difference = i < len(lengths)  # the last: L rows, raw
+                # (a raw Poly Gram's high levels leave float32's range)
+                kind = (kinds[(i + order) % len(kinds)] if difference else
+                        "cosine")
+                a = (nl, order, kind, difference)
+                calls.append((f"order-{order} nl={nl} {kind} difference="
+                              f"{difference} L={L}", "gram_ho", dtype, L, 2,
+                              a, lambda x, a=a: fgho._plan(
+                                  "k", x, a[3], False, a[0], a[1]),
+                              lambda x, y, sym, a=a:
+                              fgho.fused_gram_ho_levels(x, y, *a,
+                                                        symmetric=sym),
+                              lambda x, y, a=a:
+                              fgho.fused_gram_ho_levels_ref(x, y, *a)))
+    for L in (50, 150):
+        for dtype in (torch.float32, torch.float64):
+            d = parent_widest_d(L, dtype.itemsize, plan.SMEM_BYTES)
+            calls.append((f"order-1 nl=4 L={L} d={d}", "gram", dtype, L, d,
+                          (4, True), lambda x: fg._forward_plan(
+                              "k", x, False, 4),
+                          lambda x, y, sym: fg.fused_gram_levels(
+                              x, y, 4, True, symmetric=sym),
+                          lambda x, y: fg.fused_gram_levels_ref(
+                              x, y, 4, True)))
+            for order in (2, 3):
+                a = (4, order, "rbf", True)
+                calls.append((f"order-{order} nl=4 rbf L={L} d={d}",
+                              "gram_ho", dtype, L, d, a,
+                              lambda x, a=a: fgho._plan(
+                                  "k", x, True, False, 4, a[1]),
+                              lambda x, y, sym, a=a:
+                              fgho.fused_gram_ho_levels(x, y, *a,
+                                                        symmetric=sym),
+                              lambda x, y, a=a:
+                              fgho.fused_gram_ho_levels_ref(x, y, *a)))
+    worst, plans = {}, set()
+    with torch.no_grad():
+        for label, key, dtype, L, d, a, plan_of, kern, plain in calls:
+            name = str(dtype).split(".")[1]
+            kind = a[2] if key == "gram_ho" else "rbf"
+            # wide sequences: steps of norm as at d = 2
+            X, Y = with_offset_channel(
+                long_walks(rng, 9, L, d) * np.sqrt(2 / d),
+                long_walks(rng, 7, L, d) * np.sqrt(2 / d), kind)
+            # the symmetric Gram's two sides (a Poly offset channel differs)
+            Xs, Ys = with_offset_channel(X[..., :d], X[..., :d], kind)
+            X, Y, Xs, Ys = (torch.as_tensor(v, dtype=dtype, device=dev)
+                            for v in (X, Y, Xs, Ys))
+            pl = plan_of(X)
+            tol = ((TOL if key == "gram" else GEN_TOL)[name][0]
+                   if name == "float64" or L <= 150 else LONG_F32_TOL[0])
+            for sym, (u, v) in ((False, (X, Y)), (True, (Xs, Ys))):
+                got, want = kern(u, v, sym), plain(u, v)
+                check(got.shape == want.shape and bool(
+                    torch.isfinite(got).all()), f"plan sweep {label}")
+                err = scaled_err(got, want)
+                check(err <= tol, f"plan sweep {key} {label} {name} "
+                      f"symmetric={sym} plan {pl}: {err} > {tol}")
+                if sym:
+                    check(bool(torch.equal(got, got.transpose(1, 2))),
+                          f"plan sweep {key} {label}: triangle not "
+                          "symmetric")
+                k = (key, name)
+                worst[k] = max(worst.get(k, 0.0), err)
+            plans.add((key, name, pl))
+    for (key, name), err in sorted(worst.items()):
+        got = sorted(pl for k, n, pl in plans if (k, n) == (key, name))
+        print(f"plan sweep {key} {name}: worst scaled err {err:.3e} over "
+              f"the plans (S, R, W) {got}, full and triangle")
 
 
 def with_offset_channel(X, Y, kind, c=0.6):
@@ -2206,7 +2379,8 @@ def long_gpr_phase(dev):
     d=2)``, 150 to train, nl=4, noise 0.05, Adam 5e-2), float32: order-1
     RBF (rows 1-3), order-2 RBF (rows 6, 7, 12, 13) and order-1 Poly (rows
     6, 7, 10, 11); 5 Adam steps each with its counters and ms per step, a
-    profile of the order-1 step; the first step against the plain route
+    profile of the RBF steps and their Gram forward's triangle
+    (``gram_triangle_check``); the first step against the plain route
     on the first 48 sequences (the plain Gram at N = 150 is a
     [150, 150, 150, 150] tensor, several times that under autograd)."""
     import torch
@@ -2254,8 +2428,9 @@ def long_gpr_phase(dev):
         print(f"time GPR L=150 {name} Adam step (N=150): "
               f"{statistics.median(ms[1:]):.3f} ms (median of {len(ms) - 1}; "
               f"all {[round(t, 3) for t in ms]})")
-        if name == "order-1 RBF":
-            profile_split(step, "GPR L=150 order-1 RBF Adam step, N=150")
+        if name != "order-1 Poly":
+            profile_split(step, f"GPR L=150 {name} Adam step, N=150")
+            gram_triangle_check(dev, X, 2 if name == "order-2 RBF" else 1)
         # the first step on 48 sequences, kernels against the plain route
         gpr_step_fn(torch, small, X[:48], Y[:48], 5e-2)()
         with plain_route():
@@ -2269,6 +2444,48 @@ def long_gpr_phase(dev):
         del gpr, small, plain_small
         torch.cuda.empty_cache()
     return launches
+
+
+def gram_triangle_check(dev, X, order):
+    """(n) The GPR's Gram forward at L = 150 (N = 150, nl = 4, RBF) solves
+    its triangle: against the full Gram kernel's every pair at N = 150 and
+    the plain version at N = 48, exactly symmetric; the triangle and the
+    full grid timed."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+
+    if order == 1:
+        def gram(x, sym):
+            return fg.fused_gram_levels(x, x, 4, True, symmetric=sym)
+
+        def ref(x):
+            return fg.fused_gram_levels_ref(x, x, 4, True)
+        tol = TOL["float32"][0]
+    else:
+        def gram(x, sym):
+            return fgho.fused_gram_ho_levels(x, x, 4, 2, symmetric=sym)
+
+        def ref(x):
+            return fgho.fused_gram_ho_levels_ref(x, x, 4, 2)
+        tol = GEN_TOL["float32"][0]
+    with torch.no_grad():
+        tri, full = gram(X, True), gram(X, False)
+        small = X[:48].contiguous()
+        err_small = scaled_err(gram(small, True), ref(small))
+        torch.cuda.synchronize()
+        err = scaled_err(tri, full)
+        check(bool(torch.equal(tri, tri.transpose(1, 2))),
+              f"GPR L=150 order {order}: triangle Gram not symmetric")
+        check(max(err, err_small) <= tol,
+              f"GPR L=150 order {order} triangle: {err}, {err_small} > {tol}")
+        tri_ms = cuda_ms(lambda: gram(X, True))
+        full_ms = cuda_ms(lambda: gram(X, False))
+    print(f"GPR L=150 order-{order} Gram forward (N=150, nl=4): triangle "
+          f"{tri_ms:.4f} ms, every pair {full_ms:.4f} ms; triangle vs every "
+          f"pair scaled err {err:.3e}, vs plain (N=48) {err_small:.3e}, "
+          f"tolerance {tol:g}; exactly symmetric")
 
 
 def long_float64_check(dev):

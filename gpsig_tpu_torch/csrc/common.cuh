@@ -110,8 +110,9 @@ __device__ __forceinline__ T warp_sum(T v) {
 // Row partition. The DP rows of one pair are spread over a group of
 // threads; group thread t holds rows t*R .. t*R+R-1. Two kinds of group,
 // passed to the DP code as a type:
-// - WarpGroup<T, S>: one warp (S = 32) or a segment of S = 16 lanes of
-//   one (fused_gram_bwd.cu puts two pairs on a warp). A row scan is a chain
+// - WarpGroup<T, S>: one warp (S = 32) or a segment of S = 16 or 8 lanes
+//   of one (fused_gram_bwd.cu puts two pairs on a warp; the Gram forwards'
+//   segments, below, up to four). A row scan is a chain
 //   of shuffles, as the kernels always did; nothing else is in its way, so
 //   the compiler interleaves the independent scans of a column.
 // - BlockGroup<T>: a block of W warps (up to 8) for more than 128 rows.
@@ -133,7 +134,8 @@ __device__ __forceinline__ T warp_sum(T v) {
 
 // A launch plan (ops/cuda/plan.py): one warp per pair, kPairsPerBlock
 // pairs to a block, R = 1, 2 or 4 rows a lane; or one block of W warps
-// per pair (a BlockGroup), R = 4.
+// per pair (a BlockGroup), R = 4. The two Gram forwards take segments of
+// S = 8, 16 or 32 lanes instead (SegBlock, below).
 constexpr int kPairsPerBlock = 4;
 constexpr int kMaxWarps = 8;
 
@@ -264,6 +266,206 @@ struct BlockGroup {
     const T n = __shfl_down_sync(kFull, v, 1);
     const T first = exchange(v, 0, warp + 1, warp + 2 <= W ? warp + 2 : W);
     return w.lane == 31 ? first : n;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Segments: the Gram forwards' row groups (fused_gram.cu, fused_gram_ho.cu).
+// A segment of S = 8, 16 or 32 lanes (a WarpGroup<T, S>) takes one pair at
+// R = 2, 4 or 8 rows a lane, so a warp takes 32 / S pairs and one warp
+// covers up to 256 rows with no barrier. A scan is log2(S) + 1 shuffles,
+// shared by the warp's pairs. Every lane of the warp runs every scan (the
+// shuffles take the full mask), whether or not its segment's pair is
+// written out.
+// ---------------------------------------------------------------------------
+
+// Rows a lane of a segment plan: the most of 8, 4, 2 whose DP state of
+// `per_row` values a row fits kSegStateRegs 32-bit registers (the same
+// table as ops/cuda/plan.py's gram_fwd_rows_per_lane).
+constexpr int kSegStateRegs = 128;
+
+template <typename T>
+constexpr int seg_rows(int per_row) {
+  return 8 * per_row * static_cast<int>(sizeof(T) / 4) <= kSegStateRegs ? 8
+         : 4 * per_row * static_cast<int>(sizeof(T) / 4) <= kSegStateRegs
+             ? 4
+             : 2;
+}
+
+// The activation of N accumulators of one kind: one branch for all N.
+template <typename T, int N>
+__device__ __forceinline__ void activate_all(T (&a)[N], int kind,
+                                             int degree) {
+  switch (kind) {
+    case kRbf:
+#pragma unroll
+      for (int n = 0; n < N; ++n) a[n] = texp(a[n]);
+      break;
+    case kCosine:
+#pragma unroll
+      for (int n = 0; n < N; ++n) a[n] = activate(a[n], kCosine, 0);
+      break;
+    case kPoly:
+#pragma unroll
+      for (int n = 0; n < N; ++n) a[n] = activate(a[n], kPoly, degree);
+      break;
+    default: break;
+  }
+}
+
+// Shared memory one block may use on Hopper (plan.py's SMEM_BYTES).
+constexpr size_t kSegSmemBytes = 227 * 1024;
+
+// One block of a segment launch: kPairsPerBlock warps of 32 / S pairs, all
+// of one x sequence X[n1] against y sequences Y[y0 + p]. x is staged lane
+// major: segment lane t's point r (i = min(t*R + r, L - 1)) at
+// xl[(r * d + c) * S + t], so a segment's lanes read consecutive words and
+// the warp's segments the same ones (no bank conflicts). Each pair stages
+// its y and -|y|^2/2 at an odd stride (the warp's segments read their y in
+// distinct banks); where the block's y do not fit the shared memory (wide
+// d), only the half norms, and the segment reads its y from global memory
+// (each of its loads one address, cached). Pairs past N2 stage Y[N2 - 1]
+// and are not written; with `sym` (Y = X, out symmetric) so are the pairs
+// below the diagonal, and a block none of whose pairs is on or above it
+// returns before staging.
+template <typename T, int R, int S>
+struct SegBlock {
+  static constexpr int kPairs = 32 * kPairsPerBlock / S;
+  int n1, n2;
+  bool live;  // this segment's pair is solved and written
+  const T* xl;
+  const T* ys;  // the pair's y: staged, or in global memory
+  const T* nys;
+
+  static __host__ __device__ int pair_stride(int L, int d, bool stage_y) {
+    return stage_y ? (L * (d + 1)) | 1 : L | 1;
+  }
+  static __host__ __device__ size_t smem_elems(int L, int d, bool stage_y) {
+    return static_cast<size_t>(R + 1) * d * S +
+           static_cast<size_t>(kPairs) * pair_stride(L, d, stage_y);
+  }
+  // y staged in shared memory where it fits
+  static __host__ __device__ bool stages_y(int L, int d) {
+    return sizeof(T) * smem_elems(L, d, true) <= kSegSmemBytes;
+  }
+  static __host__ __device__ long long blocks(int N1, int N2) {
+    return static_cast<long long>(N1) * ((N2 + kPairs - 1) / kPairs);
+  }
+
+  // Returns false (the whole block alike) when the block has nothing to
+  // solve; otherwise stages x and the pairs' y (or their half norms only),
+  // ending in a barrier.
+  __device__ bool stage(const T* X, const T* Y, int N1, int N2, int L,
+                        int d, bool norms, bool sym, bool stage_y, T* smem) {
+    const int nyb = (N2 + kPairs - 1) / kPairs;
+    n1 = static_cast<int>(blockIdx.x) / nyb;
+    const int y0 = (static_cast<int>(blockIdx.x) % nyb) * kPairs;
+    if (sym && y0 + kPairs - 1 < n1) return false;
+    const int p = static_cast<int>(threadIdx.x) / S;
+    const int t = static_cast<int>(threadIdx.x) % S;
+    n2 = y0 + p;
+    live = n2 < N2 && !(sym && n2 < n1);
+    T* x_l = smem;
+    T* y_s = x_l + (R + 1) * d * S + p * pair_stride(L, d, stage_y);
+    T* ny_s = stage_y ? y_s + L * d : y_s;
+    const T* xg = X + static_cast<long long>(n1) * L * d;
+    for (int k = threadIdx.x; k < (R + 1) * S; k += blockDim.x) {
+      const int r = k / S, lt = k % S;
+      const int i = min(lt * R + r, L - 1);
+      for (int c = 0; c < d; ++c) x_l[(r * d + c) * S + lt] = xg[i * d + c];
+    }
+    const T* yg = Y + static_cast<long long>(min(n2, N2 - 1)) * L * d;
+    for (int i = t; i < L; i += S) {
+      T s = T(0);
+      for (int c = 0; c < d; ++c) {
+        const T v = yg[i * d + c];
+        if (stage_y) y_s[i * d + c] = v;
+        s += v * v;
+      }
+      ny_s[i] = norms ? T(-0.5) * s : T(0);
+    }
+    xl = x_l;
+    ys = stage_y ? y_s : yg;
+    nys = ny_s;
+    __syncthreads();
+    return true;
+  }
+
+  // Level m's value v of the pair (group thread 0 calls it): out[m, n1, n2]
+  // and, with sym, out[m, n2, n1].
+  __device__ void write(T* out, int m, T v, int N1, int N2,
+                        bool sym) const {
+    const long long stride = static_cast<long long>(N1) * N2;
+    out[m * stride + static_cast<long long>(n1) * N2 + n2] = v;
+    if (sym && n2 != n1)
+      out[m * stride + static_cast<long long>(n2) * N2 + n1] = v;
+  }
+};
+
+// Columns of M for one pair of a segment block, built in registers from
+// the staged sequences (as GramColumns in fused_gram_ho.cu): with `diff`
+// the double difference of the base values at the lane's R + 1 points
+// against the previous column's (L - 1 rows and columns), else the raw
+// values (L rows and columns); rows past the matrix are exactly 0.
+template <typename T, int R, int S>
+struct SegColumns {
+  const T* xl;
+  const T* ys;
+  const T* nys;
+  int d, kind, degree, rows, t;
+  bool diff, norms;
+  T nx[R + 1];
+  T kprev[R + 1];
+
+  __device__ SegColumns(const SegBlock<T, R, S>& b, int L, int d_,
+                        int kind_, int degree_, bool diff_, int t_)
+      : xl(b.xl + t_), ys(b.ys), nys(b.nys), d(d_), kind(kind_),
+        degree(degree_), rows(diff_ ? L - 1 : L), t(t_), diff(diff_),
+        norms(kind_norms(kind_)) {
+#pragma unroll
+    for (int n = 0; n <= R; ++n) {
+      T s = T(0);
+      for (int c = 0; c < d; ++c) {
+        const T v = xl[(n * d + c) * S];
+        s += v * v;
+      }
+      nx[n] = T(-0.5) * s;
+    }
+    if (diff) values<R + 1>(0, kprev);
+  }
+
+  // base values k(x_{t*R + n}, y_j) for n < N
+  template <int N>
+  __device__ __forceinline__ void values(int j, T (&k)[N]) const {
+    const T* yj = ys + j * d;
+    const T ny = norms ? nys[j] : T(0);
+#pragma unroll
+    for (int n = 0; n < N; ++n) k[n] = norms ? nx[n] + ny : T(0);
+    for (int c = 0; c < d; ++c) {
+      const T yc = yj[c];
+#pragma unroll
+      for (int n = 0; n < N; ++n) k[n] += xl[(n * d + c) * S] * yc;
+    }
+    activate_all(k, kind, degree);
+  }
+
+  __device__ __forceinline__ void operator()(int j, T (&mcol)[R]) {
+    if (diff) {
+      T knew[R + 1];
+      values<R + 1>(j + 1, knew);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T v = (knew[r + 1] - kprev[r + 1]) - (knew[r] - kprev[r]);
+        mcol[r] = (t * R + r < rows) ? v : T(0);
+      }
+#pragma unroll
+      for (int r = 0; r <= R; ++r) kprev[r] = knew[r];
+    } else {
+      values<R>(j, mcol);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (t * R + r >= rows) mcol[r] = T(0);
+    }
   }
 };
 
@@ -412,6 +614,25 @@ __device__ __forceinline__ void rl_forward(RunLengthState<T, R, P, NLM>& st,
     T mcol[R];
     col(j, mcol);
     rl_level<T, R, P, 1>(st, mcol, nl, g);
+  }
+}
+
+// The level sums of one pair by a segment (the Gram forward's
+// counterpart of run_length_levels below, with the state bounded by NLM
+// levels): lv[m] = k_{m+1} in every lane of the segment, for m < nl.
+template <typename T, int R, int P, int NLM, typename Col, typename G>
+__device__ __forceinline__ void run_length_sums(Col& col, int ncols, int nl,
+                                                T (&lv)[NLM], G& g) {
+  RunLengthState<T, R, P, NLM> st;
+  rl_forward<T, R, P>(st, col, ncols, nl, g);
+#pragma unroll
+  for (int m = 0; m < NLM; ++m) {
+    if (m < nl) {
+      T s = T(0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) s += st.tsum[m][r];
+      lv[m] = g.sum(s);
+    }
   }
 }
 

@@ -8,39 +8,49 @@
 // exp(-1/2 (|x|^2 + |y|^2) + <x, y>) without a clamp, as the Pallas kernel
 // and its references _xla_reference / _xla_reference_diag compute it.
 //
-// Design. One group of threads per (x, y) pair (common.cuh): up to 128
-// rows one warp (a WarpGroup), four pairs to a block (a block shares one x
-// sequence for the Gram, or holds four sequences for the diagonal); above,
-// one block of W <= 8 warps per pair (a BlockGroup; the plan (W, R) comes
-// from the wrapper, ops/cuda/plan.py). Group thread t holds the rows i of
-// the (virtual) increment matrix M[i, j], R consecutive rows from t*R
-// (R = 1, 2 or 4 for one warp, 4 for W warps).
-// The group sweeps the columns j: each thread builds the base-kernel values
-// k(x_i, y_{j+1}) for its R + 1 points and double-differences them
-// against the previous column held in registers, so M never exists in
-// memory. The DP state per level is the running column sum
+// Design of the Gram (redesigned for Hopper). Up to 256 rows a segment of
+// S = 8, 16 or 32 lanes of one warp (a WarpGroup<T, S>) takes a pair; the
+// plan (S, R) comes from the wrapper (ops/cuda/plan.py's gram_fwd_plan):
+// R = 8 rows a lane, 32 / S pairs a warp, four warps to a block, all the
+// block's pairs of one x sequence (common.cuh's SegBlock, SegColumns).
+// Lane t holds the rows i of the (virtual) increment matrix M[i, j] from
+// t*R and sweeps the columns j: it builds the base-kernel values
+// k(x_i, y_{j+1}) at its R + 1 points from x staged lane major (no bank
+// conflicts) and y broadcast from shared memory, and double-differences
+// them against the previous column held in registers, so M never exists
+// in memory. The DP state per level is the running column sum
 // C_m[i] = sum_{j' < j} A_m[i, j'], and the order-1 update for column j is
 //     A_1 = M[:, j],   A_m = M[:, j] * (exclusive row prefix of C_{m-1}),
 //     C_m += A_m,
-// with the prefix taken over C as it was before column j (a warp scan with
-// __shfl_up_sync; across warps, the warp totals through shared memory).
-// The level sums k_m = sum_i C_m[i] are group reductions at the end;
-// level 0 is 1.
-// The sequences and -|.|^2/2 are staged in shared memory.
+// with the prefix taken over C as it was before column j, levels taken in
+// descending order so that no prefix outlives its update. Every level up
+// to a bound NLM (4 or 7, templated) is updated unconditionally, so the
+// NLM - 1 scans of a column are free of branches and interleave; a scan is
+// log2(S) + 1 shuffles, shared by the warp's pairs. The level sums
+// k_m = sum_i C_m[i] are segment reductions at the end; level 0 is 1. A
+// symmetric Gram (Y = X) solves only the pairs on and above the diagonal
+// and writes each twice. At wide d, where the block's y would outgrow the
+// shared memory, the segments read y from global memory (SegBlock). Past
+// 256 rows one block of W <= 8 warps takes a pair (a BlockGroup at R = 4,
+// as the diagonal's), the scans crossing the warps through shared memory.
+//
+// Design of the diagonal. One group of threads per sequence:
+// up to 128 rows one warp (a WarpGroup, R = 1, 2 or 4 rows a lane), four
+// sequences to a block; above, one block of W <= 8 warps (a BlockGroup,
+// R = 4); the same column sweep with R + 1 points a thread read from the
+// staged sequence, and a 6-shuffle exclusive scan (pair_levels).
 //
 // What bounds it on the H100. Per pair it reads 2 L d values and writes
 // nl + 1, so memory is not the limit: instruction throughput is. The work
 // per pair is L^2 base-kernel evaluations (2d + 2 flops and one exp each,
-// about 1/(R+1) of them repeated at thread boundaries), (L-1)^2 increment
-// entries at 3 subtractions + (nl - 1) multiply-adds + nl adds each, and
-// per column nl - 1 warp scans of 5 shuffle+add steps: O(nl N1 N2 L^2)
-// in all, where the TPU kernel's dense triangular matmuls counted
-// 2 nl N1 N2 L^2 Lp. The design keeps everything in registers and spends
-// shuffles, not shared-memory round trips, on the prefix; the scans of the
-// nl - 1 levels are independent and interleave. Above 128 rows the W
-// warps of a pair add a shared-memory exchange and a barrier per scan and
-// keep R = 4, so the registers per thread do not grow with L; the
-// single-warp instantiations never run that code.
+// 1/R of them repeated at lane boundaries), (L-1)^2 increment entries at
+// 2 subtractions + (nl - 1) multiply-adds + nl adds each, and per column
+// nl - 1 segment scans: O(nl N1 N2 L^2) in all, where the TPU kernel's
+// dense triangular matmuls counted 2 nl N1 N2 L^2 Lp. The exp pipe (16 a
+// clock an SM against 128 FMAs) bounds the base values; the segment plan
+// cuts the shuffles a pair (log2(S) + 1 a scan, shared by 32 / S pairs),
+// the idle lanes (49 rows on 7 of 8 lanes at L = 50, not 25 of 32) and
+// the barriers past 128 rows (none up to 256).
 
 #include "common.cuh"
 
@@ -122,47 +132,108 @@ __device__ void pair_levels(const T* xs, const T* nxs, const T* ys,
   }
 }
 
-// Gram: block b handles x = X[b / nyb] against the y sequences
-// (b % nyb) * pairs + p, p the block's pair index (one warp each, or the
-// whole block for a BlockGroup). out: [nl + 1, N1, N2].
-template <typename T, int R, typename G>
-__global__ void __launch_bounds__(G::kMaxThreads)
-fused_gram_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-                  T* __restrict__ out, int N1, int N2, int L, int d, int nl,
-                  int rbf, int W) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int pairs = G::kBlock ? 1 : kPairsPerBlock;
-  const int p = G::kBlock ? 0 : static_cast<int>(threadIdx.x) >> 5;
-  const int nyb = (N2 + pairs - 1) / pairs;
-  const int n1 = blockIdx.x / nyb;
-  const int n2 = (blockIdx.x % nyb) * pairs + p;
-  const int Ld = L * d;
-  const int gthreads = 32 * W;
-  const int gt = static_cast<int>(threadIdx.x) - p * 32;
-  T* xs = smem;
-  T* nxs = xs + Ld;
-  T* ys = nxs + L + p * (Ld + L);
-  T* nys = ys + Ld;
-  T* buf = xs + (1 + pairs) * (Ld + L);
+// The order-1 DP of one pair by a segment: C[m] = k_{m+1}'s carries,
+// every level below NLM updated (levels >= nl are never read).
+template <typename T, int R, int NLM, typename Col, typename G>
+__device__ __forceinline__ void seg_order1(Col& col, int ncols,
+                                           T (&C)[NLM][R], G& g) {
+#pragma unroll
+  for (int m = 0; m < NLM; ++m)
+#pragma unroll
+    for (int r = 0; r < R; ++r) C[m][r] = T(0);
+  for (int j = 0; j < ncols; ++j) {
+    T mcol[R];
+    col(j, mcol);
+#pragma unroll
+    for (int m = NLM - 1; m >= 1; --m) {
+      T pre[R];
+      g.template prefix<R>(C[m - 1], pre);
+#pragma unroll
+      for (int r = 0; r < R; ++r) C[m][r] += mcol[r] * pre[r];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) C[0][r] += mcol[r];
+  }
+}
 
+// Gram on the segment plan: block b handles x = X[b / nyb] against the y
+// sequences (b % nyb) * kPairs + p, p the thread's segment.
+// out: [nl + 1, N1, N2].
+template <typename T, int R, int S, int NLM>
+__global__ void __launch_bounds__(32 * kPairsPerBlock)
+gram_seg_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                T* __restrict__ out, int N1, int N2, int L, int d, int nl,
+                int rbf, int sym, int stage_y) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  SegBlock<T, R, S> b;
+  if (!b.stage(X, Y, N1, N2, L, d, rbf != 0, sym != 0, stage_y != 0,
+               reinterpret_cast<T*>(smem_raw)))
+    return;
+  // no barrier follows: a warp none of whose pairs is written stops here
+  if (!__any_sync(kFull, b.live)) return;
+  WarpGroup<T, S> g;
+  SegColumns<T, R, S> col(b, L, d, rbf ? kRbf : kLinear, 0, true,
+                          g.thread());
+  T C[NLM][R];
+  seg_order1<T, R, NLM>(col, L - 1, C, g);
+  T lv[NLM];
+#pragma unroll
+  for (int m = 0; m < NLM; ++m) {
+    if (m < nl) {
+      T s = T(0);
+#pragma unroll
+      for (int r = 0; r < R; ++r) s += C[m][r];
+      lv[m] = g.sum(s);
+    }
+  }
+  if (b.live && g.thread() == 0) {
+    b.write(out, 0, T(1), N1, N2, sym != 0);
+#pragma unroll
+    for (int m = 0; m < NLM; ++m)
+      if (m < nl) b.write(out, m + 1, lv[m], N1, N2, sym != 0);
+  }
+}
+
+// Gram on the block design: block b handles x = X[b / N2] against
+// y = Y[b % N2] with a BlockGroup of W warps; with sym only the pairs on and
+// above the diagonal, thread 0 mirroring its values. out: [nl + 1, N1, N2].
+template <typename T>
+__global__ void __launch_bounds__(BlockGroup<T>::kMaxThreads)
+gram_block_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                  T* __restrict__ out, int N1, int N2, int L, int d, int nl,
+                  int rbf, int W, int sym) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n1 = blockIdx.x / N2;
+  const int n2 = blockIdx.x % N2;
+  if (sym && n2 < n1) return;  // the whole block: one pair
+  const int Ld = L * d;
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  T* nxs = xs + Ld;
+  T* ys = nxs + L;
+  T* nys = ys + Ld;
+  T* buf = nys + L;
   const T* xg = X + static_cast<long long>(n1) * Ld;
-  for (int k = threadIdx.x; k < Ld; k += blockDim.x) xs[k] = xg[k];
-  if (n2 < N2) {
-    const T* yg = Y + static_cast<long long>(n2) * Ld;
-    for (int k = gt; k < Ld; k += gthreads) ys[k] = yg[k];
+  const T* yg = Y + static_cast<long long>(n2) * Ld;
+  for (int k = threadIdx.x; k < Ld; k += blockDim.x) {
+    xs[k] = xg[k];
+    ys[k] = yg[k];
   }
   __syncthreads();
   if (rbf) {
     half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
-    if (n2 < N2) half_sqnorms(ys, nys, L, d, gt, gthreads);
+    half_sqnorms(ys, nys, L, d, threadIdx.x, blockDim.x);
   }
   __syncthreads();
-  if (n2 >= N2) return;  // whole warps only; a block group is always live
-  G g(W, buf);
+  BlockGroup<T> g(W, buf);
   const long long stride = static_cast<long long>(N1) * N2;
-  pair_levels<T, R>(xs, nxs, ys, nys, L, d, nl, rbf != 0,
+  pair_levels<T, 4>(xs, nxs, ys, nys, L, d, nl, rbf != 0,
                     out + static_cast<long long>(n1) * N2 + n2, stride, g);
+  if (sym && n2 != n1 && g.thread() == 0) {
+    // thread 0 wrote the pair's levels: mirror them
+    for (int m = 0; m <= nl; ++m)
+      out[m * stride + static_cast<long long>(n2) * N2 + n1] =
+          out[m * stride + static_cast<long long>(n1) * N2 + n2];
+  }
 }
 
 // Diagonal: pair p of block b handles sequence n = b * pairs + p against
@@ -193,25 +264,58 @@ fused_diag_kernel(const T* __restrict__ X, T* __restrict__ out, int N,
                     static_cast<long long>(N), g);
 }
 
-template <typename T, int R, typename G>
-cudaError_t launch_gram(const void* X, const void* Y, void* out, int N1,
-                        int N2, int L, int d, int nl, int rbf, int W,
-                        cudaStream_t stream) {
-  const int pairs = G::kBlock ? 1 : kPairsPerBlock;
+template <typename T>
+cudaError_t launch_gram_block(const void* X, const void* Y, void* out,
+                              int N1, int N2, int L, int d, int nl, int rbf,
+                              int W, int sym, cudaStream_t stream) {
   const size_t smem =
-      sizeof(T) * static_cast<size_t>(L) * (d + 1) * (1 + pairs) +
-      exchange_bytes<T>(W);
-  cudaError_t e = allow_smem(fused_gram_kernel<T, R, G>, smem);
+      sizeof(T) * static_cast<size_t>(L) * (d + 1) * 2 + exchange_bytes<T>(W);
+  cudaError_t e = allow_smem(gram_block_kernel<T>, smem);
   if (e != cudaSuccess) return e;
-  const long long nyb = (N2 + pairs - 1) / pairs;
-  const long long blocks = static_cast<long long>(N1) * nyb;
+  const long long blocks = static_cast<long long>(N1) * N2;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  fused_gram_kernel<T, R, G><<<static_cast<unsigned>(blocks),
-                               G::kBlock ? 32 * W : 32 * kPairsPerBlock, smem,
-                               stream>>>(
+  gram_block_kernel<T><<<static_cast<unsigned>(blocks), 32 * W, smem,
+                         stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(Y),
-      static_cast<T*>(out), N1, N2, L, d, nl, rbf, W);
+      static_cast<T*>(out), N1, N2, L, d, nl, rbf, W, sym);
   return cudaGetLastError();
+}
+
+template <typename T, int R, int S, int NLM>
+cudaError_t launch_gram_seg(const void* X, const void* Y, void* out, int N1,
+                            int N2, int L, int d, int nl, int rbf, int sym,
+                            cudaStream_t stream) {
+  using B = SegBlock<T, R, S>;
+  const bool stage_y = B::stages_y(L, d);
+  const size_t smem = sizeof(T) * B::smem_elems(L, d, stage_y);
+  cudaError_t e = allow_smem(gram_seg_kernel<T, R, S, NLM>, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks = B::blocks(N1, N2);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  gram_seg_kernel<T, R, S, NLM><<<static_cast<unsigned>(blocks),
+                                  32 * kPairsPerBlock, smem, stream>>>(
+      static_cast<const T*>(X), static_cast<const T*>(Y),
+      static_cast<T*>(out), N1, N2, L, d, nl, rbf, sym, stage_y);
+  return cudaGetLastError();
+}
+
+// The segment plan's level bound and rows a lane (plan.py's gram_fwd_plan
+// with tuned=True: NLM carries a row).
+template <typename T, int NLM>
+cudaError_t gram_seg_dispatch(const void* X, const void* Y, void* out,
+                              int N1, int N2, int L, int d, int nl, int rbf,
+                              int S, int R, int sym, cudaStream_t s) {
+  constexpr int Rt = seg_rows<T>(NLM);
+  if (R != Rt) return cudaErrorInvalidValue;
+  switch (S) {
+    case 8: return launch_gram_seg<T, Rt, 8, NLM>(X, Y, out, N1, N2, L, d,
+                                                   nl, rbf, sym, s);
+    case 16: return launch_gram_seg<T, Rt, 16, NLM>(X, Y, out, N1, N2, L, d,
+                                                     nl, rbf, sym, s);
+    case 32: return launch_gram_seg<T, Rt, 32, NLM>(X, Y, out, N1, N2, L, d,
+                                                     nl, rbf, sym, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int R, typename G>
@@ -234,21 +338,14 @@ cudaError_t launch_diag(const void* X, void* out, int N, int L, int d,
 
 template <typename T>
 cudaError_t gram_dispatch(const void* X, const void* Y, void* out, int N1,
-                          int N2, int L, int d, int nl, int rbf, int W, int R,
-                          cudaStream_t s) {
-  using WG = WarpGroup<T>;
+                          int N2, int L, int d, int nl, int rbf, int S,
+                          int R, int W, int sym, cudaStream_t s) {
   if (W > 1)
-    return launch_gram<T, 4, BlockGroup<T>>(X, Y, out, N1, N2, L, d, nl, rbf,
-                                            W, s);
-  switch (R) {
-    case 1: return launch_gram<T, 1, WG>(X, Y, out, N1, N2, L, d, nl, rbf, 1,
-                                         s);
-    case 2: return launch_gram<T, 2, WG>(X, Y, out, N1, N2, L, d, nl, rbf, 1,
-                                         s);
-    case 4: return launch_gram<T, 4, WG>(X, Y, out, N1, N2, L, d, nl, rbf, 1,
-                                         s);
-    default: return cudaErrorInvalidValue;
-  }
+    return launch_gram_block<T>(X, Y, out, N1, N2, L, d, nl, rbf, W, sym, s);
+  return nl <= 4 ? gram_seg_dispatch<T, 4>(X, Y, out, N1, N2, L, d, nl, rbf,
+                                           S, R, sym, s)
+                 : gram_seg_dispatch<T, 7>(X, Y, out, N1, N2, L, d, nl, rbf,
+                                           S, R, sym, s);
 }
 
 template <typename T>
@@ -275,17 +372,24 @@ bool bad_args(int L, int d, int nl, int W, int R) {
 extern "C" {
 
 // X [N1, L, d], Y [N2, L, d] contiguous -> out [nl + 1, N1, N2], the L - 1
-// rows spread as the plan (W warps, R rows a lane) says; returns
+// rows spread as the plan says: segments of S lanes at R rows a lane
+// (W = 1), or W > 1 warps a pair at R = 4; with sym (Y = X) only the pairs
+// on and above the diagonal are solved, each written twice. Returns
 // cudaGetLastError() after the launch (0 on success).
 int gpsig_fused_gram(const void* X, const void* Y, void* out, int N1, int N2,
-                     int L, int d, int nl, int rbf, int W, int R, int f64,
-                     void* stream) {
-  if (bad_args(L, d, nl, W, R)) return cudaErrorInvalidValue;
+                     int L, int d, int nl, int rbf, int S, int R, int W,
+                     int sym, int f64, void* stream) {
+  const bool seg_ok = W == 1 && (S == 8 || S == 16 || S == 32) &&
+                      L - 1 <= S * R;
+  if (L < 2 || d < 1 || nl < 1 || nl > kMaxLevels ||
+      (W > 1 ? (S != 32 || !plan_ok(L - 1, W, R)) : !seg_ok) ||
+      (sym && N1 != N2))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? gram_dispatch<double>(X, Y, out, N1, N2, L, d, nl, rbf, W, R,
-                                     s)
-             : gram_dispatch<float>(X, Y, out, N1, N2, L, d, nl, rbf, W, R,
-                                    s);
+  return f64 ? gram_dispatch<double>(X, Y, out, N1, N2, L, d, nl, rbf, S, R,
+                                     W, sym, s)
+             : gram_dispatch<float>(X, Y, out, N1, N2, L, d, nl, rbf, S, R,
+                                    W, sym, s);
 }
 
 // X [N, L, d] contiguous -> out [nl + 1, N]

@@ -185,7 +185,10 @@ class SignatureKernel(nn.Module):
     def _increments(self, G):
         return sigops.incremental_gram(G) if self.difference else G
 
-    def _K_levels(self, X, Y):
+    def _K_levels(self, X, Y, symmetric=False):
+        """[nl+1, N1, N2]; ``symmetric``: Y is X, so the fused Grams solve
+        only their triangle of pairs (the Poly offset channel keeps the
+        Gram symmetric, though it makes the two sides differ)."""
         route = self._route(X.device)
         if X.shape[1] != Y.shape[1]:
             # sequences of two lengths (inducing sequences against data):
@@ -193,12 +196,13 @@ class SignatureKernel(nn.Module):
             # are built in PyTorch and reduced by the per-pair DP
             route = "pairs"
         if route == "tuned":
-            return fg.fused_gram_levels(X, Y, self.num_levels, self._rbf())
+            return fg.fused_gram_levels(X, Y, self.num_levels, self._rbf(),
+                                        symmetric)
         if route == "general":
             Xq, Yq = self._poly_channels(X, Y)
             return fgho.fused_gram_ho_levels(Xq, Yq, self.num_levels,
                                              self.order, self._kind(),
-                                             self.difference)
+                                             self.difference, symmetric)
         N1, L1, d = X.shape
         N2, L2, _ = Y.shape
         G = self.base.gram(X.reshape(N1 * L1, d), Y.reshape(N2 * L2, d))
@@ -225,7 +229,7 @@ class SignatureKernel(nn.Module):
         Xs = self._augment(self._as_sequences(X))
         sym = X2 is None
         Ys = Xs if sym else self._augment(self._as_sequences(X2))
-        levels = self._K_levels(Xs, Ys)  # [nl+1, N1, N2]
+        levels = self._K_levels(Xs, Ys, symmetric=sym)  # [nl+1, N1, N2]
         if self.normalization:
             dx = self._K_levels_diag(Xs)
             dy = dx if sym else self._K_levels_diag(Ys)
@@ -237,7 +241,7 @@ class SignatureKernel(nn.Module):
         """(K(Z,Z), K(Z,X)) sharing the Z-side diagonal recursion."""
         Zs = self._augment(self._as_sequences(Z))
         Xs = self._augment(self._as_sequences(X))
-        zz = self._K_levels(Zs, Zs)
+        zz = self._K_levels(Zs, Zs, symmetric=True)
         zx = self._K_levels(Zs, Xs)
         if self.normalization:
             dz = self._K_levels_diag(Zs)

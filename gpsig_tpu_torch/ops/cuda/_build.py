@@ -40,13 +40,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points and their argument types (every pointer and the stream
 #: as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "gpsig_fused_gram": [_P, _P, _P, *[_I] * 9, _P],
+    "gpsig_fused_gram": [_P, _P, _P, *[_I] * 11, _P],
     "gpsig_fused_diag": [_P, _P, *[_I] * 8, _P],
     "gpsig_tens_seq": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "gpsig_fused_gram_bwd": [*[_P] * 5, *[_I] * 10, _P],
     "gpsig_tens_seq_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P],
-    "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 12, _P],
+    "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 14, _P],
     "gpsig_sig_gram": [_P, _P, *[_I] * 8, _P],
     "gpsig_tens_seq_general": [_P, _P, _P, *[_I] * 11, _P],
     "gpsig_fused_gram_ho_bwd": [*[_P] * 5, *[_I] * 12, _P],
@@ -67,10 +67,11 @@ SIGNATURES = {
 #: late nor shares its core with the short ones.
 SLOWEST_FIRST = (
     "tens_seq_bwd.cu", "fused_gram_ho_bwd_block_f64.cu",
-    "tens_seq_general_bwd.cu", "sig_gram_bwd_block_f64.cu", "fused_gram_ho.cu",
-    "sig_gram_bwd_f64.cu", "fused_gram_ho_bwd_f64.cu", "sig_gram_bwd.cu",
-    "fused_gram_ho_bwd.cu", "fused_gram_bwd.cu", "fused_gram_ho_bwd_block.cu",
-    "sig_gram.cu", "tens_seq.cu",
+    "tens_seq_general_bwd.cu", "sig_gram_bwd_block_f64.cu",
+    "fused_gram_ho_f64.cu", "fused_gram_ho.cu", "sig_gram_bwd_f64.cu",
+    "fused_gram_ho_bwd_f64.cu", "sig_gram_bwd.cu", "fused_gram_ho_bwd.cu",
+    "fused_gram_bwd.cu", "fused_gram_ho_bwd_block.cu", "sig_gram.cu",
+    "tens_seq.cu",
 )
 
 _lib = None

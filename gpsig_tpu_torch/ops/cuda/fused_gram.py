@@ -9,7 +9,12 @@ designs. Semantics: pre-scaled sequences, order 1, ``difference=True``, RBF
 (``rbf=True``) or Linear base, ``num_levels <= 7``, RBF distance
 unclamped, any length the launch plan takes (``plan.py``: at most
 ``plan.MAX_ROWS`` increment rows and the block's shared memory; at d <= 8
-that is beyond L = 800 in float32 and float64).
+that is beyond L = 800 in float32 and float64). ``symmetric=True`` says
+that Y is X (``K(X)``): the Gram kernel then solves only the pairs on and
+above the diagonal and writes each twice, so the output is exactly
+symmetric; on the CPU the flag changes nothing. The kernel checks only
+that X and Y have one shape: the caller guarantees that k(x_a, y_b) =
+k(x_b, y_a), or gets the upper triangle mirrored into the lower one.
 
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
 it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
@@ -86,14 +91,19 @@ def _check_shapes(name, num_levels, *seqs):
         raise ValueError(f"{name}: sequence length {L} < 2")
 
 
-def _forward_plan(name, X, diag):
-    """(W, R) of the forward kernels for X [N, L, d]; raises where no
-    launch takes the shape."""
+def _forward_plan(name, X, diag, num_levels=None):
+    """The forward kernels' plan for X [N, L, d]: the diagonal's (W, R),
+    the Gram's (S, R, W) (``plan.gram_fwd_plan`` at ``num_levels``);
+    raises where no launch takes the shape."""
     L, d = X.shape[1:]
-    rows = L - 1
-    wr = plan.row_plan(rows, (1, 2, 4))
-    smem = (plan.diag_smem if diag else plan.gram_smem)(
-        L, d, wr[0] if wr else 1, X.element_size())
+    rows, item = L - 1, X.element_size()
+    if diag:
+        wr = plan.row_plan(rows, (1, 2, 4))
+        smem = plan.diag_smem(L, d, wr[0] if wr else 1, item)
+    else:
+        wr = plan.gram_fwd_plan(rows, L, d, 1, num_levels, item,
+                                tuned=True)
+        smem = plan.gram_fwd_smem(L, d, *(wr or (32, 4, 2)), item)
     plan.check_fits(name, rows, wr, smem, f"L={L}, d={d}")
     return wr
 
@@ -116,18 +126,26 @@ def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch_gram(X, Y, num_levels, rbf):
+def _check_symmetric(name, symmetric, X, Y):
+    if symmetric and X.shape != Y.shape:
+        raise ValueError(f"{name}: symmetric needs Y shaped as X; got "
+                         f"{tuple(X.shape)}, {tuple(Y.shape)}")
+
+
+def _launch_gram(X, Y, num_levels, rbf, symmetric):
     global gram_launches
     name = "fused_gram_levels"
     _build.check_inputs(name, (X, Y))
     _check_shapes(name, num_levels, X, Y)
-    W, R = _forward_plan(name, X, diag=False)
+    _check_symmetric(name, symmetric, X, Y)
+    S, R, W = _forward_plan(name, X, diag=False, num_levels=num_levels)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     out = torch.empty((num_levels + 1, N1, N2), dtype=X.dtype,
                       device=X.device)
     if N1 and N2:
         _build.launch("gpsig_fused_gram", X.device, X, Y, out, N1, N2, L, d,
-                      num_levels, rbf, W, R, X.dtype == torch.float64)
+                      num_levels, rbf, S, R, W, symmetric,
+                      X.dtype == torch.float64)
         gram_launches += 1
     return out
 
@@ -153,10 +171,10 @@ class _GramLevels(torch.autograd.Function):
     them."""
 
     @staticmethod
-    def forward(ctx, X, Y, num_levels, rbf):
+    def forward(ctx, X, Y, num_levels, rbf, symmetric=False):
         ctx.save_for_backward(X, Y)
         ctx.num_levels, ctx.rbf = num_levels, rbf
-        return _launch_gram(X, Y, num_levels, rbf)
+        return _launch_gram(X, Y, num_levels, rbf, symmetric)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -166,7 +184,7 @@ class _GramLevels(torch.autograd.Function):
                                            ctx.num_levels, ctx.rbf)
         need_x, need_y = ctx.needs_input_grad[:2]
         return (Xbar if need_x else None, Ybar if need_y else None, None,
-                None)
+                None, None)
 
 
 class _DiagLevels(torch.autograd.Function):
@@ -192,12 +210,14 @@ class _DiagLevels(torch.autograd.Function):
         return Xbar, None, None
 
 
-def fused_gram_levels(X, Y, num_levels, rbf=True):
+def fused_gram_levels(X, Y, num_levels, rbf=True, symmetric=False):
     """[nl+1, N1, N2] per-level signature kernels of X [N1, L, d] against
-    Y [N2, L, d]."""
+    Y [N2, L, d]; ``symmetric``: Y is X, and the kernel solves the triangle
+    of pairs (the caller guarantees k(x_a, y_b) = k(x_b, y_a); only the
+    shapes are checked)."""
     if _on_cpu(X, Y):
         return fused_gram_levels_ref(X, Y, num_levels, rbf)
-    return _GramLevels.apply(X, Y, num_levels, rbf)
+    return _GramLevels.apply(X, Y, num_levels, rbf, symmetric)
 
 
 def fused_diag_levels(X, num_levels, rbf=True):

@@ -9,8 +9,14 @@ Semantics: pre-scaled sequences, any ``order``, ``difference`` True or
 False, base ``kind`` 'linear', 'rbf', 'poly<K>' or 'cosine' (for
 'poly<K>' the caller has appended the offset channel: x_extra = 1,
 y_extra = c), ``num_levels <= 7``, RBF exponent
-unclamped, any length the launch plan takes (``plan.py``). The tuned order-1 kernel (``fused_gram.py``) takes precedence
-where it applies; this one covers every other configuration.
+unclamped, any length the launch plan takes (``plan.py``). The tuned
+order-1 kernel (``fused_gram.py``) takes precedence where it applies; this
+one covers every other configuration. ``symmetric=True`` says that the
+Gram is symmetric (Y is X, or X with a Poly offset channel: k(x_a, y_b) =
+k(x_b, y_a)): the kernel then solves only the pairs on and above the
+diagonal and writes each twice; on the CPU the flag changes nothing.
+The kernel checks only that X and Y have one shape: the caller guarantees
+the symmetry, or gets the upper triangle mirrored into the lower one.
 
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
 it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
@@ -24,7 +30,8 @@ import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
 from gpsig_tpu_torch.ops.cuda import _build, plan
-from gpsig_tpu_torch.ops.cuda.fused_gram import MAX_LEVELS, _on_cpu
+from gpsig_tpu_torch.ops.cuda.fused_gram import (MAX_LEVELS,
+                                                 _check_symmetric, _on_cpu)
 
 #: codes of csrc/common.cuh's BaseKind
 _KIND_CODES = {"linear": 0, "rbf": 1, "cosine": 2, "poly": 3}
@@ -103,37 +110,42 @@ def _check_shapes(name, num_levels, order, difference, X, Y):
         raise ValueError(f"{name}: sequence length {X.shape[1]} < 2")
 
 
-def _plan(name, X, difference, backward):
-    """(W, R) for X [N, L, d]'s L - 1 (difference) or L rows, and for the
-    backward the tiles' columns; raises where no launch takes the
-    shape."""
+def _plan(name, X, difference, backward, num_levels=None, order=None):
+    """The plan for X [N, L, d]'s L - 1 (difference) or L rows: the
+    forward's (S, R, W) (``plan.gram_fwd_plan`` at p = min(order,
+    num_levels)), the backward's (W, R, chunk) (the tiles' columns);
+    raises where no launch takes the shape."""
     L, d = X.shape[1:]
     rows = L - 1 if difference else L
-    wr = plan.row_plan(rows)
-    W, size = wr[0] if wr else 1, X.element_size()
+    size = X.element_size()
     if backward:
+        wr = plan.row_plan(rows)
+        W = wr[0] if wr else 1
         chunk = plan.gram_ho_bwd_chunk(L, d, W, size)
         smem = plan.gram_ho_bwd_smem(L, d, W, chunk, size)
     else:
-        smem = plan.gram_smem(L, d, W, size)
+        wr = plan.gram_fwd_plan(rows, L, d, min(order, num_levels),
+                                num_levels, size)
+        smem = plan.gram_fwd_smem(L, d, *(wr or (32, 4, 2)), size)
     plan.check_fits(name, rows, wr, smem, f"L={L}, d={d}")
     return (*wr, chunk) if backward else wr
 
 
-def _launch(X, Y, num_levels, order, kind, difference):
+def _launch(X, Y, num_levels, order, kind, difference, symmetric):
     global launches
     name = "fused_gram_ho_levels"
     _build.check_inputs(name, (X, Y))
     _check_shapes(name, num_levels, order, difference, X, Y)
-    W, R = _plan(name, X, difference, backward=False)
+    _check_symmetric(name, symmetric, X, Y)
+    S, R, W = _plan(name, X, difference, False, num_levels, order)
     code, degree = _kind_code(kind)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     out = torch.empty((num_levels + 1, N1, N2), dtype=X.dtype,
                       device=X.device)
     if N1 and N2:
         _build.launch("gpsig_fused_gram_ho", X.device, X, Y, out, N1, N2, L,
-                      d, num_levels, order, code, degree, difference, W, R,
-                      X.dtype == torch.float64)
+                      d, num_levels, order, code, degree, difference, S, R,
+                      W, symmetric, X.dtype == torch.float64)
         launches += 1
     return out
 
@@ -143,10 +155,11 @@ class _GramHoLevels(torch.autograd.Function):
     one tensor; both gradients are returned and autograd adds them."""
 
     @staticmethod
-    def forward(ctx, X, Y, num_levels, order, kind, difference):
+    def forward(ctx, X, Y, num_levels, order, kind, difference,
+                symmetric=False):
         ctx.save_for_backward(X, Y)
         ctx.args = (num_levels, order, kind, difference)
-        return _launch(X, Y, num_levels, order, kind, difference)
+        return _launch(X, Y, num_levels, order, kind, difference, symmetric)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -156,17 +169,20 @@ class _GramHoLevels(torch.autograd.Function):
                                               *ctx.args)
         need_x, need_y = ctx.needs_input_grad[:2]
         return (Xbar if need_x else None, Ybar if need_y else None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def fused_gram_ho_levels(X, Y, num_levels, order, kind="rbf",
-                         difference=True):
+                         difference=True, symmetric=False):
     """[nl+1, N1, N2] per-level signature kernels of X [N1, L, d] against
-    Y [N2, L, d] at any order, for any base kind."""
+    Y [N2, L, d] at any order, for any base kind; ``symmetric``: the Gram
+    is symmetric, and the kernel solves the triangle of pairs (the caller
+    guarantees k(x_a, y_b) = k(x_b, y_a); only the shapes are checked)."""
     if _on_cpu(X, Y):
         return fused_gram_ho_levels_ref(X, Y, num_levels, order, kind,
                                         difference)
-    return _GramHoLevels.apply(X, Y, num_levels, order, kind, difference)
+    return _GramHoLevels.apply(X, Y, num_levels, order, kind, difference,
+                               symmetric)
 
 
 def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
@@ -181,7 +197,7 @@ def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
     name = "fused_gram_ho_levels_bwd"
     _build.check_inputs(name, (X, Y, g))
     _check_shapes(name, num_levels, order, difference, X, Y)
-    W, R, chunk = _plan(name, X, difference, backward=True)
+    W, R, chunk = _plan(name, X, difference, True)
     code, degree = _kind_code(kind)
     (N1, L, d), N2 = X.shape, Y.shape[0]
     if tuple(g.shape) != (num_levels + 1, N1, N2):

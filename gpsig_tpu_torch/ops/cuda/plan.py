@@ -11,6 +11,13 @@ order-1 Gram backward also puts two pairs on one warp, 16 lanes each, up
 to 64 rows (``csrc/fused_gram_bwd.cu``). A block of warps takes 4 rows a
 lane: fewer warps, fewer barriers.
 
+The two Gram forwards (``csrc/fused_gram.cu``'s Gram, ``csrc/
+fused_gram_ho.cu``) take segments instead (:func:`gram_fwd_plan`): S = 8,
+16 or 32 lanes a pair, 32 / S pairs a warp, R = 8, 4 or 2 rows a lane as
+the DP state fits the registers, so one warp takes up to 256 rows with no
+barrier (at wide d the y read from global memory where a block's staged y
+would not fit); past what one warp takes, the block design.
+
 The wrappers compute the plan and the bytes here, pass the plan to the
 kernel, and raise ``ValueError`` above what a launch can take: more than
 ``MAX_ROWS`` rows, or more shared memory than a block may use. Nothing
@@ -41,17 +48,73 @@ def row_plan(rows, rows_per_lane=(2, 4)):
     return -(-rows // 128), 4
 
 
+#: 32-bit registers a lane of a segment plan may give to its rows' DP
+#: state (``csrc/common.cuh``'s kSegStateRegs and seg_rows)
+SEG_STATE_REGS = 128
+#: lanes a pair on the segment plan
+SEG_LANES = (8, 16, 32)
+
+
+def gram_fwd_levels(P, nl, tuned=False):
+    """The level bound NLM of the Gram forwards' DP state: 4 up to 4 levels
+    for the order-1 kernel and for the run-length kernel at order 2, else
+    7."""
+    return 4 if nl <= 4 and (tuned or P == 2) else 7
+
+
+def gram_fwd_rows_per_lane(P, nl, itemsize, tuned=False):
+    """Rows a lane of a Gram forward's segment: the most of 8, 4, 2 whose
+    DP state fits ``SEG_STATE_REGS`` 32-bit registers. The state a row is
+    NLM carries for the order-1 kernel (``tuned``), and p² + NLM +
+    (NLM - 1)(p - 1) values for the run-length DP at order p = ``P``."""
+    nlm = gram_fwd_levels(P, nl, tuned)
+    per_row = nlm if tuned else P * P + nlm + (nlm - 1) * (P - 1)
+    regs = per_row * itemsize // 4
+    return next((R for R in (8, 4) if R * regs <= SEG_STATE_REGS), 2)
+
+
+def gram_fwd_plan(rows, L, d, P, nl, itemsize, tuned=False):
+    """(S, R, W) of the Gram forwards for ``rows`` DP rows of sequences
+    [L, d] at order p = ``P`` (``tuned``: the order-1 kernel) and ``nl``
+    levels. One warp (W = 1) where a segment plan covers the rows and its
+    shared memory (:func:`gram_fwd_smem`) fits: R =
+    :func:`gram_fwd_rows_per_lane` rows a lane and the fewest lanes S of 8,
+    16, 32 (32 only past order 3) with S·R >= rows, else a wider S (less
+    x staged lane major); where the state takes only 2 rows a lane, 32
+    lanes at 4 rows up to 128 rows. Otherwise the block design, W >= 2
+    warps at 4 rows a lane. None above ``MAX_ROWS``."""
+    R = gram_fwd_rows_per_lane(P, nl, itemsize, tuned)
+    lanes = SEG_LANES if tuned or P <= 3 else (32,)
+    plans = [(S, R) for S in lanes if S * R >= rows]
+    if R == 2 and rows <= 32 * 4:
+        plans.append((32, 4))
+    for S, R in plans:
+        if gram_fwd_smem(L, d, S, R, 1, itemsize) <= SMEM_BYTES:
+            return S, R, 1
+    if rows > MAX_ROWS:
+        return None
+    return 32, 4, max(2, -(-rows // 128))
+
+
+def gram_fwd_smem(L, d, S, R, W, itemsize):
+    """Shared memory of the Gram forwards: on the segment plan x staged lane
+    major ((R + 1) points a lane) and each of the block's 128 / S pairs' y
+    and half norms at an odd stride, or where those y do not fit only their
+    half norms (the y then read from global memory; common.cuh's
+    SegBlock::stages_y); on the block design x and y with their half norms
+    and the exchange buffer."""
+    if W > 1:
+        return itemsize * L * (d + 1) * 2 + exchange_bytes(W, itemsize)
+    x = (R + 1) * d * S
+    staged = itemsize * (x + 128 // S * ((L * (d + 1)) | 1))
+    return (staged if staged <= SMEM_BYTES
+            else itemsize * (x + 128 // S * (L | 1)))
+
+
 def exchange_bytes(W, itemsize):
     """The cross-warp exchange buffer of a W-warp group: two halves of one
     value a warp (common.cuh's BlockGroup)."""
     return itemsize * 2 * W if W > 1 else 0
-
-
-def gram_smem(L, d, W, itemsize):
-    """fused_gram.cu and fused_gram_ho.cu: x and its half norms staged
-    once, y and its half norms once per pair in the block."""
-    pairs = PAIRS_PER_BLOCK if W == 1 else 1
-    return itemsize * L * (d + 1) * (1 + pairs) + exchange_bytes(W, itemsize)
 
 
 def diag_smem(L, d, W, itemsize):

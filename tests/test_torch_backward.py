@@ -133,8 +133,8 @@ def plain_launches(monkeypatch):
             return tfg.fused_diag_levels_ref(X, nl, rbf)
 
     monkeypatch.setattr(tfg, "_launch_gram",
-                        lambda X, Y, nl, rbf: tfg.fused_gram_levels_ref(
-                            X, Y, nl, rbf))
+                        lambda X, Y, nl, rbf, symmetric:
+                        tfg.fused_gram_levels_ref(X, Y, nl, rbf))
     monkeypatch.setattr(tfg, "_launch_diag", diag)
     monkeypatch.setattr(tfg, "fused_gram_levels_bwd", gram_bwd)
     monkeypatch.setattr(tts, "_launch", tts.fused_tens_seq_levels_ref)

@@ -970,3 +970,136 @@ def test_deep_signature_kernel_on_card_matches_cpu(cuda_device, order):
                 Z.detach().to(cuda_device).requires_grad_())
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=1e-12)
+
+
+# -- the Gram forwards' segment plans ----------------------------------------
+
+SEG_LENGTHS = [20, 50, 129, 150, 257, 300]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("L", SEG_LENGTHS)
+def test_gram_segment_plans_match_plain(cuda_device, dtype, tol, L):
+    """The order-1 Gram on the plans these lengths give (segments of 8, 16
+    or 32 lanes at R rows a lane, both level bounds, the block design at
+    L = 300), nl 1-7, RBF and Linear in turn: X [9] against Y [7] (pairs
+    that fill no whole warp or block), and the symmetric Gram of X, its
+    triangle against the full plain Gram and exactly symmetric."""
+    rng = np.random.default_rng(L)
+    for nl in range(1, 8):
+        rbf = nl % 2 == 1
+        X = torch.as_tensor(_long_walks(rng, 9, L, 2), dtype=dtype,
+                            device=cuda_device)
+        Y = torch.as_tensor(_long_walks(rng, 7, L, 2), dtype=dtype,
+                            device=cuda_device)
+        n0 = tfg.gram_launches
+        with torch.no_grad():
+            got = tfg.fused_gram_levels(X, Y, nl, rbf)
+            sym = tfg.fused_gram_levels(X, X, nl, rbf, symmetric=True)
+        assert tfg.gram_launches == n0 + 2
+        assert _scaled_err(got, tfg.fused_gram_levels_ref(X, Y, nl, rbf)) \
+            < tol, (L, nl)
+        assert _scaled_err(sym, tfg.fused_gram_levels_ref(X, X, nl, rbf)) \
+            < tol, (L, nl)
+        assert torch.equal(sym, sym.transpose(1, 2))
+
+
+def _segment_cases():
+    """(nl, order, kind, difference): every kind, difference True and
+    False and orders 1-3 at 4 levels; nl 1-7 at orders 2 and 7."""
+    for kind in KINDS:
+        for difference in (True, False):
+            for order in (1, 2, 3):
+                yield 4, order, kind, difference
+    for nl in range(1, 8):
+        yield nl, 2, "rbf", True
+        yield nl, 7, "cosine", False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("L", SEG_LENGTHS)
+def test_general_gram_segment_plans_match_plain(cuda_device, dtype, tol,
+                                                L):
+    """The general Gram on the plans these lengths give (each order's rows
+    a lane and level bound, lanes of 8, 16, 32 or the block design): X [9]
+    against Y [7] and the symmetric Gram of X (with a Poly base X against
+    X with its offset channel), the triangle against the full plain Gram
+    and exactly symmetric. A raw Poly Gram takes steps 10x shorter (its
+    high levels leave float32's range otherwise)."""
+    rng = np.random.default_rng(L + 1)
+    for nl, order, kind, difference in _segment_cases():
+        scale = 0.1 if kind.startswith("poly") and not difference else 1
+        X, Y = (torch.as_tensor(scale * _long_walks(rng, n, L, 2),
+                                dtype=dtype, device=cuda_device)
+                for n in (9, 7))
+        Xq, Yq = _offset_channel(X, Y, kind)
+        Xs, Ys = _offset_channel(X, X, kind)
+        args = (nl, order, kind, difference)
+        n0 = tfgho.launches
+        with torch.no_grad():
+            got = tfgho.fused_gram_ho_levels(Xq, Yq, *args)
+            sym = tfgho.fused_gram_ho_levels(Xs, Ys, *args, symmetric=True)
+        assert tfgho.launches == n0 + 2
+        assert _scaled_err(got, tfgho.fused_gram_ho_levels_ref(
+            Xq, Yq, *args)) < tol, (L, args)
+        assert _scaled_err(sym, tfgho.fused_gram_ho_levels_ref(
+            Xs, Ys, *args)) < tol, (L, args)
+        assert torch.equal(sym, sym.transpose(1, 2)), (L, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctor,kw", [
+    (SignatureRBF, dict()), (SignatureRBF, dict(order=2)),
+    (SignaturePoly, dict(order=2, offset=0.6))])
+def test_symmetric_gram_on_card_matches_the_plain_route(cuda_device, ctor,
+                                                        kw):
+    """K(X) on the card (its Gram solving the triangle) and its gradient,
+    float64, against the same kernel on the CPU (the plain route)."""
+    rng = np.random.default_rng(23)
+    X = torch.as_tensor(_walks(rng, 11, 30, 2))
+    W = torch.as_tensor(rng.standard_normal((11, 11)))
+    kern = ctor(2, 4, lengthscales=[0.8, 1.3], device="cpu", **kw)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        kern.to(dev)
+        x = X.to(dev).requires_grad_()
+        K = kern.K(x)
+        (gx,) = torch.autograd.grad((K * W.to(dev)).sum(), x)
+        out[str(dev)] = (K.detach().cpu(), gx.cpu())
+    for g, w in zip(out[str(cuda_device)], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-12)
+    assert torch.equal(out[str(cuda_device)][0], out[str(cuda_device)][0].T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("L", [50, 150])
+def test_gram_forwards_take_the_widest_sequences_they_took(cuda_device,
+                                                          dtype, tol, L):
+    """The widest d that the Gram forwards took before segments (231 / 115
+    at L = 50 in float32 / float64, 192 / 95 at L = 150: lag-augmented or
+    wide UEA data): one warp a pair where a segment covers the rows, its y
+    read from global memory (the block's y do not fit its shared memory),
+    else the block design: the order-1 Gram and the general one at orders
+    2 and 3, X [3] against Y [5] and the triangle of X, against the plain
+    versions (the steps scaled to d = 2's norm)."""
+    d = {(50, 4): 231, (50, 8): 115, (150, 4): 192,
+         (150, 8): 95}[L, dtype.itemsize]
+    rng = np.random.default_rng(L + d)
+    X, Y = (torch.as_tensor(np.sqrt(2 / d) * _long_walks(rng, n, L, d),
+                            dtype=dtype, device=cuda_device)
+            for n in (3, 5))
+    assert tfg._forward_plan("k", X, False, 4)[2] == 1
+    with torch.no_grad():
+        for u, v, sym in ((X, Y, False), (X, X, True)):
+            got = tfg.fused_gram_levels(u, v, 4, True, symmetric=sym)
+            assert _scaled_err(got, tfg.fused_gram_levels_ref(u, v, 4)) \
+                < tol, (L, d, sym)
+            for order in (2, 3):
+                args = (4, order, "rbf", True)
+                got = tfgho.fused_gram_ho_levels(u, v, *args, symmetric=sym)
+                assert _scaled_err(got, tfgho.fused_gram_ho_levels_ref(
+                    u, v, *args)) < dict(GEN_TOLS)[dtype], (L, d, order,
+                                                            sym)

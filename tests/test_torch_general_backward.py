@@ -201,7 +201,9 @@ def plain_launches(monkeypatch):
         return wrapped
 
     monkeypatch.setattr(tfgho, "_launch",
-                        plain(tfgho.fused_gram_ho_levels_ref))
+                        lambda X, Y, nl, order, kind, difference, symmetric:
+                        plain(tfgho.fused_gram_ho_levels_ref)(
+                            X, Y, nl, order, kind, difference))
     monkeypatch.setattr(tfgho, "fused_gram_ho_levels_bwd",
                         counted("gram", tfgho.fused_gram_ho_levels_bwd_ref))
     monkeypatch.setattr(ttsg, "_launch",

@@ -88,7 +88,7 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
         tsg.sig_gram_levels_ho(M, 3, 1)
 
 
-def test_backward_on_card_is_not_ported_yet():
+def test_backward_function_hands_off_to_bwd():
     """The backward is ported: ``_SigGramLevels.backward`` hands M and the
     cotangent to ``sig_gram_levels_bwd`` (order 1) or
     ``sig_gram_levels_ho_bwd`` (the kernels on the card, the plain VJP for

@@ -15,6 +15,8 @@ Pallas engine, scaled error 1e-5: its in-kernel matrix products
 accumulate in float32 even on float64 inputs.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from gpsig_tpu_torch import config as tcfg
 from gpsig_tpu_torch import convert
 from gpsig_tpu_torch import inducing as tind
 from gpsig_tpu_torch.kernels import signature as tsk
+from gpsig_tpu_torch.ops.cuda import fused_gram as tfg
 from gpsig_tpu_torch.ops.cuda import fused_gram_ho as tfgho
 from gpsig_tpu_torch.ops.cuda import sig_gram as tsg
 from gpsig_tpu_torch.ops.cuda import tens_seq_general as ttsg
@@ -451,3 +454,43 @@ def test_deep_levels_gradients_match_jax(nl, order, ctor, normalization):
     for name in want:
         np.testing.assert_allclose(got[name], want[name], rtol=DEEP_RTOL,
                                    atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("ctor,kw", [
+    ("SignatureRBF", dict()), ("SignatureRBF", dict(order=2)),
+    ("SignaturePoly", dict(offset=0.6, order=2))])
+def test_symmetric_gram_flag_reaches_the_fused_grams(ctor, kw):
+    """``K(X)`` and ``seq_covariances``' K(Z, Z) ask the fused Gram for its
+    triangle (``symmetric=True``: the kernels on the card then solve the
+    pairs on and above the diagonal only), ``K(X, X2)`` and K(Z, X) for
+    every pair; the Poly offset channel makes the two sides differ while
+    the flag holds. On the CPU the flag changes nothing: K(X) and X.grad
+    against ``jax.grad``, float64, rtol 1e-8."""
+    jk = getattr(jsk, ctor)(D, NL, engine="xla", lengthscales=[0.7, 1.3],
+                            **kw)
+    tk = getattr(tsk, ctor)(D, NL, device="cpu", lengthscales=[0.7, 1.3],
+                            **kw)
+    convert.load_jax_arrays(tk, leaves(jk))
+    rng = np.random.default_rng(21)
+    X, X2, Z = walks(rng, 5), walks(rng, 4), walks(rng, 3)
+    W = rng.standard_normal((5, 5))
+    mod, name = ((tfg, "fused_gram_levels") if tk._route(
+        torch.device("cuda")) == "tuned" else
+        (tfgho, "fused_gram_ho_levels"))
+    real, flags = getattr(mod, name), []
+
+    def spy(*args, **kwargs):
+        bound = inspect.signature(real).bind(*args, **kwargs)
+        flags.append(bound.arguments.get("symmetric", False))
+        return real(*args, **kwargs)
+
+    Xt = torch.tensor(X, requires_grad=True)
+    with mock.patch.object(mod, name, spy):
+        got = tk.K(Xt)
+        assert flags == [True]
+        tk.K(torch.as_tensor(X), torch.as_tensor(X2))
+        tk.seq_covariances(torch.as_tensor(Z), torch.as_tensor(X))
+    assert flags == [True, False, True, False]
+    close(got, jk.K(X))
+    (gx,) = torch.autograd.grad((got * torch.as_tensor(W)).sum(), Xt)
+    close(gx, jax.grad(lambda x: jnp.sum(jk.K(x) * W))(jnp.asarray(X)))

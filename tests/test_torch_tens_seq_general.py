@@ -90,7 +90,7 @@ def test_wrapper_takes_plain_path_on_cpu_without_launching():
     assert ttsg.launches == before
 
 
-def test_backward_on_card_is_not_ported_yet():
+def test_backward_function_hands_off_to_bwd():
     """The backward is ported: ``_TensSeqGeneralLevels.backward`` hands the
     saved inputs and the cotangent to ``tens_seq_general_bwd`` (the kernel
     on the card, the plain VJP for these CPU tensors) and returns a
