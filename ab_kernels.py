@@ -24,7 +24,13 @@ takes 2 rows a lane (order 4, and order 3 in float64, at L = 100), the
 order-1 Gram at the widest d = 231 that one warp took at L = 50 before
 segments, and one Adam step of the order-1 and order-2 RBF GPRs at L = 150
 (``chip_smoke.py``'s phase (n): N = 150, nl = 4, the whole step by CUDA
-events, host work included). Every Gram kernel is timed on its full grid
+events, host work included); the four Kuf kernels: the general pair at
+the L = 150 shapes (T = 64, nl = 4, order 3), its backward at the
+training shape, a cosine case without increments and a float64 order-7
+case (Poly / Linear, no difference) of each, the order-1 pair at d = 2
+and d = 64 (where the parent's backward refused: null); and one order-2
+``predict_y`` on a cached posterior (N_test = 2048) and one order-2
+flagship natgrad + Adam step, whole calls by CUDA events. Every Gram kernel is timed on its full grid
 of pairs (no triangle), so that both checkouts do the same work; the GPR
 steps go through ``K(X)``, which solves the triangle where the checkout
 does.
@@ -86,6 +92,30 @@ CASES = [
      "gram_wide"),
     ("GPR Adam step order 1 RBF L=150 N=150", "step", "gpr1"),
     ("GPR Adam step order 2 RBF L=150 N=150", "step", "gpr2"),
+    ("tsg order 3 T=64 N=2048 L=150 nl=4",
+     "tens_seq_general.fused_tens_seq_general_levels", "tsg150"),
+    ("tsg cosine no increments T=500 N=2048 L=50",
+     "tens_seq_general.fused_tens_seq_general_levels", "tsg_cos"),
+    ("tsg poly2 order 7 no difference f64 T=100 N=512",
+     "tens_seq_general.fused_tens_seq_general_levels", "tsg_poly7"),
+    ("tsg_bwd order 2 T=500 N=50 L=50 nl=5",
+     "tens_seq_general.tens_seq_general_bwd", "tsg_bwd"),
+    ("tsg_bwd order 3 T=64 N=50 L=150 nl=4",
+     "tens_seq_general.tens_seq_general_bwd", "tsg_bwd150"),
+    ("tsg_bwd cosine no increments T=500 N=50",
+     "tens_seq_general.tens_seq_general_bwd", "tsg_bwd_cos"),
+    ("tsg_bwd linear order 7 no difference f64 T=100 N=50",
+     "tens_seq_general.tens_seq_general_bwd", "tsg_bwd_lin7"),
+    ("tens_seq T=500 N=2048 L=50 d=2 nl=5", "tens_seq.fused_tens_seq_levels",
+     "ts"),
+    ("tens_seq T=500 N=2048 L=50 d=64 nl=5", "tens_seq.fused_tens_seq_levels",
+     "ts64"),
+    ("tens_seq_bwd T=500 N=50 L=50 d=2 nl=5", "tens_seq.tens_seq_bwd",
+     "ts_bwd"),
+    ("tens_seq_bwd T=500 N=50 L=50 d=64 nl=5", "tens_seq.tens_seq_bwd",
+     "ts_bwd64"),
+    ("predict_y order 2 cached posterior N=2048", "step", "predict2"),
+    ("SVGP natgrad+Adam step order 2 B=50", "step", "svgp2"),
 ]
 
 
@@ -128,6 +158,10 @@ def _args(kind, torch, dev):
         return (x, x, 4, True)
     if kind in ("gpr1", "gpr2"):
         return (_gpr_step(torch, dev, int(kind[-1])),)
+    if kind in ("predict2", "svgp2"):
+        return (_svgp2_call(torch, dev, kind == "svgp2"),)
+    if kind in _KUF_SHAPES:
+        return _kuf_args(kind, torch, dev, rng)
     if kind == "tsg":
         # the order-2 flagship's prediction Kuf: 500 inducing tensors with
         # increments (F = 15 factors) against 2048 sequences, d = 2
@@ -168,6 +202,94 @@ def _args(kind, torch, dev):
     if kind == "gram_ho150":
         return (x150, x150, 4, 2, "rbf", True)
     return (x150, x150, t(rng.standard_normal((5, 150, 150))), 4, True)
+
+
+_KUF_SHAPES = {  # T, N, L, d, nl, order, kind, increments, difference, f64
+    "tsg150": (64, 2048, 150, 2, 4, 3, "rbf", True, True, False),
+    "tsg_cos": (500, 2048, 50, 2, 5, 2, "cosine", False, True, False),
+    "tsg_poly7": (100, 512, 50, 2, 7, 7, "poly2", True, False, True),
+    "tsg_bwd": (500, 50, 50, 2, 5, 2, "rbf", True, True, False),
+    "tsg_bwd150": (64, 50, 150, 2, 4, 3, "rbf", True, True, False),
+    "tsg_bwd_cos": (500, 50, 50, 2, 5, 2, "cosine", False, True, False),
+    "tsg_bwd_lin7": (100, 50, 50, 2, 7, 7, "linear", True, False, True),
+    "ts": (500, 2048, 50, 2, 5, 1, "rbf", True, True, False),
+    "ts64": (500, 2048, 50, 64, 5, 1, "rbf", True, True, False),
+    "ts_bwd": (500, 50, 50, 2, 5, 1, "rbf", True, True, False),
+    "ts_bwd64": (500, 50, 50, 64, 5, 1, "rbf", True, True, False),
+}
+
+
+def _kuf_args(kind, torch, dev, rng):
+    """The Kuf cases: inducing tensors drawn from the data's increments,
+    pairs with ``increments`` (stacked as the model's), cotangents for the
+    backwards."""
+    import numpy as np
+
+    T, N, L, d, nl, order, base, inc, diff, f64 = _KUF_SHAPES[kind]
+    dtype = torch.float64 if f64 else torch.float32
+    x = _walks(rng, N, L, d) * np.sqrt(2 / d)
+    steps = np.diff(x, axis=1).reshape(-1, d)
+    F = nl * (nl + 1) // 2
+    z = steps[rng.integers(0, len(steps), T * F * (2 if inc else 1))]
+    z = z.reshape((T, F, 2, d) if inc else (T, F, d))
+    if base.startswith("poly"):
+        z = np.concatenate([z, np.full(z.shape[:-1] + (1,), 0.6)], -1)
+        x = np.concatenate([x, np.ones(x.shape[:-1] + (1,))], -1)
+    z, x = (torch.as_tensor(a, dtype=dtype, device=dev) for a in (z, x))
+    g = torch.as_tensor(rng.standard_normal((nl + 1, T, N)), dtype=dtype,
+                        device=dev)
+    if kind.startswith("tsg_bwd"):
+        return (z, x, g, nl, order, base, inc, diff)
+    if kind.startswith("tsg"):
+        return (z, x, nl, order, base, inc, diff)
+    if kind.startswith("ts_bwd"):
+        return (z, x, g, nl, True, inc)
+    return (z, x, nl, True, inc)
+
+
+def _svgp2_call(torch, dev, train):
+    """The order-2 flagship SVGP (``chip_smoke.py``'s: M = 500 inducing
+    tensors with increments from the data, nl = 5, order 2, d = 2, L = 50,
+    C = 10, N_train = 500), float32: ``predict_y`` of 2048 test sequences
+    on a cached posterior, or (``train``) one natgrad + Adam step on a
+    batch of 50 (Adam 1e-3, γ = 0.05)."""
+    import numpy as np
+
+    from gpsig_tpu_torch.inducing import make_inducing_tensors_from_data
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    rng = np.random.default_rng(1)
+    X = torch.as_tensor((0.3 * rng.standard_normal((500, 50, 2))).cumsum(1),
+                        dtype=f32, device=dev)
+    Y = torch.as_tensor(rng.integers(0, 10, 500), device=dev)
+    kern = SignatureRBF(2, 5, normalization=True, order=2, dtype=f32,
+                        device=dev)
+    feat = make_inducing_tensors_from_data(
+        torch.Generator().manual_seed(0), X, num_tensors=500, num_levels=5,
+        num_features=2, increments=True)
+    model = SVGP.create(kern, MultiClass(10), feat, num_latent=10, dtype=f32,
+                        device=dev)
+    if train:
+        step = make_step_fn(1e-3, num_data=500, gamma=0.05)
+        state = [step.init(model)]
+        idx = torch.as_tensor(rng.choice(500, 50, replace=False), device=dev)
+
+        def call():
+            state[0], _ = step(state[0], X[idx], Y[idx])
+        return call
+    Xtest = torch.as_tensor((0.3 * rng.standard_normal((2048, 50, 2))
+                             ).cumsum(1), dtype=f32, device=dev)
+    with torch.no_grad():
+        post = model.posterior()
+
+    def call():
+        with torch.no_grad():
+            post.predict_y(Xtest)
+    return call
 
 
 def _gpr_step(torch, dev, order):
@@ -218,7 +340,9 @@ def _turn(root):
         args = _args(kind, torch, dev)
         try:
             f(*args)
-        except ValueError:  # a shape the checkout refuses
+        except (ValueError, RuntimeError):  # a shape the checkout refuses
+            # (before the launch plans, the Kuf backwards' launch returned
+            # an error past their shared memory)
             out[name] = None
             continue
         for _ in range(2):

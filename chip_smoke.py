@@ -60,7 +60,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the tuned order-1 kernels must not), ELBO and lml finite at every step,
    the first step against the plain route, ms per step and a profiler
    split of the SVGP step; small order-2 float64 models' three steps
-   against the CPU;
+   against the CPU; every launch plan of the two general Kuf kernels
+   (``kuf_plan_sweep``: blocks, sequences a thread, pairs a warp, one chunk
+   and several at L = 2-300, shared memory and the workspace) and all four
+   Kuf kernels at d = 64, 400 and 1345 against their plain versions in
+   float32 and float64, and two float64 steps of an order-2 SVGP at d = 64
+   on the card against the CPU;
 7. PDE kernels: the three Goursat routes (the given-grid wavefront
    ``_kernel``, ``_fused_kernel``'s forward with in-kernel refinement and
    its adjoint gradient) against their plain versions in float32 and
@@ -152,7 +157,7 @@ KERNELS = {
                      "gpsig_tpu/ops/pallas/tens_seq.py:281"),
     "gram_ho": ("_ho_kernel", "gpsig_tpu_torch/csrc/fused_gram_ho.cuh",
                 "gpsig_tpu/ops/pallas/fused_gram_ho.py:133"),
-    "tsg": ("_tsg_kernel", "gpsig_tpu_torch/csrc/tens_seq_general.cu",
+    "tsg": ("_tsg_kernel", "gpsig_tpu_torch/csrc/tens_seq_general.cuh",
             "gpsig_tpu/ops/pallas/tens_seq_general.py:200"),
     "sig_gram": ("_fwd_kernel", "gpsig_tpu_torch/csrc/sig_gram.cu",
                  "gpsig_tpu/ops/pallas/sig_gram.py:80"),
@@ -162,7 +167,7 @@ KERNELS = {
                     "gpsig_tpu_torch/csrc/fused_gram_ho_bwd.cuh",
                     "gpsig_tpu/ops/pallas/fused_gram_ho_bwd.py:61"),
     "tsg_bwd": ("_tsg_bwd_kernel",
-                "gpsig_tpu_torch/csrc/tens_seq_general_bwd.cu",
+                "gpsig_tpu_torch/csrc/tens_seq_general_bwd.cuh",
                 "gpsig_tpu/ops/pallas/tens_seq_general.py:364"),
     "sig_gram_bwd": ("_bwd_kernel", "gpsig_tpu_torch/csrc/sig_gram_bwd.cuh",
                      "gpsig_tpu/ops/pallas/sig_gram.py:98"),
@@ -1136,6 +1141,167 @@ def gram_plan_sweep(dev):
         got = sorted(pl for k, n, pl in plans if (k, n) == (key, name))
         print(f"plan sweep {key} {name}: worst scaled err {err:.3e} over "
               f"the plans (S, R, W) {got}, full and triangle")
+
+
+def kuf_inputs(rng, T, N, L, d, nl, increments, kind):
+    """Kuf inputs at any d: walks whose steps keep the norms of d = 2
+    (``long_walks`` scaled by √(2/d)), inducing tensors drawn from the
+    steps of 8 more such walks (as ``make_inducing_tensors_from_data``
+    draws them from data; from X's own steps, N = 1 and L = 2 would give
+    one step, both points of every increments pair equal and X̄ exactly
+    0, which no scaled error can compare), the kernel layer's Poly offset
+    channel, cotangents."""
+    X = long_walks(rng, N, L, d) * np.sqrt(2 / d)
+    steps = np.diff(long_walks(rng, 8, max(L, 10), d) * np.sqrt(2 / d),
+                    axis=1).reshape(-1, d)
+    F = nl * (nl + 1) // 2
+    Z = steps[rng.integers(0, len(steps), T * F * (2 if increments else 1))]
+    Z = Z.reshape((T, F, 2, d) if increments else (T, F, d))
+    X, Z = with_offset_channel(X, Z, kind)
+    return Z, X, rng.standard_normal((nl + 1, T, N))
+
+
+#: the Kuf plan sweep's wide d: MotorImagery's 64, past every Kuf kernel's
+#: shared memory at 400, DuckDuckGeese's 1345
+KUF_WIDE_D = (64, 400, 1345)
+
+
+def kuf_plan_sweep(dev):
+    """(f') Every launch plan of the two general Kuf kernels against their
+    plain versions, float32 and float64: the forward's blocks of 32, 64 and
+    128 threads at each number of sequences a thread (nl = 3, 4, 5, 7), its
+    factors staged and read from global memory; the backward's blocks of
+    1, 2 and 4 warps, one and several pairs a warp, one chunk and several
+    (L = 2, 64, 65, 66, 150, 300), its columns in shared memory and in the
+    workspace; every base kind, ``increments`` and ``difference`` in turn.
+    Then all four Kuf kernels at d = 64, 400 and 1345 (nl = 5, increments,
+    RBF, order 2 for the general pair)."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import plan
+    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
+    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+    rng = np.random.default_rng(SEED + 15)
+    kinds = ["rbf", "cosine", "poly2", "linear"]
+    cases = []  # (key, label, T, N, L, d, nl, order, kind, inc, diff)
+    for i, (nl, N) in enumerate((n, N) for n in (3, 4, 5, 7)
+                                for N in (20, 50, 100, 200, 600)):
+        cases.append(("tsg", f"nl={nl} N={N}", 3, N, 20, 2, nl,
+                      1 + i % 3, kinds[i % 4], i % 2 == 0, i % 3 != 0))
+    for i, (T, N) in enumerate(((3, 1), (3, 2), (3, 5), (300, 40))):
+        for j, L in enumerate((2, 64, 65, 66, 150, 300)):
+            k = i + j
+            cases.append(("tsg_bwd", f"T={T} N={N} L={L}", T, N, L, 2, 4,
+                          1 + k % 3, kinds[k % 4], k % 2 == 0,
+                          L > 2 and k % 3 != 0))
+    for d in KUF_WIDE_D:
+        for key in ("tens_seq", "tsg", "tens_seq_bwd", "tsg_bwd"):
+            cases.append((key, f"d={d}", 4, 6, 10, d, 5, 2, "rbf", True,
+                          True))
+    # the float32 forward's factors leave shared memory only past d = 1345
+    # at nl = 5: nl = 7 there
+    cases.append(("tsg", "nl=7 d=1345", 4, 6, 10, 1345, 7, 3, "rbf", True,
+                  True))
+    worst, plans = {}, set()
+    for key, label, T, N, L, d, nl, order, kind, inc, diff in cases:
+        Z, X, g = kuf_inputs(rng, T, N, L, d, nl, inc, kind)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            z, x, w = (torch.as_tensor(a, dtype=dtype, device=dev)
+                       for a in (Z, X, g))
+            F2 = plan.factor_count(nl, inc)
+            dd = x.shape[-1]
+            if key == "tens_seq":
+                pl = plan.kuf_fwd_plan(N, F2, dd, nl, dtype.itemsize, True)
+                with torch.no_grad():
+                    got = ts.fused_tens_seq_levels(z, x, nl, True, inc)
+                want = ts.fused_tens_seq_levels_ref(z, x, nl, True, inc)
+                tol = TOL[name][0]
+            elif key == "tens_seq_bwd":
+                pl = plan.kuf_bwd_plan(T, N, F2, dd, dtype.itemsize, True)
+                got = ts.tens_seq_bwd(z, x, w, nl, True, inc)
+                want = ts.tens_seq_bwd_ref(z, x, w, nl, True, inc)
+                tol = BWD_TOL[name][0]
+            elif key == "tsg":
+                a = (nl, order, kind, inc, diff)
+                pl = plan.kuf_fwd_plan(N, F2, dd, nl, dtype.itemsize)
+                with torch.no_grad():
+                    got = tsg.fused_tens_seq_general_levels(z, x, *a)
+                want = tsg.fused_tens_seq_general_levels_ref(z, x, *a)
+                tol = GEN_TOL[name][0]
+            else:
+                a = (nl, order, kind, inc, diff)
+                pl = plan.kuf_bwd_plan(T, N, F2, dd, dtype.itemsize)
+                got = tsg.tens_seq_general_bwd(z, x, w, *a)
+                want = tsg.tens_seq_general_bwd_ref(z, x, w, *a)
+                tol = BWD_TOL[name][0]
+            if name == "float32" and L > 150:
+                tol = max(tol, LONG_F32_TOL[0])
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"kuf plan sweep {key} {label}: not finite")
+            err = scaled_err(got, want)
+            check(err <= tol, f"kuf plan sweep {key} {label} {name} {kind} "
+                  f"order {order} inc={inc} diff={diff} plan {pl}: {err} > "
+                  f"{tol}")
+            k = (key, name)
+            worst[k] = max(worst.get(k, 0.0), err)
+            plans.add((key, name, tuple(sorted(
+                (n, v) for n, v in pl.items()
+                if n in ("route", "threads", "seqs", "staged", "ppw")))))
+    for (key, name), err in sorted(worst.items()):
+        got = sorted(pl for k, n, pl in plans if (k, n) == (key, name))
+        print(f"kuf plan sweep {key} {name}: worst scaled err {err:.3e} over "
+              f"the plans {[dict(pl) for pl in got]}")
+
+
+def wide_svgp_check(dev):
+    """Two float64 natgrad + Adam steps of an order-2 SVGP at d = 64 (nl =
+    5, 8 inducing tensors with increments, MultiClass(3), 10 sequences of
+    L = 9) on the card, through the general Kuf and its backward (the
+    backward's columns in the workspace), against the same steps on the
+    CPU, tolerance 1e-8."""
+    import torch
+
+    from gpsig_tpu_torch.inducing import InducingTensors
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.ops.cuda import plan
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 16)
+    Z, X, _ = kuf_inputs(rng, 8, 10, 9, 64, 5, True, "rbf")
+    check(not plan.kuf_bwd_plan(8, 10, 30, 64, 8)["staged"],
+          "wide SVGP: the backward's columns fit shared memory")
+    Y = rng.integers(0, 3, 10)
+    model = SVGP.create(SignatureRBF(64, 5, order=2, device="cpu"),
+                        MultiClass(3),
+                        InducingTensors.create(torch.as_tensor(Z), 5, True),
+                        3, device="cpu")
+    runs, card = {}, copy.deepcopy(model).to(dev)
+    for where, m in (("cpu", model), ("card", card)):
+        x = torch.as_tensor(X, dtype=f64, device=m.q_mu.device)
+        y = torch.as_tensor(Y, device=m.q_mu.device)
+        step = make_step_fn(1e-2, num_data=40, gamma=0.1)
+        state, out = step.init(m), []
+        reset_counters()
+        for _ in range(2):
+            state, elbo = step(state, x, y)
+            out.append(elbo)
+        launches = counters()
+        runs[where] = [t.detach().cpu() for t in (*out, *m.parameters())]
+    check(launches["tsg"] > 0 and launches["tsg_bwd"] > 0,
+          f"wide SVGP: the general Kuf pair did not launch: {launches}")
+    err = max(scaled_err(g, w) for g, w in zip(runs["card"], runs["cpu"]))
+    print(f"order-2 SVGP at d=64 (2 natgrad+Adam steps, float64): card vs "
+          f"CPU scaled err {err:.3e} over every ELBO and parameter, "
+          f"tolerance 1e-8; launches tsg {launches['tsg']}, tsg_bwd "
+          f"{launches['tsg_bwd']}")
+    check(err <= 1e-8, f"wide SVGP: {err}")
 
 
 def with_offset_channel(X, Y, kind, c=0.6):
@@ -2787,6 +2953,8 @@ def main():
     small_float64_check(dev, order=2)
     small_float64_gpr_check(dev)
     timings.update(slice1_backward_kernel_phase(dev))
+    kuf_plan_sweep(dev)
+    wide_svgp_check(dev)
     train1 = slice1_training_phase(dev)
     small_float64_training_check(dev, order=2, gpr_ctor="SignaturePoly",
                                  offset=0.6)

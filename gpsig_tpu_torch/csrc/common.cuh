@@ -313,6 +313,99 @@ __device__ __forceinline__ void activate_all(T (&a)[N], int kind,
   }
 }
 
+// The general Kuf kernels' activations (tens_seq_general*.cuh) of a batch
+// of N accumulators, one branch on the kind for the batch: RBF (the main
+// path's kind) and Poly inline, Linear nothing, the cosine's value (and
+// derivative) out of line, so that a kernel unrolled over its factor
+// points compiles one copy of the cosine's range reduction. (A rolled
+// loop over a local copy of the batch instead took 1.56x the parent's time
+// for the cosine forward, measured.)
+template <typename T>
+__device__ __noinline__ T cosine_value(T acc) {
+  return activate(acc, kCosine, 0);
+}
+
+template <typename T>
+struct ValueGrad {
+  T v, g;
+};
+
+template <typename T>
+__device__ __noinline__ ValueGrad<T> cosine_value_grad(T acc) {
+  const T s = T(-2) * acc;
+  const T t = tsqrt((s > T(0) ? s : T(0)) + T(1e-36));
+  return {tcos(t), acc > T(0) ? T(0) : tsin(t) / t};
+}
+
+// four cosine values in one call: their chains interleave
+template <typename T>
+struct Four {
+  T v[4];
+};
+
+template <typename T>
+__device__ __noinline__ Four<T> cosine_values4(T a0, T a1, T a2, T a3) {
+  return {{activate(a0, kCosine, 0), activate(a1, kCosine, 0),
+           activate(a2, kCosine, 0), activate(a3, kCosine, 0)}};
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void kuf_activate(T (&a)[N], int kind,
+                                             int degree) {
+  switch (kind) {
+    case kRbf:
+#pragma unroll
+      for (int n = 0; n < N; ++n) a[n] = texp(a[n]);
+      break;
+    case kCosine:
+#pragma unroll
+      for (int n = 0; n + 4 <= N; n += 4) {
+        const Four<T> c = cosine_values4(a[n], a[n + 1], a[n + 2], a[n + 3]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[n + k] = c.v[k];
+      }
+#pragma unroll
+      for (int n = N - N % 4; n < N; ++n) a[n] = cosine_value(a[n]);
+      break;
+    case kPoly:
+#pragma unroll
+      for (int n = 0; n < N; ++n) a[n] = activate(a[n], kPoly, degree);
+      break;
+    default: break;
+  }
+}
+
+// values into a, d value / d acc into g (activate_grad)
+template <typename T, int N>
+__device__ __forceinline__ void kuf_activate_grad(T (&a)[N], T (&g)[N],
+                                                  int kind, int degree) {
+  switch (kind) {
+    case kRbf:
+#pragma unroll
+      for (int n = 0; n < N; ++n) g[n] = a[n] = texp(a[n]);
+      break;
+    case kCosine:
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const ValueGrad<T> vg = cosine_value_grad(a[n]);
+        a[n] = vg.v;
+        g[n] = vg.g;
+      }
+      break;
+    case kPoly:
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        g[n] = activate_grad(a[n], kPoly, degree);
+        a[n] = activate(a[n], kPoly, degree);
+      }
+      break;
+    default:
+#pragma unroll
+      for (int n = 0; n < N; ++n) g[n] = T(1);
+      break;
+  }
+}
+
 // Shared memory one block may use on Hopper (plan.py's SMEM_BYTES).
 constexpr size_t kSegSmemBytes = 227 * 1024;
 

@@ -36,7 +36,11 @@ plan's bound (``ops/cuda/plan.py``: 1024 DP rows, L = 1025 with
 ``difference``, and a block's shared memory, which binds first only for
 the order-1 Gram backward in float64 at d > 5, e.g. L = 829 at d = 8);
 above it the wrapper raises ``ValueError``, as ``sig_gram.py`` does past 7
-levels above p = min(order, num_levels) = 3.
+levels above p = min(order, num_levels) = 3. The Kuf kernels
+(``K_tens_vs_seq``, forward and backward, order 1 and general) take any L
+and every d that device memory holds: past their shared memory the launch
+plan (``plan.kuf_fwd_plan``, ``plan.kuf_bwd_plan``) reads x and z from
+global memory and sums the gradients in a device workspace.
 """
 
 from __future__ import annotations

@@ -18,10 +18,16 @@ the DP state fits the registers, so one warp takes up to 256 rows with no
 barrier (at wide d the y read from global memory where a block's staged y
 would not fit); past what one warp takes, the block design.
 
+The Kuf kernels (``csrc/tens_seq*.cu``) take any L and every d: their
+plans (:func:`kuf_fwd_plan`, :func:`kuf_bwd_plan`) say where the
+per-thread arrays live, in shared memory where they fit, else in global
+memory and a device workspace.
+
 The wrappers compute the plan and the bytes here, pass the plan to the
 kernel, and raise ``ValueError`` above what a launch can take: more than
-``MAX_ROWS`` rows, or more shared memory than a block may use. Nothing
-here needs a card.
+``MAX_ROWS`` rows, or more shared memory than a block may use (a Kuf
+backward: more workspace than ``KUF_WORKSPACE_BYTES`` for one block).
+Nothing here needs a card.
 """
 
 from __future__ import annotations
@@ -226,6 +232,149 @@ def deep_plan(B, rows, nl, p, itemsize, backward):
         plan.update(blocks=blocks, work=blocks * pairs * per_pair,
                     smem=exchange_bytes(W, itemsize))
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Kuf: the inducing-tensor-vs-sequence kernels (csrc/tens_seq*.cu*). Where
+# their per-thread arrays fit the block's shared memory they live there, as
+# they always did; past that the general kernels take them out of it (z
+# read from global memory with warp-uniform loads, x from the global
+# layout, the backward's Z̄ / X̄ partial sums in a device workspace whose
+# size bounds a grid-strided launch), and the order-1 Kuf, which is the
+# general one at order 1 (RBF or Linear, difference), runs on them there.
+# So every d that device memory holds gets a plan.
+# ---------------------------------------------------------------------------
+
+#: the Kuf backwards' workspace: at most this many bytes, at most this many
+#: blocks in flight (the grid strides over the remaining work items)
+KUF_WORKSPACE_BYTES = 1 << 30
+KUF_MAX_BLOCKS = 4 * 132
+#: 32-bit registers a thread of the general Kuf forward gives to its
+#: sequences' DP state (``csrc/tens_seq_general.cuh``'s kStateRegs)
+KUF_STATE_REGS = 128
+#: the general Kuf backward: lanes a pair (one warp) and DP points a lane,
+#: so a chunk of the pair's time axis is KUF_LANES * KUF_POINTS points
+KUF_LANES = 32
+KUF_POINTS = 2
+#: blocks the general backward aims to launch before a warp takes more than
+#: one pair (8 a Hopper SM)
+KUF_BWD_TARGET_BLOCKS = 8 * 132
+
+
+def factor_count(nl, increments):
+    """F2: the factor points of a tensor stack, F = nl(nl+1)/2 factors,
+    each a pair of points with ``increments``."""
+    F = nl * (nl + 1) // 2
+    return 2 * F if increments else F
+
+
+def kuf_fwd_seqs(nl, itemsize):
+    """Sequences a thread of the general Kuf forward takes: the most of 4,
+    2, 1 whose DP state (F previous factor values, F - nl running sums, nl
+    level sums and the half norm, per sequence) fits ``KUF_STATE_REGS``
+    32-bit registers (``csrc/tens_seq_general.cuh``'s tsg_seqs)."""
+    F = nl * (nl + 1) // 2
+    regs = (F + max(F - nl, 1) + nl + 1) * itemsize // 4
+    return next((R for R in (4, 2) if R * regs <= KUF_STATE_REGS), 1)
+
+
+def kuf_fwd_plan(N, F2, d, nl, itemsize, tuned=False):
+    """The Kuf forwards' launch: a dict of the ``route`` ("tuned": the
+    order-1 kernel; "general"), ``threads`` a block, ``seqs`` a thread,
+    ``staged`` (the tensor's factors in shared memory; else read from
+    global memory) and ``smem`` bytes. The order-1 kernel (``tuned``)
+    stages z and its 128 threads' x columns where they fit, as it always
+    did, and otherwise takes the general kernel's plan. The general one
+    stages z alone, R = :func:`kuf_fwd_seqs` sequences a thread and the
+    fewest threads of 32, 64, 128 that cover N; unstaged, only the
+    factors' half norms stay in shared memory."""
+    if tuned and itemsize * (F2 * (d + 1) + d * 128) <= SMEM_BYTES:
+        return dict(route="tuned", threads=128, seqs=1, staged=True,
+                    smem=itemsize * (F2 * (d + 1) + d * 128))
+    seqs = kuf_fwd_seqs(nl, itemsize)
+    threads = next((t for t in (32, 64) if t * seqs >= N), 128)
+    staged = itemsize * F2 * (d + 1) <= SMEM_BYTES
+    return dict(route="general", threads=threads, seqs=seqs, staged=staged,
+                smem=itemsize * F2 * ((d + 1) if staged else 1))
+
+
+def kuf_bwd_columns(F2, d):
+    """Values of one lane's partial sums in the general Kuf backward: the
+    Z̄ sums F2 (d + 1) (each factor point's Σ u x and Σ u) and X̄ of its
+    KUF_POINTS + 1 points, summed over the levels."""
+    return F2 * (d + 1) + (KUF_POINTS + 1) * d
+
+
+def tuned_bwd_threads(F2, d, N, itemsize):
+    """The order-1 Kuf backward's block, as it always took it: the largest
+    of 128, 64, 32 threads whose shared memory (the factors, x by parity
+    and the Z̄ columns) fits and, above 32, is below 2N; None where 32 do
+    not fit."""
+    def size(nt):
+        return itemsize * (F2 * (d + 1) + (2 * d + F2 * (d + 1)) * nt)
+    nt = 128
+    while nt > 32 and (size(nt) > SMEM_BYTES or nt >= 2 * N):
+        nt //= 2
+    return nt if size(nt) <= SMEM_BYTES else None
+
+
+def kuf_bwd_plan(T, N, F2, d, itemsize, tuned=False):
+    """The Kuf backwards' launch: a dict of the ``route``, ``threads`` a
+    block, ``ppw`` pairs a warp, ``staged``, ``smem`` bytes, ``items``
+    (work items: a tensor against a block's sequences), ``blocks``
+    launched and ``work`` workspace elements.
+
+    The order-1 kernel (``tuned``) keeps its block
+    (:func:`tuned_bwd_threads`) where it fits, and otherwise takes the
+    general kernel's plan. The general kernel takes a warp a pair and the
+    most of 4, 2, 1 warps that the sequences fill and whose lanes'
+    columns fit the shared memory; each warp takes ``ppw`` pairs where the
+    grid would otherwise exceed KUF_BWD_TARGET_BLOCKS blocks. Where no
+    block's columns fit, they go to a workspace of at most
+    KUF_WORKSPACE_BYTES, 4 warps a block (fewer below 4 sequences: a
+    block's warps are a power of two), and the grid of at most
+    KUF_MAX_BLOCKS blocks strides over the items. None where one block's
+    columns exceed the workspace."""
+    if tuned:
+        nt = tuned_bwd_threads(F2, d, N, itemsize)
+        if nt is not None:
+            items = T * -(-N // nt)
+            return dict(route="tuned", threads=nt, ppw=1, staged=True,
+                        smem=itemsize * (F2 * (d + 1)
+                                         + (2 * d + F2 * (d + 1)) * nt),
+                        items=items, blocks=items, work=0)
+    C = kuf_bwd_columns(F2, d)
+
+    def smem(w):
+        return itemsize * (F2 + C * KUF_LANES * w)
+
+    fits = [w for w in (4, 2, 1) if w <= max(N, 1) and smem(w) <= SMEM_BYTES]
+    warps = fits[0] if fits else next(w for w in (4, 2, 1) if w <= max(N, 1))
+    per_t = -(-N // warps)
+    ppw = max(1, min(per_t, T * per_t // KUF_BWD_TARGET_BLOCKS))
+    items = T * -(-N // (warps * ppw))
+    plan = dict(route="general", threads=KUF_LANES * warps, ppw=ppw,
+                staged=True, smem=smem(warps), items=items, blocks=items,
+                work=0)
+    if not fits:
+        per_block = C * KUF_LANES * warps
+        if per_block * itemsize > KUF_WORKSPACE_BYTES:
+            return None
+        blocks = max(1, min(items, KUF_MAX_BLOCKS,
+                            KUF_WORKSPACE_BYTES // (per_block * itemsize)))
+        plan.update(staged=False, blocks=blocks, work=blocks * per_block,
+                    smem=itemsize * F2)
+    return plan
+
+
+def check_kuf(name, plan, what):
+    """Raise ValueError where a Kuf backward has no plan: one block's
+    columns would exceed the workspace bound."""
+    if plan is None:
+        raise ValueError(
+            f"{name}: {what} needs more than {KUF_WORKSPACE_BYTES} bytes of "
+            "workspace for one block's partial sums; the kernels take at most "
+            "that")
 
 
 def check_fits(name, rows, plan, smem, what):

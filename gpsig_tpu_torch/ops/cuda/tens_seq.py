@@ -6,12 +6,11 @@ Counterpart of ``gpsig_tpu/ops/pallas/tens_seq.py``
 ``csrc/tens_seq.cu`` (forward) and ``csrc/tens_seq_bwd.cu`` (backward),
 whose opening notes give the designs. Semantics: pre-scaled inputs, order
 1, ``difference=True``, RBF or Linear base, ``num_levels <= 7``, RBF
-distance unclamped.
-
-Dispatch: a CPU tensor runs the plain version (autograd differentiates
-it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
-launches the kernel and whose backward launches the backward kernel, or
-raises. ``launches`` and ``bwd_launches`` count the two kernels' launches.
+distance unclamped, any d that device memory holds: past the kernels'
+shared memory (``plan.kuf_fwd_plan``, ``plan.kuf_bwd_plan``) the same
+function runs on the general Kuf kernels (``tens_seq_general.py``'s) at
+order 1, which read x and z from global memory and sum the gradients in a
+workspace.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
-from gpsig_tpu_torch.ops.cuda import _build
+from gpsig_tpu_torch.ops.cuda import _build, plan
 from gpsig_tpu_torch.ops.cuda.fused_gram import (MAX_LEVELS, _on_cpu,
                                                   _rbf_gram)
 
@@ -84,9 +83,18 @@ def _launch(Z, X, num_levels, rbf, increments):
                         increments)
     out = torch.empty((num_levels + 1, T, N), dtype=X.dtype, device=X.device)
     if T and N:
+        fp = plan.kuf_fwd_plan(N, plan.factor_count(num_levels, increments),
+                               d, num_levels, X.element_size(), tuned=True)
         Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]: coalesced x_i
-        _build.launch("gpsig_tens_seq", X.device, Z, Xt, out, T, N, L, d,
-                      num_levels, rbf, increments, X.dtype == torch.float64)
+        if fp["route"] == "tuned":
+            _build.launch("gpsig_tens_seq", X.device, Z, Xt, out, T, N, L, d,
+                          num_levels, rbf, increments,
+                          X.dtype == torch.float64)
+        else:
+            _build.launch("gpsig_tens_seq_general", X.device, Z, Xt, out, T,
+                          N, L, d, num_levels, 1, int(rbf), 0, increments,
+                          True, X.dtype == torch.float64, fp["threads"],
+                          fp["staged"])
         launches += 1
     return out
 
@@ -130,11 +138,25 @@ def tens_seq_bwd(Z, X, g, num_levels, rbf=True, increments=False):
         raise ValueError(f"{name}: g must be [{num_levels + 1}, {T}, {N}];"
                          f" got {tuple(g.shape)}")
     Zbar = torch.zeros_like(Z)
-    XbarT = torch.zeros((L, d, N), dtype=X.dtype, device=X.device)
-    if T and N:
+    if not (T and N):
+        return Zbar, torch.zeros_like(X)
+    bp = plan.kuf_bwd_plan(T, N, plan.factor_count(num_levels, increments), d,
+                           X.element_size(), tuned=True)
+    plan.check_kuf(name, bp, f"d={d}")
+    if bp["route"] == "tuned":
+        XbarT = torch.zeros((L, d, N), dtype=X.dtype, device=X.device)
         Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]
         _build.launch("gpsig_tens_seq_bwd", X.device, Z, Xt, g, Zbar, XbarT,
                       T, N, L, d, num_levels, rbf, increments,
                       X.dtype == torch.float64)
         bwd_launches += 1
-    return Zbar, XbarT.permute(2, 0, 1).contiguous()
+        return Zbar, XbarT.permute(2, 0, 1).contiguous()
+    Xbar = torch.zeros_like(X)
+    work = (torch.empty(bp["work"], dtype=X.dtype, device=X.device)
+            if bp["work"] else 0)
+    _build.launch("gpsig_tens_seq_general_bwd", X.device, Z, X, g, Zbar, Xbar,
+                  work, T, N, L, d, num_levels, 1, int(rbf), 0, increments,
+                  True, X.dtype == torch.float64, bp["threads"], bp["ppw"],
+                  bp["items"], bp["blocks"], bp["staged"])
+    bwd_launches += 1
+    return Zbar, Xbar

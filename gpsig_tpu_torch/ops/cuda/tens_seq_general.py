@@ -8,8 +8,10 @@ the kernels are ``csrc/tens_seq_general.cu`` and
 Semantics: pre-scaled inputs, any ``order``, ``difference`` and
 ``increments`` True or False, base ``kind`` as in ``fused_gram_ho.py``
 (for 'poly<K>' the caller has appended the offset channel: x_extra = 1,
-z_extra = c), ``num_levels <= 7``, RBF exponent unclamped. The tuned
-order-1 kernel (``tens_seq.py``) takes precedence where it applies.
+z_extra = c), ``num_levels <= 7``, RBF exponent unclamped, any L and any d
+that device memory holds (``plan.kuf_fwd_plan``, ``plan.kuf_bwd_plan``).
+The tuned order-1 kernel (``tens_seq.py``) takes precedence where it
+applies.
 
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
 it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from gpsig_tpu_torch.ops import signature as sigops
-from gpsig_tpu_torch.ops.cuda import _build
+from gpsig_tpu_torch.ops.cuda import _build, plan
 from gpsig_tpu_torch.ops.cuda.fused_gram import _on_cpu
 from gpsig_tpu_torch.ops.cuda.fused_gram_ho import _kind_code, base_gram
 from gpsig_tpu_torch.ops.cuda.tens_seq import _check
@@ -79,10 +81,13 @@ def _launch(Z, X, num_levels, order, kind, increments, difference):
     code, degree = _kind_code(kind)
     out = torch.empty((num_levels + 1, T, N), dtype=X.dtype, device=X.device)
     if T and N:
+        fp = plan.kuf_fwd_plan(N, plan.factor_count(num_levels, increments),
+                               d, num_levels, X.element_size())
         Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]: coalesced x_i
         _build.launch("gpsig_tens_seq_general", X.device, Z, Xt, out, T, N, L,
                       d, num_levels, order, code, degree, increments,
-                      difference, X.dtype == torch.float64)
+                      difference, X.dtype == torch.float64, fp["threads"],
+                      fp["staged"])
         launches += 1
     return out
 
@@ -136,11 +141,17 @@ def tens_seq_general_bwd(Z, X, g, num_levels, order, kind="rbf",
                          f" got {tuple(g.shape)}")
     code, degree = _kind_code(kind)
     Zbar = torch.zeros_like(Z)
-    XbarT = torch.zeros((L, d, N), dtype=X.dtype, device=X.device)
+    Xbar = torch.zeros_like(X)
     if T and N:
-        Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]
-        _build.launch("gpsig_tens_seq_general_bwd", X.device, Z, Xt, g, Zbar,
-                      XbarT, T, N, L, d, num_levels, order, code, degree,
-                      increments, difference, X.dtype == torch.float64)
+        bp = plan.kuf_bwd_plan(T, N, plan.factor_count(num_levels, increments),
+                               d, X.element_size())
+        plan.check_kuf(name, bp, f"d={d}")
+        work = (torch.empty(bp["work"], dtype=X.dtype, device=X.device)
+                if bp["work"] else 0)
+        _build.launch("gpsig_tens_seq_general_bwd", X.device, Z, X, g, Zbar,
+                      Xbar, work, T, N, L, d, num_levels, order, code, degree,
+                      increments, difference, X.dtype == torch.float64,
+                      bp["threads"], bp["ppw"], bp["items"], bp["blocks"],
+                      bp["staged"])
         bwd_launches += 1
-    return Zbar, XbarT.permute(2, 0, 1).contiguous()
+    return Zbar, Xbar

@@ -1103,3 +1103,123 @@ def test_gram_forwards_take_the_widest_sequences_they_took(cuda_device,
                 assert _scaled_err(got, tfgho.fused_gram_ho_levels_ref(
                     u, v, *args)) < dict(GEN_TOLS)[dtype], (L, d, order,
                                                             sym)
+
+
+# -- the Kuf kernels: chunk edges, long sequences, wide d -------------------
+
+# the general backward's chunk: 32 lanes at 2 DP points a lane
+KUF_CHUNK = plan.KUF_LANES * plan.KUF_POINTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+@pytest.mark.parametrize("L", [2, KUF_CHUNK, KUF_CHUNK + 1, KUF_CHUNK + 2,
+                               150, 300])
+def test_tens_seq_general_kernels_at_chunk_edges(cuda_device, dtype, tol, L):
+    """The general Kuf and its backward on both sides of the backward's
+    chunk edge (S·R DP points, with and without difference), at L = 150
+    and 300, against their plain versions."""
+    rng = np.random.default_rng(23)
+    btol = dict(BWD_TOLS)[dtype]
+    for kind, order, increments, difference in [
+            ("rbf", 2, True, True), ("cosine", 3, False, False),
+            ("poly2", 1, True, False), ("linear", 3, False, True)]:
+        if difference and L < 2:
+            continue
+        nl = 4
+        F = nl * (nl + 1) // 2
+        shape = (3, F, 2, 2) if increments else (3, F, 2)
+        Z = torch.as_tensor(0.4 * rng.standard_normal(shape), dtype=dtype,
+                            device=cuda_device)
+        X = torch.as_tensor(_long_walks(rng, 5, L, 2), dtype=dtype,
+                            device=cuda_device)
+        X, Z = _offset_channel(X, Z, kind)
+        g = torch.as_tensor(rng.standard_normal((nl + 1, 3, 5)), dtype=dtype,
+                            device=cuda_device)
+        args = (nl, order, kind, increments, difference)
+        with torch.no_grad():
+            got = ttsg.fused_tens_seq_general_levels(Z, X, *args)
+        want = ttsg.fused_tens_seq_general_levels_ref(Z, X, *args)
+        assert _scaled_err(got, want) < tol, (L, kind, order)
+        bgot = ttsg.tens_seq_general_bwd(Z, X, g, *args)
+        bwant = ttsg.tens_seq_general_bwd_ref(Z, X, g, *args)
+        assert _scaled_errs(bgot, bwant) < btol, (L, kind, order)
+
+
+def _wide_inputs(rng, T, N, L, d, nl, dtype, device):
+    """Walks at d whose steps keep the norms of d = 2, and inducing tensors
+    with increments drawn from their increments (as the model's)."""
+    X = _walks(rng, N, L, d) * np.sqrt(2 / d)
+    inc = np.diff(X, axis=1).reshape(-1, d)
+    F = nl * (nl + 1) // 2
+    Z = inc[rng.integers(0, len(inc), T * F * 2)].reshape(T, F, 2, d)
+    g = rng.standard_normal((nl + 1, T, N))
+    return (torch.as_tensor(a, dtype=dtype, device=device) for a in (Z, X, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [64, 400, 1345])
+def test_kuf_kernels_take_wide_d(cuda_device, dtype, d):
+    """All four Kuf kernels at d = 64, 400 and 1345 (nl = 5, increments;
+    MotorImagery's, past every kernel's shared memory, DuckDuckGeese's):
+    each launches (its counter rises) and matches its plain version at
+    the tolerances of the narrow cases."""
+    rng = np.random.default_rng(24)
+    Z, X, g = _wide_inputs(rng, 4, 6, 10, d, 5, dtype, cuda_device)
+    ftol, gtol, btol = (dict(t)[dtype] for t in (TOLS, GEN_TOLS, BWD_TOLS))
+    n0 = (tts.launches, tts.bwd_launches, ttsg.launches, ttsg.bwd_launches)
+    with torch.no_grad():
+        got = tts.fused_tens_seq_levels(Z, X, 5, True, True)
+        assert _scaled_err(got, tts.fused_tens_seq_levels_ref(
+            Z, X, 5, True, True)) < ftol
+        got = ttsg.fused_tens_seq_general_levels(Z, X, 5, 2, "rbf", True,
+                                                 True)
+        assert _scaled_err(got, ttsg.fused_tens_seq_general_levels_ref(
+            Z, X, 5, 2, "rbf", True, True)) < gtol
+    got = tts.tens_seq_bwd(Z, X, g, 5, True, True)
+    assert _scaled_errs(got, tts.tens_seq_bwd_ref(Z, X, g, 5, True,
+                                                  True)) < btol
+    got = ttsg.tens_seq_general_bwd(Z, X, g, 5, 2, "rbf", True, True)
+    assert _scaled_errs(got, ttsg.tens_seq_general_bwd_ref(
+        Z, X, g, 5, 2, "rbf", True, True)) < btol
+    assert (tts.launches, tts.bwd_launches, ttsg.launches,
+            ttsg.bwd_launches) == tuple(n + 1 for n in n0)
+
+
+@pytest.mark.cuda
+def test_order2_svgp_step_takes_wide_d(cuda_device):
+    """Two float64 natgrad + Adam steps of an order-2 SVGP at d = 64 (nl =
+    5, inducing tensors with increments) on the card, through the general
+    Kuf and its backward (their columns in the workspace), against the
+    same steps on the CPU, rtol 1e-8."""
+    import copy
+
+    from gpsig_tpu_torch.inducing import InducingTensors
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    rng = np.random.default_rng(25)
+    nl, M, C, d = 5, 8, 3, 64
+    Z, X, _ = _wide_inputs(rng, M, 10, 9, d, nl, torch.float64, "cpu")
+    assert not plan.kuf_bwd_plan(M, 10, 2 * 15, d, 8)["staged"]
+    model = SVGP.create(SignatureRBF(d, nl, order=2, device="cpu"),
+                        MultiClass(C), InducingTensors.create(Z, nl, True),
+                        C, device="cpu")
+    Y = torch.as_tensor(rng.integers(0, C, 10))
+    card = copy.deepcopy(model).to(cuda_device)
+    out = {}
+    n0 = (ttsg.launches, ttsg.bwd_launches)
+    for name, m, x, y in (("cpu", model, X, Y),
+                          ("card", card, X.to(cuda_device),
+                           Y.to(cuda_device))):
+        step = make_step_fn(1e-2, num_data=40, gamma=0.1)
+        state, elbos = step.init(m), []
+        for _ in range(2):
+            state, elbo = step(state, x, y)
+            elbos.append(elbo.cpu())
+        out[name] = elbos + [p.detach().cpu() for p in m.parameters()]
+    assert ttsg.launches > n0[0] and ttsg.bwd_launches > n0[1]
+    for g, w in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)

@@ -6,6 +6,8 @@
 - One interpret-mode call of the Pallas kernel: its in-kernel products
   accumulate in float32 even on float64 inputs, so scaled error 1e-5.
 
+- The launch plans of both order-1 Kuf kernels at every d up to 2048.
+
 The CUDA kernel itself is checked on the card by
 ``test_torch_cuda_kernels.py``.
 """
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from gpsig_tpu.ops.pallas import tens_seq as jts
+from gpsig_tpu_torch.ops.cuda import plan
 from gpsig_tpu_torch.ops.cuda import tens_seq as tts
 
 torch.set_num_threads(1)
@@ -66,3 +69,67 @@ def test_matches_pallas_interpret(increments):
     got = tts.fused_tens_seq_levels(torch.as_tensor(Z), torch.as_tensor(X),
                                     3, True, increments)
     assert _scaled_err(got, want) < 1e-5
+
+
+# -- launch plans (ops/cuda/plan.py): every d gets one ----------------------
+
+
+def _parent_fwd_fits(F2, d, itemsize):
+    """The order-1 forward's shared memory before the plan took wide d: the
+    factors, their half norms and 128 threads' x columns."""
+    return itemsize * (F2 * (d + 1) + d * 128) <= plan.SMEM_BYTES
+
+
+def _parent_bwd_threads(F2, d, N, itemsize):
+    """The order-1 backward's block before the plan: the largest of 128,
+    64, 32 threads whose shared memory (factors, x by parity and the Z̄
+    columns) fits and is below 2N, or None where 32 did not fit."""
+    def size(nt):
+        return itemsize * (F2 * (d + 1) + (2 * d + F2 * (d + 1)) * nt)
+    nt = 128
+    while nt > 32 and (size(nt) > plan.SMEM_BYTES or nt >= 2 * N):
+        nt //= 2
+    return nt if size(nt) <= plan.SMEM_BYTES else None
+
+
+@pytest.mark.parametrize("nl", range(1, 8))
+def test_every_d_gets_a_plan(nl):
+    """Both order-1 Kuf kernels get a launch plan at every d up to 2048, both
+    ``increments`` and both dtypes: where they fitted before, their own
+    kernel with its block and shared memory as before (so their times
+    stay); past that the general kernel's plan (the same function at
+    order 1), its backward's workspace in its bound."""
+    for itemsize in (4, 8):
+        for increments in (True, False):
+            F2 = plan.factor_count(nl, increments)
+            for d in range(1, 2049):
+                fp = plan.kuf_fwd_plan(2048, F2, d, nl, itemsize, tuned=True)
+                assert fp["smem"] <= plan.SMEM_BYTES
+                if _parent_fwd_fits(F2, d, itemsize):
+                    assert fp == dict(
+                        route="tuned", threads=128, seqs=1, staged=True,
+                        smem=itemsize * (F2 * (d + 1) + d * 128))
+                else:
+                    assert fp == plan.kuf_fwd_plan(2048, F2, d, nl, itemsize)
+                for T, N in ((500, 50), (1, 1), (64, 2048)):
+                    bp = plan.kuf_bwd_plan(T, N, F2, d, itemsize, tuned=True)
+                    assert bp is not None and bp["smem"] <= plan.SMEM_BYTES
+                    nt = _parent_bwd_threads(F2, d, N, itemsize)
+                    if nt is not None:
+                        assert (bp["route"], bp["threads"], bp["staged"]) == (
+                            "tuned", nt, True)
+                        assert bp["blocks"] == bp["items"] == T * -(-N // nt)
+                    else:
+                        assert bp == plan.kuf_bwd_plan(T, N, F2, d, itemsize)
+                        assert (bp["work"] * itemsize
+                                <= plan.KUF_WORKSPACE_BYTES)
+
+
+def test_backward_refuses_past_the_workspace_bound():
+    """Past what one block's partial sums may take of the workspace the
+    plan is None and the wrapper's check names the bound."""
+    F2 = plan.factor_count(7, True)
+    d = plan.KUF_WORKSPACE_BYTES // (8 * F2 * 32)
+    assert plan.kuf_bwd_plan(2, 3, F2, d, 8, tuned=True) is None
+    with pytest.raises(ValueError, match=str(plan.KUF_WORKSPACE_BYTES)):
+        plan.check_kuf("tens_seq_bwd", None, f"d={d}")
