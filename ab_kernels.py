@@ -28,9 +28,12 @@ events, host work included); the four Kuf kernels: the general pair at
 the L = 150 shapes (T = 64, nl = 4, order 3), its backward at the
 training shape, a cosine case without increments and a float64 order-7
 case (Poly / Linear, no difference) of each, the order-1 pair at d = 2
-and d = 64 (where the parent's backward refused: null); and one order-2
-``predict_y`` on a cached posterior (N_test = 2048) and one order-2
-flagship natgrad + Adam step, whole calls by CUDA events. Every Gram kernel is timed on its full grid
+and d = 64 (where the parent's backward refused: null), at the flagship's
+d = 3 (serving N = 2048 and training N = 50), at the L = 150 shapes
+(T = 64, nl = 4, d = 2) and at d = 8, and the general pair at order 1 on
+the first five; and one ``predict_y`` on a cached posterior (N_test =
+2048) and one flagship natgrad + Adam step at order 2 (d = 2) and order 1
+(d = 3), whole calls by CUDA events. Every Gram kernel is timed on its full grid
 of pairs (no triangle), so that both checkouts do the same work; the GPR
 steps go through ``K(X)``, which solves the triangle where the checkout
 does.
@@ -116,6 +119,32 @@ CASES = [
      "ts_bwd64"),
     ("predict_y order 2 cached posterior N=2048", "step", "predict2"),
     ("SVGP natgrad+Adam step order 2 B=50", "step", "svgp2"),
+    ("tens_seq T=500 N=2048 L=50 d=3 nl=5", "tens_seq.fused_tens_seq_levels",
+     "ts3"),
+    ("tens_seq T=500 N=50 L=50 d=3 nl=5", "tens_seq.fused_tens_seq_levels",
+     "ts3_train"),
+    ("tens_seq T=64 N=2048 L=150 d=2 nl=4", "tens_seq.fused_tens_seq_levels",
+     "ts150"),
+    ("tens_seq_bwd T=500 N=50 L=50 d=3 nl=5", "tens_seq.tens_seq_bwd",
+     "ts_bwd3"),
+    ("tens_seq_bwd T=64 N=50 L=150 d=2 nl=4", "tens_seq.tens_seq_bwd",
+     "ts_bwd150"),
+    ("tens_seq T=500 N=2048 L=50 d=8 nl=5", "tens_seq.fused_tens_seq_levels",
+     "ts8"),
+    ("tens_seq_bwd T=500 N=50 L=50 d=8 nl=5", "tens_seq.tens_seq_bwd",
+     "ts_bwd8"),
+    ("tsg order 1 T=500 N=2048 L=50 d=3 nl=5",
+     "tens_seq_general.fused_tens_seq_general_levels", "tsg_ts3"),
+    ("tsg order 1 T=500 N=50 L=50 d=3 nl=5",
+     "tens_seq_general.fused_tens_seq_general_levels", "tsg_ts3_train"),
+    ("tsg order 1 T=64 N=2048 L=150 d=2 nl=4",
+     "tens_seq_general.fused_tens_seq_general_levels", "tsg_ts150"),
+    ("tsg_bwd order 1 T=500 N=50 L=50 d=3 nl=5",
+     "tens_seq_general.tens_seq_general_bwd", "tsg_bwd_ts3"),
+    ("tsg_bwd order 1 T=64 N=50 L=150 d=2 nl=4",
+     "tens_seq_general.tens_seq_general_bwd", "tsg_bwd_ts150"),
+    ("predict_y order 1 cached posterior N=2048 d=3", "step", "predict1"),
+    ("SVGP natgrad+Adam step order 1 B=50 d=3", "step", "svgp1"),
 ]
 
 
@@ -159,7 +188,9 @@ def _args(kind, torch, dev):
     if kind in ("gpr1", "gpr2"):
         return (_gpr_step(torch, dev, int(kind[-1])),)
     if kind in ("predict2", "svgp2"):
-        return (_svgp2_call(torch, dev, kind == "svgp2"),)
+        return (_svgp_call(torch, dev, kind == "svgp2", order=2, d=2),)
+    if kind in ("predict1", "svgp1"):
+        return (_svgp_call(torch, dev, kind == "svgp1", order=1, d=3),)
     if kind in _KUF_SHAPES:
         return _kuf_args(kind, torch, dev, rng)
     if kind == "tsg":
@@ -216,7 +247,17 @@ _KUF_SHAPES = {  # T, N, L, d, nl, order, kind, increments, difference, f64
     "ts64": (500, 2048, 50, 64, 5, 1, "rbf", True, True, False),
     "ts_bwd": (500, 50, 50, 2, 5, 1, "rbf", True, True, False),
     "ts_bwd64": (500, 50, 50, 64, 5, 1, "rbf", True, True, False),
+    "ts3": (500, 2048, 50, 3, 5, 1, "rbf", True, True, False),
+    "ts3_train": (500, 50, 50, 3, 5, 1, "rbf", True, True, False),
+    "ts150": (64, 2048, 150, 2, 4, 1, "rbf", True, True, False),
+    "ts_bwd3": (500, 50, 50, 3, 5, 1, "rbf", True, True, False),
+    "ts_bwd150": (64, 50, 150, 2, 4, 1, "rbf", True, True, False),
+    "ts8": (500, 2048, 50, 8, 5, 1, "rbf", True, True, False),
+    "ts_bwd8": (500, 50, 50, 8, 5, 1, "rbf", True, True, False),
 }
+# the general kernels at order 1 on the order-1 pair's shapes
+for _k in ("ts3", "ts3_train", "ts150", "ts_bwd3", "ts_bwd150"):
+    _KUF_SHAPES["tsg_" + _k.replace("ts_bwd", "bwd_ts")] = _KUF_SHAPES[_k]
 
 
 def _kuf_args(kind, torch, dev, rng):
@@ -247,12 +288,13 @@ def _kuf_args(kind, torch, dev, rng):
     return (z, x, nl, True, inc)
 
 
-def _svgp2_call(torch, dev, train):
-    """The order-2 flagship SVGP (``chip_smoke.py``'s: M = 500 inducing
-    tensors with increments from the data, nl = 5, order 2, d = 2, L = 50,
-    C = 10, N_train = 500), float32: ``predict_y`` of 2048 test sequences
-    on a cached posterior, or (``train``) one natgrad + Adam step on a
-    batch of 50 (Adam 1e-3, γ = 0.05)."""
+def _svgp_call(torch, dev, train, order, d):
+    """The flagship SVGP at ``order`` and width d (``chip_smoke.py``'s: M =
+    500 inducing tensors with increments from the data, nl = 5, L = 50,
+    C = 10, N_train = 500; order 2 at d = 2, order 1 at the reference's
+    d = 3), float32: ``predict_y`` of 2048 test sequences on a cached
+    posterior, or (``train``) one natgrad + Adam step on a batch of 50
+    (Adam 1e-3, γ = 0.05)."""
     import numpy as np
 
     from gpsig_tpu_torch.inducing import make_inducing_tensors_from_data
@@ -263,14 +305,14 @@ def _svgp2_call(torch, dev, train):
 
     f32 = torch.float32
     rng = np.random.default_rng(1)
-    X = torch.as_tensor((0.3 * rng.standard_normal((500, 50, 2))).cumsum(1),
+    X = torch.as_tensor((0.3 * rng.standard_normal((500, 50, d))).cumsum(1),
                         dtype=f32, device=dev)
     Y = torch.as_tensor(rng.integers(0, 10, 500), device=dev)
-    kern = SignatureRBF(2, 5, normalization=True, order=2, dtype=f32,
+    kern = SignatureRBF(d, 5, normalization=True, order=order, dtype=f32,
                         device=dev)
     feat = make_inducing_tensors_from_data(
         torch.Generator().manual_seed(0), X, num_tensors=500, num_levels=5,
-        num_features=2, increments=True)
+        num_features=d, increments=True)
     model = SVGP.create(kern, MultiClass(10), feat, num_latent=10, dtype=f32,
                         device=dev)
     if train:
@@ -281,7 +323,7 @@ def _svgp2_call(torch, dev, train):
         def call():
             state[0], _ = step(state[0], X[idx], Y[idx])
         return call
-    Xtest = torch.as_tensor((0.3 * rng.standard_normal((2048, 50, 2))
+    Xtest = torch.as_tensor((0.3 * rng.standard_normal((2048, 50, d))
                              ).cumsum(1), dtype=f32, device=dev)
     with torch.no_grad():
         post = model.posterior()

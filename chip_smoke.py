@@ -148,12 +148,12 @@ KERNELS = {
              "gpsig_tpu/ops/pallas/fused_gram.py:146"),
     "diag": ("_diag_kernel", "gpsig_tpu_torch/csrc/fused_gram.cu",
              "gpsig_tpu/ops/pallas/fused_gram.py:330"),
-    "tens_seq": ("_tens_seq_kernel", "gpsig_tpu_torch/csrc/tens_seq.cu",
+    "tens_seq": ("_tens_seq_kernel", "gpsig_tpu_torch/csrc/tens_seq.cuh",
                  "gpsig_tpu/ops/pallas/tens_seq.py:66"),
     "gram_bwd": ("_bwd_fused_kernel", "gpsig_tpu_torch/csrc/fused_gram_bwd.cu",
                  "gpsig_tpu/ops/pallas/fused_gram.py:631"),
     "tens_seq_bwd": ("_tens_seq_bwd_kernel",
-                     "gpsig_tpu_torch/csrc/tens_seq_bwd.cu",
+                     "gpsig_tpu_torch/csrc/tens_seq_bwd.cuh",
                      "gpsig_tpu/ops/pallas/tens_seq.py:281"),
     "gram_ho": ("_ho_kernel", "gpsig_tpu_torch/csrc/fused_gram_ho.cuh",
                 "gpsig_tpu/ops/pallas/fused_gram_ho.py:133"),
@@ -544,6 +544,8 @@ def kernel_phase(dev):
         "tens_seq_bwd": (3 * kuf_work(500, 30, 50, 50, 3, 5),
                          4 * (2 * 500 * 30 * 3 + 2 * 50 * 50 * 3
                               + 6 * 500 * 50)),
+        "tens_seq_train": (kuf_work(500, 30, 50, 50, 3, 5),
+                           4 * (500 * 30 * 3 + 50 * 50 * 3 + 6 * 500 * 50)),
     }
 
     # (report key, label, kernel call, plain call, inputs)
@@ -562,6 +564,10 @@ def kernel_phase(dev):
          lambda z, x: ts.fused_tens_seq_levels(z, x, 5, True, True),
          lambda z, x: ts.fused_tens_seq_levels_ref(z, x, 5, True, True),
          (z_inc, seq_x)),
+        ("tens_seq_train", "Kuf RBF T=500 increments N=50 L=50 d=3 nl=5",
+         lambda z, x: ts.fused_tens_seq_levels(z, x, 5, True, True),
+         lambda z, x: ts.fused_tens_seq_levels_ref(z, x, 5, True, True),
+         (z_inc, train_x[:50])),
         (None, "Kuf RBF T=500 no increments N=2048 L=50 d=3 nl=5",
          lambda z, x: ts.fused_tens_seq_levels(z, x, 5, True, False),
          lambda z, x: ts.fused_tens_seq_levels_ref(z, x, 5, True, False),
@@ -580,7 +586,10 @@ def kernel_phase(dev):
          lambda z, x, g: ts.tens_seq_bwd_ref(z, x, g, 5, True, True),
          (z_inc, train_x, g_kuf)),
     ]
-    return run_cases(dev, cases, works, TOL)
+    report = run_cases(dev, cases, works, TOL)
+    # the training shape's Kuf (N = 50) rides on the Kuf's entry
+    report["tens_seq"]["train"] = report.pop("tens_seq_train")
+    return report
 
 
 def run_cases(dev, cases, works, fwd_tol):
@@ -725,6 +734,8 @@ def slice_phase(dev):
         print(f"time posterior()+predict_y N_test=2048: "
               f"{ms_predict:.3f} ms; predict_y on a cached posterior: "
               f"{ms_predict_cached:.3f} ms; elbo B=50: {ms_elbo:.3f} ms")
+        profile_split(lambda: post.predict_y(Xtest),
+                      "order-1 predict_y, cached posterior, N_test=2048")
         print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
               " GiB")
     return launches
@@ -899,6 +910,8 @@ def training_phase(dev):
     print(f"time gpr Adam step (N=150, L=50, d=2, nl=4): {ms_gpr:.3f} ms "
           f"(median of {len(gpr_ms) - 1}; all "
           f"{[round(t, 3) for t in gpr_ms]})")
+    profile_split(lambda: svgp_step(state, X[batches[1]], Y[batches[1]]),
+                  "order-1 SVGP natgrad+Adam step, B=50")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
     return launches
@@ -1167,15 +1180,17 @@ KUF_WIDE_D = (64, 400, 1345)
 
 
 def kuf_plan_sweep(dev):
-    """(f') Every launch plan of the two general Kuf kernels against their
-    plain versions, float32 and float64: the forward's blocks of 32, 64 and
-    128 threads at each number of sequences a thread (nl = 3, 4, 5, 7), its
-    factors staged and read from global memory; the backward's blocks of
-    1, 2 and 4 warps, one and several pairs a warp, one chunk and several
-    (L = 2, 64, 65, 66, 150, 300), its columns in shared memory and in the
-    workspace; every base kind, ``increments`` and ``difference`` in turn.
-    Then all four Kuf kernels at d = 64, 400 and 1345 (nl = 5, increments,
-    RBF, order 2 for the general pair)."""
+    """(f') Every launch plan of the four Kuf kernels against their plain
+    versions, float32 and float64. The general pair: the forward's blocks
+    of 32, 64 and 128 threads at each number of sequences a thread (nl = 3,
+    4, 5, 7), its factors staged and read from global memory; the
+    backward's blocks of 1, 2 and 4 warps, one and several pairs a warp,
+    one chunk and several (L = 2, 64, 65, 66, 150, 300), its columns in
+    shared memory and in the workspace; every base kind, ``increments`` and
+    ``difference`` in turn. The order-1 pair: N = 1, 31, 33, 50, L = 2, 65,
+    66, 130 (one, two and three chunks), d = 1-3, nl 1-7, one and several
+    pairs a warp. Then all four Kuf kernels at d = 64, 400 and 1345 (nl =
+    5, increments, RBF, order 2 for the general pair)."""
     import torch
 
     from gpsig_tpu_torch.ops.cuda import plan
@@ -1195,6 +1210,13 @@ def kuf_plan_sweep(dev):
             cases.append(("tsg_bwd", f"T={T} N={N} L={L}", T, N, L, 2, 4,
                           1 + k % 3, kinds[k % 4], k % 2 == 0,
                           L > 2 and k % 3 != 0))
+    # the order-1 pair's plans: N on both sides of a warp, one and several
+    # chunks, d = 1-3, one and several pairs a warp
+    for i, (N, L) in enumerate((N, L) for N in (1, 31, 33, 50)
+                               for L in (2, 65, 66, 130)):
+        for key, T in (("tens_seq", 3), ("tens_seq_bwd", 3 if i % 4 else 300)):
+            cases.append((key, f"order-1 T={T} N={N} L={L}", T, N, L,
+                          1 + i % 3, 1 + i % 7, 1, "rbf", i % 2 == 0, True))
     for d in KUF_WIDE_D:
         for key in ("tens_seq", "tsg", "tens_seq_bwd", "tsg_bwd"):
             cases.append((key, f"d={d}", 4, 6, 10, d, 5, 2, "rbf", True,
@@ -3013,6 +3035,9 @@ def main():
         n = source_of.get(key, launches)[key]
         entry = dict(name=name, route="cuda", source=source,
                      replaces=replaces, launches=n, **timings[key])
+        if "train" in entry:  # the Kuf at the training shape (N = 50)
+            entry["train"] = dict(launches=train_launches[key],
+                                  **entry["train"])
         if key in long_timings:
             entry["long"] = dict(launches=long_source[key][key],
                                  **long_timings[key])

@@ -98,6 +98,104 @@ __device__ void half_sqnorms(const T* xs, T* nxs, int L, int d, int tid,
   }
 }
 
+// Compile-time level M of a kernel templated on its level count: each_level
+// calls fn(Level<M>{}) for M = M0 .. NL, so a lambda body sees M as a
+// constant (the Kuf kernels take their levels one at a time).
+template <int M>
+struct Level {
+  static constexpr int value = M;
+};
+
+template <int M, int NL, typename Fn>
+__device__ __forceinline__ void each_level(Fn& fn) {
+  if constexpr (M <= NL) {
+    fn(Level<M>{});
+    each_level<M + 1, NL>(fn);
+  }
+}
+
+// The order-1 Kuf kernels' packed factor point (tens_seq.cuh,
+// tens_seq_bwd.cuh), d <= 3: (z_0, z_1, z_2, -|z|^2/2) zero-padded, so one
+// 16-byte shared load (two in float64) gives the point's accumulator
+// a = -|x|^2/2 + <rec, (x_0, x_1, x_2, 1)>; the same vector layout carries
+// a lane's Z̄ sums (sum u x_c, sum u).
+template <typename T>
+struct alignas(16) Rec4 {
+  T v[4];
+};
+
+// The order-1 Kuf kernels' RBF exponential: in float32 2^a on the
+// special-function unit (ex2.approx.ftz: relative error below 2^-22,
+// results below 2^-126 flushed to 0), with log2(e) folded into the staged
+// factor points and the half norms (kuf_fold) so that it costs no
+// multiply; in float64 e^a.
+__device__ __forceinline__ float kuf_exp(float a) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(a));
+  return r;
+#else
+  return exp2f(a);
+#endif
+}
+__device__ __forceinline__ double kuf_exp(double a) { return exp(a); }
+
+template <typename T>
+__host__ __device__ constexpr T kuf_fold() {
+  return sizeof(T) == 4 ? T(1.4426950408889634) : T(1);
+}
+
+// The Kuf backwards' scans along a pair's time axis (tens_seq_bwd.cuh,
+// tens_seq_general_bwd.cuh): a warp's 32 lanes hold KP consecutive points
+// each. Exclusive prefix over the chunk's points (lane major) and the
+// chunk's total.
+template <typename T, int KP>
+__device__ __forceinline__ T chunk_prefix(const T (&v)[KP], T (&out)[KP],
+                                          int lane) {
+  T run = T(0);
+#pragma unroll
+  for (int r = 0; r < KP; ++r) {
+    out[r] = run;
+    run += v[r];
+  }
+  T incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T t = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += t;
+  }
+  const T total = __shfl_sync(kFull, incl, 31);
+  T ex = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) ex = T(0);
+#pragma unroll
+  for (int r = 0; r < KP; ++r) out[r] += ex;
+  return total;
+}
+
+// Exclusive suffix over a chunk's points and the chunk's total.
+template <typename T, int KP>
+__device__ __forceinline__ T chunk_suffix(const T (&v)[KP], T (&out)[KP],
+                                          int lane) {
+  T run = T(0);
+#pragma unroll
+  for (int r = KP - 1; r >= 0; --r) {
+    out[r] = run;
+    run += v[r];
+  }
+  T incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T t = __shfl_down_sync(kFull, incl, off);
+    if (lane + off < 32) incl += t;
+  }
+  const T total = __shfl_sync(kFull, incl, 0);
+  T ex = __shfl_down_sync(kFull, incl, 1);
+  if (lane == 31) ex = T(0);
+#pragma unroll
+  for (int r = 0; r < KP; ++r) out[r] += ex;
+  return total;
+}
+
 // Sum over the warp, returned to every lane.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {

@@ -77,19 +77,6 @@ __host__ __device__ constexpr int tsg_seqs() {
   return 4 * regs <= kStateRegs ? 4 : 2 * regs <= kStateRegs ? 2 : 1;
 }
 
-template <int M>
-struct Level {
-  static constexpr int value = M;
-};
-
-template <int M, int NL, typename Fn>
-__device__ __forceinline__ void each_level(Fn& fn) {
-  if constexpr (M <= NL) {
-    fn(Level<M>{});
-    each_level<M + 1, NL>(fn);
-  }
-}
-
 template <typename T, int NL, int P>
 __global__ void __launch_bounds__(kMaxThreads)
 tsg_kernel(const T* __restrict__ Z, const T* __restrict__ Xt,

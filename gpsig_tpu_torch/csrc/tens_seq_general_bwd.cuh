@@ -77,70 +77,9 @@ constexpr int kSlots = kPoints + 1;
 constexpr int kChunk = kLanes * kPoints;
 constexpr int kMaxThreads = 128;  // four warps
 
-template <int M>
-struct Level {
-  static constexpr int value = M;
-};
-
-template <int M, int NL, typename Fn>
-__device__ __forceinline__ void each_level(Fn& fn) {
-  if constexpr (M <= NL) {
-    fn(Level<M>{});
-    each_level<M + 1, NL>(fn);
-  }
-}
-
 // states alive at stage a of a level with Rm run lengths
 __host__ __device__ constexpr int live_states(int Rm, int a) {
   return Rm < a + 1 ? Rm : a + 1;
-}
-
-// Exclusive prefix over a chunk's points (lane major) and the chunk's total.
-template <typename T>
-__device__ __forceinline__ T chunk_prefix(const T (&v)[kPoints],
-                                          T (&out)[kPoints], int lane) {
-  T run = T(0);
-#pragma unroll
-  for (int r = 0; r < kPoints; ++r) {
-    out[r] = run;
-    run += v[r];
-  }
-  T incl = run;
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1) {
-    const T t = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += t;
-  }
-  const T total = __shfl_sync(kFull, incl, kLanes - 1);
-  T ex = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) ex = T(0);
-#pragma unroll
-  for (int r = 0; r < kPoints; ++r) out[r] += ex;
-  return total;
-}
-
-// Exclusive suffix over a chunk's points and the chunk's total.
-template <typename T>
-__device__ __forceinline__ T chunk_suffix(const T (&v)[kPoints],
-                                          T (&out)[kPoints], int lane) {
-  T run = T(0);
-#pragma unroll
-  for (int r = kPoints - 1; r >= 0; --r) {
-    out[r] = run;
-    run += v[r];
-  }
-  T incl = run;
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1) {
-    const T t = __shfl_down_sync(kFull, incl, off);
-    if (lane + off < kLanes) incl += t;
-  }
-  const T total = __shfl_sync(kFull, incl, 0);
-  T ex = __shfl_down_sync(kFull, incl, 1);
-  if (lane == kLanes - 1) ex = T(0);
-#pragma unroll
-  for (int r = 0; r < kPoints; ++r) out[r] += ex;
-  return total;
 }
 
 // One pair (t, n) as one warp walks it: what the level functions read, and

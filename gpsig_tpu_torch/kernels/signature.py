@@ -38,8 +38,9 @@ the order-1 Gram backward in float64 at d > 5, e.g. L = 829 at d = 8);
 above it the wrapper raises ``ValueError``, as ``sig_gram.py`` does past 7
 levels above p = min(order, num_levels) = 3. The Kuf kernels
 (``K_tens_vs_seq``, forward and backward, order 1 and general) take any L
-and every d that device memory holds: past their shared memory the launch
-plan (``plan.kuf_fwd_plan``, ``plan.kuf_bwd_plan``) reads x and z from
+and every d that device memory holds (``plan.kuf_fwd_plan``,
+``plan.kuf_bwd_plan``): the order-1 pair up to d = 3, past that the
+general pair at order 1, which past its shared memory reads x and z from
 global memory and sums the gradients in a device workspace.
 """
 

@@ -42,10 +42,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "gpsig_fused_gram": [_P, _P, _P, *[_I] * 11, _P],
     "gpsig_fused_diag": [_P, _P, *[_I] * 8, _P],
-    "gpsig_tens_seq": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gpsig_tens_seq": [_P, _P, _P, *[_I] * 9, _P],
     "gpsig_fused_gram_bwd": [*[_P] * 5, *[_I] * 10, _P],
-    "gpsig_tens_seq_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P],
+    "gpsig_tens_seq_bwd": [*[_P] * 5, *[_I] * 10, _P],
     "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 14, _P],
     "gpsig_sig_gram": [_P, _P, *[_I] * 8, _P],
     "gpsig_tens_seq_general": [_P, _P, _P, *[_I] * 13, _P],
@@ -66,13 +65,12 @@ SIGNATURES = {
 #: more nvcc run than there are cores, so that a long compile neither starts
 #: late nor shares its core with the short ones.
 SLOWEST_FIRST = (
-    "fused_gram_ho_bwd_block_f64.cu", "tens_seq_bwd.cu",
-    "tens_seq_general_bwd.cu", "fused_gram_ho_bwd_f64.cu",
-    "sig_gram_bwd_block_f64.cu", "tens_seq_general_bwd_f64.cu",
-    "sig_gram_bwd_f64.cu", "sig_gram_bwd.cu", "fused_gram_ho_bwd.cu",
-    "fused_gram_bwd.cu", "fused_gram_ho_bwd_block.cu", "fused_gram_ho.cu",
-    "fused_gram_ho_f64.cu", "tens_seq_general.cu", "tens_seq_general_f64.cu",
-    "sig_gram.cu", "tens_seq.cu",
+    "fused_gram_ho_bwd_block_f64.cu", "tens_seq_general_bwd.cu",
+    "fused_gram_ho_bwd_f64.cu", "sig_gram_bwd_block_f64.cu",
+    "tens_seq_general_bwd_f64.cu", "sig_gram_bwd_f64.cu", "sig_gram_bwd.cu",
+    "fused_gram_ho_bwd.cu", "fused_gram_bwd.cu", "fused_gram_ho_bwd_block.cu",
+    "fused_gram_ho.cu", "fused_gram_ho_f64.cu", "tens_seq_general.cu",
+    "tens_seq_general_f64.cu", "sig_gram.cu",
 )
 
 _lib = None

@@ -18,8 +18,12 @@ the DP state fits the registers, so one warp takes up to 256 rows with no
 barrier (at wide d the y read from global memory where a block's staged y
 would not fit); past what one warp takes, the block design.
 
-The Kuf kernels (``csrc/tens_seq*.cu``) take any L and every d: their
-plans (:func:`kuf_fwd_plan`, :func:`kuf_bwd_plan`) say where the
+The Kuf kernels (``csrc/tens_seq*.cu*``) take any L and every d: their
+plans (:func:`kuf_fwd_plan`, :func:`kuf_bwd_plan`) say which kernel runs
+(the order-1 pair, whose factor points are 16-byte records, the forward
+where they fit the shared memory and the backward up to d = 3; past that
+the general pair at order 1), how its work is spread (threads a block,
+sequences a thread, pairs a warp), and where the general kernels'
 per-thread arrays live, in shared memory where they fit, else in global
 memory and a device workspace.
 
@@ -235,14 +239,17 @@ def deep_plan(B, rows, nl, p, itemsize, backward):
 
 
 # ---------------------------------------------------------------------------
-# Kuf: the inducing-tensor-vs-sequence kernels (csrc/tens_seq*.cu*). Where
-# their per-thread arrays fit the block's shared memory they live there, as
-# they always did; past that the general kernels take them out of it (z
-# read from global memory with warp-uniform loads, x from the global
-# layout, the backward's Z̄ / X̄ partial sums in a device workspace whose
-# size bounds a grid-strided launch), and the order-1 Kuf, which is the
-# general one at order 1 (RBF or Linear, difference), runs on them there.
-# So every d that device memory holds gets a plan.
+# Kuf: the inducing-tensor-vs-sequence kernels (csrc/tens_seq*.cu*). The
+# order-1 forward (tens_seq.cuh) stages its factor points as 16-byte
+# records, one with the half norm up to d = 3, and takes every d whose
+# records fit the shared memory; the order-1 backward (tens_seq_bwd.cuh)
+# takes d <= 3, x in registers. Past those the order-1 Kuf, which is the
+# general one at order 1 (RBF or Linear, difference), runs on the general
+# kernels. Where their per-thread arrays fit the block's shared memory they
+# live there; past that the general kernels take them out of it (z read
+# from global memory with warp-uniform loads, x from the global layout, the
+# backward's Z̄ / X̄ partial sums in a device workspace whose size bounds a
+# grid-strided launch). So every d that device memory holds gets a plan.
 # ---------------------------------------------------------------------------
 
 #: the Kuf backwards' workspace: at most this many bytes, at most this many
@@ -259,6 +266,14 @@ KUF_POINTS = 2
 #: blocks the general backward aims to launch before a warp takes more than
 #: one pair (8 a Hopper SM)
 KUF_BWD_TARGET_BLOCKS = 8 * 132
+#: the widest d whose (z, -|z|^2/2) is one 4-vector record
+#: (``csrc/common.cuh``'s Rec4): the order-1 backward's widest
+KUF_TUNED_MAX_D = 3
+#: the order-1 backward's block: two warps (``csrc/tens_seq_bwd.cuh``'s
+#: kThreads), and the blocks it aims to launch before a warp takes more
+#: than one pair (32 a Hopper SM)
+KUF_TUNED_BWD_THREADS = 64
+KUF_TUNED_BWD_TARGET_BLOCKS = 32 * 132
 
 
 def factor_count(nl, increments):
@@ -278,21 +293,33 @@ def kuf_fwd_seqs(nl, itemsize):
     return next((R for R in (4, 2) if R * regs <= KUF_STATE_REGS), 1)
 
 
+def _fwd_threads(N, seqs):
+    """The fewest threads of 32, 64, 128 whose ``seqs`` sequences each
+    cover N (else 128)."""
+    return next((t for t in (32, 64) if t * seqs >= N), 128)
+
+
 def kuf_fwd_plan(N, F2, d, nl, itemsize, tuned=False):
     """The Kuf forwards' launch: a dict of the ``route`` ("tuned": the
     order-1 kernel; "general"), ``threads`` a block, ``seqs`` a thread,
     ``staged`` (the tensor's factors in shared memory; else read from
     global memory) and ``smem`` bytes. The order-1 kernel (``tuned``)
-    stages z and its 128 threads' x columns where they fit, as it always
-    did, and otherwise takes the general kernel's plan. The general one
-    stages z alone, R = :func:`kuf_fwd_seqs` sequences a thread and the
-    fewest threads of 32, 64, 128 that cover N; unstaged, only the
-    factors' half norms stay in shared memory."""
-    if tuned and itemsize * (F2 * (d + 1) + d * 128) <= SMEM_BYTES:
-        return dict(route="tuned", threads=128, seqs=1, staged=True,
-                    smem=itemsize * (F2 * (d + 1) + d * 128))
+    stages the factors as 4-vector records (up to d = KUF_TUNED_MAX_D one
+    a factor point with its half norm, past it ceil(d / 4) and the half
+    norm: ``csrc/tens_seq.cuh``'s ts_smem), one sequence a thread, the
+    fewest threads of 32, 64, 128 that cover N; where the records do not
+    fit the shared memory it takes the general kernel's plan. The general
+    one stages z alone, R = :func:`kuf_fwd_seqs` sequences a thread and the
+    fewest threads that cover N; unstaged, only the factors' half norms
+    stay in shared memory."""
+    if tuned:
+        smem = itemsize * F2 * (4 if d <= KUF_TUNED_MAX_D
+                                else 4 * -(-d // 4) + 1)
+        if smem <= SMEM_BYTES:
+            return dict(route="tuned", threads=_fwd_threads(N, 1), seqs=1,
+                        staged=True, smem=smem)
     seqs = kuf_fwd_seqs(nl, itemsize)
-    threads = next((t for t in (32, 64) if t * seqs >= N), 128)
+    threads = _fwd_threads(N, seqs)
     staged = itemsize * F2 * (d + 1) <= SMEM_BYTES
     return dict(route="general", threads=threads, seqs=seqs, staged=staged,
                 smem=itemsize * F2 * ((d + 1) if staged else 1))
@@ -305,17 +332,12 @@ def kuf_bwd_columns(F2, d):
     return F2 * (d + 1) + (KUF_POINTS + 1) * d
 
 
-def tuned_bwd_threads(F2, d, N, itemsize):
-    """The order-1 Kuf backward's block, as it always took it: the largest
-    of 128, 64, 32 threads whose shared memory (the factors, x by parity
-    and the Z̄ columns) fits and, above 32, is below 2N; None where 32 do
-    not fit."""
-    def size(nt):
-        return itemsize * (F2 * (d + 1) + (2 * d + F2 * (d + 1)) * nt)
-    nt = 128
-    while nt > 32 and (size(nt) > SMEM_BYTES or nt >= 2 * N):
-        nt //= 2
-    return nt if size(nt) <= SMEM_BYTES else None
+def _pairs_a_warp(T, N, warps, target):
+    """Pairs a warp of a Kuf backward with ``warps`` warps a block: more
+    than one only where the grid would otherwise exceed ``target``
+    blocks."""
+    per_t = -(-N // warps)
+    return max(1, min(per_t, T * per_t // target))
 
 
 def kuf_bwd_plan(T, N, F2, d, itemsize, tuned=False):
@@ -324,25 +346,26 @@ def kuf_bwd_plan(T, N, F2, d, itemsize, tuned=False):
     (work items: a tensor against a block's sequences), ``blocks``
     launched and ``work`` workspace elements.
 
-    The order-1 kernel (``tuned``) keeps its block
-    (:func:`tuned_bwd_threads`) where it fits, and otherwise takes the
-    general kernel's plan. The general kernel takes a warp a pair and the
-    most of 4, 2, 1 warps that the sequences fill and whose lanes'
-    columns fit the shared memory; each warp takes ``ppw`` pairs where the
-    grid would otherwise exceed KUF_BWD_TARGET_BLOCKS blocks. Where no
-    block's columns fit, they go to a workspace of at most
+    Both kernels take a warp a pair. The order-1 kernel (``tuned``, d <=
+    KUF_TUNED_MAX_D) takes blocks of two warps (KUF_TUNED_BWD_THREADS) and
+    a 4-vector column a factor point a lane, ``ppw`` pairs a warp where the
+    grid would otherwise exceed KUF_TUNED_BWD_TARGET_BLOCKS blocks; past
+    that d it takes the general kernel's plan. The general kernel takes the
+    most of 4, 2, 1 warps that the sequences fill and whose lanes' columns
+    fit the shared memory, ``ppw`` past KUF_BWD_TARGET_BLOCKS blocks. Where
+    no block's columns fit, they go to a workspace of at most
     KUF_WORKSPACE_BYTES, 4 warps a block (fewer below 4 sequences: a
     block's warps are a power of two), and the grid of at most
     KUF_MAX_BLOCKS blocks strides over the items. None where one block's
     columns exceed the workspace."""
-    if tuned:
-        nt = tuned_bwd_threads(F2, d, N, itemsize)
-        if nt is not None:
-            items = T * -(-N // nt)
-            return dict(route="tuned", threads=nt, ppw=1, staged=True,
-                        smem=itemsize * (F2 * (d + 1)
-                                         + (2 * d + F2 * (d + 1)) * nt),
-                        items=items, blocks=items, work=0)
+    if tuned and d <= KUF_TUNED_MAX_D:
+        nt = KUF_TUNED_BWD_THREADS
+        ppw = _pairs_a_warp(T, N, nt // KUF_LANES,
+                            KUF_TUNED_BWD_TARGET_BLOCKS)
+        items = T * -(-N // (nt // KUF_LANES * ppw))
+        return dict(route="tuned", threads=nt, ppw=ppw, staged=True,
+                    smem=4 * itemsize * F2 * (1 + nt), items=items,
+                    blocks=items, work=0)
     C = kuf_bwd_columns(F2, d)
 
     def smem(w):
@@ -350,8 +373,7 @@ def kuf_bwd_plan(T, N, F2, d, itemsize, tuned=False):
 
     fits = [w for w in (4, 2, 1) if w <= max(N, 1) and smem(w) <= SMEM_BYTES]
     warps = fits[0] if fits else next(w for w in (4, 2, 1) if w <= max(N, 1))
-    per_t = -(-N // warps)
-    ppw = max(1, min(per_t, T * per_t // KUF_BWD_TARGET_BLOCKS))
+    ppw = _pairs_a_warp(T, N, warps, KUF_BWD_TARGET_BLOCKS)
     items = T * -(-N // (warps * ppw))
     plan = dict(route="general", threads=KUF_LANES * warps, ppw=ppw,
                 staged=True, smem=smem(warps), items=items, blocks=items,

@@ -3,14 +3,14 @@ plain PyTorch version.
 
 Counterpart of ``gpsig_tpu/ops/pallas/tens_seq.py``
 (``fused_tens_seq_levels`` and ``tens_seq_bwd_pallas``); the kernels are in
-``csrc/tens_seq.cu`` (forward) and ``csrc/tens_seq_bwd.cu`` (backward),
+``csrc/tens_seq.cuh`` (forward) and ``csrc/tens_seq_bwd.cuh`` (backward),
 whose opening notes give the designs. Semantics: pre-scaled inputs, order
 1, ``difference=True``, RBF or Linear base, ``num_levels <= 7``, RBF
-distance unclamped, any d that device memory holds: past the kernels'
-shared memory (``plan.kuf_fwd_plan``, ``plan.kuf_bwd_plan``) the same
-function runs on the general Kuf kernels (``tens_seq_general.py``'s) at
-order 1, which read x and z from global memory and sum the gradients in a
-workspace.
+distance unclamped, any d that device memory holds: the order-1 kernels
+take d <= 3 (``plan.KUF_TUNED_MAX_D``); past that (``plan.kuf_fwd_plan``,
+``plan.kuf_bwd_plan``) the same function runs on the general Kuf kernels
+(``tens_seq_general.py``'s) at order 1, which read x and z from global
+memory where shared memory ends and sum the gradients in a workspace.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ def _launch(Z, X, num_levels, rbf, increments):
         if fp["route"] == "tuned":
             _build.launch("gpsig_tens_seq", X.device, Z, Xt, out, T, N, L, d,
                           num_levels, rbf, increments,
-                          X.dtype == torch.float64)
+                          X.dtype == torch.float64, fp["threads"])
         else:
             _build.launch("gpsig_tens_seq_general", X.device, Z, Xt, out, T,
                           N, L, d, num_levels, 1, int(rbf), 0, increments,
@@ -143,15 +143,13 @@ def tens_seq_bwd(Z, X, g, num_levels, rbf=True, increments=False):
     bp = plan.kuf_bwd_plan(T, N, plan.factor_count(num_levels, increments), d,
                            X.element_size(), tuned=True)
     plan.check_kuf(name, bp, f"d={d}")
-    if bp["route"] == "tuned":
-        XbarT = torch.zeros((L, d, N), dtype=X.dtype, device=X.device)
-        Xt = X.permute(1, 2, 0).contiguous()  # [L, d, N]
-        _build.launch("gpsig_tens_seq_bwd", X.device, Z, Xt, g, Zbar, XbarT,
-                      T, N, L, d, num_levels, rbf, increments,
-                      X.dtype == torch.float64)
-        bwd_launches += 1
-        return Zbar, XbarT.permute(2, 0, 1).contiguous()
     Xbar = torch.zeros_like(X)
+    if bp["route"] == "tuned":
+        _build.launch("gpsig_tens_seq_bwd", X.device, Z, X, g, Zbar, Xbar, T,
+                      N, L, d, num_levels, rbf, increments,
+                      X.dtype == torch.float64, bp["ppw"], bp["blocks"])
+        bwd_launches += 1
+        return Zbar, Xbar
     work = (torch.empty(bp["work"], dtype=X.dtype, device=X.device)
             if bp["work"] else 0)
     _build.launch("gpsig_tens_seq_general_bwd", X.device, Z, X, g, Zbar, Xbar,

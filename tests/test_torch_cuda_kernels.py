@@ -111,15 +111,24 @@ def test_gram_and_diag_kernels_match_plain(cuda_device, dtype, tol, rbf):
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("increments", [False, True])
 def test_tens_seq_kernel_matches_plain(cuda_device, dtype, tol, increments):
+    """The order-1 forward's plans (one sequence a thread, blocks of 32, 64,
+    128 threads by N) at N = 1, 31, 33, 50, 2048, lengths across the
+    backward's chunk edges, d = 1-3, and past it (d = 4, 5) the general
+    kernel at order 1, against the plain version."""
     rng = np.random.default_rng(4)
-    for T, N, L, nl, rbf in [(3, 5, 7, 2, True), (7, 130, 50, 5, True),
-                             (4, 33, 20, 7, False)]:
+    for T, N, L, nl, rbf, d in [
+            (3, 5, 7, 2, True, 3), (7, 130, 50, 5, True, 3),
+            (4, 33, 20, 7, False, 3), (5, 1, 2, 1, True, 1),
+            (5, 31, 3, 3, True, 2), (5, 33, 65, 4, True, 3),
+            (5, 50, 66, 5, True, 2), (5, 50, 129, 6, False, 1),
+            (5, 50, 150, 4, True, 3), (3, 2048, 50, 5, True, 3),
+            (4, 40, 30, 5, True, 4), (4, 40, 30, 3, False, 5)]:
         F = nl * (nl + 1) // 2
-        shape = (T, F, 2, 3) if increments else (T, F, 3)
+        shape = (T, F, 2, d) if increments else (T, F, d)
         Z = torch.as_tensor(0.4 * rng.standard_normal(shape), dtype=dtype,
                             device=cuda_device)
-        X = torch.as_tensor(_walks(rng, N, L, 3), dtype=dtype,
-                            device=cuda_device)
+        X = torch.as_tensor(_walks(rng, N, L, d) * np.sqrt(min(1, 100 / L)),
+                            dtype=dtype, device=cuda_device)
         with torch.no_grad():
             n0 = tts.launches
             got = tts.fused_tens_seq_levels(Z, X, nl, rbf, increments)
@@ -199,15 +208,27 @@ def test_gram_backward_kernel_matches_plain(cuda_device, dtype, tol, rbf):
 @pytest.mark.parametrize("increments", [False, True])
 def test_tens_seq_backward_kernel_matches_plain(cuda_device, dtype, tol,
                                                 increments):
+    """The order-1 backward's plans (a warp a pair; 2 points a lane up to
+    64 DP points, else 4 in chunks of 128; 1, 2, 4 warps and several pairs
+    a warp) at N = 1, 31, 33, 50, lengths at the chunk edges, d = 1-3, and
+    past it the general kernel at order 1 (d = 4, 5, and 54 / 55, where its
+    float32 columns leave shared memory), against the plain version."""
     rng = np.random.default_rng(7)
-    for T, N, L, nl, rbf in [(3, 5, 7, 2, True), (7, 130, 50, 5, True),
-                             (4, 33, 100, 7, False), (5, 20, 50, 1, True)]:
+    for T, N, L, nl, rbf, d in [
+            (3, 5, 7, 2, True, 3), (7, 130, 50, 5, True, 3),
+            (4, 33, 100, 7, False, 3), (5, 20, 50, 1, True, 3),
+            (5, 1, 2, 3, True, 1), (5, 31, 3, 4, True, 2),
+            (5, 33, 65, 5, True, 3), (5, 50, 66, 6, True, 2),
+            (5, 50, 129, 7, True, 1), (5, 50, 130, 7, True, 3),
+            (64, 50, 150, 4, True, 2), (300, 40, 50, 5, True, 3),
+            (4, 20, 30, 5, True, 4), (4, 20, 30, 3, False, 5),
+            (3, 6, 20, 5, True, 54), (3, 6, 20, 5, True, 55)]:
         F = nl * (nl + 1) // 2
-        shape = (T, F, 2, 3) if increments else (T, F, 3)
+        shape = (T, F, 2, d) if increments else (T, F, d)
         Z = torch.as_tensor(0.4 * rng.standard_normal(shape), dtype=dtype,
                             device=cuda_device)
-        X = torch.as_tensor(_walks(rng, N, L, 3), dtype=dtype,
-                            device=cuda_device)
+        X = torch.as_tensor(_walks(rng, N, L, d) * np.sqrt(min(1, 100 / L)),
+                            dtype=dtype, device=cuda_device)
         g = torch.as_tensor(rng.standard_normal((nl + 1, T, N)), dtype=dtype,
                             device=cuda_device)
         n0 = tts.bwd_launches
@@ -1223,3 +1244,68 @@ def test_order2_svgp_step_takes_wide_d(cuda_device):
     assert ttsg.launches > n0[0] and ttsg.bwd_launches > n0[1]
     for g, w in zip(out["card"], out["cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_order1_svgp_step_on_card_matches_cpu(cuda_device):
+    """Two float64 natgrad + Adam steps of an order-1 SVGP at the flagship's
+    widths (d = 3, nl = 5, inducing tensors with increments, L = 50,
+    MultiClass(10); 8 tensors, 12 sequences) on the card, through the
+    order-1 Kuf kernel and its backward (their counters rise, the general
+    pair's do not), against the same steps on the CPU, rtol 1e-8."""
+    import copy
+
+    from gpsig_tpu_torch.inducing import InducingTensors
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    rng = np.random.default_rng(26)
+    nl, M, C, d = 5, 8, 10, 3
+    Z, X, _ = _wide_inputs(rng, M, 12, 50, d, nl, torch.float64, "cpu")
+    model = SVGP.create(SignatureRBF(d, nl, device="cpu"), MultiClass(C),
+                        InducingTensors.create(Z, nl, True), C, device="cpu")
+    Y = torch.as_tensor(rng.integers(0, C, 12))
+    card = copy.deepcopy(model).to(cuda_device)
+    out = {}
+    for name, m, x, y in (("cpu", model, X, Y),
+                          ("card", card, X.to(cuda_device),
+                           Y.to(cuda_device))):
+        n0 = (tts.launches, tts.bwd_launches, ttsg.launches,
+              ttsg.bwd_launches)
+        step = make_step_fn(1e-2, num_data=40, gamma=0.1)
+        state, elbos = step.init(m), []
+        for _ in range(2):
+            state, elbo = step(state, x, y)
+            elbos.append(elbo.cpu())
+        counts = [a - b for a, b in zip(
+            (tts.launches, tts.bwd_launches, ttsg.launches,
+             ttsg.bwd_launches), n0)]
+        out[name] = elbos + [p.detach().cpu() for p in m.parameters()]
+    # the card's steps: each a Kuf forward and backward on the order-1 pair
+    assert counts[0] >= 2 and counts[1] >= 2 and counts[2:] == [0, 0]
+    for g, w in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_order1_forward_where_its_shared_memory_ends(cuda_device, dtype,
+                                                     tol):
+    """The order-1 forward at the widest d whose records fit its shared
+    memory (nl = 7 with increments: 1036 in float32, 516 in float64) and
+    one past it, where the general kernel takes the shape at order 1: both
+    launch (the order-1 counter rises) and match the plain version."""
+    rng = np.random.default_rng(27)
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    widest = {4: 1036, 8: 516}[itemsize]
+    for d, route in ((widest, "tuned"), (widest + 1, "general")):
+        assert plan.kuf_fwd_plan(5, 56, d, 7, itemsize,
+                                 True)["route"] == route
+        Z, X, _ = _wide_inputs(rng, 2, 5, 6, d, 7, dtype, cuda_device)
+        n0 = tts.launches
+        with torch.no_grad():
+            got = tts.fused_tens_seq_levels(Z, X, 7, True, True)
+        assert tts.launches == n0 + 1
+        want = tts.fused_tens_seq_levels_ref(Z, X, 7, True, True)
+        assert _scaled_err(got, want) < tol

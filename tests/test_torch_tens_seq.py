@@ -6,7 +6,8 @@
 - One interpret-mode call of the Pallas kernel: its in-kernel products
   accumulate in float32 even on float64 inputs, so scaled error 1e-5.
 
-- The launch plans of both order-1 Kuf kernels at every d up to 2048.
+- The launch plans of both order-1 Kuf kernels at every d up to 2048 (the
+  schedules themselves: ``test_torch_tens_seq_schedule.py``).
 
 The CUDA kernel itself is checked on the card by
 ``test_torch_cuda_kernels.py``.
@@ -74,51 +75,35 @@ def test_matches_pallas_interpret(increments):
 # -- launch plans (ops/cuda/plan.py): every d gets one ----------------------
 
 
-def _parent_fwd_fits(F2, d, itemsize):
-    """The order-1 forward's shared memory before the plan took wide d: the
-    factors, their half norms and 128 threads' x columns."""
-    return itemsize * (F2 * (d + 1) + d * 128) <= plan.SMEM_BYTES
-
-
-def _parent_bwd_threads(F2, d, N, itemsize):
-    """The order-1 backward's block before the plan: the largest of 128,
-    64, 32 threads whose shared memory (factors, x by parity and the Z̄
-    columns) fits and is below 2N, or None where 32 did not fit."""
-    def size(nt):
-        return itemsize * (F2 * (d + 1) + (2 * d + F2 * (d + 1)) * nt)
-    nt = 128
-    while nt > 32 and (size(nt) > plan.SMEM_BYTES or nt >= 2 * N):
-        nt //= 2
-    return nt if size(nt) <= plan.SMEM_BYTES else None
-
-
 @pytest.mark.parametrize("nl", range(1, 8))
 def test_every_d_gets_a_plan(nl):
     """Both order-1 Kuf kernels get a launch plan at every d up to 2048, both
-    ``increments`` and both dtypes: where they fitted before, their own
-    kernel with its block and shared memory as before (so their times
-    stay); past that the general kernel's plan (the same function at
-    order 1), its backward's workspace in its bound."""
+    ``increments`` and both dtypes: the order-1 forward wherever its 4-vector
+    records fit the shared memory (one a factor point with its half norm up
+    to d = 3, ceil(d / 4) and a half norm past it), a sequence a thread; the
+    order-1 backward up to d = 3, blocks of two warps; past those the
+    general kernel's plan (the same function at order 1), its backward's
+    workspace in its bound."""
     for itemsize in (4, 8):
         for increments in (True, False):
             F2 = plan.factor_count(nl, increments)
             for d in range(1, 2049):
                 fp = plan.kuf_fwd_plan(2048, F2, d, nl, itemsize, tuned=True)
                 assert fp["smem"] <= plan.SMEM_BYTES
-                if _parent_fwd_fits(F2, d, itemsize):
-                    assert fp == dict(
-                        route="tuned", threads=128, seqs=1, staged=True,
-                        smem=itemsize * (F2 * (d + 1) + d * 128))
+                smem = itemsize * F2 * (4 if d <= 3 else 4 * -(-d // 4) + 1)
+                if smem <= plan.SMEM_BYTES:
+                    assert fp == dict(route="tuned", threads=128, seqs=1,
+                                      staged=True, smem=smem)
                 else:
                     assert fp == plan.kuf_fwd_plan(2048, F2, d, nl, itemsize)
                 for T, N in ((500, 50), (1, 1), (64, 2048)):
                     bp = plan.kuf_bwd_plan(T, N, F2, d, itemsize, tuned=True)
                     assert bp is not None and bp["smem"] <= plan.SMEM_BYTES
-                    nt = _parent_bwd_threads(F2, d, N, itemsize)
-                    if nt is not None:
+                    if d <= plan.KUF_TUNED_MAX_D:
                         assert (bp["route"], bp["threads"], bp["staged"]) == (
-                            "tuned", nt, True)
-                        assert bp["blocks"] == bp["items"] == T * -(-N // nt)
+                            "tuned", 64, True)
+                        assert bp["blocks"] == bp["items"] == T * -(
+                            -N // (2 * bp["ppw"]))
                     else:
                         assert bp == plan.kuf_bwd_plan(T, N, F2, d, itemsize)
                         assert (bp["work"] * itemsize
