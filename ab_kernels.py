@@ -33,7 +33,18 @@ d = 3 (serving N = 2048 and training N = 50), at the L = 150 shapes
 (T = 64, nl = 4, d = 2) and at d = 8, and the general pair at order 1 on
 the first five; and one ``predict_y`` on a cached posterior (N_test =
 2048) and one flagship natgrad + Adam step at order 2 (d = 2) and order 1
-(d = 3), whole calls by CUDA events. Every Gram kernel is timed on its full grid
+(d = 3), whole calls by CUDA events; the order-1 diagonal at L = 150
+(N = 2048, d = 2), at d = 64 (N = 256, L = 50) and at L = 1025 (N = 64,
+d = 2); the Goursat forward at the SigGPDE Kuf at prediction (65,536
+pairs of 7 x 49 increments, dyadic order 1, and its 14 x 98 refined grid
+through the given-grid route), at the joint Gram (82² pairs of 49 x 49,
+order 1) and at 64 pairs of 199 x 199 at order 3, and its given-grid
+route on the grids refined in memory at order 1 (joint Gram) and 2 (joint
+Gram, Kuf, 199 x 199); and, as "kernel
+alone", the flagship and L = 150 diagonal and both Goursat Kuf routes by
+their C entry point's call, recorded once through the wrapper and
+replayed with no plan, allocation or check, the kernel's device time by
+``torch.profiler`` (median of 7 windows of 10 launches). Every Gram kernel is timed on its full grid
 of pairs (no triangle), so that both checkouts do the same work; the GPR
 steps go through ``K(X)``, which solves the triangle where the checkout
 does.
@@ -145,6 +156,34 @@ CASES = [
      "tens_seq_general.tens_seq_general_bwd", "tsg_bwd_ts150"),
     ("predict_y order 1 cached posterior N=2048 d=3", "step", "predict1"),
     ("SVGP natgrad+Adam step order 1 B=50 d=3", "step", "svgp1"),
+    ("diag L=50 N=2048 d=3 nl=5 kernel alone",
+     "alone:fused_gram.fused_diag_levels", "diag"),
+    ("diag L=150 N=2048 d=2 nl=4", "fused_gram.fused_diag_levels", "diag150"),
+    ("diag L=150 N=2048 d=2 nl=4 kernel alone",
+     "alone:fused_gram.fused_diag_levels", "diag150"),
+    ("diag L=50 N=256 d=64 nl=5", "fused_gram.fused_diag_levels", "diag64"),
+    ("diag L=1025 N=64 d=2 nl=4", "fused_gram.fused_diag_levels",
+     "diag1025"),
+    ("goursat_fused Kuf 65536 pairs 7x49 o=1",
+     "goursat.goursat_corner_refined", "goursat_kuf"),
+    ("goursat_fused Kuf 65536 pairs 7x49 o=1 kernel alone",
+     "alone:goursat.goursat_corner_refined", "goursat_kuf"),
+    ("goursat given grid Kuf 65536 pairs 14x98",
+     "goursat.goursat_corner_fast", "goursat_kuf_fine"),
+    ("goursat given grid Kuf 65536 pairs 14x98 kernel alone",
+     "alone:goursat.goursat_corner_fast", "goursat_kuf_fine"),
+    ("goursat_fused joint Gram 82x82 pairs 49x49 o=1",
+     "goursat.goursat_corner_refined", "goursat_joint_fwd"),
+    ("goursat_fused 64 pairs 199x199 o=3", "goursat.goursat_corner_refined",
+     "goursat199_o3"),
+    ("goursat given grid joint Gram 82x82 pairs 98x98",
+     "goursat.goursat_corner_fast", "goursat_joint_fine"),
+    ("goursat given grid joint Gram 82x82 pairs 196x196",
+     "goursat.goursat_corner_fast", "goursat_joint_fine2"),
+    ("goursat given grid Kuf 65536 pairs 28x196",
+     "goursat.goursat_corner_fast", "goursat_kuf_fine2"),
+    ("goursat given grid 64 pairs 796x796", "goursat.goursat_corner_fast",
+     "goursat199_fine2"),
 ]
 
 
@@ -173,6 +212,33 @@ def _args(kind, torch, dev):
         return (x256, x256, 4, True)
     if kind == "diag":
         return (t(_walks(rng, 2048, 50, 3)), 5, True)
+    if kind in ("diag150", "diag64", "diag1025"):
+        n, L, d, nl = {"diag150": (2048, 150, 2, 4),
+                       "diag64": (256, 50, 64, 5),
+                       "diag1025": (64, 1025, 2, 4)}[kind]
+        return (t(_walks(rng, n, L, d) * np.sqrt(2 / d)), nl, True)
+    if kind in ("goursat_joint_fine", "goursat_joint_fine2",
+                "goursat_kuf_fine2", "goursat199_fine2"):
+        # chip_smoke.py's given-grid route at dyadic order 1 and 2: the
+        # grids refined in memory
+        base, o = {"goursat_joint_fine": ("goursat_joint_fwd", 1),
+                   "goursat_joint_fine2": ("goursat_joint_fwd", 2),
+                   "goursat_kuf_fine2": ("goursat_kuf", 2),
+                   "goursat199_fine2": ("goursat199_o3", 2)}[kind]
+        inc = _args(base, torch, dev)[0].cpu().numpy()
+        fine = np.repeat(np.repeat(inc, 1 << o, 1), 1 << o, 2) / 4**o
+        return (t(fine),)
+    if kind in ("goursat_kuf", "goursat_kuf_fine"):
+        # the SigGPDE Kuf at prediction: 32 inducing sequences of length 8
+        # against 2048 test sequences of L = 50 (Linear base, lengthscale
+        # 1.5), dyadic order 1; refined in memory for the given-grid route
+        dz = np.diff(_walks(rng, 32, 8, 2) / 1.5, axis=1)
+        dx = np.diff(_walks(rng, 2048, 50, 2) / 1.5, axis=1)
+        inc = np.einsum("nid,mjd->nmij", dz, dx).reshape(-1, 7, 49)
+        if kind == "goursat_kuf":
+            return (t(inc), 1)
+        fine = np.repeat(np.repeat(inc, 2, 1), 2, 2) / 4
+        return (t(fine),)
     if kind == "gram_bwd":
         return (x256, x256, t(rng.standard_normal((5, 256, 256))), 4, True)
     if kind in ("gram_ho", "gram_ho3"):
@@ -214,14 +280,19 @@ def _args(kind, torch, dev):
             return (m, t(rng.standard_normal((9, 150))), 8)
         g = t(rng.standard_normal((5, 150)))
         return (m, g, 4) if kind == "sg1_bwd" else (m, g, 4, 2)
-    if kind in ("goursat_joint", "goursat199"):
+    if kind in ("goursat_joint", "goursat199", "goursat_joint_fwd",
+                "goursat199_o3"):
         # the PDE kernel's increments (Linear base, lengthscale 1.5) of every
         # pair of 82 sequences of L = 50, or 64 pairs of L = 200
-        joint = kind == "goursat_joint"
+        joint = kind.startswith("goursat_joint")
         n, L, o = (82, 50, 1) if joint else (16, 200, 2)
         dx = np.diff(_walks(rng, n, L, 2) / 1.5, axis=1)
         a, b = (dx, dx) if joint else (dx[:8], dx[8:])
         inc = np.einsum("nid,mjd->nmij", a, b).reshape(-1, L - 1, L - 1)
+        if kind == "goursat_joint_fwd":
+            return (t(inc), 1)
+        if kind == "goursat199_o3":
+            return (t(inc), 3)
         return (t(inc), o, t(rng.standard_normal(inc.shape[0])))
     if kind == "gram_ho_bwd150":
         x = t(_walks(rng, 64, 150, 2))
@@ -376,7 +447,7 @@ def _turn(root):
             def f(step):
                 step()
         else:
-            mod, fn = path.rsplit(".", 1)
+            mod, fn = path.removeprefix("alone:").rsplit(".", 1)
             f = getattr(importlib.import_module(
                 f"gpsig_tpu_torch.ops.cuda.{mod}"), fn)
         args = _args(kind, torch, dev)
@@ -386,6 +457,9 @@ def _turn(root):
             # (before the launch plans, the Kuf backwards' launch returned
             # an error past their shared memory)
             out[name] = None
+            continue
+        if path.startswith("alone:"):
+            out[name] = _direct_launch(f, args, torch, dev)
             continue
         for _ in range(2):
             f(*args)
@@ -400,6 +474,49 @@ def _turn(root):
             times.append(a.elapsed_time(b))
         out[name] = statistics.median(times)
     print(json.dumps(out))
+
+
+def _direct_launch(f, args, torch, dev):
+    """The kernel alone: the C entry point's call that the wrapper ``f``
+    makes on ``args``, recorded once, then replayed with no plan,
+    allocation or check; returns the device time of one launch (ms) by
+    ``torch.profiler`` over 10 replays, the median of 7 such windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpsig_tpu_torch.ops.cuda import _build
+
+    calls = []
+    launch = _build.launch
+
+    def record(entry, device, *a):
+        calls.append((entry, a))
+        return launch(entry, device, *a)
+
+    _build.launch = record
+    try:
+        keep = f(*args)  # the outputs stay alive while the replays write
+    finally:
+        _build.launch = launch
+    entry, a = calls[-1]
+    fn = getattr(_build.library(), entry)
+    c_args = [x.data_ptr() if torch.is_tensor(x) else int(x) for x in a]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for _ in range(2):
+        fn(*c_args, stream)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(7):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn(*c_args, stream)
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA"))
+        times.append(us / 1e3 / 10)
+    del keep
+    return statistics.median(times)
 
 
 def _build_turns(roots):

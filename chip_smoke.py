@@ -3,7 +3,8 @@
 it end to end: slice 0 (the order-1 model, serving and training), slice 1
 (the general engines: order-2 SVGP and GPR, serving and training), the PDE
 slice (the SigGPDE SVGP), sequences past 129 steps (the GunPoint-length
-path, L = 150, serving and training) and num_levels 8-127.
+path, L = 150, serving and training), num_levels 8-127, and the order-1
+model at wide and long UEA shapes (PEMS-SF, MotorImagery).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -116,7 +117,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
    joint Gram (the training step's [Z; X_batch], dyadic order 1) solves
    its triangle of pairs: values and gradients against the full solve of
    every pair, float64;
-13. report: one JSON line with every kernel's launches, error, times and
+13. every d and L on the order-1 main path: (s) the diagonal at d = 64,
+   400, 1345 and at L = 257, 1025, 3000 (bands), both Gram backwards at
+   d = 64 and 400 (L = 50, 150), the Gram forwards' block design at
+   L = 300, d = 400, float32 and float64 against their plain versions,
+   each plan printed; (t) the order-1 normalised SVGP with inducing
+   tensors at UEA PEMS-SF's shape (d = 963, L = 144, 7 classes, 500
+   tensors, 267 train / 173 test sequences) and MotorImagery's (d = 64,
+   L = 3000, 2 classes, 100 tensors, 278 / 100), synthetic data from the
+   seed: ``posterior()`` + ``predict_y`` on the test sequences and natgrad
+   + Adam steps (2 at B = 50, 2 at B = 16), each with its counters (the
+   diagonal, the Kuf forward and its backward) and wall times; (u) the
+   PEMS-SF model in float64 at small N, T, L, card against the CPU; every
+   phase's wall time is printed;
+14. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
    launches on the long path, under "long"; rows 10-13 with the same
    at num_levels = 10, under "deep"), then the device line.
@@ -146,7 +160,7 @@ SEED = 0
 KERNELS = {
     "gram": ("_fused_kernel", "gpsig_tpu_torch/csrc/fused_gram.cu",
              "gpsig_tpu/ops/pallas/fused_gram.py:146"),
-    "diag": ("_diag_kernel", "gpsig_tpu_torch/csrc/fused_gram.cu",
+    "diag": ("_diag_kernel", "gpsig_tpu_torch/csrc/fused_diag.cuh",
              "gpsig_tpu/ops/pallas/fused_gram.py:330"),
     "tens_seq": ("_tens_seq_kernel", "gpsig_tpu_torch/csrc/tens_seq.cuh",
                  "gpsig_tpu/ops/pallas/tens_seq.py:66"),
@@ -635,13 +649,18 @@ def run_cases(dev, cases, works, fwd_tol):
     return report
 
 
-def build_svgp(torch, dev, dtype, rng, M, nl, d, L, C, n_train, order=1):
+def build_svgp(torch, dev, dtype, rng, M, nl, d, L, C, n_train, order=1,
+               data=None):
+    """The flagship's SVGP (normalised SignatureRBF, inducing tensors with
+    increments drawn from the data, MultiClass(C)) on ``data`` [n_train, L,
+    d] (numpy; default: walks from ``rng``)."""
     from gpsig_tpu_torch.inducing import make_inducing_tensors_from_data
     from gpsig_tpu_torch.kernels.signature import SignatureRBF
     from gpsig_tpu_torch.likelihoods import MultiClass
     from gpsig_tpu_torch.models.svgp import SVGP
 
-    X = torch.as_tensor(walks(rng, n_train, L, d), dtype=dtype, device=dev)
+    X = torch.as_tensor(walks(rng, n_train, L, d) if data is None else data,
+                        dtype=dtype, device=dev)
     Y = torch.as_tensor(rng.integers(0, C, n_train), device=dev)
     kern = SignatureRBF(d, nl, normalization=True, order=order, dtype=dtype,
                         device=dev)
@@ -1825,14 +1844,17 @@ def goursat_kernel_phase(dev):
     Gram ([Z; X_batch], 82² pairs), (7, 49) Kuf at prediction (32 inducing
     sequences of length 8 against 2048 test sequences), (1, 1) and (13, 5)
     at 4096 pairs, each at dyadic order 0-2, and (199, 199) (L=200, 64
-    pairs) at orders 2 and 3. The given-grid route runs on the grid refined
-    in memory (the ``scan`` engine's input). Float32 timed: Gcell/s counts
-    refined cells; bounds as ``bound``."""
+    pairs) at orders 2 and 3 (past 256 refined rows: the forward's bands).
+    The given-grid route runs on the grid refined in memory (the ``scan``
+    engine's input). The forwards must equal the plain sweep bit for bit,
+    each with its plan printed. Float32 timed: Gcell/s counts refined
+    cells; bounds as ``bound``."""
     import torch
 
     from gpsig_tpu_torch.inducing import make_inducing_sequences_from_data
     from gpsig_tpu_torch.ops import goursat
     from gpsig_tpu_torch.ops.cuda import goursat as gs
+    from gpsig_tpu_torch.ops.cuda import plan
 
     rng = np.random.default_rng(SEED + 20)
     Xtr, _ = pde_data()
@@ -1876,6 +1898,12 @@ def goursat_kernel_phase(dev):
                           and bool(torch.isfinite(got).all()),
                           f"goursat {route} {(Su, Tu)} o={o} {name}: "
                           f"{got.shape}, finite {torch.isfinite(got).all()}")
+                    if route != "grad":
+                        # each refined cell is the plain sweep's expression
+                        # in its order: the forwards match it bit for bit
+                        check(torch.equal(got, want), f"goursat {route} "
+                              f"{(Su, Tu)} o={o} {name}: not bitwise equal "
+                              "to the plain sweep")
                     if route == "grad":
                         # each unrefined cell written once, no atomics: the
                         # same bits on every launch
@@ -1902,6 +1930,14 @@ def goursat_kernel_phase(dev):
                 bd = bound(GOURSAT_CELL_OPS[kind] * cells, nbytes)
                 gcells = cells / times["ms"] / 1e6
                 label = f"goursat {route} ({Su}, {Tu}) o={o} B={B} {role}"
+                if kind == "fwd":
+                    fast = route == "fast"
+                    p = plan.goursat_fwd_plan(Su << o if fast else Su,
+                                              Tu << o if fast else Tu,
+                                              0 if fast else o, 4)
+                    label += (f" [RL={p['RL']} S={p['S']} bands="
+                              f"{p['bands']} W={p['W']} stage={p['stage']}"
+                              f" cols={p['cols']}]")
                 print(f"{label}: scaled err float32 "
                       f"{errs['float32'][0]:.3e} (max abs "
                       f"{errs['float32'][1]:.3e}), float64 "
@@ -2928,6 +2964,276 @@ def deep_gpr_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The order-1 main path at every d and L: the Gram-side kernels past
+# their shared memory, the diagonal past 1024 rows, and the main model at
+# UEA PEMS-SF's and MotorImagery's widths and lengths.
+# ---------------------------------------------------------------------------
+
+#: the wide d (MotorImagery's, past the staged sequences, DuckDuckGeese's)
+#: and the long L (past one band, past the old 1024-row bound,
+#: MotorImagery's) of the diagonal's checks
+WIDE_D = (64, 400, 1345)
+WIDE_L = (257, 1025, 3000)
+
+
+def uea_walks(rng, n, L, d):
+    """Synthetic sequences at a UEA set's published shape: walks whose steps
+    keep the norms of d = 2 at L = 50 (``long_walks`` scaled by √(2/d)), so
+    the RBF signature levels stay inside float32's range at any d, L."""
+    return long_walks(rng, n, L, d) * np.sqrt(2 / d)
+
+
+def gram_side_phase(dev):
+    """(s) Each Gram-side kernel where its old plan refused, float32 and
+    float64, against its plain version with the tolerances above: the
+    diagonal at d in WIDE_D (L = 50) and at L in WIDE_L (d = 3), nl 4 and 7,
+    and at the shapes of phase (t)'s UEA paths (4 sequences of PEMS-SF's
+    144 x 963 and MotorImagery's 3000 x 64, at the path's levels and 7;
+    in float32 the plan must be the one the path runs, but for its grid),
+    RBF and Linear; both Gram backwards at d = 64 and 400, L = 50 and 150;
+    the Gram forwards' block design at L = 300, d = 400 (x and y read from
+    global memory). Each launch's plan is printed and its counter must
+    rise."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+    from gpsig_tpu_torch.ops.cuda import plan
+
+    rng = np.random.default_rng(SEED + 40)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        tol, gtol, btol = TOL[name][0], GEN_TOL[name][0], BWD_TOL[name][0]
+        item = torch.tensor([], dtype=dtype).element_size()
+        shapes = ([(8, 50, d, 4, None) for d in WIDE_D]
+                  + [(4, L, 3, 4, None) for L in WIDE_L]
+                  + [(4, UEA[k]["L"], UEA[k]["d"], UEA[k]["nl"], k)
+                     for k in UEA])
+        for N, L, d, nl0, path in shapes:
+            X = torch.as_tensor(uea_walks(rng, N, L, d), dtype=dtype,
+                                device=dev)
+            errs = []
+            for nl in (nl0, 7):
+                for rbf in (True, False):
+                    n0 = fg.diag_launches
+                    got = fg.fused_diag_levels(X, nl, rbf)
+                    want = fg.fused_diag_levels_ref(X, nl, rbf)
+                    torch.cuda.synchronize()
+                    check(fg.diag_launches == n0 + 1,
+                          f"diag L={L} d={d}: the kernel did not launch")
+                    errs.append(scaled_err(got, want))
+            p = plan.diag_plan(N, L, d, nl0, item)
+            carries = ("none" if p["bands"] == 1 else "shared memory"
+                       if p["carry_smem"] else "workspace")
+            print(f"diag {name} N={N} L={L} d={d} nl={nl0}: plan S={p['S']}"
+                  f" R={p['R']} W={p['W']} bands={p['bands']} stage="
+                  f"{p['stage']} carries {carries}; "
+                  f"scaled err {max(errs):.3e} (tol {tol:g})")
+            if path and dtype == torch.float32:
+                keys = ("S", "R", "W", "bands", "stage", "carry_smem",
+                        "smem")
+                runs = plan.diag_plan(UEA[path]["n_test"], L, d, nl0, item)
+                check(all(p[k] == runs[k] for k in keys),
+                      f"diag {path}: checked {p}, the path runs {runs}")
+                print(f"diag {name} at {path}'s shape: the plan its path "
+                      "runs")
+            check(max(errs) <= tol, f"diag {name} L={L} d={d}: {errs}")
+        for L in (50, 150):
+            for d in (64, 400):
+                X = torch.as_tensor(uea_walks(rng, 4, L, d), dtype=dtype,
+                                    device=dev)
+                Y = torch.as_tensor(uea_walks(rng, 6, L, d), dtype=dtype,
+                                    device=dev)
+                g = torch.as_tensor(rng.standard_normal((5, 4, 6)),
+                                    dtype=dtype, device=dev)
+                n0 = (fg.gram_bwd_launches, fgho.bwd_launches)
+                e1 = scaled_err(fg.fused_gram_levels_bwd(X, Y, g, 4, True),
+                                fg.fused_gram_levels_bwd_ref(X, Y, g, 4,
+                                                             True))
+                e2 = scaled_err(
+                    fgho.fused_gram_ho_levels_bwd(X, Y, g, 4, 2, "rbf",
+                                                  True),
+                    fgho.fused_gram_ho_levels_bwd_ref(X, Y, g, 4, 2, "rbf",
+                                                      True))
+                check((fg.gram_bwd_launches, fgho.bwd_launches)
+                      == (n0[0] + 1, n0[1] + 1),
+                      f"Gram backwards L={L} d={d}: a kernel did not launch")
+                p1 = plan.gram_bwd_launch(4, 6, L, d, item)
+                p2 = plan.gram_ho_bwd_launch(4, 6, L - 1, L, d, item)
+                print(f"Gram backwards {name} L={L} d={d}: staged "
+                      f"{p1['staged']} / {p2['staged']}, workspace "
+                      f"{p1['work']} / {p2['work']} values; scaled err "
+                      f"order 1 {e1:.3e}, order 2 {e2:.3e} (tol {btol:g})")
+                check(max(e1, e2) <= btol,
+                      f"Gram backwards {name} L={L} d={d}: {e1}, {e2}")
+        X = torch.as_tensor(uea_walks(rng, 3, 300, 400) / np.sqrt(6),
+                            dtype=dtype, device=dev)
+        check(plan.gram_fwd_smem(300, 400, 32, 4, 3, item)
+              < 300 * 400 * item, "block design: x and y still staged")
+        e1 = scaled_err(fg.fused_gram_levels(X, X, 4, True),
+                        fg.fused_gram_levels_ref(X, X, 4, True))
+        e2 = scaled_err(fgho.fused_gram_ho_levels(X, X, 4, 2, "rbf", True),
+                        fgho.fused_gram_ho_levels_ref(X, X, 4, 2, "rbf",
+                                                      True))
+        print(f"Gram forwards' block design {name} L=300 d=400 (x, y from "
+              f"global memory): scaled err order 1 {e1:.3e} (tol {tol:g}), "
+              f"order 2 {e2:.3e} (tol {gtol:g})")
+        check(e1 <= tol and e2 <= gtol, f"block design {name}: {e1}, {e2}")
+        torch.cuda.empty_cache()
+
+
+#: UEA shapes (published: train, test sequences, length, channels,
+#: classes) and the slice's model cut for each: levels, inducing tensors,
+#: the training batch and steps (PEMS-SF's two: a step takes ~9 s, most of
+#: it the general Kuf backward at d = 963)
+UEA = {
+    "PEMS-SF": dict(n_train=267, n_test=173, L=144, d=963, C=7, nl=5, M=500,
+                    batch=50, steps=2),
+    "MotorImagery": dict(n_train=278, n_test=100, L=3000, d=64, C=2, nl=4,
+                         M=100, batch=16, steps=2),
+}
+
+
+def uea_svgp_phase(dev, name):
+    """(t) The main path's model, the order-1 normalised SignatureRBF SVGP
+    with inducing tensors (increments), at a UEA set's published shape
+    (synthetic data from the seed, float32): ``posterior()`` +
+    ``predict_y`` on the test sequences and natgrad + Adam steps (Adam
+    1e-3, γ = 0.1), each with its counters: the diagonal and the order-1
+    Kuf forward must launch in both, the Kuf backward in the steps (past
+    d = 3 its plan takes the general kernel at order 1 and its
+    workspace); outputs finite, probabilities sum to 1; wall times
+    printed."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import plan
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    cfg = UEA[name]
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 41)
+    L, d, nl, C, M = cfg["L"], cfg["d"], cfg["nl"], cfg["C"], cfg["M"]
+    data = uea_walks(rng, cfg["n_train"], L, d)
+    model, X, Y = build_svgp(torch, dev, f32, rng, M=M, nl=nl, d=d, L=L,
+                             C=C, n_train=cfg["n_train"], data=data)
+    Xte = torch.as_tensor(uea_walks(rng, cfg["n_test"], L, d), dtype=f32,
+                          device=dev)
+    F2 = 2 * nl * (nl + 1) // 2
+    fwd = plan.kuf_fwd_plan(cfg["n_test"], F2, d, nl, 4, tuned=True)
+    bwd = plan.kuf_bwd_plan(M, cfg["batch"], F2, d, 4, tuned=True)
+    # the order-1 Kuf entry points count their launches whichever kernel
+    # their plan's route takes (past d = 3 the general one at order 1)
+    fwd_key, bwd_key = "tens_seq", "tens_seq_bwd"
+    diag = plan.diag_plan(cfg["n_test"], L, d, nl, 4)
+    if d > plan.KUF_TUNED_MAX_D:
+        check(bwd["route"] == "general", f"{name}: Kuf backward {bwd}")
+    carries = ("none" if diag["bands"] == 1 else "shared memory"
+               if diag["carry_smem"] else "workspace")
+    print(f"{name} SVGP (M={M}, nl={nl}, C={C}, L={L}, d={d}): diagonal "
+          f"S={diag['S']} W={diag['W']} bands={diag['bands']} stage="
+          f"{diag['stage']} carries {carries}; "
+          f"Kuf forward {fwd['route']}, backward {bwd['route']} "
+          f"(workspace {bwd['work']} values)")
+
+    reset_counters()
+    with torch.no_grad():
+        (mean, var), ms = timed(lambda: model.posterior().predict_y(Xte))
+    launches = counters()
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+          f"{name}: predictions not finite")
+    check(bool(torch.allclose(mean.sum(-1), torch.ones_like(mean[:, 0]),
+                              atol=1e-4)), f"{name}: probabilities")
+    check(launches["diag"] > 0 and launches[fwd_key] > 0,
+          f"{name} serving: diag / Kuf did not launch: {launches}")
+    print(f"{name} posterior() + predict_y on {cfg['n_test']}: {ms:.1f} ms "
+          f"(first call); launches diag {launches['diag']}, {fwd_key} "
+          f"{launches[fwd_key]}")
+    with torch.no_grad():
+        post = model.posterior()
+        _, ms = timed(lambda: post.predict_y(Xte))
+    print(f"{name} predict_y on a cached posterior: {ms:.1f} ms")
+
+    step = make_step_fn(1e-3, num_data=cfg["n_train"], gamma=0.1)
+    state = step.init(model)
+    reset_counters()
+    elbos, times = [], []
+    for _ in range(cfg["steps"]):
+        idx = torch.as_tensor(rng.choice(cfg["n_train"], cfg["batch"],
+                                         replace=False), device=dev)
+        (state, elbo), ms = timed(lambda: step(state, X[idx], Y[idx]))
+        elbos.append(elbo.item())
+        times.append(ms)
+    launches = counters()
+    check(all(np.isfinite(elbos)), f"{name}: ELBO not finite: {elbos}")
+    for p in model.parameters():
+        check(bool(torch.isfinite(p).all()), f"{name}: parameter not finite")
+    check(launches["diag"] > 0 and launches[fwd_key] > 0
+          and launches[bwd_key] > 0,
+          f"{name} training: a kernel did not launch: {launches}")
+    print(f"{name} natgrad+Adam steps at B={cfg['batch']}: ELBO {elbos}; "
+          f"ms {[round(t, 1) for t in times]}; launches diag "
+          f"{launches['diag']}, {fwd_key} {launches[fwd_key]}, {bwd_key} "
+          f"{launches[bwd_key]}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    del model, state, X, Y, Xte
+    torch.cuda.empty_cache()
+
+
+def wide_order1_svgp_check(dev):
+    """(u) The PEMS-SF model's float64 copy at small N, T and L (d = 963,
+    nl = 5, 6 inducing tensors, 8 sequences of L = 12, MultiClass(7)): two
+    natgrad + Adam steps on the card against the same on the CPU,
+    tolerance 1e-8; the diagonal and the Kuf kernels launch."""
+    import torch
+
+    from gpsig_tpu_torch.inducing import InducingTensors
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 42)
+    Z, X, _ = kuf_inputs(rng, 6, 8, 12, 963, 5, True, "rbf")
+    Y = rng.integers(0, 7, 8)
+    model = SVGP.create(SignatureRBF(963, 5, normalization=True,
+                                     device="cpu"), MultiClass(7),
+                        InducingTensors.create(torch.as_tensor(Z), 5, True),
+                        7, device="cpu")
+    runs, card = {}, copy.deepcopy(model).to(dev)
+    for where, m in (("cpu", model), ("card", card)):
+        x = torch.as_tensor(X, dtype=f64, device=m.q_mu.device)
+        y = torch.as_tensor(Y, device=m.q_mu.device)
+        step = make_step_fn(1e-2, num_data=40, gamma=0.1)
+        state, out = step.init(m), []
+        reset_counters()
+        for _ in range(2):
+            state, elbo = step(state, x, y)
+            out.append(elbo)
+        launches = counters()
+        runs[where] = [t.detach().cpu() for t in (*out, *m.parameters())]
+    check(launches["diag"] > 0 and launches["tens_seq"] > 0
+          and launches["tens_seq_bwd"] > 0,
+          f"wide order-1 SVGP: a kernel did not launch: {launches}")
+    err = max(scaled_err(g, w) for g, w in zip(runs["card"], runs["cpu"]))
+    print(f"order-1 SVGP at d=963 (2 natgrad+Adam steps, float64): card vs "
+          f"CPU scaled err {err:.3e} over every ELBO and parameter, "
+          f"tolerance 1e-8; launches diag {launches['diag']}, tens_seq "
+          f"{launches['tens_seq']}, tens_seq_bwd "
+          f"{launches['tens_seq_bwd']}")
+    check(err <= 1e-8, f"wide order-1 SVGP: {err}")
+
+
+def phase(label, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall time printed under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2963,40 +3269,45 @@ def main():
                   f"{line.split(': ')[1]}")
 
     dev = torch.device("cuda", 0)
-    timings = kernel_phase(dev)
-    launches = slice_phase(dev)
-    small_float64_check(dev)
-    train_launches = training_phase(dev)
-    small_float64_training_check(dev)
-    timings.update(slice1_kernel_phase(dev))
-    coverage_sweep(dev)
-    svgp2_launches = slice1_serving_phase(dev)
-    gpr_launches = slice1_gpr_phase(dev)
-    small_float64_check(dev, order=2)
-    small_float64_gpr_check(dev)
-    timings.update(slice1_backward_kernel_phase(dev))
-    kuf_plan_sweep(dev)
-    wide_svgp_check(dev)
-    train1 = slice1_training_phase(dev)
-    small_float64_training_check(dev, order=2, gpr_ctor="SignaturePoly",
-                                 offset=0.6)
-    timings.update(goursat_kernel_phase(dev))
-    pde_launches = pde_serving_phase(dev)
-    pde_train = pde_training_phase(dev)
-    small_float64_pde_check(dev)
-    long_correctness_phase(dev)
-    long_timings = long_timing_phase(dev)
-    gp1 = long_svgp_phase(dev, 1, 6, {
+    timings = phase("kernels", kernel_phase, dev)
+    launches = phase("slice", slice_phase, dev)
+    phase("slice float64", small_float64_check, dev)
+    train_launches = phase("training", training_phase, dev)
+    phase("training float64", small_float64_training_check, dev)
+    timings.update(phase("slice 1 kernels", slice1_kernel_phase, dev))
+    phase("coverage", coverage_sweep, dev)
+    svgp2_launches = phase("slice 1 serving", slice1_serving_phase, dev)
+    gpr_launches = phase("slice 1 GPR", slice1_gpr_phase, dev)
+    phase("slice 1 float64", small_float64_check, dev, order=2)
+    phase("slice 1 GPR float64", small_float64_gpr_check, dev)
+    timings.update(phase("slice 1 backward kernels",
+                         slice1_backward_kernel_phase, dev))
+    phase("Kuf plan sweep", kuf_plan_sweep, dev)
+    phase("wide SVGP", wide_svgp_check, dev)
+    train1 = phase("slice 1 training", slice1_training_phase, dev)
+    phase("slice 1 training float64", small_float64_training_check, dev,
+          order=2, gpr_ctor="SignaturePoly", offset=0.6)
+    timings.update(phase("Goursat kernels", goursat_kernel_phase, dev))
+    pde_launches = phase("PDE serving", pde_serving_phase, dev)
+    pde_train = phase("PDE training", pde_training_phase, dev)
+    phase("PDE float64", small_float64_pde_check, dev)
+    phase("long correctness", long_correctness_phase, dev)
+    long_timings = phase("long timing", long_timing_phase, dev)
+    gp1 = phase("GunPoint order 1", long_svgp_phase, dev, 1, 6, {
         "serving": ("diag", "tens_seq"),
         "training": ("diag", "tens_seq", "tens_seq_bwd")})
-    gp3 = long_svgp_phase(dev, 3, 3, {
+    gp3 = phase("GunPoint order 3", long_svgp_phase, dev, 3, 3, {
         "serving": ("tsg", "sig_gram_ho"),
         "training": ("tsg", "tsg_bwd", "sig_gram_ho", "sig_gram_ho_bwd")})
-    gpr150 = long_gpr_phase(dev)
-    long_float64_check(dev)
-    pde_triangle_check(dev)
-    deep_timings = deep_levels_phase(dev)
-    deep_gpr = deep_gpr_phase(dev)
+    gpr150 = phase("GPR L=150", long_gpr_phase, dev)
+    phase("long float64", long_float64_check, dev)
+    phase("PDE triangle", pde_triangle_check, dev)
+    deep_timings = phase("deep levels", deep_levels_phase, dev)
+    deep_gpr = phase("deep GPR", deep_gpr_phase, dev)
+    phase("Gram side past shared memory", gram_side_phase, dev)
+    phase("PEMS-SF SVGP", uea_svgp_phase, dev, "PEMS-SF")
+    phase("PEMS-SF float64", wide_order1_svgp_check, dev)
+    phase("MotorImagery SVGP", uea_svgp_phase, dev, "MotorImagery")
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the

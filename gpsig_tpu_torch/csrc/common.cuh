@@ -1,6 +1,7 @@
 // Device helpers shared by the kernels in this directory.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace gpsig {
@@ -254,7 +255,17 @@ struct WarpGroup {
   // rows before row t*R + r.
   template <int R>
   __device__ __forceinline__ void prefix(const T (&v)[R], T (&out)[R]) {
-    T run = T(0);
+    prefix_from<R>(v, out, T(0));
+  }
+
+  // The exclusive prefix plus `from`, which group thread 0 passes (the
+  // others pass 0): the sum of the rows before the group's (the
+  // diagonal's bands). Returns the thread's inclusive total, at thread
+  // S - 1 `from` plus the group's sum.
+  template <int R>
+  __device__ __forceinline__ T prefix_from(const T (&v)[R], T (&out)[R],
+                                           T from) {
+    T run = from;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       out[r] = run;
@@ -270,6 +281,7 @@ struct WarpGroup {
     if (lane == 0) excl = T(0);
 #pragma unroll
     for (int r = 0; r < R; ++r) out[r] += excl;
+    return incl;
   }
 
   // Exclusive suffix over the group's rows: out[r] = sum of v over all
@@ -502,6 +514,29 @@ __device__ __forceinline__ void kuf_activate_grad(T (&a)[N], T (&g)[N],
       for (int n = 0; n < N; ++n) g[n] = T(1);
       break;
   }
+}
+
+// Copy n values from global src to shared dst by `count` threads from
+// `tid` with asynchronous copies (cp.async), 16 bytes a copy where both
+// ends are 16-byte aligned: all of a thread's values in flight at once,
+// none through its registers (a loop that loads and stores a value at a
+// time waits out the memory's latency once a value), then a wait for all
+// of them. The caller's barrier makes them visible to the other threads.
+template <typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* __restrict__ src,
+                                           long long n, int tid, int count) {
+  constexpr int kVec = 16 / sizeof(T);
+  long long head = 0;
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) &
+       15) == 0) {
+    head = n / kVec * kVec;
+    for (long long k = tid; k < n / kVec; k += count)
+      __pipeline_memcpy_async(dst + k * kVec, src + k * kVec, 16);
+  }
+  for (long long k = head + tid; k < n; k += count)
+    __pipeline_memcpy_async(dst + k, src + k, sizeof(T));
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
 }
 
 // Shared memory one block may use on Hopper (plan.py's SMEM_BYTES).

@@ -1,12 +1,12 @@
-// Fused order-1 signature Gram and its diagonal, for Hopper (sm_90a).
+// Fused order-1 signature Gram, for Hopper (sm_90a).
 //
-// Replaces the TPU kernels gpsig_tpu/ops/pallas/fused_gram.py:_fused_kernel
-// (per-level Gram k_m(x, y), entry point fused_gram_levels) and
-// fused_gram.py:_diag_kernel (self kernels k_m(x, x), entry point
-// fused_diag_levels). Semantics: order 1, difference=True, RBF or Linear
-// base on pre-scaled sequences, num_levels <= 7; the RBF column build is
-// exp(-1/2 (|x|^2 + |y|^2) + <x, y>) without a clamp, as the Pallas kernel
-// and its references _xla_reference / _xla_reference_diag compute it.
+// Replaces the TPU kernel gpsig_tpu/ops/pallas/fused_gram.py:_fused_kernel
+// (per-level Gram k_m(x, y), entry point fused_gram_levels). Semantics:
+// order 1, difference=True, RBF or Linear base on pre-scaled sequences,
+// num_levels <= 7; the RBF column build is exp(-1/2 (|x|^2 + |y|^2) +
+// <x, y>) without a clamp, as the Pallas kernel and its reference
+// _xla_reference compute it. gpsig_error_string, the library's error
+// text, lives here too.
 //
 // Design of the Gram (redesigned for Hopper). Up to 256 rows a segment of
 // S = 8, 16 or 32 lanes of one warp (a WarpGroup<T, S>) takes a pair; the
@@ -31,14 +31,12 @@
 // symmetric Gram (Y = X) solves only the pairs on and above the diagonal
 // and writes each twice. At wide d, where the block's y would outgrow the
 // shared memory, the segments read y from global memory (SegBlock). Past
-// 256 rows one block of W <= 8 warps takes a pair (a BlockGroup at R = 4,
-// as the diagonal's), the scans crossing the warps through shared memory.
+// 256 rows one block of W <= 8 warps takes a pair (a BlockGroup at R = 4),
+// the scans crossing the warps through shared memory; it stages x and y
+// where they fit, else reads them from global memory (every d).
 //
-// Design of the diagonal. One group of threads per sequence:
-// up to 128 rows one warp (a WarpGroup, R = 1, 2 or 4 rows a lane), four
-// sequences to a block; above, one block of W <= 8 warps (a BlockGroup,
-// R = 4); the same column sweep with R + 1 points a thread read from the
-// staged sequence, and a 6-shuffle exclusive scan (pair_levels).
+// The diagonal (fused_gram.py:_diag_kernel, entry point
+// fused_diag_levels) is fused_diag.cuh's.
 //
 // What bounds it on the H100. Per pair it reads 2 L d values and writes
 // nl + 1, so memory is not the limit: instruction throughput is. The work
@@ -196,28 +194,35 @@ gram_seg_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 
 // Gram on the block design: block b handles x = X[b / N2] against
 // y = Y[b % N2] with a BlockGroup of W warps; with sym only the pairs on and
-// above the diagonal, thread 0 mirroring its values. out: [nl + 1, N1, N2].
+// above the diagonal, thread 0 mirroring its values. x and y are staged
+// where they fit (stage), else read from global memory. out: [nl + 1, N1,
+// N2].
 template <typename T>
 __global__ void __launch_bounds__(BlockGroup<T>::kMaxThreads)
 gram_block_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                   T* __restrict__ out, int N1, int N2, int L, int d, int nl,
-                  int rbf, int W, int sym) {
+                  int rbf, int W, int sym, int stage) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n1 = blockIdx.x / N2;
   const int n2 = blockIdx.x % N2;
   if (sym && n2 < n1) return;  // the whole block: one pair
   const int Ld = L * d;
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  T* nxs = xs + Ld;
-  T* ys = nxs + L;
-  T* nys = ys + Ld;
-  T* buf = nys + L;
-  const T* xg = X + static_cast<long long>(n1) * Ld;
-  const T* yg = Y + static_cast<long long>(n2) * Ld;
-  for (int k = threadIdx.x; k < Ld; k += blockDim.x) {
-    xs[k] = xg[k];
-    ys[k] = yg[k];
+  const T* xs = X + static_cast<long long>(n1) * Ld;
+  const T* ys = Y + static_cast<long long>(n2) * Ld;
+  T* nxs = reinterpret_cast<T*>(smem_raw);
+  if (stage) {  // x, -|x|^2/2, y, -|y|^2/2; else only the half norms
+    T* x_s = nxs;
+    T* y_s = x_s + Ld + L;
+    for (int k = threadIdx.x; k < Ld; k += blockDim.x) {
+      x_s[k] = xs[k];
+      y_s[k] = ys[k];
+    }
+    nxs = x_s + Ld;
+    xs = x_s;
+    ys = y_s;
   }
+  T* nys = stage ? nxs + L + Ld : nxs + L;
+  T* buf = nys + L;
   __syncthreads();
   if (rbf) {
     half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
@@ -236,40 +241,16 @@ gram_block_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   }
 }
 
-// Diagonal: pair p of block b handles sequence n = b * pairs + p against
-// itself. out: [nl + 1, N].
-template <typename T, int R, typename G>
-__global__ void __launch_bounds__(G::kMaxThreads)
-fused_diag_kernel(const T* __restrict__ X, T* __restrict__ out, int N,
-                  int L, int d, int nl, int rbf, int W) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int pairs = G::kBlock ? 1 : kPairsPerBlock;
-  const int p = G::kBlock ? 0 : static_cast<int>(threadIdx.x) >> 5;
-  const int n = blockIdx.x * pairs + p;
-  if (n >= N) return;  // whole warps only; a block group is always live
-  const int Ld = L * d;
-  const int gthreads = 32 * W;
-  const int gt = static_cast<int>(threadIdx.x) - p * 32;
-  T* xs = smem + p * (Ld + L);
-  T* nxs = xs + Ld;
-  T* buf = smem + pairs * (Ld + L);
-  const T* xg = X + static_cast<long long>(n) * Ld;
-  G g(W, buf);
-  for (int k = gt; k < Ld; k += gthreads) xs[k] = xg[k];
-  g.sync();
-  if (rbf) half_sqnorms(xs, nxs, L, d, gt, gthreads);
-  g.sync();
-  pair_levels<T, R>(xs, nxs, xs, nxs, L, d, nl, rbf != 0, out + n,
-                    static_cast<long long>(N), g);
-}
-
 template <typename T>
 cudaError_t launch_gram_block(const void* X, const void* Y, void* out,
                               int N1, int N2, int L, int d, int nl, int rbf,
                               int W, int sym, cudaStream_t stream) {
-  const size_t smem =
+  // staged where it fits (plan.py's gram_fwd_smem decides alike)
+  size_t smem =
       sizeof(T) * static_cast<size_t>(L) * (d + 1) * 2 + exchange_bytes<T>(W);
+  const int stage = smem <= kSegSmemBytes;
+  if (!stage) smem = sizeof(T) * 2 * static_cast<size_t>(L) +
+                     exchange_bytes<T>(W);
   cudaError_t e = allow_smem(gram_block_kernel<T>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks = static_cast<long long>(N1) * N2;
@@ -277,7 +258,7 @@ cudaError_t launch_gram_block(const void* X, const void* Y, void* out,
   gram_block_kernel<T><<<static_cast<unsigned>(blocks), 32 * W, smem,
                          stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(Y),
-      static_cast<T*>(out), N1, N2, L, d, nl, rbf, W, sym);
+      static_cast<T*>(out), N1, N2, L, d, nl, rbf, W, sym, stage);
   return cudaGetLastError();
 }
 
@@ -318,24 +299,6 @@ cudaError_t gram_seg_dispatch(const void* X, const void* Y, void* out,
   }
 }
 
-template <typename T, int R, typename G>
-cudaError_t launch_diag(const void* X, void* out, int N, int L, int d,
-                        int nl, int rbf, int W, cudaStream_t stream) {
-  const int pairs = G::kBlock ? 1 : kPairsPerBlock;
-  const size_t smem =
-      sizeof(T) * static_cast<size_t>(L) * (d + 1) * pairs +
-      exchange_bytes<T>(W);
-  cudaError_t e = allow_smem(fused_diag_kernel<T, R, G>, smem);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (N + pairs - 1) / pairs;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  fused_diag_kernel<T, R, G><<<static_cast<unsigned>(blocks),
-                               G::kBlock ? 32 * W : 32 * kPairsPerBlock, smem,
-                               stream>>>(
-      static_cast<const T*>(X), static_cast<T*>(out), N, L, d, nl, rbf, W);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t gram_dispatch(const void* X, const void* Y, void* out, int N1,
                           int N2, int L, int d, int nl, int rbf, int S,
@@ -346,25 +309,6 @@ cudaError_t gram_dispatch(const void* X, const void* Y, void* out, int N1,
                                            S, R, sym, s)
                  : gram_seg_dispatch<T, 7>(X, Y, out, N1, N2, L, d, nl, rbf,
                                            S, R, sym, s);
-}
-
-template <typename T>
-cudaError_t diag_dispatch(const void* X, void* out, int N, int L, int d,
-                          int nl, int rbf, int W, int R, cudaStream_t s) {
-  using WG = WarpGroup<T>;
-  if (W > 1)
-    return launch_diag<T, 4, BlockGroup<T>>(X, out, N, L, d, nl, rbf, W, s);
-  switch (R) {
-    case 1: return launch_diag<T, 1, WG>(X, out, N, L, d, nl, rbf, 1, s);
-    case 2: return launch_diag<T, 2, WG>(X, out, N, L, d, nl, rbf, 1, s);
-    case 4: return launch_diag<T, 4, WG>(X, out, N, L, d, nl, rbf, 1, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-bool bad_args(int L, int d, int nl, int W, int R) {
-  return L < 2 || d < 1 || nl < 1 || nl > kMaxLevels ||
-         !plan_ok(L - 1, W, R);
 }
 
 }  // namespace
@@ -390,15 +334,6 @@ int gpsig_fused_gram(const void* X, const void* Y, void* out, int N1, int N2,
                                      W, sym, s)
              : gram_dispatch<float>(X, Y, out, N1, N2, L, d, nl, rbf, S, R,
                                     W, sym, s);
-}
-
-// X [N, L, d] contiguous -> out [nl + 1, N]
-int gpsig_fused_diag(const void* X, void* out, int N, int L, int d, int nl,
-                     int rbf, int W, int R, int f64, void* stream) {
-  if (bad_args(L, d, nl, W, R)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? diag_dispatch<double>(X, out, N, L, d, nl, rbf, W, R, s)
-             : diag_dispatch<float>(X, out, N, L, d, nl, rbf, W, R, s);
 }
 
 const char* gpsig_error_string(int err) {

@@ -66,6 +66,13 @@
 //   pairs' X̄ sums are added and accumulated across blocks atomically. A
 //   pair past N2 in the last block runs on the last y, so that the two
 //   halves of a warp shuffle alike, and writes nothing.
+// - Every d (plan.py's gram_bwd_launch). Where x, the pairs' y and their
+//   X̄ sums do not fit the block's shared memory, x and y are read from
+//   global memory (only their half norms and the u tiles stay in shared
+//   memory) and the X̄ sums go to a device workspace, a slot a block, the
+//   grid striding over the items (an x against a block's y) so that the
+//   workspace stays within plan.WORKSPACE_BYTES
+//   (fused_gram_bwd_wide_kernel).
 // X and Y may be the same tensor: X̄ and Ȳ are separate buffers and
 // autograd adds them.
 
@@ -348,39 +355,130 @@ fused_gram_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   }
 }
 
+// Wide d: x and y read from global memory (their half norms staged), the
+// X̄ sums in the block's slot of work [gridDim.x][pairs][L][d + 1]; item
+// i, x = X[i / nyb] against the y sequences (i % nyb) * pairs + p, block
+// b takes items b, b + gridDim.x, ... Otherwise fused_gram_bwd_kernel's.
 template <typename T, int R, int NL, typename G>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
+fused_gram_bwd_wide_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                           const T* __restrict__ g, T* __restrict__ Xbar,
+                           T* __restrict__ Ybar, T* __restrict__ work,
+                           int N1, int N2, int L, int d, int rbf, int W,
+                           int chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int GT = G::kBlock ? 32 * W : G::kLanes;  // threads per pair
+  const int pairs = G::kBlock ? 1 : 32 * kPairsPerBlock / G::kLanes;
+  const int p = threadIdx.x / GT;
+  const int t = threadIdx.x % GT;
+  const int nyb = (N2 + pairs - 1) / pairs;
+  const int Ld = L * d;
+  const int La = L * (d + 1);
+  const int Lu = L | 1;
+  // nxs [L], then per pair nys [L], u [chunk][Lu]
+  const int per_pair = L + chunk * Lu;
+  T* nxs = smem;
+  T* nys = nxs + L + p * per_pair;
+  T* u = nys + L;
+  T* buf = nxs + L + pairs * per_pair;
+  // the pairs' X̄ sums: pair k's at acc0 + k * La
+  const T* acc0 = work + static_cast<long long>(blockIdx.x) * pairs * La;
+  T* xacc = work + (static_cast<long long>(blockIdx.x) * pairs + p) * La;
+  const long long items = static_cast<long long>(N1) * nyb;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int n1 = static_cast<int>(item / nyb);
+    const int n2base = static_cast<int>(item % nyb) * pairs;
+    const int n2 = n2base + p;
+    const bool active = n2 < N2;
+    const int n2c = active ? n2 : N2 - 1;
+    const T* xs = X + static_cast<long long>(n1) * Ld;
+    const T* ys = Y + static_cast<long long>(n2c) * Ld;
+    for (int k = t; k < La; k += GT) xacc[k] = T(0);
+    __syncthreads();
+    if (rbf) {
+      half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
+      half_sqnorms(ys, nys, L, d, t, GT);
+    }
+    __syncthreads();
+    {
+      const long long plane = static_cast<long long>(N1) * N2;
+      const long long pair = static_cast<long long>(n1) * N2 + n2c;
+      T w[NL];
+#pragma unroll
+      for (int m = 0; m < NL; ++m) w[m] = g[(m + 1) * plane + pair];
+      G grp(W, buf);
+      pair_levels_bwd<T, R, NL>(
+          xs, nxs, ys, nys, L, d, rbf != 0, w, xacc, u, Lu, chunk,
+          active ? Ybar + static_cast<long long>(n2) * Ld : nullptr, grp);
+    }
+    __syncthreads();
+    // X̄ of this item's x: add the live pairs' sums, then across y blocks
+    const int live = min(pairs, N2 - n2base);
+    T* xb = Xbar + static_cast<long long>(n1) * Ld;
+    for (int q = threadIdx.x; q < Ld; q += blockDim.x) {
+      const int pt = q / d, c = q - pt * d;
+      T s = T(0), su = T(0);
+      for (int k = 0; k < live; ++k) {
+        s += acc0[k * La + pt * (d + 1) + c];
+        su += acc0[k * La + pt * (d + 1) + d];
+      }
+      atomicAdd(xb + q, rbf ? s - xs[q] * su : s);
+    }
+    __syncthreads();  // the next item overwrites the half norms and sums
+  }
+}
+
+template <typename T, int R, int NL, typename G, bool Staged>
 cudaError_t launch_gram_bwd(const void* X, const void* Y, const void* g,
-                            void* Xbar, void* Ybar, int N1, int N2, int L,
-                            int d, int rbf, int W, int chunk,
-                            cudaStream_t stream) {
+                            void* Xbar, void* Ybar, void* work, int N1,
+                            int N2, int L, int d, int rbf, int W, int chunk,
+                            int blocks, cudaStream_t stream) {
+  constexpr bool staged = Staged;
   const int threads = G::kBlock ? 32 * W : 32 * kPairsPerBlock;
   const int pairs = G::kBlock ? 1 : threads / G::kLanes;
   const size_t Lz = static_cast<size_t>(L);
+  const size_t seq = staged ? Lz * (d + 1) : Lz;
   const size_t smem =
-      sizeof(T) * (Lz * (d + 1) +
-                   pairs * (2 * Lz * (d + 1) + chunk * (Lz | 1))) +
+      sizeof(T) * (seq + pairs * ((staged ? 2 * seq : Lz) +
+                                  chunk * (Lz | 1))) +
       exchange_bytes<T>(W);
-  cudaError_t e = allow_smem(fused_gram_bwd_kernel<T, R, NL, G>, smem);
-  if (e != cudaSuccess) return e;
-  const long long nyb = (N2 + pairs - 1) / pairs;
-  const long long blocks = static_cast<long long>(N1) * nyb;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  fused_gram_bwd_kernel<T, R, NL, G><<<static_cast<unsigned>(blocks),
-                                       threads, smem, stream>>>(
-      static_cast<const T*>(X), static_cast<const T*>(Y),
-      static_cast<const T*>(g), static_cast<T*>(Xbar), static_cast<T*>(Ybar),
-      N1, N2, L, d, rbf, W, chunk);
+  if (smem > kSegSmemBytes) return cudaErrorInvalidValue;
+  const T* x = static_cast<const T*>(X);
+  const T* y = static_cast<const T*>(Y);
+  const T* gg = static_cast<const T*>(g);
+  T* xb = static_cast<T*>(Xbar);
+  T* yb = static_cast<T*>(Ybar);
+  if constexpr (Staged) {
+    cudaError_t e = allow_smem(fused_gram_bwd_kernel<T, R, NL, G>, smem);
+    if (e != cudaSuccess) return e;
+    fused_gram_bwd_kernel<T, R, NL, G><<<blocks, threads, smem, stream>>>(
+        x, y, gg, xb, yb, N1, N2, L, d, rbf, W, chunk);
+  } else {
+    cudaError_t e =
+        allow_smem(fused_gram_bwd_wide_kernel<T, R, NL, G>, smem);
+    if (e != cudaSuccess) return e;
+    fused_gram_bwd_wide_kernel<T, R, NL, G><<<blocks, threads, smem,
+                                              stream>>>(
+        x, y, gg, xb, yb, static_cast<T*>(work), N1, N2, L, d, rbf, W,
+        chunk);
+  }
   return cudaGetLastError();
 }
 
 template <typename T, typename G>
 cudaError_t by_levels(int nl, const void* X, const void* Y, const void* g,
-                      void* Xbar, void* Ybar, int N1, int N2, int L, int d,
-                      int rbf, int W, int chunk, cudaStream_t s) {
+                      void* Xbar, void* Ybar, void* work, int N1, int N2,
+                      int L, int d, int rbf, int W, int chunk, int staged,
+                      int blocks, cudaStream_t s) {
 #define GPSIG_NL(n)                                                        \
   case n:                                                                  \
-    return launch_gram_bwd<T, 4, n, G>(X, Y, g, Xbar, Ybar, N1, N2, L, d, \
-                                       rbf, W, chunk, s);
+    return staged ? launch_gram_bwd<T, 4, n, G, true>(                     \
+                        X, Y, g, Xbar, Ybar, work, N1, N2, L, d, rbf, W,   \
+                        chunk, blocks, s)                                  \
+                  : launch_gram_bwd<T, 4, n, G, false>(                    \
+                        X, Y, g, Xbar, Ybar, work, N1, N2, L, d, rbf, W,   \
+                        chunk, blocks, s);
   switch (nl) {
     GPSIG_NL(1) GPSIG_NL(2) GPSIG_NL(3) GPSIG_NL(4) GPSIG_NL(5) GPSIG_NL(6)
     GPSIG_NL(7)
@@ -393,17 +491,21 @@ cudaError_t by_levels(int nl, const void* X, const void* Y, const void* g,
 // rows a lane in each.
 template <typename T>
 cudaError_t gram_bwd_dispatch(const void* X, const void* Y, const void* g,
-                              void* Xbar, void* Ybar, int N1, int N2, int L,
-                              int d, int nl, int rbf, int S, int W, int chunk,
+                              void* Xbar, void* Ybar, void* work, int N1,
+                              int N2, int L, int d, int nl, int rbf, int S,
+                              int W, int chunk, int staged, int blocks,
                               cudaStream_t s) {
   if (W > 1)
-    return by_levels<T, BlockGroup<T>>(nl, X, Y, g, Xbar, Ybar, N1, N2, L, d,
-                                       rbf, W, chunk, s);
+    return by_levels<T, BlockGroup<T>>(nl, X, Y, g, Xbar, Ybar, work, N1, N2,
+                                       L, d, rbf, W, chunk, staged, blocks,
+                                       s);
   if (S == 16)
-    return by_levels<T, WarpGroup<T, 16>>(nl, X, Y, g, Xbar, Ybar, N1, N2, L,
-                                          d, rbf, 1, chunk, s);
-  return by_levels<T, WarpGroup<T, 32>>(nl, X, Y, g, Xbar, Ybar, N1, N2, L, d,
-                                        rbf, 1, chunk, s);
+    return by_levels<T, WarpGroup<T, 16>>(nl, X, Y, g, Xbar, Ybar, work, N1,
+                                          N2, L, d, rbf, 1, chunk, staged,
+                                          blocks, s);
+  return by_levels<T, WarpGroup<T, 32>>(nl, X, Y, g, Xbar, Ybar, work, N1,
+                                        N2, L, d, rbf, 1, chunk, staged,
+                                        blocks, s);
 }
 
 }  // namespace
@@ -413,23 +515,28 @@ extern "C" {
 // X [N1, L, d], Y [N2, L, d], g [nl + 1, N1, N2] contiguous; Xbar, Ybar
 // zero-filled [N1, L, d], [N2, L, d], distinct buffers. The plan: segments
 // of S lanes (16: two pairs a warp; 32: one warp, or W warps a pair), four
-// rows a lane, tiles of `chunk` columns. Returns cudaGetLastError() after
-// the launch (0 on success).
+// rows a lane, tiles of `chunk` columns; `staged` (x, y and the X̄ sums in
+// shared memory) or not (work: [blocks][pairs][L][d + 1]); `blocks`
+// blocks, striding over the items. Returns cudaGetLastError() after the
+// launch (0 on success).
 int gpsig_fused_gram_bwd(const void* X, const void* Y, const void* g,
-                         void* Xbar, void* Ybar, int N1, int N2, int L, int d,
-                         int nl, int rbf, int S, int W, int chunk, int f64,
+                         void* Xbar, void* Ybar, void* work, int N1, int N2,
+                         int L, int d, int nl, int rbf, int S, int W,
+                         int chunk, int staged, int blocks, int f64,
                          void* stream) {
   const bool plan = (S == 16 && W == 1) || (S == 32 && W >= 1 &&
                                             W <= kMaxWarps);
   if (L < 2 || d < 1 || nl < 1 || nl > kMaxLevels || !plan ||
       L - 1 > S * W * 4 || (chunk != 8 && chunk != 16 && chunk != 32) ||
-      (S * W) % chunk != 0)
+      (S * W) % chunk != 0 || blocks < 1 || (!staged && work == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? gram_bwd_dispatch<double>(X, Y, g, Xbar, Ybar, N1, N2, L, d,
-                                         nl, rbf, S, W, chunk, s)
-             : gram_bwd_dispatch<float>(X, Y, g, Xbar, Ybar, N1, N2, L, d, nl,
-                                        rbf, S, W, chunk, s);
+  return f64 ? gram_bwd_dispatch<double>(X, Y, g, Xbar, Ybar, work, N1, N2,
+                                         L, d, nl, rbf, S, W, chunk, staged,
+                                         blocks, s)
+             : gram_bwd_dispatch<float>(X, Y, g, Xbar, Ybar, work, N1, N2, L,
+                                        d, nl, rbf, S, W, chunk, staged,
+                                        blocks, s);
 }
 
 }  // extern "C"

@@ -33,7 +33,8 @@
 // (SegBlock). Past what one warp takes, one block of W <= 8 warps takes a
 // pair at R = 4 (the BlockGroup design, GramColumns and
 // run_length_levels, as sig_gram.cu), the scans crossing the warps
-// through shared memory. Instantiations per dtype: each
+// through shared memory; it stages x and y where they fit, else reads them
+// from global memory (every d). Instantiations per dtype: each
 // (P, NLM) at its R and S in {8, 16, 32} (P <= 3; S = 32 above), at R = 4
 // and S = 32 where its R is 2, and the block design for each P. Each
 // dtype's are compiled by one source: float32 by fused_gram_ho.cu (which
@@ -140,29 +141,35 @@ gram_ho_seg_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 
 // The block design: block b handles x = X[b / N2] against y = Y[b % N2]
 // with a BlockGroup of W warps; with sym only the pairs on and above the
-// diagonal, thread 0 mirroring its values. out: [nl + 1, N1, N2].
+// diagonal, thread 0 mirroring its values. x and y are staged where they
+// fit (stage), else read from global memory. out: [nl + 1, N1, N2].
 template <typename T, int P>
 __global__ void __launch_bounds__(BlockGroup<T>::kMaxThreads)
 gram_ho_block_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                      T* __restrict__ out, int N1, int N2, int L, int d,
                      int nl, int kind, int degree, int diff, int W,
-                     int sym) {
+                     int sym, int stage) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n1 = blockIdx.x / N2;
   const int n2 = blockIdx.x % N2;
   if (sym && n2 < n1) return;  // the whole block: one pair
   const int Ld = L * d;
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  T* nxs = xs + Ld;
-  T* ys = nxs + L;
-  T* nys = ys + Ld;
-  T* buf = nys + L;
-  const T* xg = X + static_cast<long long>(n1) * Ld;
-  const T* yg = Y + static_cast<long long>(n2) * Ld;
-  for (int k = threadIdx.x; k < Ld; k += blockDim.x) {
-    xs[k] = xg[k];
-    ys[k] = yg[k];
+  const T* xs = X + static_cast<long long>(n1) * Ld;
+  const T* ys = Y + static_cast<long long>(n2) * Ld;
+  T* nxs = reinterpret_cast<T*>(smem_raw);
+  if (stage) {  // x, -|x|^2/2, y, -|y|^2/2; else only the half norms
+    T* x_s = nxs;
+    T* y_s = x_s + Ld + L;
+    for (int k = threadIdx.x; k < Ld; k += blockDim.x) {
+      x_s[k] = xs[k];
+      y_s[k] = ys[k];
+    }
+    nxs = x_s + Ld;
+    xs = x_s;
+    ys = y_s;
   }
+  T* nys = stage ? nxs + L + Ld : nxs + L;
+  T* buf = nys + L;
   __syncthreads();
   if (kind_norms(kind)) {
     half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
@@ -188,8 +195,12 @@ template <typename T, int P>
 cudaError_t launch_block(const void* X, const void* Y, void* out, int N1,
                          int N2, int L, int d, int nl, int kind, int degree,
                          int diff, int W, int sym, cudaStream_t stream) {
-  const size_t smem =
+  // staged where it fits (plan.py's gram_fwd_smem decides alike)
+  size_t smem =
       sizeof(T) * static_cast<size_t>(L) * (d + 1) * 2 + exchange_bytes<T>(W);
+  const int stage = smem <= kSegSmemBytes;
+  if (!stage) smem = sizeof(T) * 2 * static_cast<size_t>(L) +
+                     exchange_bytes<T>(W);
   cudaError_t e = allow_smem(gram_ho_block_kernel<T, P>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks = static_cast<long long>(N1) * N2;
@@ -197,7 +208,8 @@ cudaError_t launch_block(const void* X, const void* Y, void* out, int N1,
   gram_ho_block_kernel<T, P><<<static_cast<unsigned>(blocks), 32 * W, smem,
                                stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(Y),
-      static_cast<T*>(out), N1, N2, L, d, nl, kind, degree, diff, W, sym);
+      static_cast<T*>(out), N1, N2, L, d, nl, kind, degree, diff, W, sym,
+      stage);
   return cudaGetLastError();
 }
 

@@ -51,6 +51,10 @@
 //   into X̄ sums in shared memory, and threads over the tile's columns add
 //   Ȳ of those columns to global memory, one atomic per (pair, column,
 //   channel) and point range.
+// - Every d (plan.py's gram_ho_bwd_launch): where x, the pairs' y and their
+//   X̄ sums do not fit shared memory, x and y are read from global memory
+//   and the X̄ sums go to a device workspace, a slot a block, the grid
+//   striding over the items, as in fused_gram_bwd.cu.
 // - Registers bound the occupancy, so the DP state is templated on a level
 //   bound NLM (4 or 7; the state arrays hold NLM levels, not 7) as well as
 //   the order, and the float32 one-warp instances at NLM = 4, p <= 2 are
@@ -298,101 +302,121 @@ constexpr int ho_bwd_min_blocks() {
   return !G::kBlock && NLM <= 4 && P <= 2 ? 4 : 1;
 }
 
-// Block b: x = X[b / nyb] against the y sequences (b % nyb) * pairs + p
-// (one warp each, or the whole block when W > 1).
-// Xbar, Ybar: [N1, L, d], [N2, L, d], zeroed by the caller.
+// Item i: x = X[i / nyb] against the y sequences (i % nyb) * pairs + p
+// (one warp each, or the whole block when W > 1); block b takes items b,
+// b + gridDim.x, ... Xbar, Ybar: [N1, L, d], [N2, L, d], zeroed by the
+// caller. Staged: x, the pairs' y and X̄ sums in shared memory; else x and
+// y read from global memory (their half norms staged) and the X̄ sums in
+// the block's slot of work [gridDim.x][pairs][L][d + 1] (plan.py's
+// gram_ho_bwd_launch).
 template <typename T, int R, int P, int NLM, typename G>
 __global__ void __launch_bounds__(G::kMaxThreads,
                                   (ho_bwd_min_blocks<G, NLM, P>()))
 gram_ho_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                    const T* __restrict__ g, T* __restrict__ Xbar,
-                   T* __restrict__ Ybar, int N1, int N2, int L, int d,
-                   int nl, int kind, int degree, int diff, int W, int ch) {
+                   T* __restrict__ Ybar, T* __restrict__ work, int N1,
+                   int N2, int L, int d, int nl, int kind, int degree,
+                   int diff, int W, int ch, int staged) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int pairs = G::kBlock ? 1 : kPairsPerBlock;
   const int p = G::kBlock ? 0 : static_cast<int>(threadIdx.x) >> 5;
   const int nyb = (N2 + pairs - 1) / pairs;
-  const int n1 = blockIdx.x / nyb;
-  const int n2 = (blockIdx.x % nyb) * pairs + p;
   const int Ld = L * d;
   const int La = L * (d + 1);
   const int gthreads = 32 * W;
   const int gt = static_cast<int>(threadIdx.x) - p * 32;
   const bool norms = kind_norms(kind);
-  const int per_pair = ho_bwd_per_pair(L, d, ch);
-  T* xs = smem;                          // [L][d]
-  T* nxs = xs + Ld;                      // [L]
-  T* ys = nxs + L + p * per_pair;        // [L][d], this pair's y
-  T* nys = ys + Ld;                      // [L]
-  T* xacc = nys + L;                     // [L][d + 1]
-  T* kt = xacc + La;                     // [CH + 1][L]
+  // staged: xs [L][d], nxs [L], then per pair ys [L][d], nys [L], xacc
+  // [L][d + 1], the tiles; else nxs [L], then per pair nys [L], the tiles
+  const int seq = staged ? Ld : 0;
+  const int per_pair = ho_bwd_per_pair(L, d, ch) -
+                       (staged ? 0 : Ld + La);
+  T* nxs = smem + seq;                   // [L]
+  T* nys = nxs + L + p * per_pair + seq; // [L]
+  T* kt = nys + L + (staged ? La : 0);   // [CH + 1][L]
   T* dkt = kt + (ch + 1) * L;            // [CH + 1][L]
   T* u = dkt + (ch + 1) * L;             // [CH][L | 1]
   T* buf = nxs + L + pairs * per_pair;
-  const bool active = n2 < N2;
-
-  const T* xg = X + static_cast<long long>(n1) * Ld;
-  for (int k = threadIdx.x; k < Ld; k += blockDim.x) xs[k] = xg[k];
-  for (int k = gt; k < La; k += gthreads) xacc[k] = T(0);
-  if (active) {
-    const T* yg = Y + static_cast<long long>(n2) * Ld;
-    for (int k = gt; k < Ld; k += gthreads) ys[k] = yg[k];
-  }
-  __syncthreads();
-  if (norms) {
-    half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
-    if (active) half_sqnorms(ys, nys, L, d, gt, gthreads);
-  }
-  __syncthreads();
-  if (active) {  // whole groups; a W-warp block is always active
-    const long long plane = static_cast<long long>(N1) * N2;
-    const long long pair = static_cast<long long>(n1) * N2 + n2;
-    T w[NLM];
-#pragma unroll
-    for (int m = 0; m < NLM; ++m)
-      w[m] = m < nl ? g[(m + 1) * plane + pair] : T(0);
-    G grp(W, buf);
-    HoBwdColumns<T, R> col{xs, nxs, ys, nys, kt, dkt, u, xacc,
-                           Ybar + static_cast<long long>(n2) * Ld};
-    col.L = L;
-    col.d = d;
-    col.kind = kind;
-    col.degree = degree;
-    col.diff = diff != 0;
-    col.norms = norms;
-    col.rows = diff ? L - 1 : L;
-    col.t = grp.thread();
-    col.ch = ch;
-    col.lu = L | 1;
-    col.init();
-    const int ncols = diff ? L - 1 : L;
-    auto fwd = [&](int j, T (&mcol)[R]) { col.fwd(j, mcol, grp); };
-    bool first = true;
-    auto rev = [&](int j, T (&mcol)[R]) {
-      if (first) {  // the forward's tile holds k only
-        col.hi = -1;
-        first = false;
-      }
-      col.rev(j, mcol, grp);
-    };
-    auto sink = [&](int j, T (&mbar)[R], G& gg) { col.sink(j, mbar, gg); };
-    run_length_levels_bwd<T, R, P>(fwd, rev, sink, ncols, nl, w, grp);
-    col.finish(grp);
-  }
-  __syncthreads();
-  // X̄ of this block's x: add the pairs' sums (zero for a pair past N2),
-  // then across y blocks
-  const T* acc0 = nxs + L + Ld + L;  // pair 0's xacc
-  T* xb = Xbar + static_cast<long long>(n1) * Ld;
-  for (int q = threadIdx.x; q < Ld; q += blockDim.x) {
-    const int pt = q / d, c = q - pt * d;
-    T s = T(0), su = T(0);
-    for (int k = 0; k < pairs; ++k) {
-      s += acc0[k * per_pair + pt * (d + 1) + c];
-      su += acc0[k * per_pair + pt * (d + 1) + d];
+  // the pairs' X̄ sums: pair k's at acc0 + k * acc_stride
+  T* acc0 = staged ? nxs + L + Ld + L
+                   : work + static_cast<long long>(blockIdx.x) * pairs * La;
+  const int acc_stride = staged ? per_pair : La;
+  T* xacc = acc0 + p * acc_stride;       // [L][d + 1]
+  const long long items = static_cast<long long>(N1) * nyb;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int n1 = static_cast<int>(item / nyb);
+    const int n2 = static_cast<int>(item % nyb) * pairs + p;
+    const bool active = n2 < N2;
+    const T* xg = X + static_cast<long long>(n1) * Ld;
+    const T* yg = Y + static_cast<long long>(active ? n2 : N2 - 1) * Ld;
+    const T* xs = xg;
+    const T* ys = yg;
+    if (staged) {
+      T* x_s = smem;
+      T* y_s = nys - Ld;
+      for (int k = threadIdx.x; k < Ld; k += blockDim.x) x_s[k] = xg[k];
+      if (active)
+        for (int k = gt; k < Ld; k += gthreads) y_s[k] = yg[k];
+      xs = x_s;
+      ys = y_s;
     }
-    atomicAdd(xb + q, norms ? s - xs[q] * su : s);
+    for (int k = gt; k < La; k += gthreads) xacc[k] = T(0);
+    __syncthreads();
+    if (norms) {
+      half_sqnorms(xs, nxs, L, d, threadIdx.x, blockDim.x);
+      if (active) half_sqnorms(ys, nys, L, d, gt, gthreads);
+    }
+    __syncthreads();
+    if (active) {  // whole groups; a W-warp block is always active
+      const long long plane = static_cast<long long>(N1) * N2;
+      const long long pair = static_cast<long long>(n1) * N2 + n2;
+      T w[NLM];
+#pragma unroll
+      for (int m = 0; m < NLM; ++m)
+        w[m] = m < nl ? g[(m + 1) * plane + pair] : T(0);
+      G grp(W, buf);
+      HoBwdColumns<T, R> col{xs, nxs, ys, nys, kt, dkt, u, xacc,
+                             Ybar + static_cast<long long>(n2) * Ld};
+      col.L = L;
+      col.d = d;
+      col.kind = kind;
+      col.degree = degree;
+      col.diff = diff != 0;
+      col.norms = norms;
+      col.rows = diff ? L - 1 : L;
+      col.t = grp.thread();
+      col.ch = ch;
+      col.lu = L | 1;
+      col.init();
+      const int ncols = diff ? L - 1 : L;
+      auto fwd = [&](int j, T (&mcol)[R]) { col.fwd(j, mcol, grp); };
+      bool first = true;
+      auto rev = [&](int j, T (&mcol)[R]) {
+        if (first) {  // the forward's tile holds k only
+          col.hi = -1;
+          first = false;
+        }
+        col.rev(j, mcol, grp);
+      };
+      auto sink = [&](int j, T (&mbar)[R], G& gg) { col.sink(j, mbar, gg); };
+      run_length_levels_bwd<T, R, P>(fwd, rev, sink, ncols, nl, w, grp);
+      col.finish(grp);
+    }
+    __syncthreads();
+    // X̄ of this item's x: add the pairs' sums (zero for a pair past N2),
+    // then across y blocks
+    T* xb = Xbar + static_cast<long long>(n1) * Ld;
+    for (int q = threadIdx.x; q < Ld; q += blockDim.x) {
+      const int pt = q / d, c = q - pt * d;
+      T s = T(0), su = T(0);
+      for (int k = 0; k < pairs; ++k) {
+        s += acc0[k * acc_stride + pt * (d + 1) + c];
+        su += acc0[k * acc_stride + pt * (d + 1) + d];
+      }
+      atomicAdd(xb + q, norms ? s - xs[q] * su : s);
+    }
+    __syncthreads();  // the next item overwrites the staged values
   }
 }
 
@@ -403,30 +427,32 @@ struct HoBwdArgs {
   const void* g;
   void* Xbar;
   void* Ybar;
-  int N1, N2, L, d, nl, kind, degree, diff, ch;
+  void* work;
+  int N1, N2, L, d, nl, kind, degree, diff, ch, staged, blocks;
 };
 
 template <typename T, int R, int P, int NLM, typename G>
 cudaError_t launch_ho_bwd(const HoBwdArgs& a, int W, cudaStream_t stream) {
   const int pairs = G::kBlock ? 1 : kPairsPerBlock;
+  const size_t Ld = static_cast<size_t>(a.L) * a.d;
+  const size_t seq = a.staged ? Ld : 0;
   const size_t smem =
-      sizeof(T) * (static_cast<size_t>(a.L) * (a.d + 1) +
+      sizeof(T) * (seq + a.L +
                    static_cast<size_t>(pairs) *
-                       ho_bwd_per_pair(a.L, a.d, a.ch)) +
+                       (ho_bwd_per_pair(a.L, a.d, a.ch) -
+                        (a.staged ? 0 : Ld + Ld + a.L))) +
       exchange_bytes<T>(W);
+  if (smem > kSegSmemBytes) return cudaErrorInvalidValue;
   cudaError_t e = allow_smem(gram_ho_bwd_kernel<T, R, P, NLM, G>, smem);
   if (e != cudaSuccess) return e;
-  const long long nyb = (a.N2 + pairs - 1) / pairs;
-  const long long blocks = static_cast<long long>(a.N1) * nyb;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gram_ho_bwd_kernel<T, R, P, NLM, G><<<static_cast<unsigned>(blocks),
+  gram_ho_bwd_kernel<T, R, P, NLM, G><<<a.blocks,
                                         G::kBlock ? 32 * W
                                                   : 32 * kPairsPerBlock,
                                         smem, stream>>>(
       static_cast<const T*>(a.X), static_cast<const T*>(a.Y),
       static_cast<const T*>(a.g), static_cast<T*>(a.Xbar),
-      static_cast<T*>(a.Ybar), a.N1, a.N2, a.L, a.d, a.nl, a.kind, a.degree,
-      a.diff, W, a.ch);
+      static_cast<T*>(a.Ybar), static_cast<T*>(a.work), a.N1, a.N2, a.L,
+      a.d, a.nl, a.kind, a.degree, a.diff, W, a.ch, a.staged);
   return cudaGetLastError();
 }
 

@@ -68,11 +68,20 @@ struct UIndex {
   }
 };
 
-// The forward sweep of one pair by the whole block, diagonal d = i + j at a
-// time: the threads stride over the diagonal's cells i = max(0, d-C) ..
-// min(R, d), each from two cells of diagonal d-1 and one of d-2, kept in
-// three rotating buffers of R + 1 values in shared memory (buf, 3 (R+1));
-// one __syncthreads() per diagonal. Every cell, boundary included, is also
+// u[i][j] from u[i][j-1] (left), u[i-1][j] (up), u[i-1][j-1] (upleft) and
+// the refined cell's increment a(i-1, j-1): the plain sweep's expression,
+// in its order (ops/goursat.py), so that the forwards match it bit for bit.
+template <typename T>
+__device__ __forceinline__ T goursat_cell(T left, T up, T upleft, T a) {
+  return left + up - upleft + a * (left + up) * T(0.5);
+}
+
+// The block design's forward sweep of one pair (goursat_bwd.cu), by the
+// whole block, diagonal d = i + j at a time: the threads stride over the
+// diagonal's cells i = max(0, d-C) .. min(R, d), each from two cells of
+// diagonal d-1 and one of d-2, kept in three rotating buffers of R + 1
+// values in shared memory (buf, 3 (R+1)); one __syncthreads() per
+// diagonal. Every cell, boundary included, is also
 // written to store when it is given. Returns u(R, C) to every thread.
 template <typename T>
 __device__ T goursat_sweep(const RefinedGrid<T>& a, T* buf, T* store,
@@ -87,10 +96,8 @@ __device__ T goursat_sweep(const RefinedGrid<T>& a, T* buf, T* store,
          i += blockDim.x) {
       const int j = d - i;
       T v = T(1);
-      if (i > 0 && j > 0) {
-        const T left = d1[i], up = d1[i - 1];  // u[i][j-1], u[i-1][j]
-        v = left + up - d2[i - 1] + a(i - 1, j - 1) * (left + up) * T(0.5);
-      }
+      if (i > 0 && j > 0)  // u[i][j-1], u[i-1][j], u[i-1][j-1]
+        v = goursat_cell(d1[i], d1[i - 1], d2[i - 1], a(i - 1, j - 1));
       d0[i] = v;
       if (store) store[uidx(i, j)] = v;
     }

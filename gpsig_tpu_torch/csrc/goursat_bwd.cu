@@ -159,13 +159,6 @@ __global__ void goursat_grad_kernel(const T* __restrict__ inc,
 // WARP_SMEM_BYTES): bnd and ck must fit, the staged increments may.
 constexpr size_t kWarpSmem = 48 * 1024;
 
-// u[i][j] from u[i][j-1] (left), u[i-1][j] (up), u[i-1][j-1] (upleft) and
-// the refined cell's increment a(i-1, j-1), as goursat.cuh's sweep.
-template <typename T>
-__device__ __forceinline__ T goursat_cell(T left, T up, T upleft, T a) {
-  return left + up - upleft + a * (left + up) * T(0.5);
-}
-
 // The warp design: block b (one warp) takes pair b. Shared memory: bnd
 // [(C + 1) x lanes] (u of the row above each lane's rows, by column), ck
 // [segments x RL x lanes] (each lane's rows at its checkpoint columns),

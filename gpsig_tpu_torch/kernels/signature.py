@@ -31,12 +31,14 @@ A CPU tensor runs those entry points' plain versions through the same
 wrappers; a CUDA tensor launches the kernels, forward and backward (every
 entry point's ``torch.autograd.Function`` has a backward kernel; the
 tuned diagonal's backward is autograd through its plain version, as in
-the JAX package). The kernels take any sequence length up to the launch
-plan's bound (``ops/cuda/plan.py``: 1024 DP rows, L = 1025 with
-``difference``, and a block's shared memory, which binds first only for
-the order-1 Gram backward in float64 at d > 5, e.g. L = 829 at d = 8);
-above it the wrapper raises ``ValueError``, as ``sig_gram.py`` does past 7
-levels above p = min(order, num_levels) = 3. The Kuf kernels
+the JAX package). The kernels take every d that device memory holds
+(past a block's shared memory they read the sequences from global memory
+and the backwards sum in a device workspace) and any sequence length up
+to the launch plan's bound (``ops/cuda/plan.py``: 1024 DP rows, L = 1025
+with ``difference``, on the Gram and sig_gram kernels; the order-1
+diagonal takes every L, in bands of 256 rows); above it the wrapper raises
+``ValueError``, as ``sig_gram.py`` does past 7 levels above p =
+min(order, num_levels) = 3. The Kuf kernels
 (``K_tens_vs_seq``, forward and backward, order 1 and general) take any L
 and every d that device memory holds (``plan.kuf_fwd_plan``,
 ``plan.kuf_bwd_plan``): the order-1 pair up to d = 3, past that the
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gpsig_tpu_torch import config
 from gpsig_tpu_torch import params as pr
@@ -58,6 +61,11 @@ from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
 from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 from gpsig_tpu_torch.ops.cuda import tens_seq as ts
 from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+
+#: bytes of the paired difference array one block of the inducing
+#: tensors' factor Gram broadcasts (``_factor_gram_matched``)
+FACTOR_GRAM_CHUNK_BYTES = 1 << 28
+
 
 class SignatureKernel(nn.Module):
     def __init__(self, base, raw_sigma, raw_variances, raw_lengthscales,
@@ -273,13 +281,32 @@ class SignatureKernel(nn.Module):
     # factor stacking), or [T, F, 2, d] when increments=True.
 
     def _factor_gram_matched(self, Z1, Z2, increments):
-        """Matched-position factor Grams: [T1, T2, F]."""
-        if increments:
-            G = self.base.matched(
-                Z1[:, None, :, :, None, :], Z2[None, :, :, None, :, :]
-            )  # [T1, T2, F, 2, 2]
-            return G[..., 1, 1] - G[..., 1, 0] - G[..., 0, 1] + G[..., 0, 0]
-        return self.base.matched(Z1[:, None], Z2[None, :])
+        """Matched-position factor Grams: [T1, T2, F], the base's paired
+        evaluation of every position pair, as in the JAX package, in
+        blocks of T1 rows whose broadcast [t, T2, F(, 2, 2), d] array stays
+        within FACTOR_GRAM_CHUNK_BYTES (the whole array is 58 GB at
+        T = 500, d = 963, UEA PEMS-SF's width, where XLA fuses it away).
+        Under autograd each block is recomputed in the backward rather than
+        kept."""
+
+        def block(A):
+            if increments:
+                G = self.base.matched(A[:, None, :, :, None, :],
+                                      Z2[None, :, :, None, :, :])
+                return (G[..., 1, 1] - G[..., 1, 0] - G[..., 0, 1]
+                        + G[..., 0, 0])
+            return self.base.matched(A[:, None], Z2[None, :])
+
+        row = Z2.numel() * (2 if increments else 1) * Z2.element_size()
+        step = max(1, FACTOR_GRAM_CHUNK_BYTES // row)
+        if step >= Z1.shape[0]:
+            return block(Z1)
+        parts = [Z1[i:i + step] for i in range(0, Z1.shape[0], step)]
+        if torch.is_grad_enabled():
+            return torch.cat([checkpoint(block, A, use_reentrant=False,
+                                         preserve_rng_state=False)
+                              for A in parts])
+        return torch.cat([block(A) for A in parts])
 
     def _scale_tensors(self, Z):
         ell = self.lengthscales

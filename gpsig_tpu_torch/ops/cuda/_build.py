@@ -41,21 +41,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "gpsig_fused_gram": [_P, _P, _P, *[_I] * 11, _P],
-    "gpsig_fused_diag": [_P, _P, *[_I] * 8, _P],
+    "gpsig_fused_diag": [_P, _P, _P, *[_I] * 13, _P],
     "gpsig_tens_seq": [_P, _P, _P, *[_I] * 9, _P],
-    "gpsig_fused_gram_bwd": [*[_P] * 5, *[_I] * 10, _P],
+    "gpsig_fused_gram_bwd": [*[_P] * 6, *[_I] * 12, _P],
     "gpsig_tens_seq_bwd": [*[_P] * 5, *[_I] * 10, _P],
     "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 14, _P],
     "gpsig_sig_gram": [_P, _P, *[_I] * 8, _P],
     "gpsig_tens_seq_general": [_P, _P, _P, *[_I] * 13, _P],
-    "gpsig_fused_gram_ho_bwd": [*[_P] * 5, *[_I] * 12, _P],
-    "gpsig_fused_gram_ho_bwd_block": [*[_P] * 5, *[_I] * 12, _P],
+    "gpsig_fused_gram_ho_bwd": [*[_P] * 6, *[_I] * 14, _P],
+    "gpsig_fused_gram_ho_bwd_block": [*[_P] * 6, *[_I] * 14, _P],
     "gpsig_sig_gram_bwd": [_P, _P, _P, *[_I] * 8, _P],
     "gpsig_sig_gram_deep": [_P, _P, _P, *[_I] * 10, _P],
     "gpsig_sig_gram_bwd_deep": [*[_P] * 4, *[_I] * 10, _P],
     "gpsig_tens_seq_general_bwd": [*[_P] * 6, *[_I] * 16, _P],
-    "gpsig_goursat": [_P, _P, *[_I] * 4, _P],
-    "gpsig_goursat_refined": [_P, _P, *[_I] * 5, _P],
+    "gpsig_goursat": [_P, _P, _P, *[_I] * 11, _P],
+    "gpsig_goursat_refined": [_P, _P, _P, *[_I] * 12, _P],
     "gpsig_goursat_grad": [*[_P] * 4, *[_I] * 7, _P],
 }
 
@@ -68,7 +68,8 @@ SLOWEST_FIRST = (
     "fused_gram_ho_bwd_block_f64.cu", "tens_seq_general_bwd.cu",
     "fused_gram_ho_bwd_f64.cu", "sig_gram_bwd_block_f64.cu",
     "tens_seq_general_bwd_f64.cu", "sig_gram_bwd_f64.cu", "sig_gram_bwd.cu",
-    "fused_gram_ho_bwd.cu", "fused_gram_bwd.cu", "fused_gram_ho_bwd_block.cu",
+    "fused_gram_bwd.cu", "fused_gram_ho_bwd.cu", "fused_diag.cu",
+    "fused_gram_ho_bwd_block.cu",
     "fused_gram_ho.cu", "fused_gram_ho_f64.cu", "tens_seq_general.cu",
     "tens_seq_general_f64.cu", "sig_gram.cu",
 )
@@ -201,13 +202,17 @@ def launch(name, device, *args):
     """Call C entry point ``name`` with ``args`` (tensors are passed by
     data pointer) on ``device``'s current stream; raise if the launch
     reported a CUDA error (the entry points return
-    ``cudaGetLastError()`` right after their launch)."""
+    ``cudaGetLastError()`` right after their launch). On the current
+    device it sets no device guard: a launch's host time is part of every
+    small kernel's call."""
     lib = library()
-    c_args = [a.detach().data_ptr() if torch.is_tensor(a) else int(a)
-              for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*c_args, stream)
+    c_args = [a.data_ptr() if torch.is_tensor(a) else int(a) for a in args]
+    fn = getattr(lib, name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = lib.gpsig_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")

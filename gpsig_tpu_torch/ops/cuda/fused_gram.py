@@ -3,13 +3,13 @@ PyTorch versions.
 
 Counterpart of ``gpsig_tpu/ops/pallas/fused_gram.py`` (``fused_gram_levels``,
 ``fused_diag_levels`` and ``fused_gram_levels_bwd_pallas``); the kernels
-are in ``csrc/fused_gram.cu`` (forward, diagonal) and
-``csrc/fused_gram_bwd.cu`` (Gram backward), whose opening notes give the
-designs. Semantics: pre-scaled sequences, order 1, ``difference=True``, RBF
+are in ``csrc/fused_gram.cu`` (Gram), ``csrc/fused_diag.cuh`` (diagonal)
+and ``csrc/fused_gram_bwd.cu`` (Gram backward), whose opening notes give
+the designs. Semantics: pre-scaled sequences, order 1, ``difference=True``, RBF
 (``rbf=True``) or Linear base, ``num_levels <= 7``, RBF distance
-unclamped, any length the launch plan takes (``plan.py``: at most
-``plan.MAX_ROWS`` increment rows and the block's shared memory; at d <= 8
-that is beyond L = 800 in float32 and float64). ``symmetric=True`` says
+unclamped, every d, any length the launch plan takes (``plan.py``: the
+Gram and its backward at most ``plan.MAX_ROWS`` increment rows, L = 1025;
+the diagonal every L). ``symmetric=True`` says
 that Y is X (``K(X)``): the Gram kernel then solves only the pairs on and
 above the diagonal and writes each twice, so the output is exactly
 symmetric; on the CPU the flag changes nothing. The kernel checks only
@@ -92,34 +92,28 @@ def _check_shapes(name, num_levels, *seqs):
 
 
 def _forward_plan(name, X, diag, num_levels=None):
-    """The forward kernels' plan for X [N, L, d]: the diagonal's (W, R),
-    the Gram's (S, R, W) (``plan.gram_fwd_plan`` at ``num_levels``);
-    raises where no launch takes the shape."""
-    L, d = X.shape[1:]
+    """The forward kernels' plan for X [N, L, d]: the diagonal's
+    (``plan.diag_plan``: every L and d), the Gram's (S, R, W)
+    (``plan.gram_fwd_plan`` at ``num_levels``); raises where no launch
+    takes the shape (the Gram past ``plan.MAX_ROWS`` rows)."""
+    N, L, d = X.shape
     rows, item = L - 1, X.element_size()
     if diag:
-        wr = plan.row_plan(rows, (1, 2, 4))
-        smem = plan.diag_smem(L, d, wr[0] if wr else 1, item)
-    else:
-        wr = plan.gram_fwd_plan(rows, L, d, 1, num_levels, item,
-                                tuned=True)
-        smem = plan.gram_fwd_smem(L, d, *(wr or (32, 4, 2)), item)
+        return plan.diag_plan(N, L, d, num_levels, item)
+    wr = plan.gram_fwd_plan(rows, L, d, 1, num_levels, item, tuned=True)
+    smem = plan.gram_fwd_smem(L, d, *(wr or (32, 4, 2)), item)
     plan.check_fits(name, rows, wr, smem, f"L={L}, d={d}")
     return wr
 
 
-def _backward_plan(name, X):
-    """(S, W, chunk) of the backward kernel for X [N, L, d]; raises where
-    no launch takes the shape."""
-    L, d = X.shape[1:]
-    item = X.element_size()
-    p = plan.gram_bwd_plan(L)
-    S, W = p or (32, 1)
-    chunk = plan.gram_bwd_chunk(L, d, S, W, item)
-    plan.check_fits(name, L - 1, p, plan.gram_bwd_smem(L, d, S, W, chunk,
-                                                       item),
-                    f"L={L}, d={d}")
-    return S, W, chunk
+def _backward_plan(name, X, N2=1):
+    """The backward kernel's launch (``plan.gram_bwd_launch``) for X [N, L,
+    d] against N2 sequences; raises where no launch takes the shape (past
+    ``plan.MAX_ROWS`` rows)."""
+    N1, L, d = X.shape
+    p = plan.gram_bwd_launch(N1, N2, L, d, X.element_size())
+    plan.check_fits(name, L - 1, p, p["smem"] if p else 0, f"L={L}, d={d}")
+    return p
 
 
 def _on_cpu(*tensors):
@@ -155,12 +149,16 @@ def _launch_diag(X, num_levels, rbf):
     name = "fused_diag_levels"
     _build.check_inputs(name, (X,))
     _check_shapes(name, num_levels, X)
-    W, R = _forward_plan(name, X, diag=True)
     N, L, d = X.shape
     out = torch.empty((num_levels + 1, N), dtype=X.dtype, device=X.device)
     if N:
-        _build.launch("gpsig_fused_diag", X.device, X, out, N, L, d,
-                      num_levels, rbf, W, R, X.dtype == torch.float64)
+        p = _forward_plan(name, X, diag=True, num_levels=num_levels)
+        work = torch.empty(p["work"], dtype=X.dtype, device=X.device) \
+            if p["work"] else 0
+        _build.launch("gpsig_fused_diag", X.device, X, out, work, N, L, d,
+                      num_levels, rbf, p["S"], p["R"], p["W"], p["bands"],
+                      p["stage"], p["carry_smem"], p["blocks"],
+                      X.dtype == torch.float64)
         diag_launches += 1
     return out
 
@@ -224,6 +222,10 @@ def fused_diag_levels(X, num_levels, rbf=True):
     """[nl+1, N] per-level self kernels k_m(x_n, x_n) of X [N, L, d]."""
     if _on_cpu(X):
         return fused_diag_levels_ref(X, num_levels, rbf)
+    if not (X.requires_grad and torch.is_grad_enabled()):
+        # nothing to differentiate: the kernel without the autograd node
+        # (its host time is a share of a call this small)
+        return _launch_diag(X, num_levels, rbf)
     return _DiagLevels.apply(X, num_levels, rbf)
 
 
@@ -237,16 +239,19 @@ def fused_gram_levels_bwd(X, Y, g, num_levels, rbf=True):
     name = "fused_gram_levels_bwd"
     _build.check_inputs(name, (X, Y, g))
     _check_shapes(name, num_levels, X, Y)
-    S, W, chunk = _backward_plan(name, X)
     (N1, L, d), N2 = X.shape, Y.shape[0]
+    p = _backward_plan(name, X, N2)
     if tuple(g.shape) != (num_levels + 1, N1, N2):
         raise ValueError(f"{name}: g must be [{num_levels + 1}, {N1}, {N2}];"
                          f" got {tuple(g.shape)}")
     Xbar = torch.zeros_like(X)
     Ybar = torch.zeros_like(Y)
     if N1 and N2:
+        work = torch.empty(p["work"], dtype=X.dtype, device=X.device) \
+            if p["work"] else 0
         _build.launch("gpsig_fused_gram_bwd", X.device, X, Y, g, Xbar, Ybar,
-                      N1, N2, L, d, num_levels, rbf, S, W, chunk,
+                      work, N1, N2, L, d, num_levels, rbf, p["S"], p["W"],
+                      p["chunk"], p["staged"], p["blocks"],
                       X.dtype == torch.float64)
         gram_bwd_launches += 1
     return Xbar, Ybar

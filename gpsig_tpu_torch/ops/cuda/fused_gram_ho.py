@@ -110,25 +110,26 @@ def _check_shapes(name, num_levels, order, difference, X, Y):
         raise ValueError(f"{name}: sequence length {X.shape[1]} < 2")
 
 
-def _plan(name, X, difference, backward, num_levels=None, order=None):
+def _plan(name, X, difference, backward, num_levels=None, order=None,
+          N2=1):
     """The plan for X [N, L, d]'s L - 1 (difference) or L rows: the
     forward's (S, R, W) (``plan.gram_fwd_plan`` at p = min(order,
-    num_levels)), the backward's (W, R, chunk) (the tiles' columns);
-    raises where no launch takes the shape."""
-    L, d = X.shape[1:]
+    num_levels)), the backward's launch against N2 sequences (``plan.
+    gram_ho_bwd_launch``); raises where no launch takes the shape (past
+    ``plan.MAX_ROWS`` rows)."""
+    N1, L, d = X.shape
     rows = L - 1 if difference else L
     size = X.element_size()
     if backward:
-        wr = plan.row_plan(rows)
-        W = wr[0] if wr else 1
-        chunk = plan.gram_ho_bwd_chunk(L, d, W, size)
-        smem = plan.gram_ho_bwd_smem(L, d, W, chunk, size)
-    else:
-        wr = plan.gram_fwd_plan(rows, L, d, min(order, num_levels),
-                                num_levels, size)
-        smem = plan.gram_fwd_smem(L, d, *(wr or (32, 4, 2)), size)
+        p = plan.gram_ho_bwd_launch(N1, N2, rows, L, d, size)
+        plan.check_fits(name, rows, p, p["smem"] if p else 0,
+                        f"L={L}, d={d}")
+        return p
+    wr = plan.gram_fwd_plan(rows, L, d, min(order, num_levels), num_levels,
+                            size)
+    smem = plan.gram_fwd_smem(L, d, *(wr or (32, 4, 2)), size)
     plan.check_fits(name, rows, wr, smem, f"L={L}, d={d}")
-    return (*wr, chunk) if backward else wr
+    return wr
 
 
 def _launch(X, Y, num_levels, order, kind, difference, symmetric):
@@ -197,9 +198,9 @@ def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
     name = "fused_gram_ho_levels_bwd"
     _build.check_inputs(name, (X, Y, g))
     _check_shapes(name, num_levels, order, difference, X, Y)
-    W, R, chunk = _plan(name, X, difference, True)
     code, degree = _kind_code(kind)
     (N1, L, d), N2 = X.shape, Y.shape[0]
+    p = _plan(name, X, difference, True, N2=N2)
     if tuple(g.shape) != (num_levels + 1, N1, N2):
         raise ValueError(f"{name}: g must be [{num_levels + 1}, {N1}, {N2}];"
                          f" got {tuple(g.shape)}")
@@ -208,10 +209,13 @@ def fused_gram_ho_levels_bwd(X, Y, g, num_levels, order, kind="rbf",
     if N1 and N2:
         # one warp a pair (R rows a lane), or a block of W warps: the two
         # are compiled apart (csrc/fused_gram_ho_bwd*.cu)
-        entry, spread = (("gpsig_fused_gram_ho_bwd", R) if W == 1 else
-                         ("gpsig_fused_gram_ho_bwd_block", W))
-        _build.launch(entry, X.device, X, Y, g, Xbar, Ybar, N1, N2, L, d,
-                      num_levels, order, code, degree, difference, spread,
-                      chunk, X.dtype == torch.float64)
+        entry, spread = (("gpsig_fused_gram_ho_bwd", p["R"]) if p["W"] == 1
+                         else ("gpsig_fused_gram_ho_bwd_block", p["W"]))
+        work = torch.empty(p["work"], dtype=X.dtype, device=X.device) \
+            if p["work"] else 0
+        _build.launch(entry, X.device, X, Y, g, Xbar, Ybar, work, N1, N2, L,
+                      d, num_levels, order, code, degree, difference, spread,
+                      p["chunk"], p["staged"], p["blocks"],
+                      X.dtype == torch.float64)
         bwd_launches += 1
     return Xbar, Ybar

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from gpsig_tpu_torch.ops import goursat as plain
-from gpsig_tpu_torch.ops.cuda import _build
+from gpsig_tpu_torch.ops.cuda import _build, plan
 from gpsig_tpu_torch.ops.cuda.fused_gram import _on_cpu
 
 #: largest dyadic order and refined side the kernels take (the gradient's
@@ -87,13 +87,19 @@ def _launch_fwd(inc, dyadic_order, refined):
     B, S, T = inc.shape
     out = torch.empty((B,), dtype=inc.dtype, device=inc.device)
     if B:
-        f64 = inc.dtype == torch.float64
+        p = plan.goursat_fwd_plan(S, T, dyadic_order, inc.element_size())
+        work = 0 if p["bands"] == 1 or p["bnd_smem"] else torch.empty(
+            (B, p["W"], (max(S, T) << dyadic_order) + 1), dtype=inc.dtype,
+            device=inc.device)
+        args = (p["RL"], p["S"], p["bands"], p["W"], p["stage"],
+                p["bnd_smem"], p["cols"], inc.dtype == torch.float64)
         if refined:
-            _build.launch("gpsig_goursat_refined", inc.device, inc, out, B, S,
-                          T, dyadic_order, f64)
+            _build.launch("gpsig_goursat_refined", inc.device, inc, out, work,
+                          B, S, T, dyadic_order, *args)
             fused_launches += 1
         else:
-            _build.launch("gpsig_goursat", inc.device, inc, out, B, S, T, f64)
+            _build.launch("gpsig_goursat", inc.device, inc, out, work, B, S,
+                          T, *args)
             launches += 1
     return out
 
@@ -218,10 +224,18 @@ def _flat_apply(fn, inc, *args):
     return out.reshape(batch)
 
 
+def _no_grad_needed(inc):
+    """No gradient can flow to inc: the forward kernel runs without its
+    autograd node (whose host time is a share of a small call)."""
+    return not (inc.requires_grad and torch.is_grad_enabled())
+
+
 def goursat_corner_fast(inc):
     """u(S, T) for given grids inc [..., S, T] → [...]."""
     if _on_cpu(inc):
         return goursat_corner_ref(inc)
+    if _no_grad_needed(inc):
+        return _flat_apply(_launch_fwd, inc, 0, False)
     return _flat_apply(_CornerFast.apply, inc)
 
 
@@ -230,4 +244,6 @@ def goursat_corner_refined(inc, dyadic_order):
     inc [..., Su, Tu] → [...]."""
     if _on_cpu(inc):
         return goursat_corner_refined_ref(inc, dyadic_order)
+    if _no_grad_needed(inc):
+        return _flat_apply(_launch_fwd, inc, dyadic_order, True)
     return _flat_apply(_CornerRefined.apply, inc, dyadic_order)

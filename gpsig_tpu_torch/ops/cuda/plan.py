@@ -16,7 +16,21 @@ fused_gram_ho.cu``) take segments instead (:func:`gram_fwd_plan`): S = 8,
 16 or 32 lanes a pair, 32 / S pairs a warp, R = 8, 4 or 2 rows a lane as
 the DP state fits the registers, so one warp takes up to 256 rows with no
 barrier (at wide d the y read from global memory where a block's staged y
-would not fit); past what one warp takes, the block design.
+would not fit); past what one warp takes, the block design, which reads x
+and y from global memory where staging them would not fit.
+
+The Gram-side kernels take every d: where a sequence's values (or the
+backwards' X̄ sums) do not fit a block's shared memory, the Gram forwards'
+block design and both Gram backwards read x and y from global memory
+(only half norms and tiles stay in shared memory), and the backwards sum
+X̄ in a device workspace of at most ``WORKSPACE_BYTES`` with a
+grid-strided launch (:func:`gram_bwd_launch`, :func:`gram_ho_bwd_launch`).
+The order-1 diagonal (:func:`diag_plan`) takes every L and every d: its
+segments hold one sequence each, and past one segment's rows the
+sequence's rows go in bands, each column's carries passed from band to
+band in shared memory or a workspace.
+The Goursat forwards (:func:`goursat_fwd_plan`) take a pair on a segment
+of lanes, and past one warp's rows in bands on a block of warps.
 
 The Kuf kernels (``csrc/tens_seq*.cu*``) take any L and every d: their
 plans (:func:`kuf_fwd_plan`, :func:`kuf_bwd_plan`) say which kernel runs
@@ -29,12 +43,14 @@ memory and a device workspace.
 
 The wrappers compute the plan and the bytes here, pass the plan to the
 kernel, and raise ``ValueError`` above what a launch can take: more than
-``MAX_ROWS`` rows, or more shared memory than a block may use (a Kuf
-backward: more workspace than ``KUF_WORKSPACE_BYTES`` for one block).
-Nothing here needs a card.
+``MAX_ROWS`` rows on the Gram and sig_gram kernels (a Kuf backward: more
+workspace than ``WORKSPACE_BYTES`` for one block). Nothing here needs
+a card.
 """
 
 from __future__ import annotations
+
+import functools
 
 #: most warps one pair's block takes (256 threads: registers stay uncapped)
 MAX_WARPS = 8
@@ -42,17 +58,21 @@ MAX_WARPS = 8
 MAX_ROWS = 32 * MAX_WARPS * 4
 #: shared memory one block may use on Hopper (opt-in above 48 KB)
 SMEM_BYTES = 227 * 1024
+#: most bytes of device workspace a launch takes (the Gram backwards' X̄
+#: sums, the diagonal's carries, the deep path's states, the Kuf
+#: backwards' columns); the grid strides over what one pass does not take
+WORKSPACE_BYTES = 1 << 30
 #: warps per block when one warp takes a pair
 PAIRS_PER_BLOCK = 4
 
 
-def row_plan(rows, rows_per_lane=(2, 4)):
+def row_plan(rows):
     """(W, R) for ``rows`` DP rows: one warp (W = 1) at the fewest rows
-    per lane of ``rows_per_lane`` that covers them up to 128 rows; above,
+    per lane of 2 and 4 that covers them up to 128 rows; above,
     W = ceil(rows / 128) warps at 4 rows a lane. None above
     ``MAX_ROWS``."""
     if rows <= 128:
-        return 1, min(r for r in rows_per_lane if 32 * r >= rows)
+        return 1, (2 if rows <= 64 else 4)
     if rows > MAX_ROWS:
         return None
     return -(-rows // 128), 4
@@ -112,9 +132,12 @@ def gram_fwd_smem(L, d, S, R, W, itemsize):
     and half norms at an odd stride, or where those y do not fit only their
     half norms (the y then read from global memory; common.cuh's
     SegBlock::stages_y); on the block design x and y with their half norms
-    and the exchange buffer."""
+    and the exchange buffer, or where those do not fit only the half norms
+    and the buffer (x and y then read from global memory)."""
     if W > 1:
-        return itemsize * L * (d + 1) * 2 + exchange_bytes(W, itemsize)
+        staged = itemsize * L * (d + 1) * 2 + exchange_bytes(W, itemsize)
+        return (staged if staged <= SMEM_BYTES
+                else itemsize * 2 * L + exchange_bytes(W, itemsize))
     x = (R + 1) * d * S
     staged = itemsize * (x + 128 // S * ((L * (d + 1)) | 1))
     return (staged if staged <= SMEM_BYTES
@@ -127,32 +150,68 @@ def exchange_bytes(W, itemsize):
     return itemsize * 2 * W if W > 1 else 0
 
 
-def diag_smem(L, d, W, itemsize):
-    """fused_gram.cu's diagonal: one sequence per pair."""
-    pairs = PAIRS_PER_BLOCK if W == 1 else 1
-    return itemsize * L * (d + 1) * pairs + exchange_bytes(W, itemsize)
-
-
-def gram_ho_bwd_smem(L, d, W, chunk, itemsize):
+def gram_ho_bwd_smem(L, d, W, chunk, itemsize, staged=True):
     """fused_gram_ho_bwd.cuh: x staged once; per pair y, X̄ sums [L][d + 1],
     the k and dk/dacc tiles of ``chunk`` + 1 columns and the u tile of
-    ``chunk`` columns at an odd row stride."""
+    ``chunk`` columns at an odd row stride. Unstaged (wide d): x's and each
+    pair's y's half norms [L] and the tiles only (x and y read from global
+    memory, the X̄ sums in the workspace)."""
     pairs = PAIRS_PER_BLOCK if W == 1 else 1
-    per_pair = 2 * L * (d + 1) + 2 * (chunk + 1) * L + chunk * (L | 1)
-    return (itemsize * (L * (d + 1) + pairs * per_pair)
-            + exchange_bytes(W, itemsize))
+    seq = L * (d + 1) if staged else L
+    per_pair = ((2 * seq if staged else L) + 2 * (chunk + 1) * L
+                + chunk * (L | 1))
+    return itemsize * (seq + pairs * per_pair) + exchange_bytes(W, itemsize)
 
 
-def gram_ho_bwd_chunk(L, d, W, itemsize):
+def gram_ho_bwd_chunk(L, d, W, itemsize, staged=True):
     """Columns per tile of the general Gram backward: 8 when a warp takes
     a pair, else the most of 8, 4, 2 that fits the block's shared
     memory."""
     if W == 1:
         return 8
     for chunk in (8, 4, 2):
-        if gram_ho_bwd_smem(L, d, W, chunk, itemsize) <= SMEM_BYTES:
+        if gram_ho_bwd_smem(L, d, W, chunk, itemsize, staged) <= SMEM_BYTES:
             return chunk
     return 2
+
+
+def gram_ho_bwd_launch(N1, N2, rows, L, d, itemsize):
+    """The general Gram backward's launch for ``rows`` DP rows of sequences
+    [L, d]: a dict of the row plan (``W``, ``R``), ``chunk``, ``staged``,
+    ``smem``, ``items`` (an x against a block's y), ``blocks`` and ``work``
+    (X̄ sums' workspace elements, 0 when staged). None above
+    ``MAX_ROWS``."""
+    wr = row_plan(rows)
+    if wr is None:
+        return None
+    W, R = wr
+    pairs = PAIRS_PER_BLOCK if W == 1 else 1
+    for staged in (True, False):
+        chunk = gram_ho_bwd_chunk(L, d, W, itemsize, staged)
+        smem = gram_ho_bwd_smem(L, d, W, chunk, itemsize, staged)
+        if smem <= SMEM_BYTES:
+            break
+    return _gram_bwd_grid(dict(W=W, R=R, chunk=chunk, staged=staged,
+                               smem=smem), N1, N2, pairs, L, d, itemsize)
+
+
+#: the Gram backwards' X̄ workspace where their sums do not fit shared
+#: memory: at most this many bytes (the grid strides over the rest)
+
+
+def _gram_bwd_grid(plan, N1, N2, pairs, L, d, itemsize):
+    """Add the grid to a Gram backward's plan: one block an item (an x
+    against ``pairs`` y) where staged; else as many blocks as the
+    workspace of ``pairs`` X̄ sums [L][d + 1] a block takes within
+    WORKSPACE_BYTES (at least one), striding over the items."""
+    items = N1 * -(-N2 // pairs)
+    plan.update(items=items, blocks=items, work=0)
+    if not plan["staged"]:
+        per_block = pairs * L * (d + 1)
+        blocks = max(1, min(items, WORKSPACE_BYTES
+                            // (per_block * itemsize)))
+        plan.update(blocks=blocks, work=blocks * per_block)
+    return plan
 
 
 def sig_gram_smem(W, itemsize):
@@ -171,27 +230,212 @@ def gram_bwd_plan(L):
     return None if plan is None else (32, plan[0])
 
 
-def gram_bwd_smem(L, d, S, W, chunk, itemsize):
+def gram_bwd_smem(L, d, S, W, chunk, itemsize, staged=True):
     """fused_gram_bwd.cu: x staged once; per pair y, X̄ sums [L][d + 1] and
-    a tile of u = K̄ ⊙ ∂k for ``chunk`` columns at an odd row stride."""
+    a tile of u = K̄ ⊙ ∂k for ``chunk`` columns at an odd row stride.
+    Unstaged (wide d): x's and each pair's y's half norms [L] and the u
+    tiles only (x and y read from global memory, the X̄ sums in the
+    workspace)."""
     pairs = 128 // S if W == 1 else 1
-    stride = L | 1
-    per_pair = 2 * L * (d + 1) + chunk * stride
-    return (itemsize * (L * (d + 1) + pairs * per_pair)
-            + exchange_bytes(W, itemsize))
+    seq = L * (d + 1) if staged else L
+    per_pair = (2 * seq if staged else L) + chunk * (L | 1)
+    return itemsize * (seq + pairs * per_pair) + exchange_bytes(W, itemsize)
 
 
-def gram_bwd_chunk(L, d, S, W, itemsize):
+def gram_bwd_chunk(L, d, S, W, itemsize, staged=True):
     """Columns per u tile: 8 when a warp or less takes a pair (the smaller
     tile leaves room for more blocks an SM), else the most of 32, 16, 8
     that fits the block's shared memory."""
     if W == 1:
         return 8
     for chunk in (32, 16, 8):
-        if gram_bwd_smem(L, d, S, W, chunk, itemsize) <= SMEM_BYTES:
+        if gram_bwd_smem(L, d, S, W, chunk, itemsize, staged) <= SMEM_BYTES:
             return chunk
     return 8
 
+
+def gram_bwd_launch(N1, N2, L, d, itemsize):
+    """The order-1 Gram backward's launch for sequences [L, d]: a dict of
+    ``S``, ``W`` (:func:`gram_bwd_plan`), ``chunk``, ``staged`` (x, y and
+    the X̄ sums in shared memory; else read from global memory and summed
+    in the workspace), ``smem``, ``items``, ``blocks`` and ``work``
+    elements. None above ``MAX_ROWS``."""
+    p = gram_bwd_plan(L)
+    if p is None:
+        return None
+    S, W = p
+    for staged in (True, False):
+        chunk = gram_bwd_chunk(L, d, S, W, itemsize, staged)
+        smem = gram_bwd_smem(L, d, S, W, chunk, itemsize, staged)
+        if smem <= SMEM_BYTES:
+            break
+    return _gram_bwd_grid(dict(S=S, W=W, chunk=chunk, staged=staged,
+                               smem=smem), N1, N2,
+                          128 // S if W == 1 else 1, L, d, itemsize)
+
+
+# ---------------------------------------------------------------------------
+# The order-1 diagonal (csrc/fused_diag.cuh). The segment design: a segment
+# of S lanes at R rows a lane takes one sequence, 32 / S sequences a
+# one-warp block, everything staged. The band design, past 256 rows or
+# past the segment design's shared memory: 32 lanes at 8 rows a lane, the
+# sequence's rows in bands of 256 on a block of W warps, a wavefront whose
+# bands pass each column's carries (the running sums of the levels above,
+# nl - 1 values a column) to the next.
+# ---------------------------------------------------------------------------
+
+#: warps a block of the band design at most (csrc/fused_diag.cuh's
+#: kDiagBandWarps; the segment design's blocks are one warp, kDiagWarps)
+DIAG_BAND_WARPS = 8
+#: warps the segment design aims to launch before it takes fewer rows a
+#: lane (16 a Hopper SM)
+DIAG_TARGET_WARPS = 16 * 132
+#: its rows a lane (float32; float64 takes 8 only) and the lanes each is
+#: instantiated at (csrc/fused_diag.cuh's diag_by_plan)
+DIAG_ROWS = {8: (8, 16, 32), 4: (16, 32), 2: (32,)}
+#: what the band design stages (csrc/fused_diag.cuh's DiagStage): the
+#: sequence and each warp's lanes' points, the lanes' points only,
+#: nothing; the segment design stages all
+DIAG_STAGE_ALL, DIAG_STAGE_OWN, DIAG_STAGE_NONE = 2, 1, 0
+
+
+@functools.lru_cache(maxsize=256)
+def diag_plan(N, L, d, nl, itemsize):
+    """The order-1 diagonal's launch for N sequences [L, d]: a dict of
+    ``S`` lanes and ``R`` rows a lane, ``W`` (0: the segment design; else
+    the band design's warps a sequence), ``bands`` of 256 rows, ``stage``,
+    ``carry_smem`` (the band design's ring of W carry buffers in shared
+    memory; else in the workspace), ``smem`` bytes, ``blocks`` (the grid
+    strides over the rest) and ``work`` (workspace elements).
+
+    Up to 256 rows where the segment design's staging fits: at each R of
+    DIAG_ROWS (float64: 8) the fewest lanes S that cover the rows, then the
+    most rows a lane whose N S / 32 warps reach DIAG_TARGET_WARPS, else the
+    fewest (the most warps). Otherwise the band design: the most staging
+    (DIAG_STAGE_ALL, OWN, NONE), then the most warps up to min(bands,
+    DIAG_BAND_WARPS), whose marks, staging, ring and level sums fit the
+    shared memory; where none does, nothing staged and the ring in the
+    workspace. Every L >= 2 and d >= 1 gets one. Cached a shape: the
+    wrapper asks on every call."""
+    rows = L - 1
+    if rows <= 256:
+        fits = [(next(S for S in lanes if S * R >= rows), R)
+                for R, lanes in DIAG_ROWS.items()
+                if lanes[-1] * R >= rows and (itemsize == 4 or R == 8)]
+        S, R = next((sr for sr in fits
+                     if N * sr[0] >= 32 * DIAG_TARGET_WARPS), fits[-1])
+        smem = itemsize * 32 // S * (
+            ((L * (d + 1)) | 1) + (R + 1) * d * S)
+        if smem <= SMEM_BYTES:
+            return dict(S=S, R=R, W=0, bands=1, stage=DIAG_STAGE_ALL,
+                        carry_smem=False, smem=smem,
+                        blocks=-(-N // (32 // S)), work=0)
+    bands = -(-rows // 256)
+    ring = (nl - 1) * rows if bands > 1 else 0
+    marks = 16 * -(-bands // 4)
+
+    def smem_of(stage, W, carry_smem):
+        seq = ((L * (d + 1)) | 1) if stage == DIAG_STAGE_ALL else 0
+        own = 9 * d * 32 if stage != DIAG_STAGE_NONE else 0
+        return marks + itemsize * (seq + W * (own + carry_smem * ring + 7))
+
+    most = min(bands, DIAG_BAND_WARPS)
+    plan = next((dict(stage=stage, W=W, carry_smem=True,
+                      smem=smem_of(stage, W, True))
+                 for stage in (DIAG_STAGE_ALL, DIAG_STAGE_OWN,
+                               DIAG_STAGE_NONE)
+                 for W in range(most, 0, -1)
+                 if smem_of(stage, W, True) <= SMEM_BYTES),
+                dict(stage=DIAG_STAGE_NONE, W=most, carry_smem=False,
+                     smem=smem_of(DIAG_STAGE_NONE, most, False)))
+    plan.update(S=32, R=8, bands=bands, blocks=N, work=0)
+    plan["carry_smem"] = plan["carry_smem"] and bands > 1
+    if bands > 1 and not plan["carry_smem"]:
+        per_block = plan["W"] * ring
+        blocks = max(1, min(N, WORKSPACE_BYTES // (per_block * itemsize)))
+        plan.update(blocks=blocks, work=blocks * per_block)
+    return plan
+
+
+
+# ---------------------------------------------------------------------------
+# The Goursat forwards (csrc/goursat.cu): a segment of S lanes at RL refined
+# rows a lane takes one pair, 32 / S pairs a one-warp block; past 256
+# refined rows the rows go in bands of 256 on a block of up to
+# GOURSAT_BAND_WARPS warps a pair.
+# ---------------------------------------------------------------------------
+
+#: lanes a pair of the segment design, and warps a banded pair at most
+#: (csrc/goursat.cu's kFwdBandWarps)
+GOURSAT_LANES = (4, 8, 16, 32)
+GOURSAT_BAND_WARPS = 8
+#: where a lane may read its cells from column tiles, the segment design
+#: stages its warp's pairs instead only where this many of its one-warp
+#: blocks fit an SM's shared memory (fewer warps an SM cannot hide the
+#: sweep's latency; the tiles take less shared memory): 8 where the tiles
+#: fill in 16-byte copies (rows of whole 16-byte vectors), 4 where in 8- or
+#: 4-byte ones
+GOURSAT_STAGE_BLOCKS = {16: 8, 8: 4, 4: 4}
+#: steps a lane's tile spans where the segment design reads its cells in
+#: 16-byte vectors of columns (csrc/goursat.cu's kColSteps)
+GOURSAT_COL_STEPS = 4
+
+
+def goursat_copy_width(Tu, itemsize):
+    """Bytes a copy of the column tiles takes on rows of Tu values
+    (csrc/goursat.cu's goursat_cols, for data aligned as allocated): 16
+    where the rows are whole 16-byte vectors, else 8 where they are whole
+    8-byte ones, else a value."""
+    row = Tu * itemsize
+    return 16 if row % 16 == 0 else 8 if row % 8 == 0 else itemsize
+
+
+@functools.lru_cache(maxsize=256)
+def goursat_fwd_plan(Su, Tu, dyadic_order, itemsize):
+    """The Goursat forwards' launch for a [Su, Tu] pair at dyadic order o:
+    a dict of the refined rows a lane (``RL``: 2, 4 or 8, at least 2^o up
+    to 8), the lanes a pair (``S``), ``bands``, warps a block (``W``),
+    ``stage`` (the increments in shared memory), ``cols`` (unstaged, read
+    in 16-byte vectors of columns), ``bnd_smem`` (the bands' bottom rows in
+    shared memory, else in a workspace of W (C + 1) values a pair) and
+    ``smem`` bytes. Up to 256 refined rows (R, the shorter side) one
+    segment: the fewest RL, then the fewest S of GOURSAT_LANES with
+    S·RL >= R, 32 / S pairs a one-warp block. On a given grid (o = 0)
+    whose rows lie along memory (Su <= Tu), ``cols`` (two tiles a lane of
+    RL rows x GOURSAT_COL_STEPS 16-byte vectors of columns in shared
+    memory, which the warp fills with coalesced copies) unless
+    GOURSAT_STAGE_BLOCKS staged blocks fit the shared memory at the rows'
+    copy width; otherwise staged where one fits, else a value a lane a step
+    through the cache.
+    Past that S = 32, RL = 8, bands of 256
+    rows and a block of W = min(bands, GOURSAT_BAND_WARPS) warps a pair,
+    its W bottom rows and 16-byte steps of progress marks in shared memory
+    where they fit, the increments staged where they still fit."""
+    R, C = sorted((Su << dyadic_order, Tu << dyadic_order))
+    cells = Su * Tu
+    least = min(8, max(2, 1 << dyadic_order))
+    for RL in (r for r in (2, 4, 8) if r >= least):
+        S = next((s for s in GOURSAT_LANES if s * RL >= R), None)
+        if S:
+            block = 32 // S * cells * itemsize
+            cols = (dyadic_order == 0 and Su <= Tu
+                    and GOURSAT_STAGE_BLOCKS[goursat_copy_width(Tu, itemsize)]
+                    * block > SMEM_BYTES)
+            stage = not cols and block <= SMEM_BYTES
+            tiles = 2 * 32 * (RL * GOURSAT_COL_STEPS + 1) * 16
+            return dict(RL=RL, S=S, bands=1, W=1, stage=stage, cols=cols,
+                        bnd_smem=False,
+                        smem=block if stage else tiles if cols else 0)
+    bands = -(-R // 256)
+    W = min(bands, GOURSAT_BAND_WARPS)
+    marks = 16 * -(-bands // 4)
+    bnd = W * (C + 1) * itemsize
+    bnd_smem = marks + bnd <= SMEM_BYTES
+    smem = marks + (bnd if bnd_smem else 0)
+    stage = smem + cells * itemsize <= SMEM_BYTES
+    return dict(RL=8, S=32, bands=bands, W=W, stage=stage, cols=False,
+                bnd_smem=bnd_smem,
+                smem=smem + (cells * itemsize if stage else 0))
 
 #: the sig_gram kernels' level bound (num_levels + 1 <= 128, as the JAX
 #: sig_gram kernels take) and, past the register path's 7 levels, their
@@ -199,9 +443,8 @@ def gram_bwd_chunk(L, d, S, W, itemsize):
 SIG_GRAM_MAX_LEVELS = 127
 REGISTER_LEVELS = 7
 DEEP_MAX_ORDER = 3
-#: the deep path's workspace: at most this many bytes, and at most this many
-#: blocks in flight (the grid strides over the remaining pairs)
-DEEP_WORKSPACE_BYTES = 1 << 30
+#: the deep path's blocks in flight at most (the grid strides over the
+#: remaining pairs)
 DEEP_MAX_BLOCKS = 4 * 132
 
 
@@ -231,7 +474,7 @@ def deep_plan(B, rows, nl, p, itemsize, backward):
     plan = dict(W=W, R=R, per_pair=per_pair, blocks=blocks, work=0,
                 smem=smem)
     if smem > SMEM_BYTES:
-        blocks = max(1, min(blocks, DEEP_MAX_BLOCKS, DEEP_WORKSPACE_BYTES
+        blocks = max(1, min(blocks, DEEP_MAX_BLOCKS, WORKSPACE_BYTES
                             // (pairs * per_pair * itemsize)))
         plan.update(blocks=blocks, work=blocks * pairs * per_pair,
                     smem=exchange_bytes(W, itemsize))
@@ -252,9 +495,8 @@ def deep_plan(B, rows, nl, p, itemsize, backward):
 # grid-strided launch). So every d that device memory holds gets a plan.
 # ---------------------------------------------------------------------------
 
-#: the Kuf backwards' workspace: at most this many bytes, at most this many
-#: blocks in flight (the grid strides over the remaining work items)
-KUF_WORKSPACE_BYTES = 1 << 30
+#: the Kuf backwards' blocks in flight at most, where their columns go to
+#: the workspace (the grid strides over the remaining work items)
 KUF_MAX_BLOCKS = 4 * 132
 #: 32-bit registers a thread of the general Kuf forward gives to its
 #: sequences' DP state (``csrc/tens_seq_general.cuh``'s kStateRegs)
@@ -354,7 +596,7 @@ def kuf_bwd_plan(T, N, F2, d, itemsize, tuned=False):
     most of 4, 2, 1 warps that the sequences fill and whose lanes' columns
     fit the shared memory, ``ppw`` past KUF_BWD_TARGET_BLOCKS blocks. Where
     no block's columns fit, they go to a workspace of at most
-    KUF_WORKSPACE_BYTES, 4 warps a block (fewer below 4 sequences: a
+    WORKSPACE_BYTES, 4 warps a block (fewer below 4 sequences: a
     block's warps are a power of two), and the grid of at most
     KUF_MAX_BLOCKS blocks strides over the items. None where one block's
     columns exceed the workspace."""
@@ -380,10 +622,10 @@ def kuf_bwd_plan(T, N, F2, d, itemsize, tuned=False):
                 work=0)
     if not fits:
         per_block = C * KUF_LANES * warps
-        if per_block * itemsize > KUF_WORKSPACE_BYTES:
+        if per_block * itemsize > WORKSPACE_BYTES:
             return None
         blocks = max(1, min(items, KUF_MAX_BLOCKS,
-                            KUF_WORKSPACE_BYTES // (per_block * itemsize)))
+                            WORKSPACE_BYTES // (per_block * itemsize)))
         plan.update(staged=False, blocks=blocks, work=blocks * per_block,
                     smem=itemsize * F2)
     return plan
@@ -394,7 +636,7 @@ def check_kuf(name, plan, what):
     columns would exceed the workspace bound."""
     if plan is None:
         raise ValueError(
-            f"{name}: {what} needs more than {KUF_WORKSPACE_BYTES} bytes of "
+            f"{name}: {what} needs more than {WORKSPACE_BYTES} bytes of "
             "workspace for one block's partial sums; the kernels take at most "
             "that")
 
@@ -402,7 +644,9 @@ def check_kuf(name, plan, what):
 def check_fits(name, rows, plan, smem, what):
     """Raise ValueError when a launch cannot take the shape: no plan for
     ``rows`` rows, or ``smem`` bytes of shared memory above the block's
-    budget. ``what`` names the shape in the message."""
+    budget (no plan of this module gives that: each reads from global
+    memory where staging would not fit). ``what`` names the shape in the
+    message."""
     if plan is None:
         raise ValueError(
             f"{name}: {what} gives {rows} DP rows; the kernels take at most "

@@ -143,10 +143,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     X = torch.zeros(3, 8, 2, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         tfg.fused_diag_levels(X.transpose(0, 1), 3)
-    # above the launch plan's bound: 1024 DP rows (plan.MAX_ROWS)
+    # above the launch plan's bound: 1024 DP rows (plan.MAX_ROWS) on the
+    # Gram kernels; the diagonal takes every length (its rows in bands)
+    long = torch.zeros(2, plan.MAX_ROWS + 2, 2, device=cuda_device)
     with pytest.raises(ValueError, match="at most 1024"):
-        tfg.fused_diag_levels(
-            torch.zeros(2, plan.MAX_ROWS + 2, 2, device=cuda_device), 3)
+        tfg.fused_gram_levels(long, long, 3)
+    diag = tfg.fused_diag_levels(long, 3)  # a constant path: levels 1..3 0
+    assert bool((diag[0] == 1).all() and (diag[1:] == 0).all())
     with pytest.raises(TypeError, match="float32 or float64"):
         tfg.fused_diag_levels(X.half(), 3)
     # the sig_gram kernels take num_levels + 1 <= 128, and past 7 levels
@@ -1309,3 +1312,167 @@ def test_order1_forward_where_its_shared_memory_ends(cuda_device, dtype,
         assert tts.launches == n0 + 1
         want = tts.fused_tens_seq_levels_ref(Z, X, 7, True, True)
         assert _scaled_err(got, want) < tol
+
+
+# -- the Gram side at every d and the diagonal at every L --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("N,L,d", [(6, 50, 64), (4, 50, 400), (3, 20, 1345),
+                                   (3, 1025, 2), (2, 1025, 64),
+                                   (2, 3000, 3)])
+def test_diagonal_takes_every_d_and_L(cuda_device, dtype, tol, N, L, d):
+    """The order-1 diagonal at d = 64, 400, 1345 (MotorImagery's, past its
+    staged sequence, DuckDuckGeese's) and at L = 1025 and 3000 (past the
+    old 1024-row bound, in bands of 256 rows with their carries), nl = 4
+    and 7, RBF and Linear: it launches (its counter rises) and matches its
+    plain version."""
+    rng = np.random.default_rng(30)
+    X = torch.as_tensor(_walks(rng, N, L, d) * np.sqrt(2 / d) *
+                        np.sqrt(50 / L), dtype=dtype, device=cuda_device)
+    for nl in (4, 7):
+        for rbf in (True, False):
+            n0 = tfg.diag_launches
+            got = tfg.fused_diag_levels(X, nl, rbf)
+            assert tfg.diag_launches == n0 + 1
+            want = tfg.fused_diag_levels_ref(X, nl, rbf)
+            assert _scaled_err(got, want) < tol, (nl, rbf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", BWD_TOLS)
+@pytest.mark.parametrize("L,d", [(50, 64), (50, 400), (150, 64),
+                                 (150, 400)])
+def test_gram_backwards_take_wide_d(cuda_device, dtype, tol, L, d):
+    """Both Gram backwards at d = 64 and 400, L = 50 and 150: where x, y
+    and the X̄ sums pass the block's shared memory they read x and y from
+    global memory and sum X̄ in the workspace; each launches and matches
+    its plain version."""
+    rng = np.random.default_rng(31)
+    X = torch.as_tensor(_walks(rng, 3, L, d) * np.sqrt(2 / d), dtype=dtype,
+                        device=cuda_device)
+    Y = torch.as_tensor(_walks(rng, 5, L, d) * np.sqrt(2 / d), dtype=dtype,
+                        device=cuda_device)
+    g = torch.as_tensor(rng.standard_normal((5, 3, 5)), dtype=dtype,
+                        device=cuda_device)
+    n0 = (tfg.gram_bwd_launches, tfgho.bwd_launches)
+    got = tfg.fused_gram_levels_bwd(X, Y, g, 4, True)
+    assert _scaled_errs(got, tfg.fused_gram_levels_bwd_ref(
+        X, Y, g, 4, True)) < tol
+    got = tfgho.fused_gram_ho_levels_bwd(X, Y, g, 4, 2, "rbf", True)
+    assert _scaled_errs(got, tfgho.fused_gram_ho_levels_bwd_ref(
+        X, Y, g, 4, 2, "rbf", True)) < tol
+    assert (tfg.gram_bwd_launches, tfgho.bwd_launches) == (n0[0] + 1,
+                                                           n0[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_gram_block_design_reads_wide_sequences(cuda_device, dtype, tol):
+    """The Gram forwards' block design (L = 300) at d = 400, where x and y
+    do not fit the block's shared memory, against their plain versions."""
+    rng = np.random.default_rng(32)
+    X = torch.as_tensor(_walks(rng, 2, 300, 400) * np.sqrt(2 / 400 / 6),
+                        dtype=dtype, device=cuda_device)
+    item = X.element_size()
+    assert plan.gram_fwd_smem(300, 400, 32, 4, 3, item) < 300 * 400 * item
+    got = tfg.fused_gram_levels(X, X, 4, True)
+    assert _scaled_err(got, tfg.fused_gram_levels_ref(X, X, 4, True)) < tol
+    got = tfgho.fused_gram_ho_levels(X, X, 4, 2, "rbf", True)
+    assert _scaled_err(got, tfgho.fused_gram_ho_levels_ref(
+        X, X, 4, 2, "rbf", True)) < dict(GEN_TOLS)[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_goursat_forward_crosses_bands(cuda_device, dtype):
+    """The Goursat forward where the shorter refined side passes one
+    warp's 256 rows: (300, 280) at dyadic order 1 (3 bands on 3 warps) and
+    (60, 300) at order 3 (2 bands), both routes, bitwise equal to the plain
+    sweep (each cell is its expression in its order)."""
+    from gpsig_tpu_torch.ops import goursat as tg
+    from gpsig_tpu_torch.ops.cuda import goursat as tgs
+
+    rng = np.random.default_rng(33)
+    for Su, Tu, o in ((300, 280, 1), (60, 300, 3)):
+        assert plan.goursat_fwd_plan(Su, Tu, o, 8)["bands"] > 1
+        inc = torch.as_tensor(_path_increments(rng, 3, Su, Tu) / 4,
+                              dtype=dtype, device=cuda_device)
+        want = tgs.goursat_corner_refined_ref(inc, o)
+        assert torch.equal(tgs.goursat_corner_refined(inc, o), want)
+        assert torch.equal(tgs.goursat_corner_fast(
+            tg.refine_increments(inc, o)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_goursat_forward_reads_columns_in_vectors(cuda_device, dtype):
+    """The given-grid forward on pairs past what GOURSAT_STAGE_BLOCKS
+    staged blocks an SM take: a lane reads its cells from tiles of its
+    next columns, which the warp copies in 16-byte vectors where the rows
+    are 16-byte aligned (196 x 196, 250 x 252) and a value at a time where
+    they are not (196 x 198, 250 x 250 in float32; a last block of fewer
+    columns); the transposed orientation (252 x 196) staged where one
+    block takes it, else a value a step through the cache; bitwise equal
+    to the plain sweep."""
+    from gpsig_tpu_torch.ops.cuda import goursat as tgs
+
+    rng = np.random.default_rng(34)
+    item = torch.tensor([], dtype=dtype).element_size()
+    for B, Su, Tu in ((7, 196, 196), (3, 250, 252), (4, 196, 198),
+                      (3, 250, 250), (3, 252, 196)):
+        p = plan.goursat_fwd_plan(Su, Tu, 0, item)
+        assert p["cols"] == (Su <= Tu)
+        assert p["stage"] == (Su > Tu and Su * Tu * item <= plan.SMEM_BYTES)
+        inc = torch.as_tensor(_path_increments(rng, B, Su, Tu) / 16,
+                              dtype=dtype, device=cuda_device)
+        n0 = tgs.launches
+        got = tgs.goursat_corner_fast(inc)
+        assert tgs.launches == n0 + 1
+        assert torch.equal(got, tgs.goursat_corner_ref(inc))
+
+
+@pytest.mark.cuda
+def test_order1_svgp_step_takes_wide_d(cuda_device):
+    """Two float64 natgrad + Adam steps of the main path's model, the
+    order-1 normalised SignatureRBF SVGP with inducing tensors, at
+    PEMS-SF's d = 963 (nl = 3, increments) on the card, through the
+    diagonal (its sequences read from global memory) and the order-1 Kuf
+    entry points (the backward on the general kernel at order 1 and its
+    workspace), against the same steps on the CPU, rtol 1e-8."""
+    import copy
+
+    from gpsig_tpu_torch.inducing import InducingTensors
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    rng = np.random.default_rng(34)
+    nl, M, C, d = 3, 6, 3, 963
+    Z, X, _ = _wide_inputs(rng, M, 10, 8, d, nl, torch.float64, "cpu")
+    assert plan.diag_plan(10, 8, d, nl, 8)["stage"] != plan.DIAG_STAGE_ALL
+    model = SVGP.create(SignatureRBF(d, nl, normalization=True,
+                                     device="cpu"), MultiClass(C),
+                        InducingTensors.create(Z, nl, True), C,
+                        device="cpu")
+    Y = torch.as_tensor(rng.integers(0, C, 10))
+    card = copy.deepcopy(model).to(cuda_device)
+    out = {}
+    n0 = (tfg.diag_launches, tts.launches, tts.bwd_launches)
+    for name, m, x, y in (("cpu", model, X, Y),
+                          ("card", card, X.to(cuda_device),
+                           Y.to(cuda_device))):
+        step = make_step_fn(1e-2, num_data=40, gamma=0.1)
+        state, elbos = step.init(m), []
+        for _ in range(2):
+            state, elbo = step(state, x, y)
+            elbos.append(elbo.cpu())
+        out[name] = elbos + [p.detach().cpu() for p in m.parameters()]
+    # the order-1 Kuf entry points: the forward's wide records fit its
+    # shared memory, the backward past d = 3 runs the general kernel at
+    # order 1 with its workspace
+    assert plan.kuf_bwd_plan(M, 10, 12, d, 8, tuned=True)["work"] > 0
+    assert tfg.diag_launches > n0[0] and tts.launches > n0[1] \
+        and tts.bwd_launches > n0[2]
+    for g, w in zip(out["card"], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)

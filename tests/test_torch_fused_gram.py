@@ -171,12 +171,19 @@ def test_gram_forward_plan_takes_every_width_it_took_before(L, itemsize, P,
 
 
 def test_gram_forward_plan_raises_above_what_it_takes():
+    """The one bound that remains is 1024 rows; a shape whose x and y do
+    not fit a block's shared memory (L = 150, d = 300, float64, where no
+    segment's x fits either) takes the block design with x and y read
+    from global memory: only the half norms and the exchange staged."""
     X = torch.zeros(1, plan.MAX_ROWS + 2, 2)
     with pytest.raises(ValueError, match="at most 1024"):
         tfg._forward_plan("k", X, diag=False, num_levels=4)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfg._forward_plan("k", torch.zeros(1, 150, 300, dtype=torch.float64),
-                          diag=False, num_levels=4)
+    wide = tfg._forward_plan("k", torch.zeros(1, 150, 300,
+                                              dtype=torch.float64),
+                             diag=False, num_levels=4)
+    assert wide == (32, 4, 2)
+    assert plan.gram_fwd_smem(150, 300, *wide, 8) \
+        == 8 * 2 * 150 + plan.exchange_bytes(2, 8) <= plan.SMEM_BYTES
     assert tfg._forward_plan("k", torch.zeros(1, 50, 2), False, 4) \
         == (8, 8, 1)
     assert tfg._forward_plan("k", torch.zeros(1, 150, 2), False, 4) \
@@ -185,8 +192,12 @@ def test_gram_forward_plan_raises_above_what_it_takes():
         == (32, 8, 1)
     assert tfg._forward_plan("k", torch.zeros(1, 258, 2), False, 4) \
         == (32, 4, 3)
-    # the diagonal keeps its plan
-    assert tfg._forward_plan("k", torch.zeros(1, 50, 2), diag=True) == (1, 2)
+    # the diagonal's plan: one sequence (one warp to fill) at 2 rows a
+    # lane over 32 lanes, everything staged
+    p = tfg._forward_plan("k", torch.zeros(1, 50, 2), diag=True,
+                          num_levels=4)
+    assert (p["S"], p["R"], p["bands"], p["stage"]) == (32, 2, 1,
+                                                        plan.DIAG_STAGE_ALL)
 
 
 def seg_prefix(v, S):

@@ -177,8 +177,9 @@ def test_gram_forward_plan_takes_one_warp_to_256_rows():
     with pytest.raises(ValueError, match="at most 1024"):
         tfgho._plan("k", torch.zeros(1, plan.MAX_ROWS + 1, 2), False, False,
                     4, 2)
-    # the backward keeps its plan
-    assert tfgho._plan("k", X[:, :50], True, True)[:2] == (1, 2)
+    # the backward keeps its plan: one warp a pair at 2 rows a lane, staged
+    bp = tfgho._plan("k", X[:, :50], True, True)
+    assert (bp["W"], bp["R"], bp["staged"]) == (1, 2, True)
 
 
 @pytest.mark.parametrize("order,nl,dtype", [
@@ -203,8 +204,9 @@ def test_gram_forward_plan_takes_the_widest_sequences_it_took(L, d, dtype):
     """The widest d that the design before segments took at L = 50 and 150
     (lag-augmented or wide UEA data) keeps one warp a pair wherever a
     segment covers the rows (its y read from global memory), the block
-    design elsewhere; past every design's shared memory the plan
-    raises."""
+    design elsewhere; past every design's shared memory (d = the block's
+    shared memory in values) the block design takes the shape with x and
+    y read from global memory."""
     X = torch.zeros(1, L, d, dtype=dtype)
     item = X.element_size()
     for order in (1, 2, 3):
@@ -213,9 +215,11 @@ def test_gram_forward_plan_takes_the_widest_sequences_it_took(L, d, dtype):
         assert (W == 1) == (32 * max(R_lane, 4) >= L - 1)
         assert plan.gram_fwd_smem(L, d, S, R, W, item) <= plan.SMEM_BYTES
     over = plan.SMEM_BYTES // item
-    with pytest.raises(ValueError, match="shared memory"):
-        tfgho._plan("k", torch.zeros(1, L, over, dtype=dtype), True, False,
-                    4, 2)
+    S, R, W = tfgho._plan("k", torch.zeros(1, L, over, dtype=dtype), True,
+                          False, 4, 2)
+    assert (S, R) == (32, 4) and W == max(2, -(-(L - 1) // 128))
+    assert plan.gram_fwd_smem(L, over, S, R, W, item) \
+        == item * 2 * L + plan.exchange_bytes(W, item)
 
 
 def run_length_model(X, Ys, nl, order, kind, difference, S, R):

@@ -77,7 +77,10 @@ def test_row_plan_takes_the_fewest_warps(rows, want):
 
 def test_gram_backward_plan_and_the_stated_bound():
     """Two pairs a warp up to 64 rows; the bound is 1024 rows, and the
-    backward's shared memory at d = 8 in float64 still takes L = 512."""
+    backward's shared memory at d = 8 in float64 still takes L = 512. Past
+    its shared memory (L = 900, d = 8, float64) the backward reads x and y
+    from global memory and sums X̄ in a workspace; the diagonal takes
+    L = 1025 in one segment's bands (no row bound)."""
     assert plan.gram_bwd_plan(50) == (16, 1)
     assert plan.gram_bwd_plan(20) == (16, 1)
     assert plan.gram_bwd_plan(129) == (32, 1)
@@ -91,10 +94,13 @@ def test_gram_backward_plan_and_the_stated_bound():
     X = torch.zeros(1, 1026, 2)
     with pytest.raises(ValueError, match="at most 1024"):
         tfg._backward_plan("k", X)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfg._backward_plan("k", torch.zeros(1, 900, 8, dtype=torch.float64))
-    assert tfg._forward_plan("k", torch.zeros(1, 1025, 8), diag=True) \
-        == (8, 4)
+    wide = tfg._backward_plan("k", torch.zeros(1, 900, 8,
+                                               dtype=torch.float64))
+    assert not wide["staged"] and wide["smem"] <= plan.SMEM_BYTES
+    assert (wide["S"], wide["W"], wide["work"]) == (32, 8, 900 * 9)
+    d1025 = tfg._forward_plan("k", torch.zeros(1, 1025, 8), diag=True,
+                              num_levels=4)
+    assert (d1025["S"], d1025["R"], d1025["bands"]) == (32, 8, 4)
 
 
 # -- a numpy model of the backward kernel's row partition ---------------------

@@ -153,5 +153,5 @@ def test_deep_plan_takes_shared_memory_or_the_workspace():
     assert big["work"] == big["blocks"] * big["per_pair"]
     assert big["smem"] == plan.exchange_bytes(5, 8)
     huge = plan.deep_plan(10 ** 6, 1024, 127, 3, 8, True)
-    assert huge["work"] * 8 <= plan.DEEP_WORKSPACE_BYTES
+    assert huge["work"] * 8 <= plan.WORKSPACE_BYTES
     assert plan.deep_plan(4, plan.MAX_ROWS + 1, 8, 1, 4, False) is None

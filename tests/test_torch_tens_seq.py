@@ -107,14 +107,14 @@ def test_every_d_gets_a_plan(nl):
                     else:
                         assert bp == plan.kuf_bwd_plan(T, N, F2, d, itemsize)
                         assert (bp["work"] * itemsize
-                                <= plan.KUF_WORKSPACE_BYTES)
+                                <= plan.WORKSPACE_BYTES)
 
 
 def test_backward_refuses_past_the_workspace_bound():
     """Past what one block's partial sums may take of the workspace the
     plan is None and the wrapper's check names the bound."""
     F2 = plan.factor_count(7, True)
-    d = plan.KUF_WORKSPACE_BYTES // (8 * F2 * 32)
+    d = plan.WORKSPACE_BYTES // (8 * F2 * 32)
     assert plan.kuf_bwd_plan(2, 3, F2, d, 8, tuned=True) is None
-    with pytest.raises(ValueError, match=str(plan.KUF_WORKSPACE_BYTES)):
+    with pytest.raises(ValueError, match=str(plan.WORKSPACE_BYTES)):
         plan.check_kuf("tens_seq_bwd", None, f"d={d}")

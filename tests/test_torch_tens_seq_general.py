@@ -272,7 +272,7 @@ def test_every_d_gets_a_plan(nl):
                         assert bp["work"] == bp["blocks"] * bp["threads"] * (
                             plan.kuf_bwd_columns(F2, d))
                         assert (bp["work"] * itemsize
-                                <= plan.KUF_WORKSPACE_BYTES)
+                                <= plan.WORKSPACE_BYTES)
 
 
 def test_forward_sequences_a_thread():
