@@ -40,9 +40,16 @@ pairs of 7 x 49 increments, dyadic order 1, and its 14 x 98 refined grid
 through the given-grid route), at the joint Gram (82² pairs of 49 x 49,
 order 1) and at 64 pairs of 199 x 199 at order 3, and its given-grid
 route on the grids refined in memory at order 1 (joint Gram) and 2 (joint
-Gram, Kuf, 199 x 199); and, as "kernel
+Gram, Kuf, 199 x 199); sig_gram at its redesign's shapes: order 3 at
+L' = 149 (B = 2048 forward, B = 50 backward), order 1 at L' = 149
+(B = 150), orders 1 and 2 at the num_levels = 10 GPR's Gram (150² pairs of
+L' = 49), forward and backward, and the cases the parent refuses (null):
+the inducing-sequence Gram at MotorImagery's length (2000 matrices of
+2999 x 7), the triangle of a Gram at L = 1300 (21 matrices of 1299 x 1299,
+order 2) and order 5 at num_levels = 8; and, as "kernel
 alone", the flagship and L = 150 diagonal and both Goursat Kuf routes by
-their C entry point's call, recorded once through the wrapper and
+their C entry point's call (and sig_gram at the flagship diagonal and
+the inducing-sequence matrices), recorded once through the wrapper and
 replayed with no plan, allocation or check, the kernel's device time by
 ``torch.profiler`` (median of 7 windows of 10 launches). Every Gram kernel is timed on its full grid
 of pairs (no triangle), so that both checkouts do the same work; the GPR
@@ -184,6 +191,36 @@ CASES = [
      "goursat.goursat_corner_fast", "goursat_kuf_fine2"),
     ("goursat given grid 64 pairs 796x796", "goursat.goursat_corner_fast",
      "goursat199_fine2"),
+    ("sig_gram order 3 B=2048 L'=149 nl=4", "sig_gram.sig_gram_levels_ho",
+     "sg3_149"),
+    ("sig_gram_bwd order 3 B=50 L'=149 nl=4",
+     "sig_gram.sig_gram_levels_ho_bwd", "sg3_bwd_149"),
+    ("sig_gram order 1 B=150 L'=149 nl=4", "sig_gram.sig_gram_levels",
+     "sg1_149"),
+    ("sig_gram_bwd order 1 B=150 L'=149 nl=4", "sig_gram.sig_gram_levels_bwd",
+     "sg1_bwd_149"),
+    ("sig_gram order 1 B=22500 L'=49 nl=10", "sig_gram.sig_gram_levels",
+     "sg1_nl10"),
+    ("sig_gram order 2 B=22500 L'=49 nl=10", "sig_gram.sig_gram_levels_ho",
+     "sg2_nl10"),
+    ("sig_gram_bwd order 1 B=22500 L'=49 nl=10",
+     "sig_gram.sig_gram_levels_bwd", "sg1_bwd_nl10"),
+    ("sig_gram_bwd order 2 B=22500 L'=49 nl=10",
+     "sig_gram.sig_gram_levels_ho_bwd", "sg2_bwd_nl10"),
+    ("sig_gram order 1 B=2000 [2999, 7] nl=4", "sig_gram.sig_gram_levels",
+     "sg1_seq"),
+    ("sig_gram_bwd order 1 B=2000 [2999, 7] nl=4",
+     "sig_gram.sig_gram_levels_bwd", "sg1_bwd_seq"),
+    ("sig_gram order 2 B=21 L'=1299 nl=4", "sig_gram.sig_gram_levels_ho",
+     "sg2_1299"),
+    ("sig_gram_bwd order 2 B=21 L'=1299 nl=4",
+     "sig_gram.sig_gram_levels_ho_bwd", "sg2_bwd_1299"),
+    ("sig_gram order 5 B=2048 L'=49 nl=8", "sig_gram.sig_gram_levels_ho",
+     "sg5_nl8"),
+    ("sig_gram order 2 B=2048 L'=49 kernel alone",
+     "alone:sig_gram.sig_gram_levels_ho", "sg2"),
+    ("sig_gram order 1 B=2000 [2999, 7] nl=4 kernel alone",
+     "alone:sig_gram.sig_gram_levels", "sg1_seq"),
 ]
 
 
@@ -280,6 +317,40 @@ def _args(kind, torch, dev):
             return (m, t(rng.standard_normal((9, 150))), 8)
         g = t(rng.standard_normal((5, 150)))
         return (m, g, 4) if kind == "sg1_bwd" else (m, g, 4, 2)
+    if kind in ("sg3_149", "sg3_bwd_149", "sg1_149", "sg1_bwd_149"):
+        n = {"sg3_149": 2048, "sg3_bwd_149": 50}.get(kind, 150)
+        m = t(self_inc(_walks(rng, n, 150, 2)))
+        g = t(rng.standard_normal((5, n)))
+        return {"sg3_149": (m, 4, 3), "sg3_bwd_149": (m, g, 4, 3),
+                "sg1_149": (m, 4), "sg1_bwd_149": (m, g, 4)}[kind]
+    if kind in ("sg1_nl10", "sg2_nl10", "sg1_bwd_nl10", "sg2_bwd_nl10"):
+        # the num_levels = 10 GPR's Gram: every pair of 150 sequences
+        x = _walks(rng, 150, 50, 2).reshape(-1, 2)
+        sq = np.sum(x * x, -1)
+        G = np.exp(-0.5 * (sq[:, None] + sq[None, :] - 2 * x @ x.T))
+        G = G.reshape(150, 50, 150, 50).transpose(0, 2, 1, 3)
+        m = t(np.diff(np.diff(G, axis=2), axis=3).reshape(-1, 49, 49))
+        del G
+        g = t(rng.standard_normal((11, m.shape[0])))
+        o = 2 if "sg2" in kind else 1
+        if "bwd" in kind:
+            return (m, g, 10) if o == 1 else (m, g, 10, 2)
+        return (m, 10) if o == 1 else (m, 10, 2)
+    if kind in ("sg1_seq", "sg1_bwd_seq"):
+        # 40 inducing sequences of length 8 against a batch of 50 at L =
+        # 3000, the shorter side on the rows
+        m = t(rng.standard_normal((2000, 2999, 7)) * 0.02)
+        if kind == "sg1_seq":
+            return (m, 4)
+        return (m, t(rng.standard_normal((5, 2000))), 4)
+    if kind in ("sg2_1299", "sg2_bwd_1299"):
+        # the triangle of a Gram of 6 sequences of L = 1300
+        m = t(self_inc(_walks(rng, 21, 1300, 2)))
+        if kind == "sg2_1299":
+            return (m, 4, 2)
+        return (m, t(rng.standard_normal((5, 21))), 4, 2)
+    if kind == "sg5_nl8":
+        return (t(self_inc(_walks(rng, 2048, 50, 2))), 8, 5)
     if kind in ("goursat_joint", "goursat199", "goursat_joint_fwd",
                 "goursat199_o3"):
         # the PDE kernel's increments (Linear base, lengthscale 1.5) of every

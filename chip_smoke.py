@@ -3,8 +3,10 @@
 it end to end: slice 0 (the order-1 model, serving and training), slice 1
 (the general engines: order-2 SVGP and GPR, serving and training), the PDE
 slice (the SigGPDE SVGP), sequences past 129 steps (the GunPoint-length
-path, L = 150, serving and training), num_levels 8-127, and the order-1
-model at wide and long UEA shapes (PEMS-SF, MotorImagery).
+path, L = 150, serving and training), num_levels 8-127, the order-1
+model at wide and long UEA shapes (PEMS-SF, MotorImagery), and every
+sequence length and order (sig_gram's bands, orders 4-7, the inducing-
+sequence SVGP at L = 3000, GPRs past 1024 rows).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -130,7 +132,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
    diagonal, the Kuf forward and its backward) and wall times; (u) the
    PEMS-SF model in float64 at small N, T, L, card against the CPU; every
    phase's wall time is printed;
-14. report: one JSON line with every kernel's launches, error, times and
+14. every length and order: (v) sig_gram at every design edge (L2 in
+   1-9, 31-33, 63-65, 127-129, 255-257, 1023-1025, 1300, 3000 x p in
+   {1, 2, 3} x num_levels in {2, 4, 7, 10}: segments of 8-32 lanes, bands
+   in shared memory and in the workspace), forward and backward, float32
+   and float64, against the plain versions; (w) orders 4-7 at num_levels 8
+   and 10; (x) the Goursat forward, given-grid route and adjoint on
+   [2, 4100] at dyadic order 3 (16 x 32,800 refined, past the old 2^15 a
+   side); (y) BASELINE config 3's SVGP (40 inducing sequences of length
+   8, nl = 4, B = 50) at MotorImagery's shape (d = 64, L = 3000, C = 2):
+   ``posterior()`` + ``predict_y`` and 2 natgrad + Adam steps, the
+   two-length Gram through sig_gram with the short side on its rows; (z)
+   exact GPRs at L = 1300 (N = 6, nl = 4), orders 1 and 2: K, lml,
+   ``predict_y`` and 2 Adam steps, the Gram past 1024 rows through
+   sig_gram's bands; (y) and (z) with their counters and against the plain
+   route on the card;
+15. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
    launches on the long path, under "long"; rows 10-13 with the same
    at num_levels = 10, under "deep"), then the device line.
@@ -173,9 +190,9 @@ KERNELS = {
                 "gpsig_tpu/ops/pallas/fused_gram_ho.py:133"),
     "tsg": ("_tsg_kernel", "gpsig_tpu_torch/csrc/tens_seq_general.cuh",
             "gpsig_tpu/ops/pallas/tens_seq_general.py:200"),
-    "sig_gram": ("_fwd_kernel", "gpsig_tpu_torch/csrc/sig_gram.cu",
+    "sig_gram": ("_fwd_kernel", "gpsig_tpu_torch/csrc/sig_gram.cuh",
                  "gpsig_tpu/ops/pallas/sig_gram.py:80"),
-    "sig_gram_ho": ("_fwd_kernel_ho", "gpsig_tpu_torch/csrc/sig_gram.cu",
+    "sig_gram_ho": ("_fwd_kernel_ho", "gpsig_tpu_torch/csrc/sig_gram.cuh",
                     "gpsig_tpu/ops/pallas/sig_gram.py:126"),
     "gram_ho_bwd": ("_ho_bwd_kernel",
                     "gpsig_tpu_torch/csrc/fused_gram_ho_bwd.cuh",
@@ -828,14 +845,13 @@ def grads_and_params(model):
 def compare_first_step(label, got, want, lr,
                        why="float32 Kuf/Gram rounding carried through the "
                        "M=500 / N=150 Cholesky, whose f32 jitter 1e-4 lets "
-                       "L⁻¹ grow to 100"):
+                       "L⁻¹ grow to 100", grad_tol=1e-2):
     """The first step through the kernels against the same step through
-    the plain functions on the card (float32), each parameter's gradient
-    and new value."""
+    the plain functions on the card (float32 unless the models are
+    float64), each parameter's gradient and new value."""
     (g_grad, g_par), (w_grad, w_par) = got, want
     check(set(g_grad) == set(w_grad), f"{label}: gradients of "
           f"{sorted(g_grad)} vs {sorted(w_grad)}")
-    grad_tol = 1e-2
     for n in sorted(w_grad):
         err = scaled_err(g_grad[n], w_grad[n])
         print(f"train {label} step 1 grad {n}: kernel vs plain route scaled "
@@ -2841,8 +2857,8 @@ def deep_levels_phase(dev):
             name = str(dtype).split(".")[1]
             M = torch.as_tensor(M_np, dtype=dtype, device=dev)
             g = torch.as_tensor(g_np, dtype=dtype, device=dev)
-            lp = plan.deep_plan(M.shape[0], Lp, nl, min(order, nl),
-                                M.element_size(), backward=True)
+            lp = plan.sig_gram_plan(M.shape[0], Lp, Lp, nl, min(order, nl),
+                                    M.element_size(), True)
             got = (fwd(M, nl), bwd(M, g, nl))
             want = (sg.sig_gram_levels_ho_ref(M, nl, order),
                     sg.sig_gram_levels_ho_bwd_ref(M, g, nl, order))
@@ -3226,6 +3242,367 @@ def wide_order1_svgp_check(dev):
     check(err <= 1e-8, f"wide order-1 SVGP: {err}")
 
 
+# ---------------------------------------------------------------------------
+# Every length and order (sig_gram's segments and bands, orders 4-7 past 7
+# levels, the Goursat grids past 2^15 refined points, the inducing-sequence
+# SVGP at MotorImagery's length, GPRs past 1024 rows).
+# ---------------------------------------------------------------------------
+
+#: the sweep's L2: every segment width, each lane count's and band's edges
+#: (8 R, 16 R, 32 R at R = 2, 4, 8), the old 1024-row bound, and two lengths
+#: of many bands
+SWEEP_L2 = (*range(1, 10), 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256,
+            257, 1023, 1024, 1025, 1300, 3000)
+SWEEP_TOL = {
+    "float32": (1e-4, "float32 DP sums over up to 3000 rows, the bands' "
+                "scans started from their neighbours' carries, in another "
+                "order than the plain version; the backward's states "
+                "rebuilt by subtraction"),
+    "float64": (1e-10, "the plain version's arithmetic, other summation "
+                "order only"),
+}
+
+
+def sig_gram_routes(order):
+    """sig_gram's forward and backward entry points at ``order``."""
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+
+    if order == 1:
+        return (lambda m, nl: sg.sig_gram_levels(m, nl),
+                lambda m, g, nl: sg.sig_gram_levels_bwd(m, g, nl))
+    return (lambda m, nl: sg.sig_gram_levels_ho(m, nl, order),
+            lambda m, g, nl: sg.sig_gram_levels_ho_bwd(m, g, nl, order))
+
+
+def sig_gram_case(dev, rng, B, L1, L2, nl, order, dtypes, tol):
+    """One sig_gram shape's forward and backward against their plain
+    versions on the card; returns each dtype's larger scaled error and the
+    plans (forward, backward) of the last."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import plan
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+
+    M_np = 0.4 * rng.standard_normal((B, L1, L2)) / np.sqrt(
+        max(L1, L2) / 20)
+    g_np = rng.standard_normal((nl + 1, B))
+    fwd, bwd = sig_gram_routes(order)
+    errs = {}
+    for dtype in dtypes:
+        name = str(dtype).split(".")[1]
+        M = torch.as_tensor(M_np, dtype=dtype, device=dev)
+        g = torch.as_tensor(g_np, dtype=dtype, device=dev)
+        got = (fwd(M, nl), bwd(M, g, nl))
+        want = (sg.sig_gram_levels_ho_ref(M, nl, order),
+                sg.sig_gram_levels_ho_bwd_ref(M, g, nl, order))
+        torch.cuda.synchronize()
+        for a in got:
+            check(bool(torch.isfinite(a).all()), f"sig_gram M {M.shape} "
+                  f"nl={nl} order {order} {name}: not finite")
+        errs[name] = max(scaled_err(a, b) for a, b in zip(got, want))
+        check(errs[name] <= tol[name][0], f"sig_gram M [{B}, {L1}, {L2}] "
+              f"nl={nl} order {order} {name}: {errs[name]} > "
+              f"{tol[name][0]}")
+    item = torch.tensor([], dtype=dtypes[-1]).element_size()
+    plans = tuple(plan.sig_gram_plan(B, L1, L2, nl, min(order, nl), item, b)
+                  for b in (False, True))
+    return errs, plans
+
+
+def design(lp):
+    """A sig_gram plan in a few words."""
+    if lp["bands"] == 1:
+        return f"S={lp['S']} R={lp['R']}"
+    where = "smem" if lp["area_smem"] else "workspace"
+    return f"{lp['bands']} bands R={lp['R']} W={lp['W']} {where}"
+
+
+def sig_gram_sweep_phase(dev):
+    """(v) sig_gram at every design edge: L2 in SWEEP_L2 x p in {1, 2, 3} x
+    num_levels in {2, 4, 7, 10}, forward and backward, float32 and float64,
+    against the plain versions on the card (L1 = 13 columns up to 257 rows,
+    7 past them, so that the plain version stays cheap); each L2's designs
+    and worst errors printed."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 50)
+    for name, (tol, why) in SWEEP_TOL.items():
+        print(f"sweep tolerance {name}: scaled err <= {tol:g}: {why}")
+    n = 0
+    for L2 in SWEEP_L2:
+        L1 = 13 if L2 <= 257 else 7
+        worst, designs = {"float32": 0.0, "float64": 0.0}, set()
+        for nl in (2, 4, 7, 10):
+            for order in (1, 2, 3):
+                errs, plans = sig_gram_case(
+                    dev, rng, 3, L1, L2, nl, order,
+                    (torch.float32, torch.float64), SWEEP_TOL)
+                n += 1
+                for k, e in errs.items():
+                    worst[k] = max(worst[k], e)
+                designs.update(design(lp) for lp in plans)
+        print(f"sweep L2={L2} (L1={L1}): worst scaled err float32 "
+              f"{worst['float32']:.2e}, float64 {worst['float64']:.2e}; "
+              f"float64 designs {sorted(designs)}")
+    print(f"sig_gram sweep: {n} shapes x 2 dtypes, forward and backward, "
+          "within tolerance")
+
+
+def deep_orders_phase(dev):
+    """(w) sig_gram at orders 4-7 past 7 levels (num_levels 8 and 10, L2 in
+    {49, 150}: segments and bands), forward and backward, float32 and
+    float64, against the plain versions on the card."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 51)
+    for nl in (8, 10):
+        for order in (4, 5, 6, 7):
+            for Lp in (49, 150):
+                errs, plans = sig_gram_case(
+                    dev, rng, 4, 20, Lp, nl, order,
+                    (torch.float32, torch.float64), DEEP_TOL)
+                print(f"deep order {order} nl={nl} L2={Lp}: scaled err "
+                      f"float32 {errs['float32']:.2e}, float64 "
+                      f"{errs['float64']:.2e}; {design(plans[1])}")
+
+
+def goursat_long_phase(dev):
+    """(x) The Goursat kernels just past the old 2^15 refined points a side:
+    2 pairs of [2, 4100] unrefined increments at dyadic order 3 (a 16 x
+    32,800 refined grid), the forward with in-kernel refinement, the
+    given-grid route on the grid refined in memory, and the adjoint
+    gradient, float32 and float64, against the plain sweeps on the card."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import goursat as gs
+
+    rng = np.random.default_rng(SEED + 52)
+    o, (Su, Tu) = 3, (2, 4100)
+    inc_np = rng.standard_normal((2, Su, Tu)) * 0.3 / np.sqrt(Tu)
+    gbar_np = rng.standard_normal(2)
+    fine_np = (np.repeat(np.repeat(inc_np, 1 << o, 1), 1 << o, 2)
+               / 4 ** o)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        inc, fine, gbar = (torch.as_tensor(a, dtype=dtype, device=dev)
+                           for a in (inc_np, fine_np, gbar_np))
+        n0 = (gs.launches, gs.fused_launches, gs.grad_launches)
+        got = (gs.goursat_corner_refined(inc, o), gs.goursat_corner_fast(fine),
+               gs.goursat_grad_refined(inc, o, gbar))
+        check((gs.launches, gs.fused_launches, gs.grad_launches)
+              == (n0[0] + 1, n0[1] + 1, n0[2] + 1),
+              "Goursat past 2^15: a kernel did not launch")
+        want = (gs.goursat_corner_refined_ref(inc, o),
+                gs.goursat_corner_ref(fine),
+                gs.goursat_grad_refined_ref(inc, o, gbar))
+        torch.cuda.synchronize()
+        errs = [scaled_err(a, b) for a, b in zip(got, want)]
+        tol = GOURSAT_TOL[name][0]
+        print(f"Goursat [{Su}, {Tu}] at dyadic order {o} (refined 16 x "
+              f"{Tu << o}) {name}: forward {errs[0]:.2e} (bitwise "
+              f"{bool(torch.equal(got[0], want[0]))}), given grid "
+              f"{errs[1]:.2e} (bitwise {bool(torch.equal(got[1], want[1]))}),"
+              f" adjoint {errs[2]:.2e}; tolerance {tol}")
+        check(max(errs[:2]) <= tol[0] and errs[2] <= tol[1],
+              f"Goursat past 2^15 {name}: {errs}")
+
+
+# BASELINE config 3's model (benchmarks/config3_natgrad_sequences.py: 40
+# inducing sequences of length 8, SignatureRBF nl = 4 order 1 normalised,
+# batch 50, natgrad + Adam lr 2e-3, γ = 0.1) at UEA MotorImagery's shape
+CONFIG3 = dict(M=40, Lz=8, nl=4, batch=50, lr=2e-3, gamma=0.1, steps=2)
+
+
+def sequence_svgp_phase(dev):
+    """(y) BASELINE config 3's SVGP, inducing sequences, at MotorImagery's
+    shape (d = 64, L = 3000, C = 2; 278 / 100 synthetic sequences), float32:
+    ``posterior()`` + ``predict_y`` on the test sequences, held against the
+    plain route on the card, and 2 natgrad + Adam steps at B = 50, each with
+    its counters (the two-length Gram through sig_gram with the 7 inducing
+    steps on its rows, its backward in the steps). The first step is held
+    against the plain route in float64 (the same model and batch): in
+    float32 the σ gradient of this model comes from near-cancelling terms,
+    and two float32 routes that differ only in summation order give it 6%
+    apart. Returns the launches."""
+    import torch
+
+    from gpsig_tpu_torch.inducing import make_inducing_sequences_from_data
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.ops.cuda import plan
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    cfg, ui = CONFIG3, UEA["MotorImagery"]
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 53)
+    L, d, C, M = ui["L"], ui["d"], ui["C"], cfg["M"]
+    X = torch.as_tensor(uea_walks(rng, ui["n_train"], L, d), dtype=f32,
+                        device=dev)
+    Y = torch.as_tensor(rng.integers(0, C, ui["n_train"]), device=dev)
+    Xte = torch.as_tensor(uea_walks(rng, ui["n_test"], L, d), dtype=f32,
+                          device=dev)
+    q_mu = torch.as_tensor(0.5 * rng.standard_normal((M, C)))
+
+    def build(dtype):
+        kern = SignatureRBF(d, cfg["nl"], lengthscales=1.0,
+                            normalization=True, dtype=dtype, device=dev)
+        feat = make_inducing_sequences_from_data(
+            torch.Generator().manual_seed(SEED), X.to(dtype), M, cfg["Lz"],
+            d)
+        model = SVGP.create(kern, MultiClass(C), feat, num_latent=C,
+                            dtype=dtype, device=dev)
+        with torch.no_grad():
+            model.q_mu.copy_(q_mu)
+        return model
+
+    model = build(f32)
+    label = "config 3 SVGP at MotorImagery's shape"
+    lp = plan.sig_gram_plan(M * ui["n_test"], L - 1, cfg["Lz"] - 1,
+                            cfg["nl"], 1, 4, False)
+    print(f"{label} (M={M} inducing sequences of {cfg['Lz']}, nl="
+          f"{cfg['nl']}, L={L}, d={d}): Kuf matrices [{L - 1}, "
+          f"{cfg['Lz'] - 1}], sig_gram {design(lp)}")
+
+    def serve():
+        post = model.posterior()
+        probs, pvar = post.predict_y(Xte)
+        fmean, fvar = post.predict_f(Xte)
+        torch.cuda.synchronize()
+        return dict(probs=probs, pvar=pvar, fmean=fmean, fvar=fvar)
+
+    launches = {}
+    with torch.no_grad():
+        reset_counters()
+        out, ms = timed(serve)
+        launches["serving"] = counters()
+        for k, v in out.items():
+            check(bool(torch.isfinite(v).all()), f"{label} {k} not finite")
+        sums = out["probs"].sum(-1)
+        check(bool(torch.allclose(sums, torch.ones_like(sums), atol=1e-4)),
+              f"{label}: probabilities do not sum to 1")
+        check(bool((out["pvar"] >= 0).all() and (out["fvar"] >= 0).all()),
+              f"{label}: negative variances")
+        with plain_route():
+            ref = serve()
+        compare_routes(label, out, ref, dict(fmean=1e-3, probs=1e-3))
+    print(f"{label} posterior() + predict_y on {ui['n_test']}: {ms:.1f} ms")
+    step = make_step_fn(cfg["lr"], num_data=ui["n_train"],
+                        gamma=cfg["gamma"])
+    state = step.init(model)
+    idx = [torch.as_tensor(rng.choice(ui["n_train"], cfg["batch"],
+                                      replace=False), device=dev)
+           for _ in range(cfg["steps"])]
+    reset_counters()
+    elbos, times = [], []
+    for k in range(cfg["steps"]):
+        (state, elbo), t = timed(lambda: step(state, X[idx[k]], Y[idx[k]]))
+        elbos.append(elbo.item())
+        times.append(t)
+    launches["training"] = counters()
+    check(all(np.isfinite(elbos)), f"{label}: ELBO not finite: {elbos}")
+    for p in model.parameters():
+        check(bool(torch.isfinite(p).all()), f"{label}: parameter not "
+              "finite")
+    firsts = []
+    for route in (contextlib.nullcontext, plain_route):
+        m64 = build(torch.float64)
+        with route():
+            step64 = make_step_fn(cfg["lr"], num_data=ui["n_train"],
+                                  gamma=cfg["gamma"])
+            step64(step64.init(m64), X[idx[0]].double(), Y[idx[0]])
+        firsts.append(grads_and_params(m64))
+    torch.cuda.synchronize()
+    compare_first_step(f"{label} (float64)", *firsts, cfg["lr"],
+                       why="float64 sums over 2999 steps in another order "
+                       "than the plain version, carried through the M=40 "
+                       "Cholesky; the σ gradient's condition is about 1e8 "
+                       "(6.6e-9 on the H100, the others <= 2e-12), a kernel "
+                       "fault reads >= 1e-4", grad_tol=1e-6)
+    print(f"{label} natgrad+Adam steps at B={cfg['batch']}: ELBO {elbos}; "
+          f"ms {[round(t, 1) for t in times]}")
+    for phase_, need in (("serving", ("sig_gram", "gram", "diag")),
+                         ("training", ("sig_gram", "sig_gram_bwd", "gram",
+                                       "gram_bwd", "diag"))):
+        print(f"{label} {phase_} launches: {launches[phase_]}")
+        for key in need:
+            check(launches[phase_][key] > 0,
+                  f"{label} {phase_}: {key} did not launch")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    del model, m64, state, X, Y, Xte
+    torch.cuda.empty_cache()
+    return launches
+
+
+def long_gram_gpr_phase(dev):
+    """(z) Exact GPRs whose Gram has more than 1024 DP rows (N = 6 sequences
+    of L = 1300, d = 2, nl = 4, RBF, normalised, noise 0.05), order 1 and
+    order 2, float32: K, the log marginal likelihood and ``predict_y`` on 2
+    more sequences, then 2 Adam steps on -lml (every gradient), each with
+    its counters (the Gram through sig_gram: the fused Grams must not
+    launch), held against the plain route on the card. Returns the
+    launches by order."""
+    import torch
+
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 54)
+    Xn = long_walks(rng, 8, 1300)
+    yn = np.tanh(Xn[:, -1, :1]) + 0.1 * rng.standard_normal((8, 1))
+    Xa = torch.as_tensor(Xn, dtype=f32, device=dev)
+    ya = torch.as_tensor(yn, dtype=f32, device=dev)
+    X, Y, Xnew = Xa[:6], ya[:6], Xa[6:]
+    out_launches = {}
+    for order in (1, 2):
+        label = f"order-{order} GPR at L=1300 (N=6)"
+        gpr = build_gpr(torch, dev, f32, X, nl=4, order=order)
+        plain_gpr = copy.deepcopy(gpr)
+
+        def serve(g):
+            mean, var = g.predict_y(X, Y, Xnew)
+            out = dict(K=g.kernel.K(X), lml=g.log_marginal_likelihood(X, Y),
+                       mean=mean, var=var)
+            torch.cuda.synchronize()
+            return out
+
+        with torch.no_grad():
+            reset_counters()
+            out = serve(gpr)
+            serving = counters()
+            with plain_route():
+                ref = serve(plain_gpr)
+        for k, v in out.items():
+            check(bool(torch.isfinite(v).all()), f"{label} {k} not finite")
+        compare_routes(label, out, ref, dict(K=1e-4, lml=1e-3, mean=1e-3,
+                                             var=1e-3))
+        step = gpr_step_fn(torch, gpr, X, Y, 1e-2)
+        reset_counters()
+        lmls = [step().item()]
+        first = grads_and_params(gpr)
+        lmls.append(step().item())
+        training = counters()
+        with plain_route():
+            gpr_step_fn(torch, plain_gpr, X, Y, 1e-2)()
+        torch.cuda.synchronize()
+        compare_first_step(label, first, grads_and_params(plain_gpr), 1e-2,
+                           why="float32 sums over 1299 x 1299 increments "
+                           "carried through the N=6 Cholesky")
+        check(all(np.isfinite(lmls)), f"{label}: lml not finite {lmls}")
+        key = "sig_gram" if order == 1 else "sig_gram_ho"
+        for name, counts, need in (("serving", serving, (key,)),
+                                   ("training", training,
+                                    (key, f"{key}_bwd"))):
+            print(f"{label} {name} launches: {counts}")
+            for k in need:
+                check(counts[k] > 0, f"{label} {name}: {k} did not launch")
+            for k in ("gram", "gram_ho", "gram_bwd", "gram_ho_bwd"):
+                check(counts[k] == 0, f"{label} {name}: {k} launched past "
+                      "its 1024 rows")
+        print(f"{label}: lml {lmls}")
+        out_launches[order] = training
+    return out_launches
+
+
 def phase(label, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -3308,6 +3685,11 @@ def main():
     phase("PEMS-SF SVGP", uea_svgp_phase, dev, "PEMS-SF")
     phase("PEMS-SF float64", wide_order1_svgp_check, dev)
     phase("MotorImagery SVGP", uea_svgp_phase, dev, "MotorImagery")
+    phase("sig_gram sweep", sig_gram_sweep_phase, dev)
+    phase("deep orders 4-7", deep_orders_phase, dev)
+    phase("Goursat past 2^15", goursat_long_phase, dev)
+    phase("config 3 SVGP at MotorImagery's shape", sequence_svgp_phase, dev)
+    phase("GPR past 1024 rows", long_gram_gpr_phase, dev)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the

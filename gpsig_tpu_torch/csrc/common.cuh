@@ -284,6 +284,32 @@ struct WarpGroup {
     return incl;
   }
 
+  // The exclusive suffix plus `from`, which group thread S - 1 passes (the
+  // others pass 0): the sum of the rows after the group's (sig_gram's
+  // bands). Returns the thread's inclusive suffix total, at thread 0
+  // `from` plus the group's sum.
+  template <int R>
+  __device__ __forceinline__ T suffix_from(const T (&v)[R], T (&out)[R],
+                                           T from) {
+    T run = from;
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      out[r] = run;
+      run += v[r];
+    }
+    T incl = run;
+#pragma unroll
+    for (int off = 1; off < S; off <<= 1) {
+      const T t = __shfl_down_sync(kFull, incl, off, S);
+      if (lane + off < S) incl += t;
+    }
+    T excl = __shfl_down_sync(kFull, incl, 1, S);
+    if (lane == S - 1) excl = T(0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] += excl;
+    return incl;
+  }
+
   // Exclusive suffix over the group's rows: out[r] = sum of v over all
   // rows after row t*R + r.
   template <int R>
@@ -1086,20 +1112,13 @@ __device__ __forceinline__ void rl_adjoint(RunLengthState<T, R, P, NLM>& fw,
   }
 }
 
-// Adjoint of run_length_levels for one pair, by the calling group:
-// w[m] is the cotangent of level m + 1. fwd(j, mcol) gives the columns in
-// ascending order, then rev(j, mcol) in descending order (each as col in
-// run_length_levels); sink(j, mbar) receives M̄ of column j, in descending
-// j, with the thread's R rows (rows past the matrix carry values the
-// caller drops), and the group, for exchanges of its own.
-template <typename T, int R, int P, typename Fwd, typename Rev,
-          typename Sink, typename G, int NLM>
-__device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
-                                      int ncols, int nl,
-                                      const T (&w)[NLM],
-                                      G& g) {
-  RunLengthState<T, R, P, NLM> fw;
-  rl_forward<T, R, P>(fw, fwd, ncols, nl, g);
+// The reverse sweep of run_length_levels_bwd from the forward's end
+// carries fw (sig_gram's bands run the two sweeps apart).
+template <typename T, int R, int P, typename Rev, typename Sink, typename G,
+          int NLM>
+__device__ __forceinline__ void rl_reverse(RunLengthState<T, R, P, NLM>& fw,
+                                           Rev& rev, Sink& sink, int ncols,
+                                           int nl, const T (&w)[NLM], G& g) {
   RunLengthBwd<T, R, P, NLM> bw;
 #pragma unroll
   for (int m = 0; m + 1 < NLM; ++m)
@@ -1124,9 +1143,27 @@ __device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
   }
 }
 
+// Adjoint of run_length_levels for one pair, by the calling group:
+// w[m] is the cotangent of level m + 1. fwd(j, mcol) gives the columns in
+// ascending order, then rev(j, mcol) in descending order (each as col in
+// run_length_levels); sink(j, mbar) receives M̄ of column j, in descending
+// j, with the thread's R rows (rows past the matrix carry values the
+// caller drops), and the group, for exchanges of its own.
+template <typename T, int R, int P, typename Fwd, typename Rev,
+          typename Sink, typename G, int NLM>
+__device__ void run_length_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink,
+                                      int ncols, int nl,
+                                      const T (&w)[NLM],
+                                      G& g) {
+  RunLengthState<T, R, P, NLM> fw;
+  rl_forward<T, R, P>(fw, fwd, ncols, nl, g);
+  rl_reverse<T, R, P>(fw, rev, sink, ncols, nl, w, g);
+}
+
 // Rows of one increment matrix M_b [L1, L2] read as the DP's columns,
-// group thread t holding entries t*R .. t*R+R-1 (sig_gram.cu,
-// sig_gram_bwd.cu): each row is read contiguously, coalesced.
+// group thread t holding entries t*R .. t*R+R-1 (sig_gram.cuh; a band's
+// threads count from the band's first row): each row is read
+// contiguously, coalesced.
 template <typename T, int R>
 struct MatrixRows {
   const T* Mb;

@@ -1,5 +1,5 @@
 // The run-length column DP and its reverse for num_levels 8 .. 127, shared
-// by sig_gram.cu (forward) and sig_gram_bwd_deep.cu (backward).
+// by the sig_gram kernels (sig_gram.cuh, sig_gram_bwd.cuh).
 //
 // common.cuh's run_length_levels keeps one pair's whole DP state in
 // registers, unrolled over kRlLevels = 7 levels. Past that the state is
@@ -8,10 +8,10 @@
 // over levels, with the current column's P x P state grid in registers and
 // every per-level carry in memory. The memory is either the block's shared
 // memory or a device workspace that the wrapper allocates (torch.empty),
-// one region per pair in flight; the kernel sees a plain pointer to
-// either. A group thread's R rows of slot s live at base[(s R + r) GT + t]
-// (GT threads in the group), so neighbouring threads touch neighbouring
-// addresses.
+// one region per segment or band in flight; the kernel sees a plain
+// pointer to either. A group thread's R rows of slot s live at
+// base[(s R + r) GT + t] (GT threads in the group), so neighbouring
+// threads touch neighbouring addresses.
 //
 // Slots of one pair (ops/cuda/plan.py's deep_slots counts them):
 //   tsum[m]        m < nl                T_{m+1}: ecumsum2 carry, then k
@@ -28,10 +28,10 @@
 namespace gpsig {
 
 // The deep path's bounds: num_levels + 1 <= 128, as the JAX sig_gram
-// kernels take; p = min(order, num_levels) <= 3 (the wrappers raise
-// ValueError above either).
+// kernels take; p = min(order, num_levels) <= 7, as the register path
+// (the wrappers raise ValueError above either).
 constexpr int kDeepLevels = 127;
-constexpr int kDeepOrder = 3;
+constexpr int kDeepOrder = 7;
 
 template <int P>
 struct DeepSlots {
@@ -188,26 +188,6 @@ __device__ void deep_forward(Col& col, int ncols, int nl,
           if (a < Rm && b < Rm) s[r] += grid[a][b][r];
     }
     mem.add(sl.tsum(nl - 1), s);
-  }
-}
-
-// Per-level kernels of one pair: out[m * stride] = k_m, by group thread 0.
-template <typename T, int R, int P, typename Col, typename G>
-__device__ void deep_levels(Col& col, int ncols, int nl, T* out,
-                            long long stride, const DeepStore<T, R>& mem,
-                            G& g) {
-  const DeepSlots<P> sl{nl};
-  deep_forward<T, R, P>(col, ncols, nl, sl, mem, g);
-  const bool first = g.thread() == 0;
-  if (first) out[0] = T(1);
-  for (int m = 0; m < nl; ++m) {
-    T v[R];
-    mem.load(sl.tsum(m), v);
-    T s = T(0);
-#pragma unroll
-    for (int r = 0; r < R; ++r) s += v[r];
-    s = g.sum(s);
-    if (first) out[(m + 1) * stride] = s;
   }
 }
 
@@ -416,16 +396,15 @@ __device__ __forceinline__ void deep_adjoint(DeepPass<T, R, P>& ps,
   }
 }
 
-// Adjoint of deep_levels for one pair (common.cuh's run_length_levels_bwd
-// with the state in memory): w(m) is the cotangent of level m + 1; fwd,
+// The reverse sweep of the adjoint of deep_forward for one pair (common.cuh's
+// rl_reverse with the state in memory), from the forward's end carries
+// that deep_forward left in mem: w(m) is the cotangent of level m + 1;
 // rev and sink as there.
-template <typename T, int R, int P, typename Fwd, typename Rev,
-          typename Sink, typename Wts, typename G>
-__device__ void deep_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink, int ncols,
-                                int nl, Wts& w, const DeepStore<T, R>& mem,
-                                G& g) {
+template <typename T, int R, int P, typename Rev, typename Sink,
+          typename Wts, typename G>
+__device__ void deep_reverse(Rev& rev, Sink& sink, int ncols, int nl,
+                             Wts& w, const DeepStore<T, R>& mem, G& g) {
   const DeepSlots<P> sl{nl};
-  deep_forward<T, R, P>(fwd, ncols, nl, sl, mem, g);
   for (int m = 0; m + 1 < nl; ++m) {
     T z[R];
 #pragma unroll
@@ -446,29 +425,6 @@ __device__ void deep_levels_bwd(Fwd& fwd, Rev& rev, Sink& sink, int ncols,
     for (int m = nl; m >= 1; --m)
       deep_adjoint<T, R, P>(ps, mcol, w(m - 1), m, nl, sl, mem, g, mbar);
     sink(j, mbar, g);
-  }
-}
-
-// A kernel's pair loop for the deep path: pairs in flight take their state
-// from shared memory (work == nullptr) at `per_pair` elements each after
-// the group's exchange buffer, or from the workspace slot of their block
-// and warp; the grid strides over the pairs (the wrapper sizes the grid to
-// the workspace). body(b, mem, g) runs one pair.
-template <typename T, int R, typename G, typename Body>
-__device__ __forceinline__ void deep_pairs(T* smem, T* work,
-                                           long long per_pair, int B, int W,
-                                           Body body) {
-  const int pairs = G::kBlock ? 1 : static_cast<int>(blockDim.x) >> 5;
-  const int p = G::kBlock ? 0 : static_cast<int>(threadIdx.x) >> 5;
-  G g(W, smem);
-  T* base = work ? work + (static_cast<long long>(blockIdx.x) * pairs + p) *
-                              per_pair
-                 : smem + (G::kBlock ? 2 * W : 0) + p * per_pair;
-  const DeepStore<T, R> mem{base, G::kBlock ? 32 * W : 32, g.thread()};
-  for (long long b0 = blockIdx.x; b0 * pairs < B; b0 += gridDim.x) {
-    const long long b = b0 * pairs + p;
-    if (b >= B) break;  // whole warps; a block group is always live
-    body(static_cast<int>(b), mem, g);
   }
 }
 

@@ -428,8 +428,7 @@ cudaError_t by_rows(const void* inc, void* out, void* work, int B, int Su,
 int run(const void* inc, void* out, void* work, int B, int Su, int Tu,
         int o, int RL, int S, int bands, int W, int stage, int bnd_smem,
         int cols, int f64, void* stream) {
-  if (B < 1 || Su < 0 || Tu < 0 || o < 0 || o > 10 ||
-      (Su > Tu ? Su : Tu) > (1 << 15) >> o ||
+  if (B < 1 || !refined_fits(Su, Tu, o) ||
       (S != 4 && S != 8 && S != 16 && S != 32) ||
       (bands > 1 && !bnd_smem && work == nullptr))
     return cudaErrorInvalidValue;

@@ -16,6 +16,18 @@ namespace gpsig {
 constexpr size_t kSmemCap = 232448;
 constexpr int kGoursatMaxThreads = 512;
 
+// A grid the sweeps take: dyadic order <= 30, the refined sides' sum (the
+// last diagonal's position) below kMaxPositions and a pair's unrefined
+// cells below 2^31, so that every position, diagonal, offset within a pair
+// and a block's bottom rows (8 warps of C + 1) fit 32 bits
+// (ops/cuda/goursat.py's MAX_POSITIONS; offsets across pairs are 64-bit).
+constexpr long long kMaxPositions = 1LL << 28;
+__host__ __device__ inline bool refined_fits(int Su, int Tu, int o) {
+  return Su >= 0 && Tu >= 0 && o >= 0 && o <= 30 &&
+         ((static_cast<long long>(Su) + Tu) << o) < kMaxPositions &&
+         static_cast<long long>(Su) * Tu < (1LL << 31);
+}
+
 // The swept orientation of a pair's refined grid: u(S, T; inc) =
 // u(T, S; incᵀ), so the shorter refined side R goes over the threads and
 // the longer side C over the diagonals' cells.

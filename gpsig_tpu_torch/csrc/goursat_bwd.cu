@@ -393,9 +393,7 @@ extern "C" {
 int gpsig_goursat_grad(const void* inc, const void* gbar, void* out,
                        void* work, int B, int Su, int Tu, int o, int RL,
                        int store_global, int f64, void* stream) {
-  if (B < 1 || Su < 0 || Tu < 0 || o < 0 || o > 10 ||
-      (Su > Tu ? Su : Tu) > (1 << 15) >> o)
-    return cudaErrorInvalidValue;
+  if (B < 1 || !refined_fits(Su, Tu, o)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (RL)
     return f64 ? by_lane_rows<double>(RL, inc, gbar, out, B, Su, Tu, o, s)

@@ -17,15 +17,18 @@ thresholds, for ``num_levels <= 7``:
   channel), and for the normalisation diagonal the self-increment matrices
   built in PyTorch and reduced by ``sig_gram.py``;
 - a Gram between sequences of two lengths (inducing sequences against
-  data) through increment matrices built in PyTorch and ``sig_gram.py``,
-  as the JAX package's XLA route: the fused Grams take one length.
+  data), or past the fused Grams' 1024 DP rows (``plan.MAX_ROWS``),
+  through increment matrices built in PyTorch and ``sig_gram.py``, as the
+  JAX package's XLA route, the shorter sequence on the kernel's rows, in
+  chunks of at most ``PAIRS_CHUNK_BYTES`` recomputed in the backward, a
+  symmetric Gram its triangle only.
 
 Past 7 levels (up to 127) the route is the JAX package's too: ``K``, the
 two-length Gram and both diagonals through increment matrices built in
-PyTorch and ``sig_gram.py`` (which takes ``num_levels + 1 <= 128``), and
-``K_tens_vs_seq`` through the plain ``signature_kern_tens_vs_seq`` on the
-tensor's device, as the JAX package computes it in XLA, outside any
-Pallas kernel; autograd is its backward.
+PyTorch and ``sig_gram.py`` (which takes ``num_levels + 1 <= 128`` and p =
+min(order, num_levels) <= 7), and ``K_tens_vs_seq`` through the plain
+``signature_kern_tens_vs_seq`` on the tensor's device, as the JAX package
+computes it in XLA, outside any Pallas kernel; autograd is its backward.
 
 A CPU tensor runs those entry points' plain versions through the same
 wrappers; a CUDA tensor launches the kernels, forward and backward (every
@@ -33,20 +36,20 @@ entry point's ``torch.autograd.Function`` has a backward kernel; the
 tuned diagonal's backward is autograd through its plain version, as in
 the JAX package). The kernels take every d that device memory holds
 (past a block's shared memory they read the sequences from global memory
-and the backwards sum in a device workspace) and any sequence length up
-to the launch plan's bound (``ops/cuda/plan.py``: 1024 DP rows, L = 1025
-with ``difference``, on the Gram and sig_gram kernels; the order-1
-diagonal takes every L, in bands of 256 rows); above it the wrapper raises
-``ValueError``, as ``sig_gram.py`` does past 7 levels above p =
-min(order, num_levels) = 3. The Kuf kernels
-(``K_tens_vs_seq``, forward and backward, order 1 and general) take any L
-and every d that device memory holds (``plan.kuf_fwd_plan``,
+and the backwards sum in a device workspace) and every sequence length:
+the order-1 diagonal and sig_gram in bands of rows, the Grams past 1024
+rows through sig_gram. On CUDA only p = min(order, num_levels) > 7 past 7
+levels, and a workspace past device memory, raise ``ValueError``. The Kuf
+kernels (``K_tens_vs_seq``, forward and backward, order 1 and general)
+take any L and every d that device memory holds (``plan.kuf_fwd_plan``,
 ``plan.kuf_bwd_plan``): the order-1 pair up to d = 3, past that the
 general pair at order 1, which past its shared memory reads x and z from
 global memory and sums the gradients in a device workspace.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -58,6 +61,7 @@ from gpsig_tpu_torch.kernels import static_kernels as sk
 from gpsig_tpu_torch.ops import signature as sigops
 from gpsig_tpu_torch.ops.cuda import fused_gram as fg
 from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
+from gpsig_tpu_torch.ops.cuda import plan
 from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 from gpsig_tpu_torch.ops.cuda import tens_seq as ts
 from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
@@ -65,6 +69,9 @@ from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
 #: bytes of the paired difference array one block of the inducing
 #: tensors' factor Gram broadcasts (``_factor_gram_matched``)
 FACTOR_GRAM_CHUNK_BYTES = 1 << 28
+#: bytes of increment matrices one chunk of the pairs route builds
+#: (``_pairs_levels``, ``_K_levels_diag``)
+PAIRS_CHUNK_BYTES = 1 << 28
 
 
 class SignatureKernel(nn.Module):
@@ -203,10 +210,12 @@ class SignatureKernel(nn.Module):
         only their triangle of pairs (the Poly offset channel keeps the
         Gram symmetric, though it makes the two sides differ)."""
         route = self._route(X.device)
-        if X.shape[1] != Y.shape[1]:
-            # sequences of two lengths (inducing sequences against data):
-            # the fused Grams take one length, so the increment matrices
-            # are built in PyTorch and reduced by the per-pair DP
+        rows = X.shape[1] - 1 if self.difference else X.shape[1]
+        if X.shape[1] != Y.shape[1] or rows > plan.MAX_ROWS:
+            # sequences of two lengths (inducing sequences against data),
+            # or past the fused Grams' rows: the increment matrices are
+            # built in PyTorch and reduced by the per-pair DP, whose rows
+            # take every length
             route = "pairs"
         if route == "tuned":
             return fg.fused_gram_levels(X, Y, self.num_levels, self._rbf(),
@@ -216,12 +225,64 @@ class SignatureKernel(nn.Module):
             return fgho.fused_gram_ho_levels(Xq, Yq, self.num_levels,
                                              self.order, self._kind(),
                                              self.difference, symmetric)
-        N1, L1, d = X.shape
-        N2, L2, _ = Y.shape
-        G = self.base.gram(X.reshape(N1 * L1, d), Y.reshape(N2 * L2, d))
-        M = self._increments(G.reshape(N1, L1, N2, L2).permute(0, 2, 1, 3))
-        levels = self._sig_gram(M.reshape((N1 * N2,) + M.shape[2:]))
-        return levels.reshape(-1, N1, N2)
+        return self._pairs_levels(X, Y, symmetric)
+
+    def _pairs_levels(self, X, Y, symmetric):
+        """[nl+1, N1, N2] through increment matrices built in PyTorch and
+        reduced by the per-pair DP: every pair, or with ``symmetric`` the
+        triangle i <= j only. Each matrix lies with the shorter sequence on
+        its last axis, the kernel's rows (the truncated kernel is symmetric
+        under Mᵀ, so a pair's levels do not change). The pairs go in blocks
+        of sequences whose matrices take at most PAIRS_CHUNK_BYTES, each
+        recomputed in the backward rather than kept."""
+        if Y.shape[1] > X.shape[1]:  # the shorter side on the rows
+            return self._pairs_levels(Y, X, symmetric).transpose(1, 2)
+        (N1, L1, d), (N2, L2, _) = X.shape, Y.shape
+        per = max(1, PAIRS_CHUNK_BYTES // (L1 * L2 * X.element_size()))
+        if symmetric:  # square blocks, the triangle's mirrored
+            ni = nj = max(1, min(N1, math.isqrt(per)))
+        else:
+            nj = min(N2, per)
+            ni = max(1, per // nj)
+
+        def block(A, B, tri):
+            G = self.base.gram(A.reshape(-1, d), B.reshape(-1, d))
+            M = self._increments(G.reshape(A.shape[0], L1, B.shape[0], L2)
+                                 .permute(0, 2, 1, 3))
+            if tri:  # a diagonal block of a symmetric Gram: its triangle
+                iu, ju = torch.triu_indices(A.shape[0], A.shape[0],
+                                            device=X.device)
+                return self._sig_gram(M[iu, ju].contiguous())
+            return self._sig_gram(M.reshape((-1,) + M.shape[2:]))
+
+        split = ni < N1 or nj < N2
+        rows = []
+        for i0 in range(0, N1, ni):
+            A = X[i0:i0 + ni]
+            parts = []
+            for j0 in range(0, N2, nj):
+                B = Y[j0:j0 + nj]
+                if symmetric and j0 + B.shape[0] <= i0:
+                    parts.append(None)  # below the diagonal: from its mirror
+                    continue
+                if symmetric and j0 == i0 and B.shape[0] == A.shape[0]:
+                    n = A.shape[0]
+                    tri = _chunk(block, split, A, B, True)
+                    pos = torch.zeros((n, n), dtype=torch.long,
+                                      device=X.device)
+                    iu, ju = torch.triu_indices(n, n, device=X.device)
+                    pos[iu, ju] = torch.arange(iu.numel(), device=X.device)
+                    parts.append(tri[:, torch.maximum(pos, pos.T)])
+                else:
+                    parts.append(_chunk(block, split, A, B, False).reshape(
+                        -1, A.shape[0], B.shape[0]))
+            rows.append(parts)
+        if symmetric:
+            for r, parts in enumerate(rows):
+                for c, part in enumerate(parts):
+                    if part is None:
+                        parts[c] = rows[c][r].transpose(1, 2)
+        return torch.cat([torch.cat(parts, dim=2) for parts in rows], dim=1)
 
     def _sig_gram(self, M):
         """[nl+1, B] from increment matrices M [B, l1, l2] by the per-pair
@@ -234,8 +295,17 @@ class SignatureKernel(nn.Module):
         if self._route(X.device) == "tuned":
             return fg.fused_diag_levels(X, self.num_levels, self._rbf())
         # the self-increment matrices [N, l, l] in PyTorch (as the JAX
-        # package leaves them to XLA), then the per-pair DP
-        return self._sig_gram(self._increments(self.base.gram(X, X)))
+        # package leaves them to XLA), then the per-pair DP, in chunks of
+        # sequences whose matrices take at most PAIRS_CHUNK_BYTES
+
+        def block(Xc):
+            return self._sig_gram(self._increments(self.base.gram(Xc, Xc)))
+
+        N = X.shape[0]
+        step = max(1, PAIRS_CHUNK_BYTES // (X.shape[1] ** 2
+                                            * X.element_size()))
+        return torch.cat([_chunk(block, step < N, X[k:k + step])
+                          for k in range(0, N, step)], dim=-1)
 
     def K(self, X, X2=None, return_levels=False):
         """Signature-kernel Gram matrix [N1, N2]."""
@@ -379,6 +449,17 @@ class SignatureKernel(nn.Module):
             levels = levels / torch.sqrt(torch.clamp(dx, min=1e-30))[:, None]
         weighted = (self.level_variances[:, None, None] * levels)[1:]
         return weighted if return_levels else torch.sum(weighted, dim=0)
+
+
+def _chunk(block, split, *args):
+    """``block(*args)``, one chunk of the pairs route; where the work is
+    ``split`` into chunks, under autograd, under ``checkpoint``: the
+    backward recomputes the chunk's increment matrices rather than keeping
+    every chunk's."""
+    if split and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return block(*args)
 
 
 def _normalize_levels(levels, dx, dy, eps=1e-30):

@@ -46,13 +46,11 @@ SIGNATURES = {
     "gpsig_fused_gram_bwd": [*[_P] * 6, *[_I] * 12, _P],
     "gpsig_tens_seq_bwd": [*[_P] * 5, *[_I] * 10, _P],
     "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 14, _P],
-    "gpsig_sig_gram": [_P, _P, *[_I] * 8, _P],
+    "gpsig_sig_gram": [_P, _P, _P, *[_I] * 13, _P],
     "gpsig_tens_seq_general": [_P, _P, _P, *[_I] * 13, _P],
     "gpsig_fused_gram_ho_bwd": [*[_P] * 6, *[_I] * 14, _P],
     "gpsig_fused_gram_ho_bwd_block": [*[_P] * 6, *[_I] * 14, _P],
-    "gpsig_sig_gram_bwd": [_P, _P, _P, *[_I] * 8, _P],
-    "gpsig_sig_gram_deep": [_P, _P, _P, *[_I] * 10, _P],
-    "gpsig_sig_gram_bwd_deep": [*[_P] * 4, *[_I] * 10, _P],
+    "gpsig_sig_gram_bwd": [*[_P] * 4, *[_I] * 13, _P],
     "gpsig_tens_seq_general_bwd": [*[_P] * 6, *[_I] * 16, _P],
     "gpsig_goursat": [_P, _P, _P, *[_I] * 11, _P],
     "gpsig_goursat_refined": [_P, _P, _P, *[_I] * 12, _P],
@@ -66,12 +64,13 @@ SIGNATURES = {
 #: late nor shares its core with the short ones.
 SLOWEST_FIRST = (
     "fused_gram_ho_bwd_block_f64.cu", "tens_seq_general_bwd.cu",
-    "fused_gram_ho_bwd_f64.cu", "sig_gram_bwd_block_f64.cu",
-    "tens_seq_general_bwd_f64.cu", "sig_gram_bwd_f64.cu", "sig_gram_bwd.cu",
-    "fused_gram_bwd.cu", "fused_gram_ho_bwd.cu", "fused_diag.cu",
-    "fused_gram_ho_bwd_block.cu",
-    "fused_gram_ho.cu", "fused_gram_ho_f64.cu", "tens_seq_general.cu",
-    "tens_seq_general_f64.cu", "sig_gram.cu",
+    "fused_gram_ho_bwd_f64.cu", "fused_gram_bwd.cu", "sig_gram_bwd_f64.cu",
+    "tens_seq_general_bwd_f64.cu", "sig_gram_bwd.cu", "fused_gram_ho_bwd.cu",
+    "sig_gram_bwd_deep_f64.cu", "sig_gram_bwd_band_f64.cu", "fused_diag.cu",
+    "sig_gram_bwd_deep.cu", "fused_gram_ho_bwd_block.cu",
+    "sig_gram_bwd_band.cu", "fused_gram_ho.cu", "fused_gram_ho_f64.cu",
+    "tens_seq_general.cu", "tens_seq_general_f64.cu", "sig_gram.cu",
+    "sig_gram_f64.cu", "sig_gram_deep.cu",
 )
 
 _lib = None

@@ -32,10 +32,14 @@ from gpsig_tpu_torch.ops import goursat as plain
 from gpsig_tpu_torch.ops.cuda import _build, plan
 from gpsig_tpu_torch.ops.cuda.fused_gram import _on_cpu
 
-#: largest dyadic order and refined side the kernels take (the gradient's
-#: u store is indexed in 64 bits, the sweep's positions in 32)
-MAX_ORDER = 10
-MAX_REFINED = 1 << 15
+#: the grids the kernels take: dyadic order at most MAX_ORDER, the refined
+#: sides' sum (the last diagonal's position) below MAX_POSITIONS and a
+#: pair's unrefined cells below 2^31, so that a sweep's positions, a
+#: pair's offsets and a block's band rows fit 32 bits (csrc/goursat.cuh's
+#: refined_fits; offsets across pairs are 64-bit): past that a sweep takes
+#: over 2^28 steps a pair, or a pair 8 GB
+MAX_ORDER = 30
+MAX_POSITIONS = 1 << 28
 #: the gradient keeps its whole u grid in shared memory up to this many
 #: bytes (with its three diagonal buffers), else in a global workspace
 SMEM_STORE_BYTES = 160 * 1024
@@ -75,9 +79,21 @@ def _check(name, inc, dyadic_order, *more):
                          f"{tuple(inc.shape)}")
     if not 0 <= dyadic_order <= MAX_ORDER:
         raise ValueError(f"{name}: dyadic_order must be 0..{MAX_ORDER}")
-    if max(inc.shape[1:]) << dyadic_order > MAX_REFINED:
+    if (sum(inc.shape[1:]) << dyadic_order >= MAX_POSITIONS
+            or inc.shape[1] * inc.shape[2] >= 1 << 31):
         raise ValueError(f"{name}: refined grid {tuple(inc.shape[1:])} "
-                         f"x 2^{dyadic_order} exceeds {MAX_REFINED} per side")
+                         f"x 2^{dyadic_order}: its sides sum to "
+                         f"{MAX_POSITIONS} or more sweep positions, or a "
+                         "pair holds 2^31 or more cells")
+
+
+def _check_memory(name, inc, nbytes):
+    """Raise ValueError where a launch's workspace exceeds the device's
+    memory."""
+    total = torch.cuda.get_device_properties(inc.device).total_memory
+    if nbytes > total:
+        raise ValueError(f"{name}: {tuple(inc.shape)} needs {nbytes} bytes "
+                         f"of workspace; the device holds {total}")
 
 
 def _launch_fwd(inc, dyadic_order, refined):
@@ -88,9 +104,16 @@ def _launch_fwd(inc, dyadic_order, refined):
     out = torch.empty((B,), dtype=inc.dtype, device=inc.device)
     if B:
         p = plan.goursat_fwd_plan(S, T, dyadic_order, inc.element_size())
-        work = 0 if p["bands"] == 1 or p["bnd_smem"] else torch.empty(
-            (B, p["W"], (max(S, T) << dyadic_order) + 1), dtype=inc.dtype,
-            device=inc.device)
+        if p["smem"] > plan.SMEM_BYTES:
+            raise ValueError(f"{name}: {tuple(inc.shape)} at dyadic order "
+                             f"{dyadic_order} takes {p['bands']} bands, whose "
+                             "progress marks exceed a block's shared memory")
+        work = 0
+        if p["bands"] > 1 and not p["bnd_smem"]:
+            shape = (B, p["W"], (max(S, T) << dyadic_order) + 1)
+            _check_memory(name, inc, inc.element_size() * shape[0]
+                          * shape[1] * shape[2])
+            work = torch.empty(shape, dtype=inc.dtype, device=inc.device)
         args = (p["RL"], p["S"], p["bands"], p["W"], p["stage"],
                 p["bnd_smem"], p["cols"], inc.dtype == torch.float64)
         if refined:
@@ -172,9 +195,11 @@ def goursat_grad_refined(inc, dyadic_order, gbar):
     elems = 0 if warp else grad_workspace_elems(Su, Tu, dyadic_order,
                                                 inc.element_size())
     # the block design's per-refined-row sums, after its u store
-    work = 0 if warp else torch.empty(
-        (B, elems + (Su * Tu << dyadic_order)), dtype=inc.dtype,
-        device=inc.device)
+    work = 0
+    if not warp:
+        shape = (B, elems + (Su * Tu << dyadic_order))
+        _check_memory(name, inc, inc.element_size() * shape[0] * shape[1])
+        work = torch.empty(shape, dtype=inc.dtype, device=inc.device)
     if B:
         _build.launch("gpsig_goursat_grad", inc.device, inc, gbar, out, work,
                       B, Su, Tu, dyadic_order, warp["RL"] if warp else 0,

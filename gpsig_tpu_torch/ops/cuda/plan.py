@@ -1,7 +1,7 @@
 """Launch plans of the truncated-kernel DPs: how a pair's rows are spread
 over threads, and the shared memory each launch takes.
 
-Every truncated kernel (``csrc/fused_gram*.cu``, ``csrc/sig_gram*.cu``)
+Every truncated kernel (``csrc/fused_gram*.cu``, ``csrc/sig_gram*.cu*``)
 sweeps the columns of one pair's increment matrix with the rows spread
 over a group of threads, R consecutive rows per thread. Up to 128 rows one
 warp takes a pair (four pairs to a block), as the kernels always did;
@@ -41,11 +41,16 @@ sequences a thread, pairs a warp), and where the general kernels'
 per-thread arrays live, in shared memory where they fit, else in global
 memory and a device workspace.
 
+The sig_gram kernels (:func:`sig_gram_plan`) take a matrix on a segment
+of lanes up to what one warp holds and in bands of rows on a wavefront of
+warps past it, so every L2: the kernel layer sends them every Gram past
+``MAX_ROWS`` rows.
+
 The wrappers compute the plan and the bytes here, pass the plan to the
 kernel, and raise ``ValueError`` above what a launch can take: more than
-``MAX_ROWS`` rows on the Gram and sig_gram kernels (a Kuf backward: more
-workspace than ``WORKSPACE_BYTES`` for one block). Nothing here needs
-a card.
+``MAX_ROWS`` rows on the fused Gram kernels themselves, more workspace
+than ``WORKSPACE_BYTES`` for one matrix's band carries (sig_gram) or one
+block's partial sums (a Kuf backward). Nothing here needs a card.
 """
 
 from __future__ import annotations
@@ -212,11 +217,6 @@ def _gram_bwd_grid(plan, N1, N2, pairs, L, d, itemsize):
                             // (per_block * itemsize)))
         plan.update(blocks=blocks, work=blocks * per_block)
     return plan
-
-
-def sig_gram_smem(W, itemsize):
-    """sig_gram.cu, sig_gram_bwd.cu: nothing staged."""
-    return exchange_bytes(W, itemsize)
 
 
 def gram_bwd_plan(L):
@@ -437,15 +437,35 @@ def goursat_fwd_plan(Su, Tu, dyadic_order, itemsize):
                 bnd_smem=bnd_smem,
                 smem=smem + (cells * itemsize if stage else 0))
 
+# ---------------------------------------------------------------------------
+# sig_gram (csrc/sig_gram.cuh, csrc/sig_gram_bwd.cuh): a segment of S lanes
+# at R rows a lane takes one matrix, 32 / S matrices a warp, four warps a
+# block, up to what one warp holds (S R >= L2); past it the rows go in
+# bands of 32 R on a wavefront of up to SIG_GRAM_BAND_WARPS warps, a block
+# a matrix, the bands passing each column's scan carries through shared
+# memory or a device workspace.
+# ---------------------------------------------------------------------------
+
 #: the sig_gram kernels' level bound (num_levels + 1 <= 128, as the JAX
-#: sig_gram kernels take) and, past the register path's 7 levels, their
-#: order bound: p = min(order, num_levels) <= 3
+#: sig_gram kernels take) and order bound (p = min(order, num_levels) <= 7
+#: on either path; the JAX kernel keeps p² nl states resident past it)
 SIG_GRAM_MAX_LEVELS = 127
+SIG_GRAM_MAX_ORDER = 7
 REGISTER_LEVELS = 7
-DEEP_MAX_ORDER = 3
-#: the deep path's blocks in flight at most (the grid strides over the
-#: remaining pairs)
-DEEP_MAX_BLOCKS = 4 * 132
+#: warps a banded matrix at most, and the deep path's rows a lane
+#: (csrc/sig_gram.cuh's kSgBandWarps, kSgDeepRows)
+SIG_GRAM_BAND_WARPS = 8
+SIG_GRAM_DEEP_ROWS = 2
+#: blocks in flight at most where the states go to the workspace (the grid
+#: strides over the remaining matrices)
+SIG_GRAM_MAX_BLOCKS = 4 * 132
+#: warps the sig_gram forward's segments aim to launch before they take
+#: fewer rows a lane on more lanes (16 a Hopper SM, as DIAG_TARGET_WARPS)
+SIG_GRAM_TARGET_WARPS = 16 * 132
+#: 32-bit registers a lane of the sig_gram kernels gives to its rows' DP
+#: state (csrc/sig_gram.cuh's kSgStateRegs: above SEG_STATE_REGS, so that
+#: order 3 at 4 levels takes 8 rows a lane and L' = 149 one warp)
+SIG_GRAM_STATE_REGS = 160
 
 
 def deep_slots(nl, p, backward):
@@ -457,27 +477,100 @@ def deep_slots(nl, p, backward):
     return fwd + (nl - 1) * (p * p + 2 * p) if backward else fwd
 
 
-def deep_plan(B, rows, nl, p, itemsize, backward):
-    """The deep path's launch for B matrices of ``rows`` DP rows: a dict
-    of the row plan (W, R), the per-pair state elements, the grid
-    (``blocks``) and ``work`` elements of device workspace (0 when the
-    block's pairs fit shared memory, ``smem`` bytes). None above
-    ``MAX_ROWS``."""
-    wr = row_plan(rows)
-    if wr is None:
+def sig_gram_levels_bound(nl):
+    """The register path's level bound NLM: 4 up to 4 levels, else 7."""
+    return 4 if nl <= 4 else 7
+
+
+def sig_gram_rows_per_lane(p, nl, itemsize, backward):
+    """Rows a lane of the sig_gram kernels: past REGISTER_LEVELS levels
+    SIG_GRAM_DEEP_ROWS; else the most of 8, 4, 2 whose DP state fits
+    SIG_GRAM_STATE_REGS 32-bit registers at the level bound NLM: p² + NLM +
+    (NLM - 1)(p - 1) values a row, and for the backward (NLM - 1)(p² + 2p)
+    + p² + p more (``csrc/sig_gram.cuh``'s sg_rows)."""
+    if nl > REGISTER_LEVELS:
+        return SIG_GRAM_DEEP_ROWS
+    nlm = sig_gram_levels_bound(nl)
+    per_row = p * p + nlm + (nlm - 1) * (p - 1)
+    if backward:
+        per_row += (nlm - 1) * (p * p + 2 * p) + p * p + p
+    regs = per_row * itemsize // 4
+    return next((R for R in (8, 4) if R * regs <= SIG_GRAM_STATE_REGS), 2)
+
+
+def sig_gram_carries(nl, p):
+    """Row scans a column takes (level m >= 2 takes min(p, m)): the carries
+    a band leaves a column in each pass (``csrc/sig_gram.cuh``'s
+    sg_carries)."""
+    return sum(min(p, m) for m in range(2, nl + 1))
+
+
+@functools.lru_cache(maxsize=512)
+def sig_gram_plan(B, L1, L2, nl, p, itemsize, backward):
+    """The sig_gram kernels' launch for B matrices [L1, L2] (L1 columns,
+    L2 rows) at ``nl`` levels and order p = min(order, nl): a dict of ``S``
+    lanes and ``R`` rows a lane (:func:`sig_gram_rows_per_lane`), ``bands``
+    (1: the segment design) on ``W`` warps, ``area`` (elements: the band
+    design's carries and states a matrix, the deep segments' states a
+    segment), ``area_smem`` (the area in shared memory; else ``work``
+    workspace elements), ``smem`` bytes and ``blocks``.
+
+    Segments: the fewest S of 8, 16, 32 with S·R >= L2, four warps a
+    block; the register path's forward may take fewer rows a lane (4, 2)
+    on more lanes: the most rows a lane, then the fewest lanes, whose B S /
+    32 warps reach SIG_GRAM_TARGET_WARPS, else the (S, R) that launches the
+    most warps at the fewest rows a lane. Deep, each segment's slots
+    (:func:`deep_slots`) in shared memory where the block's fit, else in
+    the workspace, the grid bounded by it.
+    Bands: ceil(L2 / 32 R) of them on W = min(bands, SIG_GRAM_BAND_WARPS)
+    warps, the area (each boundary's prefix carries for every column, for
+    the backward also its suffix carries, and each band's state slots) in
+    shared memory after the marks (and the forward's level sums) where it
+    fits, else in the workspace. None where one matrix's area exceeds
+    WORKSPACE_BYTES. Cached a shape: the wrapper asks on every call."""
+    R = sig_gram_rows_per_lane(p, nl, itemsize, backward)
+    deep = nl > REGISTER_LEVELS
+    S = next((S for S in SEG_LANES if S * R >= L2), None)
+    if S is not None and not (deep or backward):
+        fits = [(S, r) for r in (8, 4, 2) if r <= R for S in SEG_LANES
+                if S * r >= L2]
+        S, R = next((sr for sr in fits
+                     if B * sr[0] >= 32 * SIG_GRAM_TARGET_WARPS),
+                    max(fits, key=lambda sr: (sr[0], -sr[1])))
+    if S is not None:
+        segs = 32 * PAIRS_PER_BLOCK // S
+        area = deep_slots(nl, p, backward) * S * R if deep else 0
+        blocks = -(-B // segs)
+        plan = dict(S=S, R=R, bands=1, W=1, area=area, area_smem=True,
+                    smem=itemsize * segs * area, blocks=blocks, work=0)
+        if plan["smem"] > SMEM_BYTES:
+            blocks = max(1, min(blocks, SIG_GRAM_MAX_BLOCKS,
+                                WORKSPACE_BYTES // (segs * area * itemsize)))
+            plan.update(area_smem=False, smem=0, blocks=blocks,
+                        work=blocks * segs * area)
+        return plan
+    bands = -(-L2 // (32 * R))
+    W = min(bands, SIG_GRAM_BAND_WARPS)
+    K = sig_gram_carries(nl, p)
+    if deep:
+        slots = deep_slots(nl, p, backward)
+    elif backward:  # the end carries a band keeps between its passes
+        nlm = sig_gram_levels_bound(nl)
+        slots = nlm + (nlm - 1) * max(p - 1, 1)
+    else:
+        slots = 0
+    area = ((2 if backward else 1) * (bands - 1) * L1 * K
+            + bands * slots * R * 32)
+    if area * itemsize > WORKSPACE_BYTES:
         return None
-    W, R = wr
-    pairs = PAIRS_PER_BLOCK if W == 1 else 1
-    per_pair = deep_slots(nl, p, backward) * R * 32 * W
-    smem = exchange_bytes(W, itemsize) + pairs * per_pair * itemsize
-    blocks = -(-B // pairs)
-    plan = dict(W=W, R=R, per_pair=per_pair, blocks=blocks, work=0,
-                smem=smem)
-    if smem > SMEM_BYTES:
-        blocks = max(1, min(blocks, DEEP_MAX_BLOCKS, WORKSPACE_BYTES
-                            // (pairs * per_pair * itemsize)))
-        plan.update(blocks=blocks, work=blocks * pairs * per_pair,
-                    smem=exchange_bytes(W, itemsize))
+    fixed = 16 * -(-2 * bands // 4) + (0 if backward else W * nl * itemsize)
+    plan = dict(S=32, R=R, bands=bands, W=W, area=area, area_smem=True,
+                smem=fixed + area * itemsize, blocks=B, work=0)
+    if plan["smem"] > SMEM_BYTES:
+        blocks = max(1, min(B, SIG_GRAM_MAX_BLOCKS,
+                            WORKSPACE_BYTES // (area * itemsize)))
+        plan.update(area_smem=False, smem=fixed, blocks=blocks,
+                    work=blocks * area)
     return plan
 
 

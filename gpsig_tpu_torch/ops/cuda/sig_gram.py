@@ -3,21 +3,22 @@ its plain PyTorch version.
 
 Counterpart of ``gpsig_tpu/ops/pallas/sig_gram.py`` (``sig_gram_levels``,
 order 1, and ``sig_gram_levels_ho``, order >= 2, with their custom VJPs);
-the forwards are ``csrc/sig_gram.cu``, the backwards
+the forwards are ``csrc/sig_gram.cuh``, the backwards
 ``csrc/sig_gram_bwd.cuh``, whose opening notes give the designs. M [B, L1, L2]
 → [nl+1, B], ``num_levels <= 127`` (``num_levels + 1 <= 128``, as the JAX
-kernels), L1 any and L2 up to ``plan.MAX_ROWS`` (spread over the lanes of
-one warp up to 128, of up to 8 warps above; ``plan.py``). Up to 7 levels
-the DP state lives in registers; past 7 the deep path
-(``csrc/deep_levels.cuh``, ``csrc/sig_gram_bwd_deep.cu``) keeps its
-per-level carries in shared memory where the block's pairs fit, else in a
-device workspace this wrapper allocates, and takes p = min(order,
-num_levels) <= 3 (``ValueError`` above). The kernel layer
+kernels) and p = min(order, num_levels) <= 7 (``ValueError`` above), any
+L1 and L2 whose band carries fit the workspace: L2, the DP's rows, on a
+segment of 8-32 lanes up to what one warp holds, in bands on up to 8 warps
+past it (``plan.sig_gram_plan``). Up to 7 levels the DP state lives in
+registers; past 7 the deep path (``csrc/deep_levels.cuh``) keeps its
+per-level carries in shared memory where the block's fit, else in a device
+workspace this wrapper allocates, as the bands' carries. The kernel layer
 uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
-in PyTorch (as the JAX package leaves them to XLA), and for every Gram past
-7 levels. No (8, 128) padding:
-the kernel reads M as it is.
+in PyTorch (as the JAX package leaves them to XLA), for every Gram between
+two lengths, past 7 levels or past the fused Grams' ``plan.MAX_ROWS``
+rows, the shorter side on L2. No (8, 128) padding: the kernel reads M as it
+is.
 
 Dispatch: a CPU tensor runs the plain version (``signature_kern``,
 autograd differentiates it); a CUDA tensor goes through a
@@ -73,8 +74,7 @@ def sig_gram_levels_ho_bwd_ref(M, g, num_levels, order):
 
 def _check(name, M, num_levels, order, backward, *more):
     """Validate M (and the other tensors ``more``); returns (B, L1, L2) and
-    the launch plan: (W, R) up to 7 levels, else ``plan.deep_plan``'s
-    dict."""
+    the launch plan (``plan.sig_gram_plan``)."""
     _build.check_inputs(name, (M, *more))
     if M.ndim != 3 or min(M.shape[1:]) < 1:
         raise ValueError(f"{name}: M must be [B, L1, L2]; got "
@@ -83,30 +83,30 @@ def _check(name, M, num_levels, order, backward, *more):
         raise ValueError(f"{name}: num_levels must be 1..{MAX_LEVELS}")
     if order < 1:
         raise ValueError(f"{name}: order must be >= 1")
-    B, L1, L2 = M.shape
-    what = f"M [{B}, {L1}, {L2}]"
-    if num_levels <= plan.REGISTER_LEVELS:
-        wr = plan.row_plan(L2)
-        plan.check_fits(name, L2, wr, plan.sig_gram_smem(
-            wr[0] if wr else 1, M.element_size()), what)
-        return (B, L1, L2), wr
     p = min(order, num_levels)
-    if p > plan.DEEP_MAX_ORDER:
+    if p > plan.SIG_GRAM_MAX_ORDER:
         raise ValueError(
-            f"{name}: past {plan.REGISTER_LEVELS} levels the kernels take "
-            f"p = min(order, num_levels) <= {plan.DEEP_MAX_ORDER} (the "
-            f"order-p state grows as p² a level); got p = {p}")
-    deep = plan.deep_plan(B, L2, num_levels, p, M.element_size(), backward)
-    plan.check_fits(name, L2, deep and (deep["W"], deep["R"]),
-                    deep["smem"] if deep else 0, what)
-    return (B, L1, L2), deep
+            f"{name}: the kernels take p = min(order, num_levels) <= "
+            f"{plan.SIG_GRAM_MAX_ORDER} (the order-p state grows as p² a "
+            f"level); got p = {p}")
+    B, L1, L2 = M.shape
+    lp = plan.sig_gram_plan(B, L1, L2, num_levels, p, M.element_size(),
+                            backward)
+    if lp is None:
+        raise ValueError(
+            f"{name}: M [{B}, {L1}, {L2}] needs more than "
+            f"{plan.WORKSPACE_BYTES} bytes of workspace for one matrix's "
+            "band carries; the kernels take at most that")
+    return (B, L1, L2), lp
 
 
-def _workspace(M, deep):
-    """The deep path's workspace (0: the state fits shared memory)."""
-    if not deep["work"]:
-        return 0
-    return torch.empty((deep["work"],), dtype=M.dtype, device=M.device)
+def _plan_args(M, lp):
+    """The workspace (0 where none) and the plan's launch arguments."""
+    work = (torch.empty((lp["work"],), dtype=M.dtype, device=M.device)
+            if lp["work"] else 0)
+    return work, (lp["S"], lp["R"], lp["bands"], lp["W"],
+                  int(lp["area_smem"]), lp["blocks"], lp["area"],
+                  int(M.dtype == torch.float64))
 
 
 def _launch(M, num_levels, order):
@@ -115,15 +115,9 @@ def _launch(M, num_levels, order):
     (B, L1, L2), lp = _check(name, M, num_levels, order, False)
     out = torch.empty((num_levels + 1, B), dtype=M.dtype, device=M.device)
     if B:
-        f64 = M.dtype == torch.float64
-        if num_levels <= plan.REGISTER_LEVELS:
-            _build.launch("gpsig_sig_gram", M.device, M, out, B, L1, L2,
-                          num_levels, order, *lp, f64)
-        else:
-            _build.launch("gpsig_sig_gram_deep", M.device, M, out,
-                          _workspace(M, lp), B, L1, L2, num_levels, order,
-                          lp["W"], lp["R"], lp["blocks"], lp["per_pair"],
-                          f64)
+        work, args = _plan_args(M, lp)
+        _build.launch("gpsig_sig_gram", M.device, M, out, work, B, L1, L2,
+                      num_levels, order, *args)
         if order == 1:
             launches += 1
         else:
@@ -195,15 +189,9 @@ def _launch_bwd(M, g, num_levels, order):
                          f"{tuple(g.shape)}")
     Mbar = torch.empty_like(M)
     if B:
-        f64 = M.dtype == torch.float64
-        if num_levels <= plan.REGISTER_LEVELS:
-            _build.launch("gpsig_sig_gram_bwd", M.device, M, g, Mbar, B, L1,
-                          L2, num_levels, order, *lp, f64)
-        else:
-            _build.launch("gpsig_sig_gram_bwd_deep", M.device, M, g, Mbar,
-                          _workspace(M, lp), B, L1, L2, num_levels, order,
-                          lp["W"], lp["R"], lp["blocks"], lp["per_pair"],
-                          f64)
+        work, args = _plan_args(M, lp)
+        _build.launch("gpsig_sig_gram_bwd", M.device, M, g, Mbar, work, B, L1,
+                      L2, num_levels, order, *args)
         if order == 1:
             bwd_launches += 1
         else:

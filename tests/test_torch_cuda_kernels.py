@@ -152,15 +152,20 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     assert bool((diag[0] == 1).all() and (diag[1:] == 0).all())
     with pytest.raises(TypeError, match="float32 or float64"):
         tfg.fused_diag_levels(X.half(), 3)
-    # the sig_gram kernels take num_levels + 1 <= 128, and past 7 levels
-    # p = min(order, num_levels) <= 3
+    # the sig_gram kernels take num_levels + 1 <= 128 and p = min(order,
+    # num_levels) <= 7 at every level count; past 1024 rows the kernel
+    # layer's Gram takes them (the shorter side on the rows)
     M = torch.zeros(2, 5, 6, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="num_levels must be 1..127"):
         tsg_.sig_gram_levels(M, 128)
     with pytest.raises(ValueError, match="p = min"):
-        tsg_.sig_gram_levels_ho(M, 8, 4)
+        tsg_.sig_gram_levels_ho(M, 8, 8)
+    for order in (4, 7):
+        assert bool((tsg_.sig_gram_levels_ho(M, 8, order)[1:] == 0).all())
     assert torch.isfinite(SignatureRBF(2, 8, order=2,
                                        device=cuda_device).K(X)).all()
+    K = SignatureRBF(2, 3, device=cuda_device).K(long.double())
+    assert torch.isfinite(K).all() and K.shape == (2, 2)
 
 
 @pytest.mark.cuda
@@ -404,9 +409,10 @@ def test_tens_seq_general_kernel_matches_plain(cuda_device, dtype, tol,
 @pytest.mark.parametrize("dtype,tol", GEN_TOLS)
 def test_sig_gram_kernels_match_plain(cuda_device, dtype, tol):
     rng = np.random.default_rng(12)
-    with pytest.raises(ValueError, match="at most 1024"):
-        tsg_.sig_gram_levels(torch.zeros(1, 5, plan.MAX_ROWS + 1,
-                                         device=cuda_device), 3)
+    # past 1024 rows, in bands: a zero matrix has levels 1.. exactly 0
+    past = tsg_.sig_gram_levels(torch.zeros(1, 5, plan.MAX_ROWS + 1,
+                                            device=cuda_device), 3)
+    assert bool((past[0] == 1).all() and (past[1:] == 0).all())
     for B, L1, L2, nl in [(5, 9, 12, 5), (9, 49, 49, 5), (3, 100, 70, 7),
                           (4, 140, 30, 3), (2, 1, 1, 2)]:
         M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2)),
@@ -757,10 +763,14 @@ def test_goursat_kernels_refuse_what_they_do_not_take(cuda_device):
         tgs.goursat_grad_refined(inc, 1, gbar)
     with pytest.raises(ValueError, match="dyadic_order"):
         tgs.goursat_corner_refined(inc.float(), tgs.MAX_ORDER + 1)
-    with pytest.raises(ValueError, match="exceeds"):
-        tgs.goursat_corner_refined(
-            torch.zeros(1, 5000, 2, device=cuda_device), 3)
+    with pytest.raises(ValueError, match="sweep positions"):
+        tgs.goursat_corner_refined(torch.zeros(1, 2, 2, device=cuda_device),
+                                   30)
     assert (tgs.launches, tgs.fused_launches, tgs.grad_launches) == n0
+    # past 2^15 refined points a side it runs: zero increments give u = 1
+    u = tgs.goursat_corner_refined(
+        torch.zeros(1, 5000, 2, device=cuda_device), 3)
+    assert bool((u == 1).all())
 
 
 @pytest.mark.cuda
@@ -949,6 +959,55 @@ def test_deep_sig_gram_kernels_match_plain(cuda_device, dtype, tol, nl):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", GEN_TOLS)
+def test_sig_gram_segments_and_bands(cuda_device, dtype, tol):
+    """sig_gram on a segment of 8-32 lanes up to one warp's rows and in
+    bands past them (the band carries in shared memory and, past it, in
+    the workspace), forward and backward, orders 1-7 at 4, 7 and 10
+    levels, against the plain versions."""
+    rng = np.random.default_rng(28)
+    for L2 in (7, 64, 65, 257, 700, 1300):
+        M = torch.as_tensor(0.4 * rng.standard_normal((3, 9, L2))
+                            / np.sqrt(L2 / 20), dtype=dtype,
+                            device=cuda_device)
+        for nl, order in ((4, 1), (4, 2), (7, 3), (7, 7), (10, 2), (10, 5)):
+            g = torch.as_tensor(rng.standard_normal((nl + 1, 3)),
+                                dtype=dtype, device=cuda_device)
+            fwd = (tsg_.sig_gram_levels(M, nl) if order == 1
+                   else tsg_.sig_gram_levels_ho(M, nl, order))
+            bwd = (tsg_.sig_gram_levels_bwd(M, g, nl) if order == 1
+                   else tsg_.sig_gram_levels_ho_bwd(M, g, nl, order))
+            want = (tsg_.sig_gram_levels_ho_ref(M, nl, order),
+                    tsg_.sig_gram_levels_ho_bwd_ref(M, g, nl, order))
+            assert _scaled_err(fwd, want[0]) < tol, (L2, nl, order)
+            assert _scaled_err(bwd, want[1]) < tol, (L2, nl, order)
+
+
+@pytest.mark.cuda
+def test_gram_past_1024_rows_on_card_matches_cpu(cuda_device):
+    """K(X) at L = 1100 (past the fused Grams' rows: the pairs route and
+    sig_gram's bands) and a two-length Gram against it, orders 1 and 2,
+    on the card against the CPU in float64, gradients included."""
+    rng = np.random.default_rng(29)
+    X = torch.as_tensor(_walks(rng, 3, 1100, 2) * np.sqrt(50 / 1100))
+    Z = torch.as_tensor(_walks(rng, 2, 8, 2))
+    for order in (1, 2):
+        kern = SignatureRBF(2, 3, order=order, device="cpu")
+
+        def run(k, x, z):
+            x, z = x.clone().requires_grad_(), z.clone().requires_grad_()
+            out = (k.K(x), k.K(z, x))
+            loss = sum(o.sum() for o in out)
+            return (*out, *torch.autograd.grad(loss, (x, z)))
+
+        want = run(kern, X, Z)
+        got = run(kern.to(cuda_device), X.to(cuda_device),
+                  Z.to(cuda_device))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
 def test_deep_sig_gram_takes_the_workspace(cuda_device):
     """Order 1 at 127 levels and L2 = 600 in float64: the forward's carries
     take about 650 KB a pair, so the state goes to the device workspace."""
@@ -957,7 +1016,7 @@ def test_deep_sig_gram_takes_the_workspace(cuda_device):
                         dtype=torch.float64, device=cuda_device)
     g = torch.as_tensor(rng.standard_normal((128, 3)), dtype=torch.float64,
                         device=cuda_device)
-    assert plan.deep_plan(3, 600, 127, 1, 8, False)["work"] > 0
+    assert plan.sig_gram_plan(3, 8, 600, 127, 1, 8, False)["work"] > 0
     got = tsg_.sig_gram_levels(M, 127)
     assert _scaled_err(got, tsg_.sig_gram_levels_ref(M, 127)) < 1e-10
     got = tsg_.sig_gram_levels_bwd(M, g, 127)

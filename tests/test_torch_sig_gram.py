@@ -12,7 +12,7 @@
 - Past 7 levels (up to 127, the JAX kernels' bound): the plain versions
   against ``signature_kern`` (rtol 1e-10) and the launch plan of the deep
   path, whose state goes to shared memory or to a device workspace
-  (``plan.deep_plan``, ``csrc/deep_levels.cuh``).
+  (``plan.sig_gram_plan``, ``csrc/deep_levels.cuh``).
 
 The CUDA kernel itself is checked on the card by
 ``test_torch_cuda_kernels.py``.
@@ -136,22 +136,29 @@ def test_deep_slots_count_the_state(nl, p, backward, slots):
 
 
 def test_deep_plan_takes_shared_memory_or_the_workspace():
-    # order 1 at 10 levels, L2 = 49: one warp a matrix at two rows a lane,
-    # 10 slots of 64 rows in float32, four matrices a block
-    small = plan.deep_plan(2048, 49, 10, 1, 4, False)
-    assert (small["W"], small["R"], small["work"]) == (1, 2, 0)
-    assert small["per_pair"] == 10 * 64
+    # order 1 at 10 levels, L2 = 49: a segment of 32 lanes a matrix at two
+    # rows a lane, 10 slots of 64 rows in float32, four matrices a block
+    small = plan.sig_gram_plan(2048, 49, 49, 10, 1, 4, False)
+    assert (small["S"], small["R"], small["bands"], small["work"]) == \
+        (32, 2, 1, 0)
+    assert small["area"] == 10 * 64
     assert small["smem"] == 4 * 10 * 64 * 4
     assert small["blocks"] == 512
-    # order 1 at 127 levels, L2 = 600, float64: 127 slots of 640 rows, 650
-    # KB a matrix, so the device workspace, the grid bounded by it
-    big = plan.deep_plan(2048, 600, 127, 1, 8, False)
-    assert (big["W"], big["R"]) == (5, 4)
-    assert big["per_pair"] == 127 * 640
-    assert big["per_pair"] * 8 > plan.SMEM_BYTES
-    assert big["blocks"] == plan.DEEP_MAX_BLOCKS
-    assert big["work"] == big["blocks"] * big["per_pair"]
-    assert big["smem"] == plan.exchange_bytes(5, 8)
-    huge = plan.deep_plan(10 ** 6, 1024, 127, 3, 8, True)
+    # order 1 at 127 levels, L2 = 600, float64: ten bands of 64 rows on 8
+    # warps, 127 slots a row and the carries of 126 scans a column at 9
+    # boundaries, 723 KB a matrix, so the device workspace, the grid
+    # bounded by it
+    big = plan.sig_gram_plan(2048, 8, 600, 127, 1, 8, False)
+    assert (big["S"], big["R"], big["bands"], big["W"]) == (32, 2, 10, 8)
+    assert big["area"] == 9 * 8 * 126 + 10 * 127 * 64
+    assert big["area"] * 8 > plan.SMEM_BYTES and not big["area_smem"]
+    assert big["blocks"] == plan.SIG_GRAM_MAX_BLOCKS
+    assert big["work"] == big["blocks"] * big["area"]
+    assert big["smem"] == 16 * 5 + 8 * 8 * 127
+    huge = plan.sig_gram_plan(10 ** 6, 1024, 1024, 127, 3, 8, True)
     assert huge["work"] * 8 <= plan.WORKSPACE_BYTES
-    assert plan.deep_plan(4, plan.MAX_ROWS + 1, 8, 1, 4, False) is None
+    # past the old 1024-row bound the rows go in bands; only a matrix whose
+    # band carries exceed the workspace has no plan
+    past = plan.sig_gram_plan(4, 9, plan.MAX_ROWS + 1, 8, 1, 4, False)
+    assert past["bands"] == 17 and past["W"] == 8
+    assert plan.sig_gram_plan(1, 10 ** 6, 10 ** 5, 8, 1, 4, True) is None

@@ -404,9 +404,10 @@ def test_deep_levels_match_jax(nl, order, normalization):
             tsg, ref.__name__,
             lambda *a: seen.append(a[0].shape) or ref(*a)):
         got = deep_calls(tk, *map(torch.as_tensor, (X, X2, Z)))
-    # K, the two-length Gram, and the diagonals behind the normalisation
-    # (or the unnormalised Kdiag) all reach sig_gram
-    assert {(16, 11, 11), (12, 11, 10), (4, 11, 11)} <= set(seen)
+    # K (its triangle of pairs: 10 of 4 sequences), the two-length Gram,
+    # and the diagonals behind the normalisation (or the unnormalised
+    # Kdiag) all reach sig_gram
+    assert {(10, 11, 11), (12, 11, 10), (4, 11, 11)} <= set(seen)
     for g, w in zip(got, deep_calls(jk, X, X2, Z)):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
                                    rtol=DEEP_RTOL, atol=1e-14)

@@ -139,10 +139,8 @@ def test_goursat_forward_plan_covers_every_grid():
     big = plan.goursat_fwd_plan(199, 199, 3, 4)
     assert (big["RL"], big["S"], big["bands"], big["W"]) == (8, 32, 7, 7)
     assert big["bnd_smem"] and big["stage"]
-    for Su in (1, 5, 49, 199, 1000, 4096):
+    for Su in (1, 5, 49, 199, 1000, 4096, 4100, 8200):
         for o in range(0, 4):
-            if Su << o > tgs.MAX_REFINED:
-                continue
             for item in (4, 8):
                 p = plan.goursat_fwd_plan(Su, 49, o, item)
                 R = min(Su, 49) << o
