@@ -6,7 +6,9 @@ slice (the SigGPDE SVGP), sequences past 129 steps (the GunPoint-length
 path, L = 150, serving and training), num_levels 8-127, the order-1
 model at wide and long UEA shapes (PEMS-SF, MotorImagery), and every
 sequence length and order (sig_gram's bands, orders 4-7, the inducing-
-sequence SVGP at L = 3000, GPRs past 1024 rows).
+sequence SVGP at L = 3000, GPRs past 1024 rows), sig_gram past order 7,
+the entry twin of ``__graft_entry__.py`` and UEA archive files through
+the port's reader.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -147,10 +149,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``predict_y`` and 2 Adam steps, the Gram past 1024 rows through
    sig_gram's bands; (y) and (z) with their counters and against the plain
    route on the card;
-15. report: one JSON line with every kernel's launches, error, times and
+15. past order 7, the entry twin and the UEA files: sig_gram's
+   run-time-order instance (p = min(order, num_levels) > 7) forward and
+   backward against the plain versions at num_levels 8 and 10, orders 8
+   and 10, L2 in {49, 150}, float32 and float64, timed at num_levels = 8,
+   order 8 on 150² matrices of L' = 49, then a GPR Adam step of
+   SignatureRBF(2, 8, order=8) at N = 150, L = 50 and a small float64 one
+   against the CPU; ``gpsig_tpu_torch.entry.entry()`` on the card in
+   float32 against the plain route; .ts files at
+   ArticularyWordRecognition's (d = 9, L = 144, 275 / 300, 25 classes) and
+   CharacterTrajectories' (d = 3, L = 60-182, 1422 / 1436, 20 classes)
+   published shapes read back through the port's native parser, prepared
+   as the benchmarks prepare a UEA set, and 2 natgrad + Adam steps and
+   ``posterior()`` + ``predict_y`` of BASELINE config 3's model and of the
+   accuracy windows' base model, with their counters;
+16. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
    launches on the long path, under "long"; rows 10-13 with the same
-   at num_levels = 10, under "deep"), then the device line.
+   at num_levels = 10, under "deep"; rows 12-13 the run-time-order
+   instance's at num_levels = 8, order 8, under "order"), then the device
+   line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
 beside it, it exits non-zero before printing any result.
@@ -3603,6 +3621,379 @@ def long_gram_gpr_phase(dev):
     return out_launches
 
 
+# ---------------------------------------------------------------------------
+# sig_gram past order 7 (the run-time-order instance), the entry twin of
+# __graft_entry__.py, and the UEA data layer on the card.
+# ---------------------------------------------------------------------------
+
+def order_counts():
+    """The order >= 2 sig_gram launches (forward, backward): at p > 7 every
+    one is the run-time-order instance's."""
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+
+    return sg.ho_launches, sg.ho_bwd_launches
+
+
+def chunked(fn, *tensors, size=1500):
+    """``fn`` over the batch in blocks of ``size`` matrices, concatenated
+    on the batch axis (the last for level outputs): the plain version of
+    the p > 7 backward keeps every level's p² states for autograd, which
+    at the full batch would not fit the card."""
+    import torch
+
+    outs = [fn(*(t[..., i:i + size] if t.ndim == 2 else t[i:i + size]
+                 for t in tensors))
+            for i in range(0, tensors[0].shape[0], size)]
+    return torch.cat(outs, dim=-1 if outs[0].ndim == 2 else 0)
+
+
+def order_phase(dev):
+    """sig_gram past order 7 (``csrc/sig_gram_order.cuh``): forward and
+    backward against their plain versions at num_levels 8 and 10, orders 8
+    and 10, L2 in {49, 150} (4 matrices [20, L2]), float32 and float64,
+    under DEEP_TOL, each launch the instance's own; then the instance
+    timed at num_levels = 8, order 8 on the increment matrices of 150²
+    pairs of L' = 49 (the nl = 10 GPR's Gram shape at a higher order),
+    float32, with its bound; then a GPR Adam step of SignatureRBF(2, 8,
+    order=8) at BASELINE config 1's N = 150, L = 50 (finite, the
+    instance's forward and backward launched), and a small float64 GPR
+    (K, lml, gradients) on the card against the CPU. Returns the timings
+    and the counters of the GPR step, reset just before it."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+
+    rng = np.random.default_rng(SEED + 60)
+    for nl in (8, 10):
+        for order in (8, 10):
+            for Lp in (49, 150):
+                n0 = order_counts()
+                errs, plans = sig_gram_case(
+                    dev, rng, 4, 20, Lp, nl, order,
+                    (torch.float32, torch.float64), DEEP_TOL)
+                n1 = order_counts()
+                check(n1 == (n0[0] + 2, n0[1] + 2),
+                      f"order {order} nl={nl}: the p > 7 instance did not "
+                      f"launch ({n0} -> {n1})")
+                print(f"order {order} nl={nl} L2={Lp}: scaled err float32 "
+                      f"{errs['float32']:.2e}, float64 {errs['float64']:.2e}"
+                      f"; one warp a matrix, workspace {plans[1]['work']} "
+                      "values (backward, float64)")
+
+    # timed: the increment matrices of 150² pairs at L' = 49
+    N, L, nl, order = DEEP_GPR["N"], DEEP_GPR["L"], 8, 8
+    Xg, _ = regression_sequences(np.random.default_rng(SEED), L=L)
+    Xf = Xg[:N].reshape(-1, 2)
+    sq = np.sum(Xf * Xf, -1)
+    G = np.exp(-0.5 * np.maximum(sq[:, None] + sq[None, :] - 2 * Xf @ Xf.T,
+                                 0)).reshape(N, L, N, L)
+    M_np = np.diff(np.diff(G.transpose(0, 2, 1, 3), axis=2), axis=3)
+    l = L - 1
+    M = torch.as_tensor(M_np.reshape(-1, l, l), dtype=torch.float32,
+                        device=dev)
+    del G, M_np
+    B = M.shape[0]
+    g = torch.as_tensor(rng.standard_normal((nl + 1, B)), dtype=torch.float32,
+                        device=dev)
+    nbytes = 4 * (B * l * l + (nl + 1) * B)
+    ops = B * l * l * dp_cell_ops(nl, order)
+    report = {}
+    for key, kern, plain, work in (
+            ("sig_gram_ho", lambda: sg.sig_gram_levels_ho(M, nl, order),
+             lambda: chunked(lambda m: sg.sig_gram_levels_ho_ref(
+                 m, nl, order), M),
+             (ops, nbytes)),
+            ("sig_gram_ho_bwd",
+             lambda: sg.sig_gram_levels_ho_bwd(M, g, nl, order),
+             lambda: chunked(lambda m, gg: sg.sig_gram_levels_ho_bwd_ref(
+                 m, gg, nl, order), M, g),
+             (3 * ops, nbytes + 4 * B * l * l))):
+        got, want = kern(), plain()
+        err = abs_err(got, want)
+        ms, plain_ms = cuda_ms(kern, reps=3, warmup=1), cuda_ms(
+            plain, reps=1, warmup=0)
+        report[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           **bound(*work), library_ms=None)
+        print(f"time order {key} nl={nl} order {order} B={B} L'={l} "
+              f"float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(blocks of 1500 matrices), bound "
+              f"{report[key]['bound_ms']:.4f} ms "
+              f"({report[key]['bound_by']}), scaled err "
+              f"{scaled_err(got, want):.3e}")
+        check(scaled_err(got, want) <= DEEP_TOL["float32"][0],
+              f"order {key} at the GPR shape: {scaled_err(got, want)}")
+        del got, want
+    del M, g
+    torch.cuda.empty_cache()
+
+    # a GPR Adam step through the instance at BASELINE config 1's shape
+    f32 = torch.float32
+    Xg, yg = regression_sequences(np.random.default_rng(SEED), L=L)
+    X = torch.as_tensor(Xg[:N], dtype=f32, device=dev)
+    Y = torch.as_tensor(yg[:N], dtype=f32, device=dev)
+    gpr = build_gpr(torch, dev, f32, X, nl=nl, order=order)
+    step = gpr_step_fn(torch, gpr, X, Y, 5e-2)
+    reset_counters()
+    lml, ms = timed(step)
+    launches = counters()
+    check(bool(np.isfinite(lml.item())), f"order-8 GPR: lml {lml.item()}")
+    for p in gpr.parameters():
+        check(bool(torch.isfinite(p).all()), "order-8 GPR: parameter not "
+              "finite")
+    # p = 8 throughout: every sig_gram_ho launch is the instance's
+    check(launches["sig_gram_ho"] > 0 and launches["sig_gram_ho_bwd"] > 0,
+          f"order-8 GPR step: the p > 7 instance did not launch: {launches}")
+    check(not any(launches[k] for k in ("gram", "diag", "gram_bwd",
+                                        "gram_ho", "gram_ho_bwd")),
+          f"order-8 GPR step: a fused Gram launched: {launches}")
+    print(f"order-8 GPR (SignatureRBF(2, 8, order=8), N={N}, L={L}) Adam "
+          f"step: lml {lml.item():.6g}, {ms:.1f} ms (first step); launches "
+          f"sig_gram_ho {launches['sig_gram_ho']}, sig_gram_ho_bwd "
+          f"{launches['sig_gram_ho_bwd']} (all the p > 7 instance's)")
+    _, ms2 = timed(step)
+    print(f"order-8 GPR Adam step: {ms2:.1f} ms (second step)")
+    del gpr, X, Y
+    torch.cuda.empty_cache()
+
+    # small float64: card against the CPU
+    f64 = torch.float64
+    Xs = torch.as_tensor(Xg[:6, :12], dtype=f64, device=dev)
+    Ys = torch.as_tensor(yg[:6], dtype=f64, device=dev)
+    gpr = build_gpr(torch, dev, f64, Xs, nl=nl, order=order)
+    cpu = copy.deepcopy(gpr).to("cpu")
+    out = []
+    for model, Xm, Ym in ((gpr, Xs, Ys), (cpu, Xs.cpu(), Ys.cpu())):
+        K = model.kernel.K(Xm)
+        loss = -model.log_marginal_likelihood(Xm, Ym)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out.append([t.detach().cpu() for t in (K, loss, *grads)])
+    err = max(scaled_err(a, b) for a, b in zip(*out))
+    print(f"small float64 order-8 GPR (N=6, L=12): K, lml and "
+          f"{len(out[0]) - 2} gradients, card vs CPU scaled err {err:.3e}, "
+          "tolerance 1e-8")
+    check(err <= 1e-8, f"small float64 order-8 GPR: {err}")
+    return report, launches
+
+
+def entry_phase(dev):
+    """The entry twin (``gpsig_tpu_torch.entry.entry()``, the
+    counterpart of ``__graft_entry__.entry()``) on the card by default, in
+    float32: ``fn(model, X, Y)`` gives the ELBO and ``predict_f``, finite,
+    with the diagonal and the order-1 Kuf forward launched (the SVGP with
+    inducing tensors forms no Gram between its sequences, so the Gram
+    kernel has nothing to do there), and against the same call through the
+    plain route on the card within the slice phase's tolerances. The
+    entry starts at q_mu = 0, q_sqrt = I, where none of the outputs depends
+    on Kuf (fmean = 0, fvar = Knn, KL = 0): q_mu and q_sqrt are set to
+    seeded values first, and shifting the inducing tensors must then move
+    every output by far more than the routes differ."""
+    import torch
+
+    from gpsig_tpu_torch import entry
+
+    fn, (model, X, Y) = entry.entry()
+    check(X.device.type == "cuda" and X.dtype == torch.float32
+          and all(p.device.type == "cuda" for p in model.parameters()),
+          f"entry(): not float32 on the card ({X.device}, {X.dtype})")
+    rng = np.random.default_rng(SEED + 70)
+    M, C = model.q_mu.shape
+    with torch.no_grad():
+        model.q_mu.copy_(torch.as_tensor(rng.standard_normal((M, C))))
+        model.q_sqrt.copy_(torch.as_tensor(
+            np.tril(0.2 * rng.standard_normal((C, M, M))) + 0.8 * np.eye(M)))
+        reset_counters()
+        out, ms = timed(lambda: fn(model, X, Y))
+        launches = counters()
+        with plain_route():
+            ref = fn(model, X, Y)
+        model.inducing.raw_Z.add_(torch.as_tensor(
+            0.3 * rng.standard_normal(tuple(model.inducing.raw_Z.shape)),
+            dtype=torch.float32, device=dev))
+        shifted = fn(model, X, Y)
+    names = ("elbo", "fmean", "fvar")
+    for k, v in zip(names, out):
+        check(bool(torch.isfinite(v).all()), f"entry: {k} not finite")
+    check(bool((out[2] >= 0).all()), "entry: negative fvar")
+    for key in ("diag", "tens_seq"):
+        check(launches[key] > 0, f"entry: {key} did not launch: {launches}")
+    print(f"entry(): elbo {out[0].item():.6g}, fmean {tuple(out[1].shape)}, "
+          f"fvar {tuple(out[2].shape)} on {X.device} in {ms:.1f} ms (first "
+          f"call); launches diag {launches['diag']}, tens_seq "
+          f"{launches['tens_seq']}, gram {launches['gram']}")
+    compare_routes("entry", dict(zip(names, out)), dict(zip(names, ref)),
+                   dict(elbo=1e-3, fmean=1e-3, fvar=1e-3))
+    for k, a, r, b in zip(names, out, ref, shifted):
+        err, moved = scaled_err(a, r), scaled_err(b, a)
+        print(f"entry {k}: shifting the inducing tensors moves it by "
+              f"{moved:.3e} scaled, the routes differ by {err:.3e}")
+        check(moved > max(100 * err, 1e-5),
+              f"entry {k} does not depend on Kuf: moved {moved}, err {err}")
+    return launches
+
+
+#: two UEA sets at their published shapes (train, test sequences, length
+#: or length range, channels, classes) and the model each takes: BASELINE
+#: config 3's (40 inducing sequences of length 8, nl = 4) and the accuracy
+#: windows' base model (order-1 SignatureRBF, 64 inducing tensors with
+#: increments, nl = 4, lengthscales √d)
+UEA_FILES = {
+    "ArticularyWordRecognition": dict(n_train=275, n_test=300, L=(144, 144),
+                                      d=9, C=25, model="config3"),
+    "CharacterTrajectories": dict(n_train=1422, n_test=1436, L=(60, 182),
+                                  d=3, C=20, model="window"),
+}
+
+
+def write_ts(path, name, seqs, labels):
+    """A UEA .ts file, each value written with ``repr`` (it reads back
+    exactly)."""
+    lines = [f"@problemName {name}", "@timeStamps false",
+             "@univariate false", "@data"]
+    for x, lab in zip(seqs, labels):
+        lines.append(":".join(",".join(map(repr, x[:, k].tolist()))
+                              for k in range(x.shape[1])) + f":{lab}")
+    path.write_text("\n".join(lines) + "\n")
+
+
+def uea_files_phase(dev):
+    """The UEA data layer on the card: for each set of UEA_FILES, .ts files
+    written from a seeded generator into a temporary directory, read back
+    through ``gpsig_tpu_torch.data.uea.load_dataset`` with the native
+    parser loaded (values equal to those written, labels mapped as the
+    JAX package maps them), prepared as the benchmarks prepare a UEA set
+    (``SequenceScaler``, add time, tabulate), then 2 natgrad + Adam steps
+    at B = 50 and ``posterior()`` + ``predict_y`` on the test set, float32,
+    each with its counters; wall times printed."""
+    import tempfile
+
+    import torch
+
+    from gpsig_tpu_torch.data import _native, uea
+    from gpsig_tpu_torch.data import preprocessing as prep
+    from gpsig_tpu_torch.inducing import (make_inducing_sequences_from_data,
+                                          make_inducing_tensors_from_data)
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    check(_native.loaded(), "UEA files: the native .ts parser did not load")
+    print(f"UEA files: native parser {Path(_native._lib._name).name}")
+    f32 = torch.float32
+    rng = np.random.default_rng(SEED + 61)
+    out_launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, cfg in UEA_FILES.items():
+            t0 = time.perf_counter()
+            d, C = cfg["d"], cfg["C"]
+            written = {}
+            (Path(root) / name).mkdir()
+            for split in ("TRAIN", "TEST"):
+                n = cfg[f"n_{split.lower()}"]
+                lengths = rng.integers(cfg["L"][0], cfg["L"][1] + 1, n)
+                seqs = [(0.3 * rng.standard_normal((L, d))).cumsum(0)
+                        for L in lengths]
+                labels = [f"{c + 1}.0" for c in rng.integers(0, C, n)]
+                write_ts(Path(root) / name / f"{name}_{split}.ts", name, seqs,
+                         labels)
+                written[split] = (seqs, labels)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            Xtr_l, ytr, Xte_l, yte = uea.load_dataset(name, root=root)
+            t_read = time.perf_counter() - t0
+            lut = {lab: i for i, lab in enumerate(sorted(
+                set(written["TRAIN"][1]) | set(written["TEST"][1])))}
+            for split, got, y in (("TRAIN", Xtr_l, ytr), ("TEST", Xte_l, yte)):
+                seqs, labels = written[split]
+                check(len(got) == len(seqs) and all(
+                    a.shape == b.shape and np.array_equal(a, b)
+                    for a, b in zip(got, seqs)),
+                      f"{name} {split}: values read back differ")
+                check(np.array_equal(y, [lut[lab] for lab in labels]),
+                      f"{name} {split}: labels read back differ")
+            scaler = prep.SequenceScaler().fit(Xtr_l)
+            Xtr_l = prep.add_time_to_list(scaler.transform(Xtr_l))
+            Xte_l = prep.add_time_to_list(scaler.transform(Xte_l))
+            L = max(max(s.shape[0] for s in Xtr_l),
+                    max(s.shape[0] for s in Xte_l))
+            X = torch.as_tensor(prep.tabulate_list_of_sequences(Xtr_l, L),
+                                dtype=f32, device=dev)
+            Xte = torch.as_tensor(prep.tabulate_list_of_sequences(Xte_l, L),
+                                  dtype=f32, device=dev)
+            Y = torch.as_tensor(ytr, device=dev)
+            dt = X.shape[-1]
+            gen = torch.Generator().manual_seed(SEED)
+            if cfg["model"] == "config3":
+                kern = SignatureRBF(dt, 4, lengthscales=1.0,
+                                    normalization=True, dtype=f32,
+                                    device=dev)
+                feat = make_inducing_sequences_from_data(gen, X, 40, 8, dt)
+                lr, need = 2e-3, {"serving": ("sig_gram", "gram", "diag"),
+                                  "training": ("sig_gram", "sig_gram_bwd",
+                                               "gram", "gram_bwd", "diag")}
+                what = "40 inducing sequences of length 8"
+            else:
+                kern = SignatureRBF(dt, 4, lengthscales=float(np.sqrt(dt)),
+                                    order=1, normalization=True, dtype=f32,
+                                    device=dev)
+                feat = make_inducing_tensors_from_data(
+                    gen, X, num_tensors=64, num_levels=4, num_features=dt,
+                    increments=True)
+                lr, need = 1e-2, {"serving": ("diag", "tens_seq"),
+                                  "training": ("diag", "tens_seq",
+                                               "tens_seq_bwd")}
+                what = "64 inducing tensors with increments"
+            model = SVGP.create(kern, MultiClass(C), feat, num_latent=C,
+                                dtype=f32, device=dev)
+            print(f"{name}: wrote {len(Xtr_l)} + {len(Xte_l)} sequences in "
+                  f"{t_write:.2f} s, read them back in {t_read:.2f} s "
+                  f"(native parser, values and labels equal); tabulated "
+                  f"[{X.shape[0]}, {L}, {dt}] and [{Xte.shape[0]}, {L}, "
+                  f"{dt}] with time; model: {what}, nl = 4, C = {C}")
+            step = make_step_fn(lr, num_data=X.shape[0], gamma=0.1)
+            state = step.init(model)
+            launches = {}
+            reset_counters()
+            elbos, times = [], []
+            for _ in range(2):
+                idx = torch.as_tensor(rng.choice(X.shape[0], 50,
+                                                 replace=False), device=dev)
+                (state, elbo), ms = timed(lambda: step(state, X[idx], Y[idx]))
+                elbos.append(elbo.item())
+                times.append(ms)
+            launches["training"] = counters()
+            check(all(np.isfinite(elbos)), f"{name}: ELBO {elbos}")
+            for p in model.parameters():
+                check(bool(torch.isfinite(p).all()),
+                      f"{name}: parameter not finite")
+            with torch.no_grad():
+                reset_counters()
+                (probs, pvar), ms = timed(
+                    lambda: model.posterior().predict_y(Xte))
+                launches["serving"] = counters()
+            check(bool(torch.isfinite(probs).all()
+                       and torch.isfinite(pvar).all()),
+                  f"{name}: predictions not finite")
+            check(probs.shape == (Xte.shape[0], C), f"{name}: {probs.shape}")
+            check(bool(torch.allclose(probs.sum(-1), torch.ones_like(
+                probs[:, 0]), atol=1e-4)), f"{name}: probabilities")
+            acc = (probs.argmax(-1).cpu().numpy() == yte).mean()
+            print(f"{name} natgrad+Adam steps at B=50: ELBO {elbos}; ms "
+                  f"{[round(t, 1) for t in times]}; posterior() + predict_y "
+                  f"on {Xte.shape[0]}: {ms:.1f} ms (test accuracy {acc:.3f}"
+                  f" on random labels)")
+            for phase_, keys in need.items():
+                print(f"{name} {phase_} launches: "
+                      f"{ {k: launches[phase_][k] for k in keys} }")
+                for key in keys:
+                    check(launches[phase_][key] > 0,
+                          f"{name} {phase_}: {key} did not launch")
+            out_launches[name] = launches
+            del model, state, X, Xte, Y
+            torch.cuda.empty_cache()
+    return out_launches
+
+
 def phase(label, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -3690,6 +4081,9 @@ def main():
     phase("Goursat past 2^15", goursat_long_phase, dev)
     phase("config 3 SVGP at MotorImagery's shape", sequence_svgp_phase, dev)
     phase("GPR past 1024 rows", long_gram_gpr_phase, dev)
+    order_timings, order_gpr = phase("deep orders past 7", order_phase, dev)
+    phase("driver entry", entry_phase, dev)
+    phase("UEA files", uea_files_phase, dev)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the
@@ -3739,6 +4133,12 @@ def main():
             order = 2 if key.startswith("sig_gram_ho") else 1
             entry["deep"] = dict(launches=deep_gpr[order][key],
                                  **deep_timings[key])
+        if key in order_timings:
+            # past order 7: launches from the order-8 GPR's Adam step
+            entry["order"] = dict(
+                launches=order_gpr[key],
+                source="gpsig_tpu_torch/csrc/sig_gram_order.cuh",
+                **order_timings[key])
         kernels.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the build's "
           "start to the report")

@@ -28,8 +28,9 @@
 namespace gpsig {
 
 // The deep path's bounds: num_levels + 1 <= 128, as the JAX sig_gram
-// kernels take; p = min(order, num_levels) <= 7, as the register path
-// (the wrappers raise ValueError above either).
+// kernels take (the wrappers raise ValueError above it); p = min(order,
+// num_levels) <= 7, as the register path (above it the entry points take
+// the run-time-order instance, sig_gram_order.cuh).
 constexpr int kDeepLevels = 127;
 constexpr int kDeepOrder = 7;
 

@@ -44,13 +44,15 @@ memory and a device workspace.
 The sig_gram kernels (:func:`sig_gram_plan`) take a matrix on a segment
 of lanes up to what one warp holds and in bands of rows on a wavefront of
 warps past it, so every L2: the kernel layer sends them every Gram past
-``MAX_ROWS`` rows.
+``MAX_ROWS`` rows. Past order 7 one warp takes a matrix with every row's
+state in a workspace (:func:`sig_gram_order_plan`).
 
 The wrappers compute the plan and the bytes here, pass the plan to the
 kernel, and raise ``ValueError`` above what a launch can take: more than
 ``MAX_ROWS`` rows on the fused Gram kernels themselves, more workspace
-than ``WORKSPACE_BYTES`` for one matrix's band carries (sig_gram) or one
-block's partial sums (a Kuf backward). Nothing here needs a card.
+than ``WORKSPACE_BYTES`` for one matrix's band carries or, past order 7,
+its rows' states (sig_gram) or one block's partial sums (a Kuf
+backward). Nothing here needs a card.
 """
 
 from __future__ import annotations
@@ -447,8 +449,9 @@ def goursat_fwd_plan(Su, Tu, dyadic_order, itemsize):
 # ---------------------------------------------------------------------------
 
 #: the sig_gram kernels' level bound (num_levels + 1 <= 128, as the JAX
-#: sig_gram kernels take) and order bound (p = min(order, num_levels) <= 7
-#: on either path; the JAX kernel keeps p² nl states resident past it)
+#: sig_gram kernels take) and the templated paths' order bound (p =
+#: min(order, num_levels) <= 7, csrc/deep_levels.cuh's kDeepOrder); past it
+#: the run-time-order instance (:func:`sig_gram_order_plan`)
 SIG_GRAM_MAX_LEVELS = 127
 SIG_GRAM_MAX_ORDER = 7
 REGISTER_LEVELS = 7
@@ -505,6 +508,41 @@ def sig_gram_carries(nl, p):
     return sum(min(p, m) for m in range(2, nl + 1))
 
 
+#: warps a block of the run-time-order instance at most
+#: (csrc/sig_gram_order.cuh's kOrderWarps)
+SIG_GRAM_ORDER_WARPS = 4
+
+
+def order_slots(nl, p, backward):
+    """Values a DP row keeps in the workspace on the run-time-order
+    instance (``csrc/sig_gram_order.cuh``'s OrderSlots): the deep path's
+    (:func:`deep_slots`) and the column's grids, two in the forward and
+    nl - 1 in the backward (counted by :func:`deep_slots` there), and for
+    the backward two sets of the pieces one level's adjoint hands the next,
+    2p² + 4p + 2."""
+    if backward:
+        return deep_slots(nl, p, True) + 2 * p * p + 4 * p + 2
+    return deep_slots(nl, p, False) + 2 * p * p
+
+
+def sig_gram_order_plan(B, L1, L2, nl, p, itemsize, backward):
+    """The run-time-order instance's launch (p > SIG_GRAM_MAX_ORDER): one
+    warp a matrix, its rows' slots (:func:`order_slots` a row) in the
+    workspace, ``area`` elements a warp; the most warps of B,
+    SIG_GRAM_MAX_BLOCKS blocks of SIG_GRAM_ORDER_WARPS warps and what the
+    workspace holds, W of them a block, the grid striding over the rest.
+    None where one matrix's slots exceed WORKSPACE_BYTES."""
+    area = order_slots(nl, p, backward) * L2
+    warps = min(B, SIG_GRAM_ORDER_WARPS * SIG_GRAM_MAX_BLOCKS,
+                WORKSPACE_BYTES // (area * itemsize))
+    if warps < 1:
+        return None
+    W = min(SIG_GRAM_ORDER_WARPS, warps)
+    blocks = warps // W
+    return dict(S=32, R=1, bands=1, W=W, area=area, area_smem=False, smem=0,
+                blocks=blocks, work=blocks * W * area)
+
+
 @functools.lru_cache(maxsize=512)
 def sig_gram_plan(B, L1, L2, nl, p, itemsize, backward):
     """The sig_gram kernels' launch for B matrices [L1, L2] (L1 columns,
@@ -527,7 +565,11 @@ def sig_gram_plan(B, L1, L2, nl, p, itemsize, backward):
     the backward also its suffix carries, and each band's state slots) in
     shared memory after the marks (and the forward's level sums) where it
     fits, else in the workspace. None where one matrix's area exceeds
-    WORKSPACE_BYTES. Cached a shape: the wrapper asks on every call."""
+    WORKSPACE_BYTES. Past order SIG_GRAM_MAX_ORDER the run-time-order
+    instance's plan (:func:`sig_gram_order_plan`). Cached a shape: the
+    wrapper asks on every call."""
+    if p > SIG_GRAM_MAX_ORDER:
+        return sig_gram_order_plan(B, L1, L2, nl, p, itemsize, backward)
     R = sig_gram_rows_per_lane(p, nl, itemsize, backward)
     deep = nl > REGISTER_LEVELS
     S = next((S for S in SEG_LANES if S * R >= L2), None)

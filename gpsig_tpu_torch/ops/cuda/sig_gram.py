@@ -6,14 +6,17 @@ order 1, and ``sig_gram_levels_ho``, order >= 2, with their custom VJPs);
 the forwards are ``csrc/sig_gram.cuh``, the backwards
 ``csrc/sig_gram_bwd.cuh``, whose opening notes give the designs. M [B, L1, L2]
 → [nl+1, B], ``num_levels <= 127`` (``num_levels + 1 <= 128``, as the JAX
-kernels) and p = min(order, num_levels) <= 7 (``ValueError`` above), any
-L1 and L2 whose band carries fit the workspace: L2, the DP's rows, on a
-segment of 8-32 lanes up to what one warp holds, in bands on up to 8 warps
-past it (``plan.sig_gram_plan``). Up to 7 levels the DP state lives in
-registers; past 7 the deep path (``csrc/deep_levels.cuh``) keeps its
-per-level carries in shared memory where the block's fit, else in a device
-workspace this wrapper allocates, as the bands' carries. The kernel layer
-uses it for the normalisation diagonal of every configuration that the
+kernels), every order, any L1 and L2 whose band carries (or, past order
+7, rows' states) fit the workspace: L2, the DP's rows, on a segment of
+8-32 lanes up to what one warp holds, in bands on up to 8 warps past it
+(``plan.sig_gram_plan``). Up to 7 levels the DP state lives in registers;
+past 7 the deep path (``csrc/deep_levels.cuh``) keeps its per-level
+carries in shared memory where the block's fit, else in a device
+workspace this wrapper allocates, as the bands' carries. Past order
+p = min(order, num_levels) = 7 the run-time-order instance
+(``csrc/sig_gram_order.cuh``, ``plan.sig_gram_order_plan``) takes a
+matrix on one warp with every row's state in the workspace. The kernel
+layer uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
 in PyTorch (as the JAX package leaves them to XLA), for every Gram between
 two lengths, past 7 levels or past the fused Grams' ``plan.MAX_ROWS``
@@ -26,7 +29,9 @@ autograd differentiates it); a CUDA tensor goes through a
 backward launches the backward kernel, or raises. ``launches`` counts the
 order-1 forward's launches (the TPU's ``_fwd_kernel``), ``ho_launches`` the
 higher-order one's (``_fwd_kernel_ho``), ``bwd_launches`` and
-``ho_bwd_launches`` the backward's (``_bwd_kernel``, ``_bwd_kernel_ho``).
+``ho_bwd_launches`` the backward's (``_bwd_kernel``, ``_bwd_kernel_ho``);
+the run-time-order instance's count under ``ho_launches`` and
+``ho_bwd_launches``: in a call at p > 7 every launch is the instance's.
 """
 
 from __future__ import annotations
@@ -84,19 +89,16 @@ def _check(name, M, num_levels, order, backward, *more):
     if order < 1:
         raise ValueError(f"{name}: order must be >= 1")
     p = min(order, num_levels)
-    if p > plan.SIG_GRAM_MAX_ORDER:
-        raise ValueError(
-            f"{name}: the kernels take p = min(order, num_levels) <= "
-            f"{plan.SIG_GRAM_MAX_ORDER} (the order-p state grows as p² a "
-            f"level); got p = {p}")
     B, L1, L2 = M.shape
     lp = plan.sig_gram_plan(B, L1, L2, num_levels, p, M.element_size(),
                             backward)
     if lp is None:
+        what = ("rows' states" if p > plan.SIG_GRAM_MAX_ORDER
+                else "band carries")
         raise ValueError(
             f"{name}: M [{B}, {L1}, {L2}] needs more than "
             f"{plan.WORKSPACE_BYTES} bytes of workspace for one matrix's "
-            "band carries; the kernels take at most that")
+            f"{what}; the kernels take at most that")
     return (B, L1, L2), lp
 
 

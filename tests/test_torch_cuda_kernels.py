@@ -152,16 +152,25 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     assert bool((diag[0] == 1).all() and (diag[1:] == 0).all())
     with pytest.raises(TypeError, match="float32 or float64"):
         tfg.fused_diag_levels(X.half(), 3)
-    # the sig_gram kernels take num_levels + 1 <= 128 and p = min(order,
-    # num_levels) <= 7 at every level count; past 1024 rows the kernel
-    # layer's Gram takes them (the shorter side on the rows)
+    # the sig_gram kernels take num_levels + 1 <= 128 and every order
+    # (past p = min(order, num_levels) = 7 the run-time-order instance);
+    # past 1024 rows the kernel layer's Gram takes them (the shorter side
+    # on the rows); only a matrix whose rows' states exceed the workspace
+    # is refused
     M = torch.zeros(2, 5, 6, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="num_levels must be 1..127"):
         tsg_.sig_gram_levels(M, 128)
-    with pytest.raises(ValueError, match="p = min"):
-        tsg_.sig_gram_levels_ho(M, 8, 8)
-    for order in (4, 7):
+    for order in (4, 7, 8):
         assert bool((tsg_.sig_gram_levels_ho(M, 8, order)[1:] == 0).all())
+    Mr = torch.as_tensor(0.3 * np.random.default_rng(4).standard_normal(
+        (2, 5, 6)), device=cuda_device)
+    assert _scaled_err(tsg_.sig_gram_levels_ho(Mr, 8, 8),
+                       tsg_.sig_gram_levels_ho_ref(Mr, 8, 8)) < 1e-11
+    wide = torch.zeros(1, 5, 64, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="workspace for one matrix's rows"):
+        tsg_.sig_gram_levels_ho_bwd(
+            wide, torch.ones(128, 1, dtype=torch.float64,
+                             device=cuda_device), 127, 127)
     assert torch.isfinite(SignatureRBF(2, 8, order=2,
                                        device=cuda_device).K(X)).all()
     K = SignatureRBF(2, 3, device=cuda_device).K(long.double())
@@ -1535,3 +1544,50 @@ def test_order1_svgp_step_takes_wide_d(cuda_device):
         and tts.bwd_launches > n0[2]
     for g, w in zip(out["card"], out["cpu"]):
         torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,L1,L2,nl,order", [
+    (3, 7, 5, 8, 8), (5, 20, 49, 8, 8), (4, 20, 150, 10, 10),
+    (3, 13, 33, 10, 9), (2, 6, 40, 12, 20), (9, 4, 3, 20, 20)])
+def test_sig_gram_past_order_7(cuda_device, dtype, tol, B, L1, L2, nl,
+                               order):
+    """The run-time-order instance (p = min(order, num_levels) > 7):
+    forward and backward against the plain versions, each launch counted
+    under ho_launches / ho_bwd_launches. Tolerance: the deep path's (the
+    backward's states rebuilt by subtraction)."""
+    rng = np.random.default_rng(B + L2 + nl)
+    M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2))
+                        / np.sqrt(max(L1, L2) / 20), dtype=dtype,
+                        device=cuda_device)
+    g = torch.as_tensor(rng.standard_normal((nl + 1, B)), dtype=dtype,
+                        device=cuda_device)
+    n0 = (tsg_.ho_launches, tsg_.ho_bwd_launches)
+    got = (tsg_.sig_gram_levels_ho(M, nl, order),
+           tsg_.sig_gram_levels_ho_bwd(M, g, nl, order))
+    assert (tsg_.ho_launches, tsg_.ho_bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    want = (tsg_.sig_gram_levels_ho_ref(M, nl, order),
+            tsg_.sig_gram_levels_ho_bwd_ref(M, g, nl, order))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _scaled_err(a, b) < tol
+
+
+@pytest.mark.cuda
+def test_order8_signature_kernel_on_card_matches_cpu(cuda_device):
+    """SignatureRBF(2, 8, order=8): K(X), Kdiag(X) and K's gradient on the
+    card (the Gram and the diagonal through the run-time-order instance)
+    against the same kernel on the CPU, float64."""
+    rng = np.random.default_rng(8)
+    X = torch.as_tensor(_walks(rng, 5, 12, 2))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        k = SignatureRBF(2, 8, order=8, lengthscales=[0.8, 1.2], device=dev)
+        Xd = X.to(dev).requires_grad_()
+        K = k.K(Xd)
+        (gx,) = torch.autograd.grad(K.sum(), Xd)
+        out[str(dev)] = [t.detach().cpu() for t in (K, k.Kdiag(Xd), gx)]
+    for a, b in zip(out[str(cuda_device)], out["cpu"]):
+        assert _scaled_err(a, b) < 1e-10

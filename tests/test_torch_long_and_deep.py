@@ -179,11 +179,14 @@ def test_sig_gram_forward_takes_the_warps_it_needs(B, L1, L2, nl, p, S, R):
 
 def test_sig_gram_constants_match_the_source():
     """plan.py's sig_gram constants are the kernels': the band warps, the
-    deep path's rows a lane, the register budget, the level and order
-    bounds."""
+    deep path's rows a lane, the register budget, the level bound, the
+    templated paths' order bound, past which the run-time-order instance
+    takes every order (its warps a block)."""
     sg = (CSRC / "sig_gram.cuh").read_text()
     common = (CSRC / "common.cuh").read_text()
     deep = (CSRC / "deep_levels.cuh").read_text()
+    order = (CSRC / "sig_gram_order.cuh").read_text()
+    entry = (CSRC / "sig_gram.cu").read_text()
 
     def const(src, name):
         return int(re.search(rf"{name} = (\d+);", src).group(1))
@@ -195,6 +198,10 @@ def test_sig_gram_constants_match_the_source():
     assert const(common, "kRlLevels") == plan.REGISTER_LEVELS
     assert const(deep, "kDeepLevels") == plan.SIG_GRAM_MAX_LEVELS
     assert const(deep, "kDeepOrder") == plan.SIG_GRAM_MAX_ORDER
+    assert const(order, "kOrderWarps") == plan.SIG_GRAM_ORDER_WARPS
+    assert "if (P > kDeepOrder)" in entry
+    assert plan.sig_gram_plan(4, 20, 49, 8, plan.SIG_GRAM_MAX_ORDER + 1, 8,
+                              True)["R"] == 1
 
 
 # -- a float64 model of the band design ---------------------------------------
