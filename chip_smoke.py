@@ -7,8 +7,9 @@ path, L = 150, serving and training), num_levels 8-127, the order-1
 model at wide and long UEA shapes (PEMS-SF, MotorImagery), and every
 sequence length and order (sig_gram's bands, orders 4-7, the inducing-
 sequence SVGP at L = 3000, GPRs past 1024 rows), sig_gram past order 7,
-the entry twin of ``__graft_entry__.py`` and UEA archive files through
-the port's reader.
+the entry twin of ``__graft_entry__.py``, UEA archive files through the
+port's reader, and the rest of the GP layer (VOSF at BASELINE config 6,
+VOSF under the PDE prior, the low-rank kernel, the Monte-Carlo Softmax).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -163,7 +164,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
    as the benchmarks prepare a UEA set, and 2 natgrad + Adam steps and
    ``posterior()`` + ``predict_y`` of BASELINE config 3's model and of the
    accuracy windows' base model, with their counters;
-16. report: one JSON line with every kernel's launches, error, times and
+16. the rest of the GP layer, each phase with its wall time and the
+   card's name and power limit beside its figures: BASELINE config 6 at
+   its defaults (VOSF: the explicit signature kernel, nl = 7, M = 255,
+   q_diag, MultiClass(10); 120,000 SITS-like sequences with time on the
+   card): 5 Adam-only and 2 natgrad + Adam steps at B = 4096, the float32
+   route against float64 on the card (fvar in units of Knn), a profile of
+   a step and of serving, ``posterior()`` (``quad_is_diag``) +
+   ``predict_y`` on 10,000, no kernel counter rising, a small float64
+   model against the CPU; the SigGPDE VOSF model at the same width
+   (untruncated Linear-base kernel, dyadic order 1, features to 7
+   levels): 2 natgrad + Adam steps, each with the Goursat forward and
+   adjoint counters reset just before it and rising, the first step and
+   serving against the plain route, a small float64 model against the
+   CPU; ``LowRankSignatureRBF`` at the ``@lowrank`` protocol on
+   CharacterTrajectories' shape: 2 steps (the landmarks move), serving
+   on 1,436, float64 Grams and ELBO card against CPU at the same
+   landmarks and pairs, the float32 difference stated; the config-6 model
+   with ``Softmax(10, 20)``: 2 steps and ``predict_y`` from seeded
+   generators, twice, bitwise equal;
+17. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
    launches on the long path, under "long"; rows 10-13 with the same
    at num_levels = 10, under "deep"; rows 12-13 the run-time-order
@@ -3994,6 +4014,515 @@ def uea_files_phase(dev):
     return out_launches
 
 
+# ---------------------------------------------------------------------------
+# The rest of the GP layer: VOSF (Kuu = I) at BASELINE config 6's width,
+# VOSF under the untruncated (PDE) prior, the low-rank kernel and the
+# Monte-Carlo Softmax
+# ---------------------------------------------------------------------------
+
+#: BASELINE config 6 at its defaults (benchmarks/config6_vosf_sits.py):
+#: SITS-like sequences with time added (d = 2), nl = 7 (M = 255), ten
+#: classes, B = 4096; 5 Adam-only steps at lr 5e-3 (gamma 0, as config
+#: 6), then 2 natgrad + Adam steps at gamma 0.1
+CONFIG6 = dict(n_train=120_000, n_test=10_000, L=40, C=10, nl=7, B=4096,
+               adam_steps=5, natgrad_steps=2, lr=5e-3)
+#: the float32 route against the same computation in float64 on the card:
+#: values scaled by their largest magnitude, the predictive variance in
+#: units of Knn (under Kuu = I it is Knn − Σ Kuf² + Σ s²Kuf², where the
+#: first two cancel analytically: float32 leaves noise of order eps·Knn)
+F32_VS_F64_TOL = (1e-3, "float32 signature coordinates over 39 steps of "
+                  "Chen's recursion, normalised per level, carried through "
+                  "RobustMax quadrature and the minibatch scale N/B")
+FVAR_F32_TOL = (1e-4, "|Δfvar| / Knn: the float32 cancellation of Knn − Σ "
+                "Kuf², about 255 · eps · Knn, under the features' own error")
+
+
+def sits_data(dev, dtype, n_train=None, n_test=None):
+    """Config 6's data through the port's data layer: ``sits_sequences``
+    (seed 0) with ``add_time_to_table``, split train / test, on ``dev``."""
+    import torch
+
+    from gpsig_tpu_torch.data import preprocessing as prep
+    from gpsig_tpu_torch.data.synthetic import sits_sequences
+
+    n_train = n_train or CONFIG6["n_train"]
+    n_test = n_test or CONFIG6["n_test"]
+    Xn, yn = sits_sequences(seed=SEED, N=n_train + n_test, L=CONFIG6["L"],
+                            num_classes=CONFIG6["C"])
+    X = torch.as_tensor(prep.add_time_to_table(Xn), dtype=dtype, device=dev)
+    Y = torch.as_tensor(yn, dtype=torch.int64, device=dev)
+    return X[:n_train], Y[:n_train], X[n_train:], Y[n_train:]
+
+
+def vosf_svgp(dev, dtype, prior="explicit", nl=None, likelihood=None):
+    """A Kuu = I SVGP with a diagonal q at config 6's width: the explicit
+    signature kernel (lengthscale 1, normalised; config 6) or the
+    untruncated kernel (Linear base, lengthscale √2, normalised, dyadic
+    order 1; the ``@vosfpde`` window's) with features to ``nl`` levels;
+    MultiClass(10) unless ``likelihood`` is given."""
+    from gpsig_tpu_torch.kernels.pde import UntruncatedSignatureKernel
+    from gpsig_tpu_torch.kernels.vosf import (ExplicitSignatureKernel,
+                                              OrthogonalSignatureFeatures)
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+
+    nl = nl or CONFIG6["nl"]
+    if prior == "explicit":
+        kern = ExplicitSignatureKernel.create(2, nl, lengthscales=1.0,
+                                              normalization=True,
+                                              dtype=dtype, device=dev)
+        feat = OrthogonalSignatureFeatures.for_kernel(kern)
+    else:
+        kern = UntruncatedSignatureKernel.create(
+            2, lengthscales=float(np.sqrt(2)), normalization=True,
+            dyadic_order=1, dtype=dtype, device=dev)
+        feat = OrthogonalSignatureFeatures.for_kernel(kern, num_levels=nl)
+    C = CONFIG6["C"]
+    return SVGP.create(kern, likelihood or MultiClass(C), feat, C,
+                       q_diag=True, dtype=dtype, device=dev)
+
+
+def max_grad_err(got, want):
+    """Each parameter's gradient against the other route's, scaled by the
+    largest gradient of all: a parameter the ELBO is invariant to has a
+    gradient of rounding size (the signal variance σ of a VOSF model under
+    RobustMax, which depends on f only through its argmax)."""
+    check(set(got) == set(want), f"gradients of {sorted(got)} vs "
+          f"{sorted(want)}")
+    scale = max(w.abs().max().item() for w in want.values())
+    return max((got[n] - want[n]).abs().max().item() / scale for n in want)
+
+
+def card_vs_cpu(label, model, X, Y, num_data, tol=1e-10):
+    """A small float64 model on the card against the same model on the
+    CPU: the ELBO, its gradients (scaled by the largest), one natgrad step's
+    q_mu and q_sqrt and the cached posterior's predict_f, each scaled,
+    within ``tol``. Adam's step is left out: it moves a parameter whose
+    gradient is rounding noise by up to lr·g/(|g| + 1e-8), far above
+    float64 rounding."""
+    import torch
+
+    from gpsig_tpu_torch.training.natgrad import natgrad_step
+
+    out = {}
+    for where, m in (("card", model), ("cpu", copy.deepcopy(model).cpu())):
+        x, y = X.to(m.q_mu.device), Y.to(m.q_mu.device)
+        m.zero_grad()
+        elbo = m.elbo(x, y, num_data=num_data)
+        elbo.backward()
+        g = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        with torch.no_grad():
+            fmean, fvar = m.posterior().predict_f(x)
+        natgrad_step(m, 0.1, x, y, num_data=num_data)
+        out[where] = dict(elbo=elbo.detach().cpu(), fmean=fmean.cpu(),
+                          fvar=fvar.cpu(), q_mu=m.q_mu.detach().cpu(),
+                          q_sqrt=m.q_sqrt.detach().cpu(), grads=g)
+    errs = {k: scaled_err(out["card"][k], out["cpu"][k])
+            for k in ("elbo", "fmean", "fvar", "q_mu", "q_sqrt")}
+    errs["gradients"] = max_grad_err(out["card"]["grads"],
+                                     out["cpu"]["grads"])
+    print(f"{label} float64, card vs CPU (N = {X.shape[0]}): scaled errs "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} }, tolerance {tol:g}"
+          " (the same float64 arithmetic; other summation orders)")
+    for k, v in errs.items():
+        check(v <= tol, f"{label} float64 card vs CPU {k}: {v} > {tol}")
+
+
+def f32_vs_f64(label, model32, X, Y, num_data):
+    """The float32 model against a float64 copy of it on the card, at the
+    same parameters: predict_f on the batch (fmean scaled, fvar in units
+    of Knn), then one natgrad + Adam step from each (its ELBO, the natgrad
+    q_mu and q_sqrt, scaled). Both copies step; ``model32`` is one."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    m64 = copy.deepcopy(model32).double()
+    with torch.no_grad():
+        f32 = model32.predict_f(X)
+        f64 = m64.predict_f(X.double())
+        Knn = m64.kernel.Kdiag(X.double())
+    errs = dict(fmean=scaled_err(f32[0].double(), f64[0]),
+                fvar=((f32[1].double() - f64[1]).abs()
+                      / Knn[:, None]).max().item())
+    elbos = []
+    for m, x in ((model32, X), (m64, X.double())):
+        step = make_step_fn(CONFIG6["lr"], num_data=num_data, gamma=0.1)
+        _, elbo = step(step.init(m), x, Y)
+        elbos.append(elbo)
+    errs["elbo"] = scaled_err(elbos[0].double(), elbos[1])
+    for k in ("q_mu", "q_sqrt"):
+        errs[k] = scaled_err(getattr(model32, k).detach().double(),
+                             getattr(m64, k).detach())
+    print(f"{label} float32 vs float64 on the card (B = {X.shape[0]}): "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} }; tolerance "
+          f"{F32_VS_F64_TOL[0]:g} scaled ({F32_VS_F64_TOL[1]}), fvar "
+          f"{FVAR_F32_TOL[0]:g} ({FVAR_F32_TOL[1]})")
+    for k, v in errs.items():
+        tol = FVAR_F32_TOL[0] if k == "fvar" else F32_VS_F64_TOL[0]
+        check(v <= tol, f"{label} float32 vs float64 {k}: {v} > {tol}")
+
+
+def served(label, model, Xte, C):
+    """``posterior()`` + ``predict_y`` on the test set: finite, shaped,
+    probabilities summing to 1; the cached posterior's predict_f equals
+    the model's (means scaled, variances in units of Knn, 1e-4: the two
+    orders of Knn − Σ Kuf²(1 − s²), whose float32 rounding is up to
+    M · eps · Knn = 3e-5 Knn at M = 255). Returns (probs, ms)."""
+    import torch
+
+    with torch.no_grad():
+        (probs, pvar), ms = timed(lambda: model.posterior().predict_y(Xte))
+        post = model.posterior()
+        fm_post, fv_post = post.predict_f(Xte)
+        fm, fv = model.predict_f(Xte)
+        Knn = model.kernel.Kdiag(Xte)
+    for k, v in dict(probs=probs, pvar=pvar, fmean=fm, fvar=fv).items():
+        check(bool(torch.isfinite(v).all()), f"{label}: {k} not finite")
+    check(probs.shape == (Xte.shape[0], C), f"{label}: {probs.shape}")
+    check(bool(torch.allclose(probs.sum(-1), torch.ones_like(probs[:, 0]),
+                              atol=1e-4)), f"{label}: probabilities")
+    check(bool((fv >= 0).all() and (pvar >= 0).all()),
+          f"{label}: negative variances")
+    e_mean = scaled_err(fm_post, fm)
+    e_var = ((fv_post - fv).abs() / Knn[:, None]).max().item()
+    print(f"{label} Posterior.predict_f vs SVGP.predict_f on "
+          f"{Xte.shape[0]}: fmean scaled err {e_mean:.3e}, fvar |Δ|/Knn "
+          f"{e_var:.3e}, tolerance 1e-4 (the same terms, summed in two "
+          f"orders); quad_is_diag {post.quad_is_diag}")
+    check(e_mean <= 1e-4 and e_var <= 1e-4,
+          f"{label}: posterior vs model predict_f {e_mean}, {e_var}")
+    return probs, ms
+
+
+def vosf_config6_phase(dev, card):
+    """BASELINE config 6 at its defaults on the card, float32: 120,000
+    training sequences on the card, 5 Adam-only steps and 2 natgrad + Adam
+    steps at B = 4096, ``posterior()`` (``quad_is_diag``) + ``predict_y`` on
+    the 10,000 test sequences; the float32 route against float64 on the
+    card; a small float64 model (N = 64, nl = 4) on the card against the
+    CPU. The path is plain PyTorch (the JAX package has no Pallas kernel
+    here): no kernel counter may rise."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    X, Y, Xte, _ = sits_data(dev, f32)
+    N, B, C = X.shape[0], CONFIG6["B"], CONFIG6["C"]
+    model = vosf_svgp(dev, f32)
+    check(model.inducing.num_inducing == 255,
+          f"config 6: M = {model.inducing.num_inducing}")
+    rng = np.random.default_rng(SEED + 80)
+    batches = [torch.as_tensor(rng.choice(N, B, replace=False), device=dev)
+               for _ in range(CONFIG6["adam_steps"] + CONFIG6["natgrad_steps"]
+                              + 1)]
+    reset_counters()
+    adam = make_step_fn(CONFIG6["lr"], num_data=N, gamma=0.0,
+                        use_natgrad=False)
+    state, elbos, ms = adam.init(model), {"adam": [], "natgrad": []}, \
+        {"adam": [], "natgrad": []}
+    for idx in batches[:CONFIG6["adam_steps"]]:
+        (state, elbo), t = timed(lambda: adam(state, X[idx], Y[idx]))
+        elbos["adam"].append(elbo.item())
+        ms["adam"].append(t)
+    # the float32 route against float64 at the step the natgrad phase
+    # starts from (on a batch of its own: the copies step on it too)
+    idx = batches[-1]
+    f32_vs_f64("config 6", copy.deepcopy(model), X[idx], Y[idx], N)
+    nat = make_step_fn(CONFIG6["lr"], num_data=N, gamma=0.1)
+    state = nat.init(model)
+    for idx in batches[CONFIG6["adam_steps"]:-1]:
+        (state, elbo), t = timed(lambda: nat(state, X[idx], Y[idx]))
+        elbos["natgrad"].append(elbo.item())
+        ms["natgrad"].append(t)
+    launches = counters()
+    check(all(np.isfinite(v) for e in elbos.values() for v in e),
+          f"config 6: ELBO {elbos}")
+    for p in model.parameters():
+        check(bool(torch.isfinite(p).all()), "config 6: parameter not finite")
+    check(not any(launches.values()),
+          f"config 6: a kernel launched on a plain path: {launches}")
+    # one profiled call each: a step is many small launches, and the
+    # profiler's event processing, not the card, sets this phase's time
+    profile_split(lambda: nat(state, X[idx], Y[idx]),
+                  f"config 6 natgrad+Adam step, B = {B}", reps=1)
+    probs, ms_serve = served("config 6", model, Xte, C)
+    with torch.no_grad():
+        post = model.posterior()
+        profile_split(lambda: post.predict_y(Xte),
+                      f"config 6 predict_y on a cached posterior, "
+                      f"N = {Xte.shape[0]}", reps=1)
+    print(f"config 6 ELBO: Adam-only {elbos['adam']}, natgrad+Adam "
+          f"{elbos['natgrad']}; no kernel counter rose (plain PyTorch)")
+    print(f"time config 6 (VOSF, M = 255, B = {B}, N = {N}) on {card}: "
+          f"Adam-only step {statistics.median(ms['adam'][1:]):.1f} ms "
+          f"(median of the last {len(ms['adam']) - 1}; all "
+          f"{[round(t, 1) for t in ms['adam']]}), natgrad+Adam step "
+          f"{[round(t, 1) for t in ms['natgrad']]} ms; posterior() + "
+          f"predict_y on {Xte.shape[0]}: {ms_serve:.1f} ms, "
+          f"{Xte.shape[0] / ms_serve * 1e3:.0f} predictions/s (first call)")
+    small = vosf_svgp(dev, torch.float64, nl=4)
+    with torch.no_grad():
+        small.q_mu.copy_(torch.as_tensor(0.3 * rng.standard_normal(
+            tuple(small.q_mu.shape))))
+        small.q_sqrt.copy_(torch.as_tensor(rng.uniform(
+            0.3, 1.0, tuple(small.q_sqrt.shape))))
+    card_vs_cpu("config 6 (nl = 4)", small, X[:64].double(), Y[:64], N)
+
+
+def sigpde_vosf_phase(dev, card):
+    """VOSF under the untruncated prior (the SigGPDE SITS model): the
+    untruncated kernel (Linear base, dyadic order 1, normalised) with
+    ``OrthogonalSignatureFeatures.for_kernel(kern, num_levels=7)``
+    (M = 255), config 6's data and width (B = 4096, C = 10, q_diag), float32:
+    2 natgrad + Adam steps (lr 2e-3, gamma 0.05, the ``@vosfpde`` window's)
+    each with the Goursat counters reset just before it (the features'
+    normalisation launches the refined forward, 15a, and the loss's
+    backward its adjoint, 15b), the first step and serving on 10,000
+    against the plain route, and a small float64 model against the CPU."""
+    import torch
+
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    X, Y, Xte, _ = sits_data(dev, f32)
+    N, B, C = X.shape[0], CONFIG6["B"], CONFIG6["C"]
+    model = vosf_svgp(dev, f32, prior="pde")
+    check(model.inducing.num_inducing == 255,
+          f"SigGPDE VOSF: M = {model.inducing.num_inducing}")
+    plain_model = copy.deepcopy(model)
+    rng = np.random.default_rng(SEED + 81)
+    batches = [torch.as_tensor(rng.choice(N, B, replace=False), device=dev)
+               for _ in range(2)]
+    step = make_step_fn(2e-3, num_data=N, gamma=0.05)
+    state, elbos, ms, first = step.init(model), [], [], None
+    for k, idx in enumerate(batches):
+        reset_counters()
+        (state, elbo), t = timed(lambda: step(state, X[idx], Y[idx]))
+        check_pde_route(counters(), ("goursat_fused", "goursat_grad"),
+                        f"SigGPDE VOSF step {k + 1}")
+        elbos.append(elbo)
+        ms.append(t)
+        if k == 0:
+            first = grads_and_params(model)
+    check(all(bool(torch.isfinite(e)) for e in elbos),
+          f"SigGPDE VOSF: ELBO {elbos}")
+    for p in model.parameters():
+        check(bool(torch.isfinite(p).all()),
+              "SigGPDE VOSF: parameter not finite")
+    with plain_route():
+        pstep = make_step_fn(2e-3, num_data=N, gamma=0.05)
+        _, plain_elbo = pstep(pstep.init(plain_model), X[batches[0]],
+                              Y[batches[0]])
+    want = grads_and_params(plain_model)
+    errs = dict(elbo=scaled_err(elbos[0], plain_elbo),
+                gradients=max_grad_err(first[0], want[0]))
+    moved = max(abs_err(first[1][n], want[1][n]) for n in want[0])
+    errs["natgrad q_mu, q_sqrt"] = max(
+        scaled_err(first[1][n], want[1][n]) for n in ("q_mu", "q_sqrt"))
+    print(f"SigGPDE VOSF step 1, kernels vs plain route: {errs}, tolerance "
+          "1e-3 (float32 Goursat sweeps in another order, through the "
+          "features' normalisation); Adam-updated parameters max abs err "
+          f"{moved:.3e}, tolerance {2 * 2e-3 * (1 + 1e-3):.4g} (2·lr: Adam's "
+          "first step is ±lr per entry)")
+    for k, v in errs.items():
+        check(v <= 1e-3, f"SigGPDE VOSF step 1 {k}: {v}")
+    check(moved <= 2 * 2e-3 * (1 + 1e-3), f"SigGPDE VOSF step 1: {moved}")
+    reset_counters()
+    probs, ms_serve = served("SigGPDE VOSF", model, Xte, C)
+    launches = counters()
+    check_pde_route(launches, ("goursat_fused",), "SigGPDE VOSF serving")
+    check(launches["goursat_grad"] == 0, "SigGPDE VOSF serving: adjoint ran")
+    with torch.no_grad(), plain_route():
+        ref = model.posterior().predict_y(Xte)[0]
+    err = scaled_err(probs, ref)
+    print(f"SigGPDE VOSF predict_y on {Xte.shape[0]}: kernels vs plain route "
+          f"scaled err {err:.3e}, tolerance 1e-3")
+    check(err <= 1e-3, f"SigGPDE VOSF predict_y vs plain: {err}")
+    print(f"time SigGPDE VOSF (M = 255, B = {B}, dyadic order 1) on {card}: "
+          f"natgrad+Adam step {[round(t, 1) for t in ms]} ms; posterior() + "
+          f"predict_y on {Xte.shape[0]}: {ms_serve:.1f} ms, "
+          f"{Xte.shape[0] / ms_serve * 1e3:.0f} predictions/s")
+    small = vosf_svgp(dev, torch.float64, prior="pde", nl=3)
+    with torch.no_grad():
+        small.q_mu.copy_(torch.as_tensor(0.3 * rng.standard_normal(
+            tuple(small.q_mu.shape))))
+        small.q_sqrt.copy_(torch.as_tensor(rng.uniform(
+            0.3, 1.0, tuple(small.q_sqrt.shape))))
+    reset_counters()
+    card_vs_cpu("SigGPDE VOSF (nl = 3)", small, X[:64].double(), Y[:64], N)
+    check(counters()["goursat_fused"] > 0,
+          "SigGPDE VOSF float64: the Goursat forward did not launch")
+
+
+#: the ``@lowrank`` window's protocol (benchmarks/run_all.py:51-52,
+#: 132-149) on CharacterTrajectories' published shape
+LOWRANK = dict(num_components=64, num_levels=4, num_sequences=64,
+               seq_len=10, batch=50, lr=1e-2, gamma=0.1, steps=2)
+
+
+def lowrank_phase(dev, card):
+    """``LowRankSignatureRBF`` at the ``@lowrank`` protocol (64 Nyström
+    components from 128 landmarks, every level sketched to 64 pairs,
+    nl = 4, 64 inducing sequences of length 10, B = 50) on data of
+    CharacterTrajectories' published shape, prepared as the UEA files
+    phase prepares it (d = 3 + time, L 60-182 tabulated): 2 natgrad + Adam
+    steps in float32 (the landmarks must move: Adam reaches them), then
+    ``posterior()`` + ``predict_y`` on the 1,436 test sequences; float64 on
+    the card against the CPU at the same landmarks and pair indices (K(Z),
+    Kuf, Kdiag and the ELBO, 1e-10 scaled); the float32 model's difference
+    from its float64 copy is stated, with finiteness checked: cuSOLVER's
+    eigh lets eigenvalues near eps·λmax through the 10·jitter cutoff, and
+    1/√λ amplifies them."""
+    import torch
+
+    from gpsig_tpu_torch.data import preprocessing as prep
+    from gpsig_tpu_torch.inducing import make_inducing_sequences_from_data
+    from gpsig_tpu_torch.kernels.low_rank import LowRankSignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    shape = UEA_FILES["CharacterTrajectories"]
+    d, C = shape["d"], shape["C"]
+    rng = np.random.default_rng(SEED + 90)
+
+    def split(n):
+        lengths = rng.integers(shape["L"][0], shape["L"][1] + 1, n)
+        return ([(0.3 * rng.standard_normal((L, d))).cumsum(0)
+                 for L in lengths], rng.integers(0, C, n))
+
+    (Xtr_l, ytr), (Xte_l, _) = split(shape["n_train"]), split(shape["n_test"])
+    scaler = prep.SequenceScaler().fit(Xtr_l)
+    Xtr_l = prep.add_time_to_list(scaler.transform(Xtr_l))
+    Xte_l = prep.add_time_to_list(scaler.transform(Xte_l))
+    L = max(s.shape[0] for s in Xtr_l + Xte_l)
+    X = torch.as_tensor(prep.tabulate_list_of_sequences(Xtr_l, L), dtype=f32,
+                        device=dev)
+    Xte = torch.as_tensor(prep.tabulate_list_of_sequences(Xte_l, L),
+                          dtype=f32, device=dev)
+    Y = torch.as_tensor(ytr, device=dev)
+    N, dt = X.shape[0], X.shape[-1]
+    gen = torch.Generator().manual_seed(SEED)
+    kern = LowRankSignatureRBF(gen, X, dt, LOWRANK["num_levels"],
+                               num_components=LOWRANK["num_components"],
+                               lengthscales=float(np.sqrt(dt)),
+                               normalization=True, dtype=f32, device=dev)
+    feat = make_inducing_sequences_from_data(gen, X, LOWRANK["num_sequences"],
+                                             LOWRANK["seq_len"], dt)
+    model = SVGP.create(kern, MultiClass(C), feat, C, dtype=f32, device=dev)
+    sketched = [p is not None for p in kern.pair_indices.as_tuple()]
+    check(tuple(kern.landmarks.shape) == (128, dt) and all(sketched),
+          f"low-rank: landmarks {tuple(kern.landmarks.shape)}, sketched "
+          f"levels {sketched}")
+    initial = copy.deepcopy(model)
+    landmarks0 = kern.landmarks.detach().clone()
+    step = make_step_fn(LOWRANK["lr"], num_data=N, gamma=LOWRANK["gamma"])
+    state, elbos, ms = step.init(model), [], []
+    reset_counters()
+    batches = [torch.as_tensor(rng.choice(N, LOWRANK["batch"],
+                                          replace=False), device=dev)
+               for _ in range(LOWRANK["steps"])]
+    for idx in batches:
+        (state, elbo), t = timed(lambda: step(state, X[idx], Y[idx]))
+        elbos.append(elbo.item())
+        ms.append(t)
+    launches = counters()
+    check(all(np.isfinite(elbos)), f"low-rank: ELBO {elbos}")
+    for n, p in model.named_parameters():
+        check(bool(torch.isfinite(p).all()), f"low-rank: {n} not finite")
+    moved = (kern.landmarks.detach() - landmarks0).abs().max().item()
+    check(moved > 0, "low-rank: the landmarks did not move (Adam must "
+          "reach them)")
+    check(not any(launches.values()),
+          f"low-rank: a kernel launched on a plain path: {launches}")
+    probs, ms_serve = served("low-rank", model, Xte, C)
+    print(f"low-rank [{N}, {L}, {dt}] ELBO {elbos}; landmarks moved by up to "
+          f"{moved:.3e} (Adam, lr {LOWRANK['lr']:g})")
+    print(f"time low-rank (c = 64, nl = 4, M = 64 sequences, B = 50) on "
+          f"{card}: natgrad+Adam step {[round(t, 1) for t in ms]} ms; "
+          f"posterior() + predict_y on {Xte.shape[0]}: {ms_serve:.1f} ms, "
+          f"{Xte.shape[0] / ms_serve * 1e3:.0f} predictions/s")
+    # float64 at the initial landmarks and pairs: card, CPU, and the float32
+    # model at the same parameters
+    idx = batches[0]
+    m64 = copy.deepcopy(initial).double()
+    outs = {}
+    for where, m in (("card", m64), ("cpu", copy.deepcopy(m64).cpu()),
+                     ("float32", initial)):
+        x = X[idx].to(device=m.q_mu.device, dtype=m.q_mu.dtype)
+        y = Y[idx].to(m.q_mu.device)
+        Z = m.inducing.raw_Z
+        with torch.no_grad():
+            outs[where] = dict(Kzz=m.kernel.K(Z), Kuf=m.kernel.K(Z, x),
+                               Kdiag=m.kernel.Kdiag(x),
+                               elbo=m.elbo(x, y, num_data=N))
+    errs = {k: scaled_err(outs["card"][k].cpu(), outs["cpu"][k])
+            for k in outs["cpu"]}
+    print(f"low-rank float64 card vs CPU (same landmarks and pairs, B = 50):"
+          f" {errs}, tolerance 1e-10 (the Grams are invariant to eigh's "
+          "sign and rotation choices)")
+    for k, v in errs.items():
+        check(v <= 1e-10, f"low-rank float64 card vs CPU {k}: {v}")
+    for k, v in outs["float32"].items():
+        check(bool(torch.isfinite(v).all()), f"low-rank float32 {k}")
+    diffs = {k: scaled_err(outs["float32"][k].double(), outs["card"][k])
+             for k in outs["card"]}
+    print(f"low-rank float32 vs float64 on the card (stated, not bounded: "
+          f"1/√λ of eigenvalues near eps·λmax): {diffs}")
+
+
+def softmax_phase(dev, card):
+    """The config-6 VOSF model with ``Softmax(10, num_samples=20)``, float32:
+    2 natgrad + Adam steps at B = 4096 and ``predict_y`` on the 10,000
+    test sequences, drawn on the card from generators seeded alike, run
+    twice: bitwise equal; a run from another seed draws other values."""
+    import torch
+
+    from gpsig_tpu_torch.likelihoods import Softmax
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    f32 = torch.float32
+    X, Y, Xte, _ = sits_data(dev, f32)
+    N, B, C = X.shape[0], CONFIG6["B"], CONFIG6["C"]
+    batches = [torch.as_tensor(np.random.default_rng(SEED + 82).choice(
+        N, B, replace=False), device=dev) for _ in range(2)]
+
+    def run(seed):
+        model = vosf_svgp(dev, f32, likelihood=Softmax(C, num_samples=20))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        step = make_step_fn(CONFIG6["lr"], num_data=N, gamma=0.1)
+        state, elbos, ms = step.init(model), [], []
+        for idx in batches:
+            (state, elbo), t = timed(lambda: step(state, X[idx], Y[idx], gen))
+            elbos.append(elbo)
+            ms.append(t)
+        with torch.no_grad():
+            (probs, _), t = timed(lambda: model.predict_y(
+                Xte, generator=torch.Generator(device=dev).manual_seed(seed)))
+        return [torch.stack(elbos), probs] + [
+            p.detach() for p in model.parameters()], ms, t
+
+    a, ms, t_pred = run(1)
+    b, _, _ = run(1)
+    c, _, _ = run(2)
+    for k, v in enumerate(a):
+        check(bool(torch.isfinite(v).all()), f"Softmax: output {k} not "
+              "finite")
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"Softmax ELBO {a[0].tolist()} (seed 1, twice: bitwise equal "
+          f"{same}), {c[0].tolist()} (seed 2)")
+    check(same, "Softmax: two runs from the same seed differ")
+    check(not torch.equal(a[0], c[0]), "Softmax: another seed drew the same")
+    check(bool(torch.allclose(a[1].sum(-1), torch.ones_like(a[1][:, 0]),
+                              atol=1e-4)), "Softmax: probabilities")
+    print(f"time Softmax VOSF (S = 20, B = {B}) on {card}: natgrad+Adam "
+          f"step {[round(t, 1) for t in ms]} ms; predict_y (100 draws) on "
+          f"{Xte.shape[0]}: {t_pred:.1f} ms")
+
+
 def phase(label, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -4084,6 +4613,10 @@ def main():
     order_timings, order_gpr = phase("deep orders past 7", order_phase, dev)
     phase("driver entry", entry_phase, dev)
     phase("UEA files", uea_files_phase, dev)
+    phase("VOSF at config 6", vosf_config6_phase, dev, card)
+    phase("SigGPDE VOSF", sigpde_vosf_phase, dev, card)
+    phase("low-rank", lowrank_phase, dev, card)
+    phase("Softmax", softmax_phase, dev, card)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the

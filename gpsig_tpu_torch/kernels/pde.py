@@ -32,11 +32,9 @@ from torch import nn
 from gpsig_tpu_torch import config
 from gpsig_tpu_torch import params as pr
 from gpsig_tpu_torch.kernels import static_kernels as sk
+from gpsig_tpu_torch.ops import explicit as ex
 from gpsig_tpu_torch.ops import goursat
 from gpsig_tpu_torch.ops.signature import incremental_gram
-
-_VOSF = ("VOSF features under the untruncated prior (ops/explicit.py) are "
-         "not ported yet: ROADMAP: VOSF and low-rank")
 
 
 def _psd_project(K, floor):
@@ -171,5 +169,30 @@ class UntruncatedSignatureKernel(nn.Module):
         return self.sigma * self._diag_raw(Xs)
 
     def feature(self, X, num_levels):
-        """Ψ(X), the VOSF features of this kernel's Mercer expansion."""
-        raise NotImplementedError(_VOSF)
+        """Ψ(X): [N, 1 + Σ_{m ≤ num_levels} d^m], the rescaled truncated
+        signature coordinates of this kernel's Mercer expansion, the VOSF
+        ``Kuf`` under the untruncated prior. The kernel is
+        k(x, y) = σ·Σ_I S_I(x)S_I(y) over all words I, so
+
+            φ_I(x) = √σ · S_I(x)                (normalization=False)
+            φ_I(x) = √σ · S_I(x) / ‖S(x)‖       (normalization=True)
+
+        and any truncated prefix gives inter-domain features with Kuu = I.
+        ‖S(x)‖² is the self-kernel by the same finite-difference solve and
+        the same floor at 1 as ``K``'s normalisation (on a CUDA tensor the
+        refined Goursat kernel, and its adjoint under autograd). Only the
+        linear base lifts to explicit coordinates; other bases raise, as in
+        the JAX package."""
+        if not isinstance(self.base, sk.LinearBase):
+            raise NotImplementedError(
+                "VOSF features under the untruncated prior require the "
+                "linear base kernel (explicit signature coordinates exist "
+                f"only for the identity lift); got {type(self.base).__name__}")
+        Xs = self._scaled(X)
+        levels = ex.truncated_signature(Xs, num_levels)
+        N = Xs.shape[0]
+        F = torch.sqrt(self.sigma) * torch.cat(
+            [Xs.new_ones((N, 1))] + levels, dim=-1)
+        if self.normalization:
+            F = F / torch.sqrt(self._floor_diag(Xs))[:, None]
+        return F

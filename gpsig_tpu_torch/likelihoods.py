@@ -2,9 +2,11 @@
 
 Counterpart of ``gpsig_tpu/likelihoods.py``: Gaussian (closed form),
 Bernoulli (probit) and MultiClass (RobustMax), the last two by 30-point
-Gauss–Hermite quadrature. The Monte-Carlo Softmax is ROADMAP Queue 1
-item 6's remainder. ``variational_expectations`` take marginal
-means/variances [N, C] and return per-datapoint expectations [N].
+Gauss–Hermite quadrature, and the Monte-Carlo Softmax. Every
+``variational_expectations`` takes marginal means/variances [N, C] and a
+``generator`` (a ``torch.Generator``, where the JAX package takes a PRNG
+key; only a likelihood with ``needs_generator``, the Softmax, draws from
+it) and returns per-datapoint expectations [N].
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ class Gaussian(nn.Module):
     def variance(self):
         return pr.positive(self.raw_variance)
 
-    def variational_expectations(self, Y, Fmu, Fvar):
+    def variational_expectations(self, Y, Fmu, Fvar, generator=None):
         s2 = self.variance
         out = (-0.5 * torch.log(2.0 * math.pi * s2)
                - 0.5 * ((Y - Fmu) ** 2 + Fvar) / s2)
@@ -66,7 +68,7 @@ class Gaussian(nn.Module):
 class Bernoulli(nn.Module):
     """p(y=1|f) = Φ(f) (probit link), y ∈ {0, 1}."""
 
-    def variational_expectations(self, Y, Fmu, Fvar):
+    def variational_expectations(self, Y, Fmu, Fvar, generator=None):
         x, w = _gh(Fmu)
         f = Fmu[..., None] + torch.sqrt(2.0 * Fvar[..., None]) * x
         sign = 2.0 * Y[..., None] - 1.0
@@ -109,7 +111,7 @@ class MultiClass(nn.Module):
         prod = torch.prod(cdfs, dim=1)  # [N, Q]
         return torch.sum(prod * w[None, :], dim=-1) / math.sqrt(math.pi)
 
-    def variational_expectations(self, Y, Fmu, Fvar):
+    def variational_expectations(self, Y, Fmu, Fvar, generator=None):
         p = self._prob_is_largest(Y, Fmu, Fvar)
         C = self.num_classes
         return (p * math.log(1.0 - self.epsilon)
@@ -131,4 +133,73 @@ class MultiClass(nn.Module):
     def predict_log_density(self, Y, Fmu, Fvar):
         p, _ = self.predict_mean_and_var(Fmu, Fvar)
         y = Y.reshape(-1).to(device=Fmu.device, dtype=torch.int64)
+        return torch.log(torch.gather(p, -1, y[:, None])[:, 0] + 1e-12)
+
+
+def _labels(Y, like):
+    return Y.reshape(-1).to(device=like.device, dtype=torch.int64)
+
+
+class Softmax(nn.Module):
+    """p(y=c|f) = softmax(f)_c, with Monte-Carlo expectations by the
+    reparameterisation f = Fmu + √Fvar·ε, ε ~ N(0, I).
+
+    A draw (:meth:`draw`) and the function of (Fmu, Fvar, ε) are separate
+    steps, so that any ε can be fed in (:meth:`expected_log_prob`,
+    :meth:`moments`). Draws come from the ``generator`` passed, made on its
+    device and moved to Fmu's (the default generator on Fmu's device when
+    it is None). They are not the JAX package's draws: ``jax.random`` and
+    ``torch.Generator`` are different generators. Where JAX's
+    ``predict_mean_and_var`` defaults to ``PRNGKey(0)``, the port defaults
+    to a generator seeded 0 on Fmu's device: equally deterministic, with
+    other values."""
+
+    needs_generator = True
+
+    def __init__(self, num_classes, num_samples=20):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_samples = num_samples
+
+    @staticmethod
+    def draw(num_samples, Fmu, generator=None):
+        """ε ~ N(0, I) of shape [num_samples, *Fmu.shape], in Fmu's dtype
+        and on its device."""
+        device = Fmu.device if generator is None else generator.device
+        eps = torch.randn((num_samples,) + tuple(Fmu.shape),
+                          generator=generator, dtype=Fmu.dtype, device=device)
+        return eps.to(Fmu.device)
+
+    @staticmethod
+    def _samples(Fmu, Fvar, eps):
+        return Fmu[None] + torch.sqrt(torch.clamp(Fvar, min=1e-30))[None] * eps
+
+    def expected_log_prob(self, Y, Fmu, Fvar, eps):
+        """E[log softmax(f)_y] over the draws ε [S, N, C]: [N]."""
+        logp = torch.log_softmax(self._samples(Fmu, Fvar, eps), dim=-1)
+        y = _labels(Y, Fmu)
+        picked = torch.gather(
+            logp, -1, y[None, :, None].expand(logp.shape[0], -1, 1))[..., 0]
+        return torch.mean(picked, dim=0)
+
+    def moments(self, Fmu, Fvar, eps):
+        """Mean and variance of softmax(f) over the draws ε: [N, C] each."""
+        p = torch.softmax(self._samples(Fmu, Fvar, eps), dim=-1)
+        pm = torch.mean(p, dim=0)
+        return pm, torch.mean(p**2, dim=0) - pm**2
+
+    def variational_expectations(self, Y, Fmu, Fvar, generator=None):
+        eps = self.draw(self.num_samples, Fmu, generator)
+        return self.expected_log_prob(Y, Fmu, Fvar, eps)
+
+    def predict_mean_and_var(self, Fmu, Fvar, generator=None,
+                             num_samples=100):
+        if generator is None:
+            generator = torch.Generator(device=Fmu.device).manual_seed(0)
+        return self.moments(Fmu, Fvar, self.draw(num_samples, Fmu, generator))
+
+    def predict_log_density(self, Y, Fmu, Fvar, generator=None,
+                            num_samples=100):
+        p, _ = self.predict_mean_and_var(Fmu, Fvar, generator, num_samples)
+        y = _labels(Y, Fmu)
         return torch.log(torch.gather(p, -1, y[:, None])[:, 0] + 1e-12)

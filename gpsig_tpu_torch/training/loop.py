@@ -12,9 +12,17 @@ bias correction), and a parameter Adam skips is one JAX hands zero
 gradients forever.
 
 The JAX package's ``_value_and_grad_floats`` and ``float_only_optimizer``
-exist because its pytrees carry integer leaves; the port's modules hold
-only floating-point parameters, so neither is needed. Nor are PRNG keys:
-no likelihood of the port is Monte-Carlo. The model is trained in place.
+exist because its pytrees carry integer leaves (the low-rank kernel's
+sketch indices); the port keeps those as buffers, not parameters, so
+neither is needed. The model is trained in place.
+
+Random draws: where the JAX step takes a PRNG key, the port's takes a
+``torch.Generator``. JAX's step hands one key to both the natgrad ELBO and
+the loss, so both see the same Monte-Carlo draws; the port's step does the
+same by taking one seed from the generator and seeding a fresh generator
+with it, on the model's device, for each of the two evaluations. A step
+whose likelihood draws nothing (``needs_generator`` false) leaves the
+generator untouched.
 """
 
 from __future__ import annotations
@@ -42,26 +50,44 @@ def init_state(model, learning_rate):
                                               lr=learning_rate), 0)
 
 
+def _step_draws(model, generator):
+    """A function giving, at each call, a fresh generator seeded with one
+    seed taken from ``generator`` (the default generator when None) for
+    this step, so that every evaluation of the step draws the same values;
+    None throughout when the likelihood draws nothing."""
+    if not getattr(model.likelihood, "needs_generator", False):
+        return lambda: None
+    device = "cpu" if generator is None else generator.device
+    seed = int(torch.randint(0, 2**62, (), generator=generator,
+                             device=device))
+    where = model.q_mu.device
+    return lambda: torch.Generator(device=where).manual_seed(seed)
+
+
 def make_step_fn(learning_rate, num_data, gamma=0.1, use_natgrad=True,
                  freeze_variational_in_adam=None,
                  log_prior_fn: Callable | None = None):
-    """Build a ``(state, X, Y) -> (state, elbo)`` training step; the ELBO
-    returned is the post-natgrad, pre-Adam one (plus the log-prior under
-    MAP). ``step.init(model)`` makes its state with Adam at
+    """Build a ``(state, X, Y, generator=None) -> (state, elbo)`` training
+    step; the ELBO returned is the post-natgrad, pre-Adam one (plus the
+    log-prior under MAP). ``generator`` (a ``torch.Generator``) feeds a
+    Monte-Carlo likelihood's draws, the same in the step's natgrad ELBO and
+    its loss. ``step.init(model)`` makes its state with Adam at
     ``learning_rate``. log_prior_fn(model) -> scalar log-prior over
     hyperparameters enables MAP training."""
     if freeze_variational_in_adam is None:
         freeze_variational_in_adam = use_natgrad
 
-    def step(state, X, Y):
+    def step(state, X, Y, generator=None):
         model, opt = state.model, state.optimizer
+        draws = _step_draws(model, generator)
         if use_natgrad:
-            natgrad_step(model, gamma, X, Y, num_data=num_data)
+            natgrad_step(model, gamma, X, Y, num_data=num_data,
+                         generator=draws())
         opt.zero_grad(set_to_none=True)
         # the backward runs inside precise_linalg too: the forward's
         # decorator has returned by then, and TF32 would cut its products
         with precise_linalg():
-            loss = -model.elbo(X, Y, num_data=num_data)
+            loss = -model.elbo(X, Y, num_data=num_data, generator=draws())
             if log_prior_fn is not None:
                 loss = loss - log_prior_fn(model)
             loss.backward()
@@ -78,16 +104,17 @@ def make_step_fn(learning_rate, num_data, gamma=0.1, use_natgrad=True,
 def make_multi_step_fn(learning_rate, num_data, gamma=0.1, use_natgrad=True,
                        freeze_variational_in_adam=None,
                        log_prior_fn: Callable | None = None):
-    """``(state, Xb [k, B, ...], Yb [k, B]) -> (state, elbos [k])``: k
-    minibatch steps in a Python loop, the same math as k calls of
-    :func:`make_step_fn`'s step with the same batches."""
+    """``(state, Xb [k, B, ...], Yb [k, B], generator=None) -> (state,
+    elbos [k])``: k minibatch steps in a Python loop, the same math as k
+    calls of :func:`make_step_fn`'s step with the same batches and the same
+    generator."""
     step = make_step_fn(learning_rate, num_data, gamma, use_natgrad,
                         freeze_variational_in_adam, log_prior_fn)
 
-    def multi(state, Xb, Yb):
+    def multi(state, Xb, Yb, generator=None):
         elbos = []
         for X, Y in zip(Xb, Yb):
-            state, elbo = step(state, X, Y)
+            state, elbo = step(state, X, Y, generator)
             elbos.append(elbo)
         return state, torch.stack(elbos)
 
@@ -109,7 +136,9 @@ def fit(model, X, Y, num_iters=500, batch_size=None, learning_rate=1e-3,
         val_metric: Callable | None = None):
     """Full-data or minibatch fitting loop (host-side batching, drawn with
     ``np.random.default_rng(seed).choice`` as in JAX, so a run can be held
-    against it exactly).
+    against it exactly). A Monte-Carlo likelihood draws from a
+    ``torch.Generator`` seeded ``seed`` on X's device, where JAX splits
+    ``PRNGKey(seed)``.
 
     val_data=(Xv, yv) enables validation early stopping: evaluate
     ``val_metric`` (default: accuracy) every ``val_every`` iterations, keep
@@ -119,6 +148,7 @@ def fit(model, X, Y, num_iters=500, batch_size=None, learning_rate=1e-3,
     step_fn = make_step_fn(learning_rate, N, gamma, use_natgrad)
     state = step_fn.init(model)
     rng = np.random.default_rng(seed)
+    generator = torch.Generator(device=X.device).manual_seed(seed)
     history = []
     metric = val_metric if val_metric is not None else default_val_metric
     best_score, best_model, stale = -np.inf, None, 0
@@ -129,7 +159,7 @@ def fit(model, X, Y, num_iters=500, batch_size=None, learning_rate=1e-3,
             idx = torch.as_tensor(rng.choice(N, batch_size, replace=False),
                                   device=X.device)
             xb, yb = X[idx], Y[idx]
-        state, elbo = step_fn(state, xb, yb)
+        state, elbo = step_fn(state, xb, yb, generator)
         if it % log_every == 0 or it == num_iters - 1:
             history.append((it, float(elbo)))
             if callback is not None:

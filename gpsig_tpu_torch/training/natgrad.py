@@ -100,10 +100,13 @@ def gaussian_natgrad_update(mu, S, g_mu, g_S, gamma, jitter=1e-8,
     return mu_out, q_out
 
 
-def natgrad_step(model, gamma, X, Y, num_data=None, jitter=1e-8):
+def natgrad_step(model, gamma, X, Y, num_data=None, jitter=1e-8,
+                 generator=None):
     """One natural-gradient ascent step on (q_mu, q_sqrt) of an SVGP,
     written into the model in place; returns the model. Hyperparameters
-    are untouched. ∂ELBO/∂S flows through cholesky(S), as in JAX."""
+    are untouched. ∂ELBO/∂S flows through cholesky(S), as in JAX.
+    ``generator`` goes to the ELBO (a Monte-Carlo likelihood draws from
+    it)."""
     diag = model.q_diag
     mu = model.q_mu.detach().clone().requires_grad_()
     if diag:
@@ -113,7 +116,8 @@ def natgrad_step(model, gamma, X, Y, num_data=None, jitter=1e-8):
         S = (Lq @ Lq.transpose(-1, -2)).requires_grad_()
     with torch.enable_grad(), precise_linalg():
         q_sqrt = torch.sqrt(S) if diag else torch.linalg.cholesky(S)
-        elbo = model.elbo_at(mu, q_sqrt, X, Y, num_data=num_data)
+        elbo = model.elbo_at(mu, q_sqrt, X, Y, num_data=num_data,
+                             generator=generator)
         g_mu, g_S = torch.autograd.grad(elbo, (mu, S))
     mu_new, q_sqrt_new = gaussian_natgrad_update(
         mu.detach(), S.detach(), g_mu, g_S, gamma, jitter, diag)

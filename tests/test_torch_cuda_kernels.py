@@ -1591,3 +1591,144 @@ def test_order8_signature_kernel_on_card_matches_cpu(cuda_device):
         out[str(dev)] = [t.detach().cpu() for t in (K, k.Kdiag(Xd), gx)]
     for a, b in zip(out[str(cuda_device)], out["cpu"]):
         assert _scaled_err(a, b) < 1e-10
+
+
+def _vosf_model(dev, prior="explicit", likelihood=None, seed=30):
+    """A float64 Kuu = I SVGP (q_diag, 4 classes) with q_mu and q_sqrt
+    drawn: under ExplicitSignatureKernel(2, 4), or (``prior="pde"``) under
+    the untruncated kernel (Linear base, ARD, normalised, dyadic order 1)
+    with features of 3 levels; and 10 sequences of L = 12, d = 2."""
+    from gpsig_tpu_torch.kernels.pde import UntruncatedSignatureKernel
+    from gpsig_tpu_torch.kernels.vosf import (ExplicitSignatureKernel,
+                                              OrthogonalSignatureFeatures)
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+
+    rng = np.random.default_rng(seed)
+    if prior == "explicit":
+        kern = ExplicitSignatureKernel.create(2, 4, lengthscales=[0.8, 1.2],
+                                              device=dev)
+        feat = OrthogonalSignatureFeatures.for_kernel(kern)
+    else:
+        kern = UntruncatedSignatureKernel.create(
+            2, lengthscales=[0.8, 1.2], normalization=True, dyadic_order=1,
+            device=dev)
+        feat = OrthogonalSignatureFeatures.for_kernel(kern, num_levels=3)
+    M = feat.num_inducing
+    model = SVGP.create(kern, likelihood or MultiClass(4), feat, 4,
+                        q_diag=True, device=dev)
+    with torch.no_grad():
+        model.q_mu.copy_(torch.as_tensor(0.5 * rng.standard_normal((M, 4))))
+        model.q_sqrt.copy_(torch.as_tensor(rng.uniform(0.3, 1.0, (M, 4))))
+    X = torch.as_tensor(_walks(rng, 10, 12, 2), device=dev)
+    Y = torch.as_tensor(rng.integers(0, 4, 10), device=dev)
+    return model, X, Y
+
+
+def _steps_and_predictions(model, X, Y, generator=None, steps=2):
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    step = make_step_fn(1e-2, num_data=40, gamma=0.1)
+    state, out = step.init(model), []
+    for _ in range(steps):
+        state, elbo = step(state, X, Y, generator)
+        out.append(elbo.cpu())
+    with torch.no_grad():
+        out += [t.cpu() for t in model.posterior().predict_f(X)]
+    return out + [p.detach().cpu() for p in model.parameters()]
+
+
+def _elbo_gradients_natgrad(model, X, Y):
+    """The ELBO, its gradients, the cached posterior's predict_f and one
+    natgrad step's q_mu and q_sqrt, on the CPU."""
+    from gpsig_tpu_torch.training.natgrad import natgrad_step
+
+    elbo = model.elbo(X, Y, num_data=40)
+    elbo.backward()
+    grads = [p.grad.cpu() for p in model.parameters()]
+    with torch.no_grad():
+        pred = [t.cpu() for t in model.posterior().predict_f(X)]
+    natgrad_step(model, 0.1, X, Y, num_data=40)
+    return ([elbo.detach().cpu()] + pred
+            + [model.q_mu.detach().cpu(), model.q_sqrt.detach().cpu()],
+            grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prior", ["explicit", "pde"])
+def test_vosf_svgp_on_card_matches_cpu(cuda_device, prior):
+    """A float64 Kuu = I SVGP on the card against the CPU, scaled 1e-10:
+    the ELBO, its gradients (scaled by the largest: under RobustMax the
+    ELBO is invariant to σ, whose gradient is rounding noise), the cached
+    posterior's predictions and a natgrad step. No Adam step: it moves a
+    noise-level gradient's parameter by up to lr·g/(|g| + 1e-8). Under the
+    untruncated prior the features' normalisation launches the refined
+    Goursat kernel and the ELBO's backward its adjoint."""
+    import copy
+
+    from gpsig_tpu_torch.ops.cuda import goursat as tgs
+
+    model, X, Y = _vosf_model("cpu", prior)
+    card = copy.deepcopy(model).to(cuda_device)
+    want, want_g = _elbo_gradients_natgrad(model, X, Y)
+    n0 = (tgs.fused_launches, tgs.grad_launches)
+    got, got_g = _elbo_gradients_natgrad(card, X.to(cuda_device),
+                                         Y.to(cuda_device))
+    if prior == "pde":
+        assert tgs.fused_launches > n0[0] and tgs.grad_launches > n0[1]
+    for g, w in zip(got, want):
+        assert _scaled_err(g, w) <= 1e-10
+    scale = max(w.abs().max().item() for w in want_g)
+    for g, w in zip(got_g, want_g):
+        assert (g - w).abs().max().item() / scale <= 1e-10
+
+
+@pytest.mark.cuda
+def test_low_rank_svgp_on_card_matches_cpu(cuda_device):
+    """The @lowrank window's model in float64 at a small size (c = 8,
+    every level sketched, 6 inducing sequences of length 4): K, Kdiag and
+    the ELBO on the card, with the CPU model's landmarks and pair indices,
+    against the CPU, scaled 1e-10 (the Grams are invariant to eigh's sign
+    and rotation choices, which differ between cuSOLVER and LAPACK)."""
+    import copy
+
+    from gpsig_tpu_torch.inducing import make_inducing_sequences_from_data
+    from gpsig_tpu_torch.kernels.low_rank import LowRankSignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+
+    rng = np.random.default_rng(31)
+    X = torch.as_tensor(_walks(rng, 12, 15, 3))
+    Y = torch.as_tensor(rng.integers(0, 5, 12))
+    gen = torch.Generator().manual_seed(0)
+    kern = LowRankSignatureRBF(gen, X, 3, 4, num_components=8,
+                               lengthscales=3**0.5, device="cpu")
+    feat = make_inducing_sequences_from_data(gen, X, 6, 4, 3)
+    model = SVGP.create(kern, MultiClass(5), feat, 5, device="cpu")
+    card = copy.deepcopy(model).to(cuda_device)
+    out = {}
+    for name, m, x, y in (("cpu", model, X, Y),
+                          ("card", card, X.to(cuda_device),
+                           Y.to(cuda_device))):
+        with torch.no_grad():
+            out[name] = [m.kernel.K(x), m.kernel.Kdiag(x),
+                         m.elbo(x, y, num_data=40)]
+    for g, w in zip(out["card"], out["cpu"]):
+        assert _scaled_err(g.cpu(), w) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_softmax_steps_on_card_repeat_bitwise(cuda_device):
+    """Two natgrad + Adam steps of a VOSF SVGP with the Monte-Carlo
+    Softmax, drawn on the card from a generator seeded alike, twice:
+    bitwise equal; a third run from another seed differs."""
+    from gpsig_tpu_torch.likelihoods import Softmax
+
+    def run(seed):
+        model, X, Y = _vosf_model(cuda_device, likelihood=Softmax(4))
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        return _steps_and_predictions(model, X, Y, gen)
+
+    a, b, c = run(1), run(1), run(2)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])

@@ -122,6 +122,9 @@ def test_port_imports_without_jax():
         "import gpsig_tpu_torch.ops.cuda.tens_seq_general\n"
         "import gpsig_tpu_torch.ops.cuda.sig_gram\n"
         "import gpsig_tpu_torch.training.loop\n"
+        "import gpsig_tpu_torch, gpsig_tpu_torch.ops.explicit\n"
+        "import gpsig_tpu_torch.ops.low_rank, gpsig_tpu_torch.kernels.vosf\n"
+        "import gpsig_tpu_torch.kernels.low_rank\n"
         "assert not any(m.startswith('jax') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
         "print('ok')\n"

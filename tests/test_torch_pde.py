@@ -153,9 +153,15 @@ def test_normalisation_floor_splits_the_gradient_at_a_tie():
 
 
 def test_feature_is_not_ported_yet():
-    _, tk = kern_pair()
-    with pytest.raises(NotImplementedError, match="VOSF and low-rank"):
-        tk.feature(torch.zeros(2, 4, D), 3)
+    """``feature`` (the VOSF features under the untruncated prior) on a
+    constant sequence, whose signature is 1 and 0 past level 0, and on
+    walks, against JAX's; ``test_torch_vosf.py`` holds its gradients."""
+    jk, tk = kern_pair()
+    X = np.concatenate([np.zeros((1, 4, D)),
+                        walks(np.random.default_rng(9), 2, 4)])
+    got = tk.feature(torch.as_tensor(X), 3)
+    close(got, jk.feature(X, 3))
+    close(got[0], np.sqrt(1.3) * np.eye(1, 15)[0])
 
 
 def test_engine_typo_raises_at_the_first_solve():

@@ -220,13 +220,40 @@ def test_svgp_parameter_names_mirror_jax():
 
 
 def test_identity_features_are_not_ported_yet():
+    """Inducing features with ``kuu_is_identity`` take the Kuu = I path:
+    no Kuu is formed, and predict_f and the ELBO equal the whitened
+    conditional and KL at Kmm = I."""
+    rng = np.random.default_rng(4)
+    kern = tsk.SignatureRBF(D, NL, device="cpu")
+    X = torch.as_tensor(walks(rng, N))
+    Kuf = torch.as_tensor(0.3 * rng.standard_normal((3, N)))
+
     class Identity(torch.nn.Module):
         kuu_is_identity = True
         num_inducing = 3
 
-    with pytest.raises(NotImplementedError, match="VOSF and low-rank"):
-        tsvgp.SVGP.create(tsk.SignatureRBF(D, NL, device="cpu"),
-                          tlik.MultiClass(C), Identity(), C, device="cpu")
+        def Kuu(self, kernel, jitter=None):
+            raise AssertionError("Kuu = I is never formed")
+
+        def Kuf(self, kernel, X):
+            return Kuf
+
+    for q_diag in (True, False):
+        m = tsvgp.SVGP.create(kern, tlik.MultiClass(C), Identity(), C,
+                              q_diag=q_diag, device="cpu")
+        q_sqrt = (rng.uniform(0.3, 1.0, (3, C)) if q_diag else
+                  np.tril(0.3 * rng.standard_normal((C, 3, 3))))
+        with torch.no_grad():
+            m.q_mu.copy_(torch.as_tensor(rng.standard_normal((3, C))))
+            m.q_sqrt.copy_(torch.as_tensor(q_sqrt))
+        want = tgauss.conditional(Kuf, torch.eye(3, dtype=torch.float64),
+                                  kern.Kdiag(X), m.q_mu, m._tril_q_sqrt())
+        for got, w in zip(m.predict_f(X), want):
+            close(got, w.detach(), rtol=1e-12)
+        Y = torch.as_tensor(rng.integers(0, C, N))
+        elbo = (torch.sum(m.likelihood.variational_expectations(Y, *want))
+                - tgauss.gauss_kl(m.q_mu, m._tril_q_sqrt()))
+        close(m.elbo(X, Y), elbo.detach(), rtol=1e-12)
 
 
 def test_gpr_matches_jax():
