@@ -8,8 +8,9 @@ model at wide and long UEA shapes (PEMS-SF, MotorImagery), and every
 sequence length and order (sig_gram's bands, orders 4-7, the inducing-
 sequence SVGP at L = 3000, GPRs past 1024 rows), sig_gram past order 7,
 the entry twin of ``__graft_entry__.py``, UEA archive files through the
-port's reader, and the rest of the GP layer (VOSF at BASELINE config 6,
-VOSF under the PDE prior, the low-rank kernel, the Monte-Carlo Softmax).
+port's reader, the rest of the GP layer (VOSF at BASELINE config 6,
+VOSF under the PDE prior, the low-rank kernel, the Monte-Carlo Softmax),
+and NUTS at BASELINE config 5 (16 chains as one batch).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -183,12 +184,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
    landmarks and pairs, the float32 difference stated; the config-6 model
    with ``Softmax(10, 20)``: 2 steps and ``predict_y`` from seeded
    generators, twice, bitwise equal;
-17. report: one JSON line with every kernel's launches, error, times and
+17. NUTS at BASELINE config 5 (``benchmarks/config5_nuts.py``: 16
+   chains, N = 40 sequences of L = 20, d = 2, nl = 3), within a budget of
+   NUTS_BUDGET_S seconds checked by the phase: the order-1 Gram, its
+   diagonal and the Gram's backward with the chain axis [16, 40, 20, 2]
+   against their plain versions in float32 and float64 and against 16
+   unbatched launches (the forward and diagonal bitwise, the backward
+   within its atomics' reordering), each timed as one launch, 16 launches
+   and the plain version; config 5's target through ``make_chunked_sampler``
+   (max_depth 6, chunks of 25; the draw counts cut to CONFIG5_RUN), the
+   three counters reset just before and rising by exactly one a
+   logp-and-gradient evaluation, with wall time, draws/s, the smallest
+   ESS and ESS/s, the largest split-R̂, mean leaves, divergences, batch
+   utilisation, host reads a transition and the posterior mean
+   lengthscales; 10 float64 transitions on the card against the CPU on
+   the CPU's draws (its generators' states replayed), each from the CPU's
+   carry (1e-9) and freely
+   (no branch may flip); a run stopped after 2 chunks and resumed from its
+   checkpoint, bitwise equal to an uninterrupted one on a deterministic
+   target, config 5's printed;
+18. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
    launches on the long path, under "long"; rows 10-13 with the same
    at num_levels = 10, under "deep"; rows 12-13 the run-time-order
-   instance's at num_levels = 8, order 8, under "order"), then the device
-   line.
+   instance's at num_levels = 8, order 8, under "order"; rows 1-3 the
+   chain axis at config 5, under "nuts": one launch, 16 unbatched
+   launches, plain and bound in ms, launches in the NUTS run and a
+   transition), then the device line.
 
 It imports nothing of JAX. Without a CUDA device, or without the package
 beside it, it exits non-zero before printing any result.
@@ -4523,6 +4545,402 @@ def softmax_phase(dev, card):
           f"{Xte.shape[0]}: {t_pred:.1f} ms")
 
 
+# ---------------------------------------------------------------------------
+# NUTS at BASELINE config 5 (benchmarks/config5_nuts.py): 16 chains as one
+# batch, the order-1 Gram kernels taking a chain axis.
+# ---------------------------------------------------------------------------
+
+CONFIG5 = dict(chains=16, n=40, L=20, d=2, levels=3, warmup=200,
+               samples=200, max_depth=6, draws_per_dispatch=25)
+#: the draw counts the phase runs: config 5's 200 + 200 took 102 s on an
+#: H100 (11-19 ms a leaf, host-bound, varying from machine to machine),
+#: past the phase's budget, so the counts are cut (never the width); at
+#: 60 + 60 the chains have not converged, and the run says so
+CONFIG5_RUN = dict(warmup=60, samples=60)
+#: chains of the float64 card-vs-CPU check (its CPU run, the plain
+#: versions in float64, takes ~2 s a transition at 16 chains)
+NUTS_F64_CHAINS = 4
+#: the largest split-R̂ below which the config-5 run counts as converged
+RHAT_CONVERGED = 1.05
+#: the phase's wall-time budget in seconds: a phase that overruns fails
+NUTS_BUDGET_S = 90.0
+#: float64 card against CPU on replayed draws: samples, step sizes and
+#: accept statistics, scaled
+NUTS_F64_TOL = (1e-9, "float64, one transition of up to 15 leapfrogs "
+                "from the same carry, the kernels summing in another "
+                "order than the plain versions (atomics among them)")
+#: a chain-axis backward against the same kernel a chain at a time, scaled
+#: (its atomics add the same terms in a run-dependent order)
+CHAIN_BWD_TOL = {"float32": 1e-6, "float64": 1e-14}
+
+
+def config5_data(torch, dev, dtype, n=None):
+    from gpsig_tpu_torch.data.synthetic import regression_sequences
+
+    X, y = regression_sequences(seed=SEED, N=n or CONFIG5["n"],
+                                L=CONFIG5["L"], d=CONFIG5["d"])
+    return (torch.as_tensor(X, dtype=dtype, device=dev),
+            torch.as_tensor(y, dtype=dtype, device=dev))
+
+
+def config5_theta0(torch, dev, dtype):
+    """θ0 [C, D] = 0.1 · standard normals from a generator seeded 1 (the
+    JAX script's theta0 from PRNGKey(1), not reproducible here)."""
+    dim = CONFIG5["d"] + CONFIG5["levels"] + 2
+    g = torch.Generator().manual_seed(1)
+    return (0.1 * torch.randn(CONFIG5["chains"], dim, generator=g,
+                              dtype=torch.float64)).to(dtype=dtype,
+                                                       device=dev)
+
+
+def chain_axis_kernels(dev):
+    """The three order-1 kernels with config 5's chain axis against their
+    plain versions (float32, float64), against a loop of unbatched
+    launches, and timed: one chain-axis launch, C unbatched launches and
+    the plain version."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
+
+    C, n, L, d, nl = (CONFIG5[k] for k in ("chains", "n", "L", "d",
+                                           "levels"))
+    rng = np.random.default_rng(SEED + 50)
+    # the scaled sequences of C chains' lengthscales, as the target's
+    ell = rng.uniform(0.5, 2.0, (C, 1, 1, d))
+    X0 = walks(rng, n, L, d)[None] / ell
+    G0 = rng.standard_normal((C, nl + 1, n, n))
+    tri = n * (n + 1) // 2
+    item = 4
+    fwd_bytes = item * (C * n * L * d + C * (nl + 1) * n * n)
+    works = {
+        "gram": (C * tri / (n * n) * gram_work(n, n, L, d, nl), fwd_bytes),
+        "diag": (gram_self_work(C * n, L, d, nl),
+                 item * (C * n * L * d + C * (nl + 1) * n)),
+        "gram_bwd": (3 * C * gram_work(n, n, L, d, nl),
+                     item * (2 * C * n * L * d + C * (nl + 1) * n * n)),
+    }
+    calls = {
+        "gram": (lambda X, g: fg.fused_gram_levels(X, X, nl, True, True),
+                 lambda X, g: fg.fused_gram_levels_ref(X, X, nl, True)),
+        "diag": (lambda X, g: fg.fused_diag_levels(X, nl, True),
+                 lambda X, g: fg.fused_diag_levels_ref(X, nl, True)),
+        "gram_bwd": (lambda X, g: fg.fused_gram_levels_bwd(X, X, g, nl),
+                     lambda X, g: fg.fused_gram_levels_bwd_ref(X, X, g, nl)),
+    }
+    tol = {"gram": TOL, "diag": TOL, "gram_bwd": BWD_TOL}
+    report = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        X = torch.as_tensor(X0, dtype=dtype, device=dev).contiguous()
+        G = torch.as_tensor(G0, dtype=dtype, device=dev)
+        for key, (kern, plain) in calls.items():
+            got, want = kern(X, G), plain(X, G)
+
+            def loop():
+                outs = [kern(X[c], G[c]) for c in range(C)]
+                if isinstance(outs[0], tuple):
+                    return tuple(torch.stack(o) for o in zip(*outs))
+                return torch.stack(outs)
+
+            looped, again = loop(), loop()
+            torch.cuda.synchronize()
+            err, max_abs = scaled_err(got, want), abs_err(got, want)
+            limit, why = tol[key][name]
+            print(f"nuts chain axis {key} C={C} N={n} L={L} {name}: scaled "
+                  f"err {err:.3e} (max abs {max_abs:.3e}) against the plain "
+                  f"version, tolerance {limit:g}: {why}")
+            check(err <= limit, f"nuts chain axis {key} {name}: {err}")
+            pairs = (list(zip(got, looped)) if isinstance(got, tuple)
+                     else [(got, looped)])
+            bitwise = all(torch.equal(a, b) for a, b in pairs)
+            if key == "gram_bwd":
+                spread = scaled_err(looped, again)
+                gap = scaled_err(got, looped)
+                print(f"nuts chain axis {key} {name}: bitwise equal to "
+                      f"{C} unbatched launches {bitwise} (scaled gap "
+                      f"{gap:.3e}; two loops of unbatched launches differ "
+                      f"by {spread:.3e}: X̄ and Ȳ sum with atomics)")
+                check(gap <= CHAIN_BWD_TOL[name], f"nuts chain axis {key} "
+                      f"{name}: {gap} from the unbatched launches")
+            else:
+                print(f"nuts chain axis {key} {name}: bitwise equal to {C} "
+                      f"unbatched launches {bitwise}")
+                check(bitwise, f"nuts chain axis {key} {name}: differs from "
+                      f"{C} unbatched launches")
+            if dtype == torch.float32:
+                ms = cuda_ms(lambda: kern(X, G))
+                loop_ms = cuda_ms(loop)
+                plain_ms = cuda_ms(lambda: plain(X, G))
+                report[key] = dict(max_abs_err=max_abs, ms=ms,
+                                   loop_ms=loop_ms, plain_ms=plain_ms,
+                                   **bound(*works[key]))
+                print(f"time nuts chain axis {key} float32: one launch "
+                      f"{ms:.4f} ms, {C} unbatched launches {loop_ms:.4f} "
+                      f"ms, plain {plain_ms:.4f} ms, bound "
+                      f"{report[key]['bound_ms']:.4f} ms "
+                      f"({report[key]['bound_by']})")
+        del X, G
+    return report
+
+
+def nuts_config5_run(dev, card):
+    """Config 5 at its defaults, float32, through the chunked sampler; the
+    three kernels' counters reset just before and read just after."""
+    import torch
+
+    from gpsig_tpu_torch.mcmc import nuts
+    from gpsig_tpu_torch.mcmc.targets import signature_gpr_logp
+    from gpsig_tpu_torch.parallel.chains import make_chunked_sampler
+    from gpsig_tpu_torch.utils.metrics import (effective_sample_size,
+                                               split_rhat)
+
+    f32 = torch.float32
+    C, d, nl = CONFIG5["chains"], CONFIG5["d"], CONFIG5["levels"]
+    W, S = CONFIG5_RUN["warmup"], CONFIG5_RUN["samples"]
+    X, y = config5_data(torch, dev, f32)
+    logp = signature_gpr_logp(X, y, nl)
+    sampler = make_chunked_sampler(
+        logp, num_warmup=W, num_samples=S, max_depth=CONFIG5["max_depth"],
+        draws_per_dispatch=CONFIG5["draws_per_dispatch"])
+    theta0 = config5_theta0(torch, dev, f32)
+    chunks = []
+    reset_counters()
+    evals0, reads0 = nuts.evaluations, nuts.host_reads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, info = sampler(
+        SEED, theta0, on_chunk=lambda ph, pos, tot: chunks.append(
+            (ph, pos, time.perf_counter() - t0)))
+    wall = time.perf_counter() - t0
+    n = counters()
+    evals = nuts.evaluations - evals0
+    reads = nuts.host_reads - reads0
+    launches = {k: n[k] for k in ("gram", "diag", "gram_bwd")}
+    print(f"nuts config 5: {evals} logp-and-gradient evaluations, launches "
+          f"{launches} (one each an evaluation, for all {C} chains)")
+    for k, v in launches.items():
+        check(v == evals, f"nuts config 5: {k} launched {v} times for "
+              f"{evals} evaluations")
+    others = {k: v for k, v in n.items() if k not in launches and v}
+    check(not others, f"nuts config 5: other kernels launched {others}")
+    check(np.all(np.isfinite(samples)), "nuts config 5: samples not finite")
+    check(samples.shape == (C, S, d + nl + 2),
+          f"nuts config 5: samples {samples.shape}")
+    ess = effective_sample_size(samples)
+    rhat = split_rhat(samples)
+    leaves = info["num_leaves"].astype(np.float64)  # [C, S]
+    util = leaves.sum() / (C * leaves.max(axis=0).sum())
+    trans = W + S
+    ell = np.exp(samples.reshape(-1, d + nl + 2)[:, :d].mean(0))
+    warm_s = next(t for ph, pos, t in chunks if ph == "warmup" and pos == W)
+    converged = ("converged" if rhat.max() < RHAT_CONVERGED else
+                 f"NOT converged (split-R̂ ≥ {RHAT_CONVERGED}): the ESS and "
+                 "R̂ describe this short run, not config 5's posterior")
+    print(f"nuts config 5 on {card}: {C} chains, {W} warmup + {S} samples, "
+          f"max_depth {CONFIG5['max_depth']}, chunks of "
+          f"{CONFIG5['draws_per_dispatch']}: wall {wall:.2f} s (warmup "
+          f"{warm_s:.2f} s), {C * S / wall:.2f} draws/s, smallest ESS "
+          f"{ess.min():.1f} ({ess.min() / wall:.3f} ESS/s), largest split-R̂ "
+          f"{rhat.max():.4f}, mean leaves {leaves.mean():.2f}, divergence "
+          f"share {info['diverging'].mean():.4f}, mean accept "
+          f"{info['accept_prob'].mean():.3f}, step sizes "
+          f"{np.round(info['step_size'], 4).tolist()}, batch utilisation "
+          f"{util:.3f}, {reads / trans:.2f} host reads and "
+          f"{evals / trans:.2f} evaluations a transition, "
+          f"{1e3 * wall / evals:.2f} ms an evaluation, posterior mean "
+          f"lengthscales {ell.tolist()}; {converged}")
+    # where a leaf's time goes: one logp-and-gradient evaluation of the 16
+    # chains (after the counters were read)
+    profile_split(lambda: nuts.value_and_grad(logp)(theta0),
+                  "nuts config 5 logp and gradient (16 chains)")
+    return launches, dict(evaluations=evals, transitions=trans)
+
+
+def _to(device, carry):
+    """A sampler carry (tensors and NamedTuples of tensors) on ``device``."""
+    return tuple(type(x)(*(t.to(device) for t in x)) if isinstance(x, tuple)
+                 else x.to(device) for x in carry)
+
+
+def nuts_float64_card_vs_cpu(dev):
+    """10 transitions (5 warmup, 5 sampling) of NUTS_F64_CHAINS chains at
+    max_depth 4 and N = 12, float64, with config 5's shared step size. The CPU runs
+    them, keeping the carry and the chains' generator states before each
+    transition; the card then takes each transition from the CPU's carry
+    with the generators restored to those states (they live on the CPU
+    whatever the target's device, so they give the same draws), so that rounding does not compound from one transition to the
+    next (Hamiltonian trajectories amplify it): θ, log p, the step size
+    and the accept statistics agree to NUTS_F64_TOL a transition, and a
+    discrete branch that flips is named by its transition and chain. Last
+    the card runs the 10 transitions from the start on the same draws: no
+    branch may flip, and the compounded gap is printed."""
+    import torch
+
+    from gpsig_tpu_torch.mcmc import sample as smp
+    from gpsig_tpu_torch.mcmc.draws import DrawSource
+    from gpsig_tpu_torch.mcmc.nuts import nuts_kernel
+    from gpsig_tpu_torch.mcmc.targets import signature_gpr_logp
+
+    f64, C, nl = torch.float64, NUTS_F64_CHAINS, CONFIG5["levels"]
+    W, S, depth = 5, 5, 4
+    cpu = torch.device("cpu")
+
+    def steps(device):
+        """(init, warm step, sampling step, last transition's leaves)."""
+        X, y = config5_data(torch, device, f64, n=12)
+        logp = signature_gpr_logp(X, y, nl)
+        base = nuts_kernel(logp, max_depth=depth)
+        last = {}
+
+        def kernel(*args, **kw):
+            state, info = base(*args, **kw)
+            last["leaves"] = info["num_leaves"]
+            return state, info
+
+        warm = smp.make_warm_step(kernel, 0.8, int(0.1 * W), int(0.9 * W),
+                                  lambda a: a.mean().expand_as(a))
+        return (lambda th: smp.init_carry(logp, th, 0.1), warm,
+                smp.make_samp_step(kernel), last)
+
+    def replay(states):
+        """The chains' draws from generator states taken on the CPU."""
+        draws = DrawSource.from_seed(SEED, C)
+        draws.load_state_dict(states)
+        return draws
+
+    def run(step_set, draws, carry, t):
+        """Transition t from ``carry``: (carry, accept, leaves)."""
+        _, warm, samp, last = step_set
+        if t < W:
+            carry, acc = warm(carry, t, draws)
+            if t == W - 1:  # the switch to sampling, as the sampler's
+                st, da, _, im = carry
+                carry = (st, torch.exp(da.log_eps_bar), im)
+        else:
+            carry, out = samp(carry, draws)
+            acc = out["accept_prob"]
+        return carry, acc, last["leaves"]
+
+    def step_size(carry):
+        return torch.exp(carry[1].log_eps) if len(carry) == 4 else carry[1]
+
+    cpu_steps, card_steps = steps(cpu), steps(dev)
+    draws = DrawSource.from_seed(SEED, C)
+    carry = cpu_steps[0](config5_theta0(torch, cpu, f64)[:C])
+    history = []
+    for t in range(W + S):
+        before, states = carry, draws.state_dict()
+        carry, acc, leaves = run(cpu_steps, draws, carry, t)
+        history.append((before, states, carry, acc, leaves))
+    limit, why = NUTS_F64_TOL
+    worst = {}
+    for t, (before, states, after, acc, leaves) in enumerate(history):
+        got, gacc, gleaves = run(card_steps, replay(states),
+                                 _to(dev, before), t)
+        flips = np.flatnonzero(gleaves.cpu().numpy() != leaves.numpy())
+        check(not len(flips), f"nuts float64: a discrete branch flipped at "
+              f"transition {t}, chain {flips[0] if len(flips) else -1}")
+        errs = {"theta": (got[0].theta, after[0].theta),
+                "logp": (got[0].logp, after[0].logp),
+                "step_size": (step_size(got), step_size(after)),
+                "accept": (gacc, acc)}
+        for k, (a, b) in errs.items():
+            worst[k] = max(worst.get(k, 0.0), scaled_err(a.cpu(), b))
+    print(f"nuts float64 card vs CPU, each of {W + S} transitions from the "
+          f"CPU's carry on its draws ({C} chains, N = 12, max_depth {depth})"
+          f": worst { {k: f'{v:.3e}' for k, v in worst.items()} }, "
+          f"tolerance {limit:g}: {why}")
+    for k, v in worst.items():
+        check(v <= limit, f"nuts float64 card vs CPU: {k} {v}")
+    carry = _to(dev, history[0][0])
+    draws = replay(history[0][1])
+    for t, (_, _, after, acc, leaves) in enumerate(history):
+        carry, gacc, gleaves = run(card_steps, draws, carry, t)
+        flips = np.flatnonzero(gleaves.cpu().numpy() != leaves.numpy())
+        check(not len(flips), f"nuts float64 free run: a discrete branch "
+              f"flipped at transition {t}, chain "
+              f"{flips[0] if len(flips) else -1}")
+    print(f"nuts float64 card vs CPU, the {W + S} transitions run freely on "
+          f"the card: no branch flipped; compounded gap after them: θ "
+          f"{scaled_err(carry[0].theta.cpu(), after[0].theta):.3e}, accept "
+          f"{scaled_err(gacc.cpu(), acc):.3e}")
+
+
+def nuts_resume_on_card(dev, tmp):
+    """Stop after 2 chunks (max_chunks), resume from the checkpoint, and
+    compare with an uninterrupted run. On a deterministic target (a
+    correlated Gaussian in elementwise ops) the two are held bitwise equal;
+    on config 5's target the Gram backward's atomics make the gradient
+    differ run to run in its last bits, so that comparison is printed."""
+    import torch
+
+    from gpsig_tpu_torch.mcmc.targets import signature_gpr_logp
+    from gpsig_tpu_torch.parallel.chains import make_chunked_sampler
+
+    f32, C = torch.float32, CONFIG5["chains"]
+    prec = torch.as_tensor([[1.0, -0.8], [-0.8, 1.3]], dtype=f32, device=dev)
+
+    def gauss(x):
+        return -0.5 * torch.sum(x[..., :, None] * prec * x[..., None, :],
+                                dim=(-2, -1))
+
+    X, y = config5_data(torch, dev, f32)
+    targets = {"Gaussian": (gauss, 2),
+               "config 5": (signature_gpr_logp(X, y, CONFIG5["levels"]),
+                            CONFIG5["d"] + CONFIG5["levels"] + 2)}
+    kw = dict(num_warmup=6, num_samples=4, max_depth=4,
+              draws_per_dispatch=3)
+    for label, (target, dim) in targets.items():
+        theta0 = 0.1 * torch.randn(C, dim, generator=torch.Generator()
+                                   .manual_seed(2)).to(dev)
+        whole = make_chunked_sampler(target, **kw)(SEED, theta0)
+        cdir = str(Path(tmp) / label.replace(" ", "_"))
+        out = make_chunked_sampler(target, **kw)(
+            SEED, theta0, checkpoint_dir=cdir, max_chunks=2)
+        check(out is None, f"nuts resume {label}: finished in 2 chunks")
+        resumed = make_chunked_sampler(target, **kw)(
+            SEED, theta0, checkpoint_dir=cdir)
+        same = np.array_equal(resumed[0], whole[0]) and all(
+            np.array_equal(resumed[1][k], whole[1][k]) for k in whole[1])
+        gap = float(np.abs(resumed[0] - whole[0]).max())
+        print(f"nuts resume on the card, {label}: stopped after 2 chunks "
+              f"and resumed: bitwise equal to the uninterrupted run {same} "
+              f"(max |Δθ| {gap:.3e})")
+        if label == "Gaussian":
+            check(same, "nuts resume: the resumed run differs from the "
+                  "uninterrupted one on a deterministic target")
+
+
+def nuts_config5_phase(dev, card):
+    """NUTS at BASELINE config 5 within NUTS_BUDGET_S seconds."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[label] = time.perf_counter() - t
+        return out
+
+    timings = part("chain-axis kernels", chain_axis_kernels, dev)
+    launches, run = part("config 5 run", nuts_config5_run, dev, card)
+    part("float64 card vs CPU", nuts_float64_card_vs_cpu, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        part("resume", nuts_resume_on_card, dev, tmp)
+    total = time.perf_counter() - t0
+    print(f"nuts phase on {card}: {total:.1f} s of its {NUTS_BUDGET_S:.0f} s "
+          f"budget ({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    check(total <= NUTS_BUDGET_S, f"nuts phase: {total:.1f} s over its "
+          f"{NUTS_BUDGET_S:.0f} s budget")
+    per = run["evaluations"] / run["transitions"]
+    for key in timings:
+        timings[key].update(launches=launches[key],
+                            launches_per_transition=per, library_ms=None)
+    return timings
+
+
 def phase(label, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -4617,6 +5035,7 @@ def main():
     phase("SigGPDE VOSF", sigpde_vosf_phase, dev, card)
     phase("low-rank", lowrank_phase, dev, card)
     phase("Softmax", softmax_phase, dev, card)
+    nuts_timings = phase("NUTS at config 5", nuts_config5_phase, dev, card)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the
@@ -4666,6 +5085,10 @@ def main():
             order = 2 if key.startswith("sig_gram_ho") else 1
             entry["deep"] = dict(launches=deep_gpr[order][key],
                                  **deep_timings[key])
+        if key in nuts_timings:
+            # BASELINE config 5's chain axis (C = 16, N = 40, L = 20):
+            # launches from its NUTS run, a launch for all chains
+            entry["nuts"] = nuts_timings[key]
         if key in order_timings:
             # past order 7: launches from the order-8 GPR's Adam step
             entry["order"] = dict(

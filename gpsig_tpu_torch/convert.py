@@ -9,6 +9,11 @@ field path (``kernel.raw_sigma``, ``inducing.raw_Z``, ``q_sqrt``,
 the low-rank kernel's ``kernel.pair_indices.0``) and passes numpy arrays
 here; this module never sees JAX itself. Integer leaves (the low-rank
 sketch's pair indices, buffers in the port) keep an integer dtype.
+
+:func:`sampler_state_from_arrays` carries a NUTS sampler's state across
+the same way (the chains' positions, log densities and gradients, dual
+averaging, the Welford mass estimate and the inverse mass), so a port run
+can start from a JAX run's mid-warmup state.
 """
 
 from __future__ import annotations
@@ -45,3 +50,28 @@ def load_jax_arrays(module, tree):
     configuration (base kind included: only a Poly base has an offset)."""
     module.load_state_dict(from_jax_arrays(tree, device="cpu"), strict=True)
     return module
+
+
+def sampler_state_from_arrays(tree, dtype=None, device=None):
+    """A NUTS sampler's state from numpy arrays, as the JAX package's
+    warmup carry holds it (for instance ``jax.vmap``'d chains' leaves
+    passed through ``np.asarray``): ``tree`` maps ``"state"`` to {theta,
+    logp, grad}, ``"da"`` to the ``DAState`` fields, ``"wf"`` to the
+    ``WelfordState`` fields and ``"inv_mass"`` to an array; every array has
+    the chain axis first. Returns the port's warmup carry (NutsState,
+    DAState, WelfordState, inv_mass) on ``device`` (default: the card),
+    cast to ``dtype`` when given, for ``mcmc/sample.py``'s
+    ``make_warm_step`` (drop DAState and WelfordState for a sampling
+    carry, whose step size is ``exp(log_eps_bar)``)."""
+    from gpsig_tpu_torch.mcmc.nuts import NutsState
+    from gpsig_tpu_torch.mcmc.sample import DAState, WelfordState
+
+    device = config.resolve_device(device)
+
+    def tensors(d):
+        return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+                for k, v in d.items()}
+
+    return (NutsState(**tensors(tree["state"])), DAState(**tensors(tree["da"])),
+            WelfordState(**tensors(tree["wf"])),
+            tensors({"m": tree["inv_mass"]})["m"])

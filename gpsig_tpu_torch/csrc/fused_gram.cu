@@ -35,6 +35,13 @@
 // the scans crossing the warps through shared memory; it stages x and y
 // where they fit, else reads them from global memory (every d).
 //
+// The chain axis. X [C, N1, L, d] and Y [C, N2, L, d] give C independent
+// Grams out [C, nl + 1, N1, N2] in one launch: the chain is blockIdx.y,
+// and each kernel offsets X, Y and out to its chain before anything else,
+// so every chain runs exactly the code of a launch with C = 1 (the
+// counterpart of the grid axis that pallas_call's batching rule adds
+// under vmap; the design is unchanged).
+//
 // The diagonal (fused_gram.py:_diag_kernel, entry point
 // fused_diag_levels) is fused_diag.cuh's.
 //
@@ -155,14 +162,20 @@ __device__ __forceinline__ void seg_order1(Col& col, int ncols,
 }
 
 // Gram on the segment plan: block b handles x = X[b / nyb] against the y
-// sequences (b % nyb) * kPairs + p, p the thread's segment.
-// out: [nl + 1, N1, N2].
+// sequences (b % nyb) * kPairs + p, p the thread's segment, of chain
+// blockIdx.y. out: [C][nl + 1, N1, N2].
 template <typename T, int R, int S, int NLM>
 __global__ void __launch_bounds__(32 * kPairsPerBlock)
 gram_seg_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                 T* __restrict__ out, int N1, int N2, int L, int d, int nl,
                 int rbf, int sym, int stage_y) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  {  // chain blockIdx.y's sequences and Gram
+    const long long c = blockIdx.y;
+    X += c * N1 * L * d;
+    Y += c * N2 * L * d;
+    out += c * (nl + 1) * N1 * N2;
+  }
   SegBlock<T, R, S> b;
   if (!b.stage(X, Y, N1, N2, L, d, rbf != 0, sym != 0, stage_y != 0,
                reinterpret_cast<T*>(smem_raw)))
@@ -193,16 +206,22 @@ gram_seg_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 }
 
 // Gram on the block design: block b handles x = X[b / N2] against
-// y = Y[b % N2] with a BlockGroup of W warps; with sym only the pairs on and
-// above the diagonal, thread 0 mirroring its values. x and y are staged
-// where they fit (stage), else read from global memory. out: [nl + 1, N1,
-// N2].
+// y = Y[b % N2] of chain blockIdx.y with a BlockGroup of W warps; with sym
+// only the pairs on and above the diagonal, thread 0 mirroring its values.
+// x and y are staged where they fit (stage), else read from global memory.
+// out: [C][nl + 1, N1, N2].
 template <typename T>
 __global__ void __launch_bounds__(BlockGroup<T>::kMaxThreads)
 gram_block_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                   T* __restrict__ out, int N1, int N2, int L, int d, int nl,
                   int rbf, int W, int sym, int stage) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  {  // chain blockIdx.y's sequences and Gram
+    const long long c = blockIdx.y;
+    X += c * N1 * L * d;
+    Y += c * N2 * L * d;
+    out += c * (nl + 1) * N1 * N2;
+  }
   const int n1 = blockIdx.x / N2;
   const int n2 = blockIdx.x % N2;
   if (sym && n2 < n1) return;  // the whole block: one pair
@@ -243,8 +262,8 @@ gram_block_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 
 template <typename T>
 cudaError_t launch_gram_block(const void* X, const void* Y, void* out,
-                              int N1, int N2, int L, int d, int nl, int rbf,
-                              int W, int sym, cudaStream_t stream) {
+                              int C, int N1, int N2, int L, int d, int nl,
+                              int rbf, int W, int sym, cudaStream_t stream) {
   // staged where it fits (plan.py's gram_fwd_smem decides alike)
   size_t smem =
       sizeof(T) * static_cast<size_t>(L) * (d + 1) * 2 + exchange_bytes<T>(W);
@@ -255,17 +274,17 @@ cudaError_t launch_gram_block(const void* X, const void* Y, void* out,
   if (e != cudaSuccess) return e;
   const long long blocks = static_cast<long long>(N1) * N2;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gram_block_kernel<T><<<static_cast<unsigned>(blocks), 32 * W, smem,
-                         stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), C);
+  gram_block_kernel<T><<<grid, 32 * W, smem, stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(Y),
       static_cast<T*>(out), N1, N2, L, d, nl, rbf, W, sym, stage);
   return cudaGetLastError();
 }
 
 template <typename T, int R, int S, int NLM>
-cudaError_t launch_gram_seg(const void* X, const void* Y, void* out, int N1,
-                            int N2, int L, int d, int nl, int rbf, int sym,
-                            cudaStream_t stream) {
+cudaError_t launch_gram_seg(const void* X, const void* Y, void* out, int C,
+                            int N1, int N2, int L, int d, int nl, int rbf,
+                            int sym, cudaStream_t stream) {
   using B = SegBlock<T, R, S>;
   const bool stage_y = B::stages_y(L, d);
   const size_t smem = sizeof(T) * B::smem_elems(L, d, stage_y);
@@ -273,8 +292,9 @@ cudaError_t launch_gram_seg(const void* X, const void* Y, void* out, int N1,
   if (e != cudaSuccess) return e;
   const long long blocks = B::blocks(N1, N2);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gram_seg_kernel<T, R, S, NLM><<<static_cast<unsigned>(blocks),
-                                  32 * kPairsPerBlock, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks), C);
+  gram_seg_kernel<T, R, S, NLM><<<grid, 32 * kPairsPerBlock, smem,
+                                  stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(Y),
       static_cast<T*>(out), N1, N2, L, d, nl, rbf, sym, stage_y);
   return cudaGetLastError();
@@ -284,56 +304,58 @@ cudaError_t launch_gram_seg(const void* X, const void* Y, void* out, int N1,
 // with tuned=True: NLM carries a row).
 template <typename T, int NLM>
 cudaError_t gram_seg_dispatch(const void* X, const void* Y, void* out,
-                              int N1, int N2, int L, int d, int nl, int rbf,
-                              int S, int R, int sym, cudaStream_t s) {
+                              int C, int N1, int N2, int L, int d, int nl,
+                              int rbf, int S, int R, int sym, cudaStream_t s) {
   constexpr int Rt = seg_rows<T>(NLM);
   if (R != Rt) return cudaErrorInvalidValue;
   switch (S) {
-    case 8: return launch_gram_seg<T, Rt, 8, NLM>(X, Y, out, N1, N2, L, d,
-                                                   nl, rbf, sym, s);
-    case 16: return launch_gram_seg<T, Rt, 16, NLM>(X, Y, out, N1, N2, L, d,
-                                                     nl, rbf, sym, s);
-    case 32: return launch_gram_seg<T, Rt, 32, NLM>(X, Y, out, N1, N2, L, d,
-                                                     nl, rbf, sym, s);
+    case 8: return launch_gram_seg<T, Rt, 8, NLM>(
+        X, Y, out, C, N1, N2, L, d, nl, rbf, sym, s);
+    case 16: return launch_gram_seg<T, Rt, 16, NLM>(
+        X, Y, out, C, N1, N2, L, d, nl, rbf, sym, s);
+    case 32: return launch_gram_seg<T, Rt, 32, NLM>(
+        X, Y, out, C, N1, N2, L, d, nl, rbf, sym, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t gram_dispatch(const void* X, const void* Y, void* out, int N1,
-                          int N2, int L, int d, int nl, int rbf, int S,
-                          int R, int W, int sym, cudaStream_t s) {
+cudaError_t gram_dispatch(const void* X, const void* Y, void* out, int C,
+                          int N1, int N2, int L, int d, int nl, int rbf,
+                          int S, int R, int W, int sym, cudaStream_t s) {
   if (W > 1)
-    return launch_gram_block<T>(X, Y, out, N1, N2, L, d, nl, rbf, W, sym, s);
-  return nl <= 4 ? gram_seg_dispatch<T, 4>(X, Y, out, N1, N2, L, d, nl, rbf,
-                                           S, R, sym, s)
-                 : gram_seg_dispatch<T, 7>(X, Y, out, N1, N2, L, d, nl, rbf,
-                                           S, R, sym, s);
+    return launch_gram_block<T>(X, Y, out, C, N1, N2, L, d, nl, rbf, W, sym,
+                                s);
+  return nl <= 4 ? gram_seg_dispatch<T, 4>(X, Y, out, C, N1, N2, L, d, nl,
+                                           rbf, S, R, sym, s)
+                 : gram_seg_dispatch<T, 7>(X, Y, out, C, N1, N2, L, d, nl,
+                                           rbf, S, R, sym, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// X [N1, L, d], Y [N2, L, d] contiguous -> out [nl + 1, N1, N2], the L - 1
-// rows spread as the plan says: segments of S lanes at R rows a lane
-// (W = 1), or W > 1 warps a pair at R = 4; with sym (Y = X) only the pairs
-// on and above the diagonal are solved, each written twice. Returns
-// cudaGetLastError() after the launch (0 on success).
-int gpsig_fused_gram(const void* X, const void* Y, void* out, int N1, int N2,
-                     int L, int d, int nl, int rbf, int S, int R, int W,
-                     int sym, int f64, void* stream) {
+// X [C, N1, L, d], Y [C, N2, L, d] contiguous -> out [C, nl + 1, N1, N2]
+// (C = 1: the unbatched [N1, L, d] -> [nl + 1, N1, N2]), the L - 1 rows
+// spread as the plan says: segments of S lanes at R rows a lane (W = 1), or
+// W > 1 warps a pair at R = 4; with sym (Y = X) only the pairs on and above
+// the diagonal are solved, each written twice. Returns cudaGetLastError()
+// after the launch (0 on success).
+int gpsig_fused_gram(const void* X, const void* Y, void* out, int C, int N1,
+                     int N2, int L, int d, int nl, int rbf, int S, int R,
+                     int W, int sym, int f64, void* stream) {
   const bool seg_ok = W == 1 && (S == 8 || S == 16 || S == 32) &&
                       L - 1 <= S * R;
   if (L < 2 || d < 1 || nl < 1 || nl > kMaxLevels ||
       (W > 1 ? (S != 32 || !plan_ok(L - 1, W, R)) : !seg_ok) ||
-      (sym && N1 != N2))
+      (sym && N1 != N2) || C < 1 || C > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? gram_dispatch<double>(X, Y, out, N1, N2, L, d, nl, rbf, S, R,
-                                     W, sym, s)
-             : gram_dispatch<float>(X, Y, out, N1, N2, L, d, nl, rbf, S, R,
-                                    W, sym, s);
+  return f64 ? gram_dispatch<double>(X, Y, out, C, N1, N2, L, d, nl, rbf, S,
+                                     R, W, sym, s)
+             : gram_dispatch<float>(X, Y, out, C, N1, N2, L, d, nl, rbf, S,
+                                    R, W, sym, s);
 }
 
 const char* gpsig_error_string(int err) {

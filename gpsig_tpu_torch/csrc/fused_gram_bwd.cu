@@ -75,6 +75,12 @@
 //   (fused_gram_bwd_wide_kernel).
 // X and Y may be the same tensor: X̄ and Ȳ are separate buffers and
 // autograd adds them.
+// - The chain axis: X [C, N1, L, d], Y [C, N2, L, d] and g [C, nl + 1,
+//   N1, N2] give C independent backwards in one launch, the chain on
+//   blockIdx.y; each kernel offsets X, Y, g, X̄, Ȳ (and the wide kernel its
+//   workspace, a slot a block of each chain) to its chain first, so every
+//   chain runs the code of a C = 1 launch (the counterpart of the grid axis
+//   pallas_call's batching rule adds under vmap; the design is unchanged).
 
 #include "common.cuh"
 
@@ -283,8 +289,9 @@ __device__ __forceinline__ void pair_levels_bwd(
     contract_tile(xs, ys, u, Lu, filled, c0, chunk, L, d, rbf, xacc, ybar, g);
 }
 
-// Block b: x = X[b / nyb] against the y sequences (b % nyb) * pairs + p.
-// Xbar, Ybar: [N1, L, d], [N2, L, d], zeroed by the caller. At most 128
+// Block b: x = X[b / nyb] against the y sequences (b % nyb) * pairs + p,
+// of chain blockIdx.y. Xbar, Ybar: [C][N1, L, d], [C][N2, L, d], zeroed by
+// the caller. At most 128
 // registers a thread (the launch bound: two 256-thread blocks an SM), so
 // that 4-warp blocks keep at least four to an SM.
 template <typename T, int R, int NL, typename G>
@@ -294,6 +301,14 @@ fused_gram_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                       T* __restrict__ Ybar, int N1, int N2, int L, int d,
                       int rbf, int W, int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  {  // chain blockIdx.y's sequences, cotangents and gradients
+    const long long c = blockIdx.y;
+    X += c * N1 * L * d;
+    Xbar += c * N1 * L * d;
+    Y += c * N2 * L * d;
+    Ybar += c * N2 * L * d;
+    g += c * (NL + 1) * N1 * N2;
+  }
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int GT = G::kBlock ? 32 * W : G::kLanes;  // threads per pair
   const int pairs = G::kBlock ? 1 : 32 * kPairsPerBlock / G::kLanes;
@@ -356,7 +371,7 @@ fused_gram_bwd_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 }
 
 // Wide d: x and y read from global memory (their half norms staged), the
-// X̄ sums in the block's slot of work [gridDim.x][pairs][L][d + 1]; item
+// X̄ sums in the block's slot of work [C][gridDim.x][pairs][L][d + 1]; item
 // i, x = X[i / nyb] against the y sequences (i % nyb) * pairs + p, block
 // b takes items b, b + gridDim.x, ... Otherwise fused_gram_bwd_kernel's.
 template <typename T, int R, int NL, typename G>
@@ -367,6 +382,17 @@ fused_gram_bwd_wide_kernel(const T* __restrict__ X, const T* __restrict__ Y,
                            int N1, int N2, int L, int d, int rbf, int W,
                            int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  {  // chain blockIdx.y's sequences, cotangents and gradients
+    const long long c = blockIdx.y;
+    X += c * N1 * L * d;
+    Xbar += c * N1 * L * d;
+    Y += c * N2 * L * d;
+    Ybar += c * N2 * L * d;
+    g += c * (NL + 1) * N1 * N2;
+  }
+  // the chain's slots of the workspace
+  work += static_cast<long long>(blockIdx.y) * gridDim.x *
+          (G::kBlock ? 1 : 32 * kPairsPerBlock / G::kLanes) * L * (d + 1);
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int GT = G::kBlock ? 32 * W : G::kLanes;  // threads per pair
   const int pairs = G::kBlock ? 1 : 32 * kPairsPerBlock / G::kLanes;
@@ -431,9 +457,9 @@ fused_gram_bwd_wide_kernel(const T* __restrict__ X, const T* __restrict__ Y,
 
 template <typename T, int R, int NL, typename G, bool Staged>
 cudaError_t launch_gram_bwd(const void* X, const void* Y, const void* g,
-                            void* Xbar, void* Ybar, void* work, int N1,
-                            int N2, int L, int d, int rbf, int W, int chunk,
-                            int blocks, cudaStream_t stream) {
+                            void* Xbar, void* Ybar, void* work, int C,
+                            int N1, int N2, int L, int d, int rbf, int W,
+                            int chunk, int blocks, cudaStream_t stream) {
   constexpr bool staged = Staged;
   const int threads = G::kBlock ? 32 * W : 32 * kPairsPerBlock;
   const int pairs = G::kBlock ? 1 : threads / G::kLanes;
@@ -449,16 +475,17 @@ cudaError_t launch_gram_bwd(const void* X, const void* Y, const void* g,
   const T* gg = static_cast<const T*>(g);
   T* xb = static_cast<T*>(Xbar);
   T* yb = static_cast<T*>(Ybar);
+  const dim3 grid(blocks, C);
   if constexpr (Staged) {
     cudaError_t e = allow_smem(fused_gram_bwd_kernel<T, R, NL, G>, smem);
     if (e != cudaSuccess) return e;
-    fused_gram_bwd_kernel<T, R, NL, G><<<blocks, threads, smem, stream>>>(
+    fused_gram_bwd_kernel<T, R, NL, G><<<grid, threads, smem, stream>>>(
         x, y, gg, xb, yb, N1, N2, L, d, rbf, W, chunk);
   } else {
     cudaError_t e =
         allow_smem(fused_gram_bwd_wide_kernel<T, R, NL, G>, smem);
     if (e != cudaSuccess) return e;
-    fused_gram_bwd_wide_kernel<T, R, NL, G><<<blocks, threads, smem,
+    fused_gram_bwd_wide_kernel<T, R, NL, G><<<grid, threads, smem,
                                               stream>>>(
         x, y, gg, xb, yb, static_cast<T*>(work), N1, N2, L, d, rbf, W,
         chunk);
@@ -468,17 +495,17 @@ cudaError_t launch_gram_bwd(const void* X, const void* Y, const void* g,
 
 template <typename T, typename G>
 cudaError_t by_levels(int nl, const void* X, const void* Y, const void* g,
-                      void* Xbar, void* Ybar, void* work, int N1, int N2,
-                      int L, int d, int rbf, int W, int chunk, int staged,
-                      int blocks, cudaStream_t s) {
+                      void* Xbar, void* Ybar, void* work, int C, int N1,
+                      int N2, int L, int d, int rbf, int W, int chunk,
+                      int staged, int blocks, cudaStream_t s) {
 #define GPSIG_NL(n)                                                        \
   case n:                                                                  \
     return staged ? launch_gram_bwd<T, 4, n, G, true>(                     \
-                        X, Y, g, Xbar, Ybar, work, N1, N2, L, d, rbf, W,   \
-                        chunk, blocks, s)                                  \
+                        X, Y, g, Xbar, Ybar, work, C, N1, N2, L, d, rbf,   \
+                        W, chunk, blocks, s)                               \
                   : launch_gram_bwd<T, 4, n, G, false>(                    \
-                        X, Y, g, Xbar, Ybar, work, N1, N2, L, d, rbf, W,   \
-                        chunk, blocks, s);
+                        X, Y, g, Xbar, Ybar, work, C, N1, N2, L, d, rbf,   \
+                        W, chunk, blocks, s);
   switch (nl) {
     GPSIG_NL(1) GPSIG_NL(2) GPSIG_NL(3) GPSIG_NL(4) GPSIG_NL(5) GPSIG_NL(6)
     GPSIG_NL(7)
@@ -491,19 +518,19 @@ cudaError_t by_levels(int nl, const void* X, const void* Y, const void* g,
 // rows a lane in each.
 template <typename T>
 cudaError_t gram_bwd_dispatch(const void* X, const void* Y, const void* g,
-                              void* Xbar, void* Ybar, void* work, int N1,
-                              int N2, int L, int d, int nl, int rbf, int S,
-                              int W, int chunk, int staged, int blocks,
+                              void* Xbar, void* Ybar, void* work, int C,
+                              int N1, int N2, int L, int d, int nl, int rbf,
+                              int S, int W, int chunk, int staged, int blocks,
                               cudaStream_t s) {
   if (W > 1)
-    return by_levels<T, BlockGroup<T>>(nl, X, Y, g, Xbar, Ybar, work, N1, N2,
-                                       L, d, rbf, W, chunk, staged, blocks,
-                                       s);
+    return by_levels<T, BlockGroup<T>>(nl, X, Y, g, Xbar, Ybar, work, C, N1,
+                                       N2, L, d, rbf, W, chunk, staged,
+                                       blocks, s);
   if (S == 16)
-    return by_levels<T, WarpGroup<T, 16>>(nl, X, Y, g, Xbar, Ybar, work, N1,
-                                          N2, L, d, rbf, 1, chunk, staged,
-                                          blocks, s);
-  return by_levels<T, WarpGroup<T, 32>>(nl, X, Y, g, Xbar, Ybar, work, N1,
+    return by_levels<T, WarpGroup<T, 16>>(nl, X, Y, g, Xbar, Ybar, work, C,
+                                          N1, N2, L, d, rbf, 1, chunk,
+                                          staged, blocks, s);
+  return by_levels<T, WarpGroup<T, 32>>(nl, X, Y, g, Xbar, Ybar, work, C, N1,
                                         N2, L, d, rbf, 1, chunk, staged,
                                         blocks, s);
 }
@@ -512,30 +539,32 @@ cudaError_t gram_bwd_dispatch(const void* X, const void* Y, const void* g,
 
 extern "C" {
 
-// X [N1, L, d], Y [N2, L, d], g [nl + 1, N1, N2] contiguous; Xbar, Ybar
-// zero-filled [N1, L, d], [N2, L, d], distinct buffers. The plan: segments
-// of S lanes (16: two pairs a warp; 32: one warp, or W warps a pair), four
-// rows a lane, tiles of `chunk` columns; `staged` (x, y and the X̄ sums in
-// shared memory) or not (work: [blocks][pairs][L][d + 1]); `blocks`
-// blocks, striding over the items. Returns cudaGetLastError() after the
-// launch (0 on success).
+// X [C, N1, L, d], Y [C, N2, L, d], g [C, nl + 1, N1, N2] contiguous
+// (C = 1: the unbatched shapes); Xbar, Ybar zero-filled [C, N1, L, d],
+// [C, N2, L, d], distinct buffers. The plan: segments of S lanes (16: two
+// pairs a warp; 32: one warp, or W warps a pair), four rows a lane, tiles
+// of `chunk` columns; `staged` (x, y and the X̄ sums in shared memory) or
+// not (work: [C][blocks][pairs][L][d + 1]); `blocks` blocks a chain,
+// striding over the items. Returns cudaGetLastError() after the launch (0
+// on success).
 int gpsig_fused_gram_bwd(const void* X, const void* Y, const void* g,
-                         void* Xbar, void* Ybar, void* work, int N1, int N2,
-                         int L, int d, int nl, int rbf, int S, int W,
+                         void* Xbar, void* Ybar, void* work, int C, int N1,
+                         int N2, int L, int d, int nl, int rbf, int S, int W,
                          int chunk, int staged, int blocks, int f64,
                          void* stream) {
   const bool plan = (S == 16 && W == 1) || (S == 32 && W >= 1 &&
                                             W <= kMaxWarps);
   if (L < 2 || d < 1 || nl < 1 || nl > kMaxLevels || !plan ||
       L - 1 > S * W * 4 || (chunk != 8 && chunk != 16 && chunk != 32) ||
-      (S * W) % chunk != 0 || blocks < 1 || (!staged && work == nullptr))
+      (S * W) % chunk != 0 || blocks < 1 || (!staged && work == nullptr) ||
+      C < 1 || C > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? gram_bwd_dispatch<double>(X, Y, g, Xbar, Ybar, work, N1, N2,
-                                         L, d, nl, rbf, S, W, chunk, staged,
-                                         blocks, s)
-             : gram_bwd_dispatch<float>(X, Y, g, Xbar, Ybar, work, N1, N2, L,
-                                        d, nl, rbf, S, W, chunk, staged,
+  return f64 ? gram_bwd_dispatch<double>(X, Y, g, Xbar, Ybar, work, C, N1,
+                                         N2, L, d, nl, rbf, S, W, chunk,
+                                         staged, blocks, s)
+             : gram_bwd_dispatch<float>(X, Y, g, Xbar, Ybar, work, C, N1, N2,
+                                        L, d, nl, rbf, S, W, chunk, staged,
                                         blocks, s);
 }
 

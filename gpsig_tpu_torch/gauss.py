@@ -29,12 +29,22 @@ def stable_cholesky(K, extra_levels=None):
     Cholesky runs at that level; see ``gpsig_tpu.gauss.stable_cholesky``.
     ``torch.linalg.cholesky`` raises where JAX's returns NaNs, so the trials
     read ``cholesky_ex``'s ``info`` instead. K must already include the
-    caller's base jitter."""
+    caller's base jitter.
+
+    A batch K [C, M, M] (one matrix a chain, as the JAX package's ``vmap``
+    gives it) chooses each matrix's jitter on its own, as ``vmap`` turns
+    the JAX code's ``lax.cond`` into a per-matrix select, and a matrix that
+    no level factors gets JAX's factor of such a matrix (NaN on and below
+    the diagonal) where ``torch.linalg.cholesky`` would raise for the whole
+    batch: the other matrices' factors do not change. The healthy batch
+    reads the card once, as an unbatched K does."""
     dtype = K.dtype
     if extra_levels is None:
         base = default_jitter(dtype)
         extra_levels = (0.0, 10.0 * base, 100.0 * base, 1000.0 * base)
     eye = torch.eye(K.shape[-1], dtype=dtype, device=K.device)
+    if K.ndim > 2:
+        return _stable_cholesky_batch(K, extra_levels, eye)
 
     def factors(e):
         L, info = torch.linalg.cholesky_ex(Ks + e * eye)
@@ -47,6 +57,31 @@ def stable_cholesky(K, extra_levels=None):
             chosen = next((e for e in extra_levels[1:] if factors(e)),
                           extra_levels[-1])
     return torch.linalg.cholesky(K + chosen * eye)
+
+
+def _stable_cholesky_batch(K, extra_levels, eye):
+    """:func:`stable_cholesky` of a batch [..., M, M], per matrix."""
+
+    def factors(e):
+        L, info = torch.linalg.cholesky_ex(Ks + e * eye)
+        return info.eq(0) & torch.isfinite(L).all(dim=(-2, -1))
+
+    with torch.no_grad():
+        Ks = K.detach()
+        ok = factors(extra_levels[0])
+        chosen = torch.full(ok.shape, extra_levels[0], dtype=K.dtype,
+                            device=K.device)
+        if not bool(ok.all()):
+            # as the JAX escalation: the smallest later level that factors,
+            # else the last
+            pick = torch.full_like(chosen, extra_levels[-1])
+            for e in reversed(extra_levels[1:]):
+                pick = torch.where(factors(e), e, pick)
+            chosen = torch.where(ok, chosen, pick)
+    L, info = torch.linalg.cholesky_ex(K + chosen[..., None, None] * eye)
+    # a failed factor as JAX's: NaN on and below the diagonal, 0 above
+    return torch.where(info.eq(0)[..., None, None], L,
+                       torch.full_like(L, float("nan")).tril())
 
 
 @precise_linalg()

@@ -90,6 +90,7 @@ class LowRankSignatureKernel(nn.Module):
     def feature_levels(self, X):
         """Per-level sequence features, a list of [N, c_m] for m = 1..nl
         (each normalised when ``normalization``)."""
+        pr.refuse_chains(self, "feature_levels")
         Xs = self._as_sequences(X)
         ell = self.lengthscales
         Zl = self.landmarks

@@ -139,6 +139,7 @@ class UntruncatedSignatureKernel(nn.Module):
         return torch.maximum(diag, torch.ones_like(diag))
 
     def K(self, X, X2=None):
+        pr.refuse_chains(self, "K")
         Xs = self._scaled(X)
         sym = X2 is None
         Ys = Xs if sym else self._scaled(X2)
@@ -162,6 +163,7 @@ class UntruncatedSignatureKernel(nn.Module):
         return K
 
     def Kdiag(self, X):
+        pr.refuse_chains(self, "Kdiag")
         Xs = self._scaled(X)
         if self.normalization:
             return self.sigma * torch.ones(Xs.shape[0], dtype=Xs.dtype,
@@ -188,6 +190,7 @@ class UntruncatedSignatureKernel(nn.Module):
                 "VOSF features under the untruncated prior require the "
                 "linear base kernel (explicit signature coordinates exist "
                 f"only for the identity lift); got {type(self.base).__name__}")
+        pr.refuse_chains(self, "feature")
         Xs = self._scaled(X)
         levels = ex.truncated_signature(Xs, num_levels)
         N = Xs.shape[0]

@@ -45,6 +45,22 @@ take any L and every d that device memory holds (``plan.kuf_fwd_plan``,
 ``plan.kuf_bwd_plan``): the order-1 pair up to d = 3, past that the
 general pair at order 1, which past its shared memory reads x and z from
 global memory and sums the gradients in a device workspace.
+
+A chain axis. A sampler's C chains evaluate one kernel at C settings of
+its hyperparameters: ``raw_lengthscales`` [C, d] and ``raw_variances``
+[C, nl+1] (``params.substituted`` puts such tensors, functions of the
+sampler's θ, into a kernel built once; ``raw_sigma`` stays a scalar).
+``K`` then returns [C, N1, N2] and ``Kdiag`` [C, N], the scaled sequences
+[C, N, L, d] going through ONE launch of each tuned order-1 kernel (the
+Gram, its diagonal and the Gram's backward), the port's form of the JAX
+package's ``jax.vmap`` over the target. Only that route takes a chain
+axis (order 1, ``difference=True``, RBF or Linear, ``num_levels <= 7``,
+no lags, one sequence length up to ``plan.MAX_ROWS`` rows); every other
+route and entry point raises ``ValueError`` rather than loop over chains.
+``torch.func.vmap`` is not the tool: ``gauss.stable_cholesky`` reads the
+card to choose its jitter, ``precise_linalg`` sets global flags, the
+kernels launch through ``ctypes``, and a target that built modules from θ
+would make ``nn.Parameter`` leaves that cut the gradient.
 """
 
 from __future__ import annotations
@@ -181,10 +197,10 @@ class SignatureKernel(nn.Module):
 
     def _augment(self, X):
         """ARD scaling and lag augmentation: [N, L, d] → [N, L, d(1+lags)],
-        contiguous."""
+        contiguous; lengthscales [C, d] give [C, N, L, d]."""
         ell = self.lengthscales
         if ell is not None:
-            X = X / ell
+            X = X / (ell[:, None, None, :] if ell.ndim == 2 else ell)
         if self.num_lags == 0:
             return X.contiguous()
         L = X.shape[-2]
@@ -201,6 +217,29 @@ class SignatureKernel(nn.Module):
             blocks.append(gamma[1 + s] * (x0 + frac[:, None] * (x1 - x0)))
         return torch.cat(blocks, dim=-1)
 
+    # -- the chain axis -----------------------------------------------------
+    def _check_chains(self, what, X=None, X2=None):
+        """With a chain axis on the hyperparameters, raise ``ValueError``
+        unless the tuned order-1 route takes ``what`` on these inputs."""
+        C = pr.chain_count(self)
+        if C is None:
+            return
+        route = self._route(None)
+        lengths = {self._as_sequences(x).shape[1]
+                   for x in (X, X2) if x is not None}
+        rows = max(lengths, default=2) - 1
+        if (what not in ("K", "Kdiag") or route != "tuned"
+                or self.num_lags > 0 or len(lengths) > 1
+                or rows > plan.MAX_ROWS):
+            raise ValueError(
+                f"SignatureKernel.{what}: the hyperparameters carry a chain "
+                f"axis (C = {C}), which only the tuned order-1 route's K "
+                "and Kdiag take (order 1, difference=True, RBF or Linear "
+                f"base, num_levels <= {fg.MAX_LEVELS}, no lags, one "
+                f"sequence length of at most {plan.MAX_ROWS + 1} steps); "
+                f"this is the {route} route, order {self.order}, "
+                f"{self.num_lags} lags, lengths {sorted(lengths)}")
+
     # -- sequence-vs-sequence ---------------------------------------------
     def _increments(self, G):
         return sigops.incremental_gram(G) if self.difference else G
@@ -210,8 +249,8 @@ class SignatureKernel(nn.Module):
         only their triangle of pairs (the Poly offset channel keeps the
         Gram symmetric, though it makes the two sides differ)."""
         route = self._route(X.device)
-        rows = X.shape[1] - 1 if self.difference else X.shape[1]
-        if X.shape[1] != Y.shape[1] or rows > plan.MAX_ROWS:
+        rows = X.shape[-2] - 1 if self.difference else X.shape[-2]
+        if X.shape[-2] != Y.shape[-2] or rows > plan.MAX_ROWS:
             # sequences of two lengths (inducing sequences against data),
             # or past the fused Grams' rows: the increment matrices are
             # built in PyTorch and reduced by the per-pair DP, whose rows
@@ -308,7 +347,9 @@ class SignatureKernel(nn.Module):
                           for k in range(0, N, step)], dim=-1)
 
     def K(self, X, X2=None, return_levels=False):
-        """Signature-kernel Gram matrix [N1, N2]."""
+        """Signature-kernel Gram matrix [N1, N2] ([C, N1, N2] with a chain
+        axis on the hyperparameters)."""
+        self._check_chains("K", X, X2)
         Xs = self._augment(self._as_sequences(X))
         sym = X2 is None
         Ys = Xs if sym else self._augment(self._as_sequences(X2))
@@ -316,12 +357,14 @@ class SignatureKernel(nn.Module):
         if self.normalization:
             dx = self._K_levels_diag(Xs)
             dy = dx if sym else self._K_levels_diag(Ys)
-            levels = _normalize_levels(levels, dx[:, :, None], dy[:, None, :])
-        weighted = self.level_variances[:, None, None] * levels
-        return weighted if return_levels else torch.sum(weighted, dim=0)
+            levels = _normalize_levels(levels, dx[..., :, None],
+                                       dy[..., None, :])
+        weighted = self.level_variances[..., None, None] * levels
+        return weighted if return_levels else torch.sum(weighted, dim=-3)
 
     def seq_covariances(self, Z, X):
         """(K(Z,Z), K(Z,X)) sharing the Z-side diagonal recursion."""
+        self._check_chains("seq_covariances")
         Zs = self._augment(self._as_sequences(Z))
         Xs = self._augment(self._as_sequences(X))
         zz = self._K_levels(Zs, Zs, symmetric=True)
@@ -335,16 +378,20 @@ class SignatureKernel(nn.Module):
         return torch.sum(w * zz, dim=0), torch.sum(w * zx, dim=0)
 
     def Kdiag(self, X, return_levels=False):
+        self._check_chains("Kdiag", X)
         X = self._as_sequences(X)
         w = self.level_variances
         if self.normalization:
             # every normalised level's diagonal is exactly 1
             ones = torch.ones((self.num_levels + 1, X.shape[0]),
                               dtype=w.dtype, device=X.device)
-            weighted = w[:, None] * ones
+            weighted = w[..., None] * ones
+            if pr.chain_count(self) is not None:  # lengthscales alone
+                weighted = weighted.expand(
+                    (pr.chain_count(self),) + ones.shape)
         else:
-            weighted = w[:, None] * self._K_levels_diag(self._augment(X))
-        return weighted if return_levels else torch.sum(weighted, dim=0)
+            weighted = w[..., None] * self._K_levels_diag(self._augment(X))
+        return weighted if return_levels else torch.sum(weighted, dim=-2)
 
     # -- inducing-tensor algebra ------------------------------------------
     # Z layout: [T, F, d] with F = num_levels(num_levels+1)/2 (level-major
@@ -392,6 +439,7 @@ class SignatureKernel(nn.Module):
 
     def K_tens(self, Z, increments=False, return_levels=False):
         """Gram of inducing tensors over levels 1..nl: [T, T]."""
+        self._check_chains("K_tens")
         Zs = self._scale_tensors(Z)
         G = self._factor_gram_matched(Zs, Zs, increments)
         levels = sigops.signature_kern_tens(G, self.num_levels)
@@ -399,6 +447,7 @@ class SignatureKernel(nn.Module):
         return weighted if return_levels else torch.sum(weighted, dim=0)
 
     def K_tens_diag(self, Z, increments=False, return_levels=False):
+        self._check_chains("K_tens_diag")
         Zs = self._scale_tensors(Z)
         if increments:
             G = self.base.matched(Zs[:, :, :, None, :], Zs[:, :, None, :, :])
@@ -411,6 +460,7 @@ class SignatureKernel(nn.Module):
 
     def K_tens_vs_seq(self, Z, X, increments=False, return_levels=False):
         """Cross-covariance ⟨z, S(x)⟩: [T, N]."""
+        self._check_chains("K_tens_vs_seq")
         Zs = self._scale_tensors(Z)
         Xs = self._augment(self._as_sequences(X))
         route = self._route(Xs.device)
@@ -463,9 +513,11 @@ def _chunk(block, split, *args):
 
 
 def _normalize_levels(levels, dx, dy, eps=1e-30):
-    """k̃_m = k_m / √(k_m(x,x) k_m(y,y)); level 0 passes through unchanged."""
+    """k̃_m = k_m / √(k_m(x,x) k_m(y,y)); level 0 passes through unchanged.
+    The levels are the third axis from the end ([..., nl+1, N1, N2])."""
     norm = torch.sqrt(torch.clamp(dx, min=eps) * torch.clamp(dy, min=eps))
-    return torch.cat([levels[:1], (levels / norm)[1:]], dim=0)
+    return torch.cat([levels[..., :1, :, :], (levels / norm)[..., 1:, :, :]],
+                     dim=-3)
 
 
 # ---------------------------------------------------------------------------

@@ -85,6 +85,7 @@ class ExplicitSignatureKernel(nn.Module):
 
     def feature(self, X):
         """Ψ(X): [N, 1 + Σ_m d^m]; k(x, y) = ⟨Ψ(x), Ψ(y)⟩."""
+        pr.refuse_chains(self, "feature")
         Xs = self._as_sequences(X)
         ell = self.lengthscales
         if ell is not None:

@@ -40,10 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points and their argument types (every pointer and the stream
 #: as c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "gpsig_fused_gram": [_P, _P, _P, *[_I] * 11, _P],
+    "gpsig_fused_gram": [_P, _P, _P, *[_I] * 12, _P],
     "gpsig_fused_diag": [_P, _P, _P, *[_I] * 13, _P],
     "gpsig_tens_seq": [_P, _P, _P, *[_I] * 9, _P],
-    "gpsig_fused_gram_bwd": [*[_P] * 6, *[_I] * 12, _P],
+    "gpsig_fused_gram_bwd": [*[_P] * 6, *[_I] * 13, _P],
     "gpsig_tens_seq_bwd": [*[_P] * 5, *[_I] * 10, _P],
     "gpsig_fused_gram_ho": [_P, _P, _P, *[_I] * 14, _P],
     "gpsig_sig_gram": [_P, _P, _P, *[_I] * 13, _P],

@@ -16,6 +16,14 @@ symmetric; on the CPU the flag changes nothing. The kernel checks only
 that X and Y have one shape: the caller guarantees that k(x_a, y_b) =
 k(x_b, y_a), or gets the upper triangle mirrored into the lower one.
 
+The chain axis: X [C, N1, L, d] and Y [C, N2, L, d] are C independent
+problems (the chains of a sampler, each with its own lengthscales), and
+the Gram, its backward and the diagonal return [C, nl+1, N1, N2], X̄ and Ȳ
+[C, N, L, d] and [C, nl+1, N] from ONE launch each: the Gram kernels take
+the chain on their grid, the diagonal flattens the chains into its N. This
+is the counterpart of the grid axis that ``pallas_call``'s batching rule
+adds under ``jax.vmap``. The plain versions take the same leading axis.
+
 Dispatch: a CPU tensor runs the plain version (autograd differentiates
 it); a CUDA tensor goes through a ``torch.autograd.Function`` whose forward
 launches the kernel and whose backward launches the backward kernel (the
@@ -33,6 +41,8 @@ from gpsig_tpu_torch.ops import signature as sigops
 from gpsig_tpu_torch.ops.cuda import _build, plan
 
 MAX_LEVELS = 7
+#: most chains one launch of the Gram kernels takes (the grid's y extent)
+MAX_CHAINS = 65535
 
 gram_launches = 0
 diag_launches = 0
@@ -49,22 +59,31 @@ def _rbf_gram(a, b):
     )
 
 
+def _levels_after_chains(levels, lead):
+    """[nl+1, *lead, ...] → [*lead, nl+1, ...]: the chain axis first."""
+    return torch.movedim(levels, 0, len(lead)) if lead else levels
+
+
 def fused_gram_levels_ref(X, Y, num_levels, rbf=True):
-    """Plain version of :func:`fused_gram_levels` (as ``_xla_reference``)."""
-    N1, L, d = X.shape
-    N2 = Y.shape[0]
-    a = X.reshape(N1 * L, d)
-    b = Y.reshape(N2 * L, d)
-    G = _rbf_gram(a, b) if rbf else a @ b.T
-    G = G.reshape(N1, L, N2, L).permute(0, 2, 1, 3)
-    return sigops.signature_kern(sigops.incremental_gram(G), num_levels)
+    """Plain version of :func:`fused_gram_levels` (as ``_xla_reference``),
+    with the same optional chain axis."""
+    *lead, N1, L, d = X.shape
+    N2 = Y.shape[-3]
+    a = X.reshape(*lead, N1 * L, d)
+    b = Y.reshape(*lead, N2 * L, d)
+    G = _rbf_gram(a, b) if rbf else a @ b.transpose(-1, -2)
+    G = G.reshape(*lead, N1, L, N2, L).transpose(-3, -2)
+    return _levels_after_chains(
+        sigops.signature_kern(sigops.incremental_gram(G), num_levels), lead)
 
 
 def fused_diag_levels_ref(X, num_levels, rbf=True):
     """Plain version of :func:`fused_diag_levels` (as
-    ``_xla_reference_diag``)."""
+    ``_xla_reference_diag``), with the same optional chain axis."""
     G = _rbf_gram(X, X) if rbf else X @ X.transpose(-1, -2)
-    return sigops.signature_kern(sigops.incremental_gram(G), num_levels)
+    return _levels_after_chains(
+        sigops.signature_kern(sigops.incremental_gram(G), num_levels),
+        X.shape[:-3])
 
 
 def fused_gram_levels_bwd_ref(X, Y, g, num_levels, rbf=True):
@@ -78,17 +97,27 @@ def fused_gram_levels_bwd_ref(X, Y, g, num_levels, rbf=True):
 
 
 def _check_shapes(name, num_levels, *seqs):
-    L, d = seqs[0].shape[1:] if seqs[0].ndim == 3 else (None, None)
+    """Sequences [N, L, d], or [C, N, L, d] with one chain count C, of one
+    L and d; returns C (1 without a chain axis)."""
+    ndim = seqs[0].ndim
+    lead = tuple(seqs[0].shape[:-3]) if ndim in (3, 4) else None
+    L, d = seqs[0].shape[-2:] if lead is not None else (None, None)
     for s in seqs:
-        if s.ndim != 3 or tuple(s.shape[1:]) != (L, d):
+        if (lead is None or s.ndim != ndim or tuple(s.shape[:-3]) != lead
+                or tuple(s.shape[-2:]) != (L, d)):
             raise ValueError(
-                f"{name}: sequences must be [N, L, d] with one L and d; got "
-                f"{[tuple(x.shape) for x in seqs]}"
+                f"{name}: sequences must be [N, L, d] (or [C, N, L, d], one "
+                f"C) with one L and d; got {[tuple(x.shape) for x in seqs]}"
             )
+    C = lead[0] if lead else 1
+    if not 1 <= C <= MAX_CHAINS:
+        raise ValueError(f"{name}: {C} chains; a launch takes 1.."
+                         f"{MAX_CHAINS} (the grid's second axis)")
     if not 1 <= num_levels <= MAX_LEVELS:
         raise ValueError(f"{name}: num_levels must be 1..{MAX_LEVELS}")
     if L < 2:
         raise ValueError(f"{name}: sequence length {L} < 2")
+    return C
 
 
 def _forward_plan(name, X, diag, num_levels=None):
@@ -96,7 +125,7 @@ def _forward_plan(name, X, diag, num_levels=None):
     (``plan.diag_plan``: every L and d), the Gram's (S, R, W)
     (``plan.gram_fwd_plan`` at ``num_levels``); raises where no launch
     takes the shape (the Gram past ``plan.MAX_ROWS`` rows)."""
-    N, L, d = X.shape
+    N, L, d = X.shape[-3:]
     rows, item = L - 1, X.element_size()
     if diag:
         return plan.diag_plan(N, L, d, num_levels, item)
@@ -106,13 +135,18 @@ def _forward_plan(name, X, diag, num_levels=None):
     return wr
 
 
-def _backward_plan(name, X, N2=1):
+def _backward_plan(name, X, N2=1, chains=1):
     """The backward kernel's launch (``plan.gram_bwd_launch``) for X [N, L,
-    d] against N2 sequences; raises where no launch takes the shape (past
-    ``plan.MAX_ROWS`` rows)."""
-    N1, L, d = X.shape
-    p = plan.gram_bwd_launch(N1, N2, L, d, X.element_size())
+    d] (or ``chains`` of them) against N2 sequences; raises where no launch
+    takes the shape (past ``plan.MAX_ROWS`` rows)."""
+    N1, L, d = X.shape[-3:]
+    p = plan.gram_bwd_launch(N1, N2, L, d, X.element_size(), chains)
     plan.check_fits(name, L - 1, p, p["smem"] if p else 0, f"L={L}, d={d}")
+    if p["work"] * X.element_size() > plan.WORKSPACE_BYTES:
+        raise ValueError(
+            f"{name}: {chains} chains at L={L}, d={d} need "
+            f"{p['work'] * X.element_size()} bytes of X̄ workspace; a launch "
+            f"takes at most {plan.WORKSPACE_BYTES} (launch fewer chains)")
     return p
 
 
@@ -130,15 +164,15 @@ def _launch_gram(X, Y, num_levels, rbf, symmetric):
     global gram_launches
     name = "fused_gram_levels"
     _build.check_inputs(name, (X, Y))
-    _check_shapes(name, num_levels, X, Y)
+    C = _check_shapes(name, num_levels, X, Y)
     _check_symmetric(name, symmetric, X, Y)
     S, R, W = _forward_plan(name, X, diag=False, num_levels=num_levels)
-    (N1, L, d), N2 = X.shape, Y.shape[0]
-    out = torch.empty((num_levels + 1, N1, N2), dtype=X.dtype,
-                      device=X.device)
+    (N1, L, d), N2 = X.shape[-3:], Y.shape[-3]
+    out = torch.empty(X.shape[:-3] + (num_levels + 1, N1, N2),
+                      dtype=X.dtype, device=X.device)
     if N1 and N2:
-        _build.launch("gpsig_fused_gram", X.device, X, Y, out, N1, N2, L, d,
-                      num_levels, rbf, S, R, W, symmetric,
+        _build.launch("gpsig_fused_gram", X.device, X, Y, out, C, N1, N2, L,
+                      d, num_levels, rbf, S, R, W, symmetric,
                       X.dtype == torch.float64)
         gram_launches += 1
     return out
@@ -149,6 +183,11 @@ def _launch_diag(X, num_levels, rbf):
     name = "fused_diag_levels"
     _build.check_inputs(name, (X,))
     _check_shapes(name, num_levels, X)
+    lead = X.shape[:-3]
+    if lead:  # the chains flattened into one batch of sequences
+        out = _launch_diag(X.reshape((-1,) + X.shape[-2:]), num_levels, rbf)
+        return _levels_after_chains(
+            out.reshape((num_levels + 1,) + X.shape[:-2]), lead)
     N, L, d = X.shape
     out = torch.empty((num_levels + 1, N), dtype=X.dtype, device=X.device)
     if N:
@@ -212,14 +251,16 @@ def fused_gram_levels(X, Y, num_levels, rbf=True, symmetric=False):
     """[nl+1, N1, N2] per-level signature kernels of X [N1, L, d] against
     Y [N2, L, d]; ``symmetric``: Y is X, and the kernel solves the triangle
     of pairs (the caller guarantees k(x_a, y_b) = k(x_b, y_a); only the
-    shapes are checked)."""
+    shapes are checked). With a chain axis, X [C, N1, L, d] and Y [C, N2,
+    L, d] give [C, nl+1, N1, N2] from one launch."""
     if _on_cpu(X, Y):
         return fused_gram_levels_ref(X, Y, num_levels, rbf)
     return _GramLevels.apply(X, Y, num_levels, rbf, symmetric)
 
 
 def fused_diag_levels(X, num_levels, rbf=True):
-    """[nl+1, N] per-level self kernels k_m(x_n, x_n) of X [N, L, d]."""
+    """[nl+1, N] per-level self kernels k_m(x_n, x_n) of X [N, L, d]; X
+    [C, N, L, d] gives [C, nl+1, N] from one launch over C·N sequences."""
     if _on_cpu(X):
         return fused_diag_levels_ref(X, num_levels, rbf)
     if not (X.requires_grad and torch.is_grad_enabled()):
@@ -232,25 +273,27 @@ def fused_diag_levels(X, num_levels, rbf=True):
 def fused_gram_levels_bwd(X, Y, g, num_levels, rbf=True):
     """(X̄, Ȳ): the VJP of :func:`fused_gram_levels` for the level
     cotangents g [nl+1, N1, N2] (counterpart of
-    ``fused_gram_levels_bwd_pallas``)."""
+    ``fused_gram_levels_bwd_pallas``); with a chain axis g [C, nl+1, N1,
+    N2], one launch."""
     global gram_bwd_launches
     if _on_cpu(X, Y, g):
         return fused_gram_levels_bwd_ref(X, Y, g, num_levels, rbf)
     name = "fused_gram_levels_bwd"
     _build.check_inputs(name, (X, Y, g))
-    _check_shapes(name, num_levels, X, Y)
-    (N1, L, d), N2 = X.shape, Y.shape[0]
-    p = _backward_plan(name, X, N2)
-    if tuple(g.shape) != (num_levels + 1, N1, N2):
-        raise ValueError(f"{name}: g must be [{num_levels + 1}, {N1}, {N2}];"
-                         f" got {tuple(g.shape)}")
+    C = _check_shapes(name, num_levels, X, Y)
+    (N1, L, d), N2 = X.shape[-3:], Y.shape[-3]
+    p = _backward_plan(name, X, N2, C)
+    want = X.shape[:-3] + (num_levels + 1, N1, N2)
+    if tuple(g.shape) != want:
+        raise ValueError(f"{name}: g must be {list(want)}; got "
+                         f"{tuple(g.shape)}")
     Xbar = torch.zeros_like(X)
     Ybar = torch.zeros_like(Y)
     if N1 and N2:
         work = torch.empty(p["work"], dtype=X.dtype, device=X.device) \
             if p["work"] else 0
         _build.launch("gpsig_fused_gram_bwd", X.device, X, Y, g, Xbar, Ybar,
-                      work, N1, N2, L, d, num_levels, rbf, p["S"], p["W"],
+                      work, C, N1, N2, L, d, num_levels, rbf, p["S"], p["W"],
                       p["chunk"], p["staged"], p["blocks"],
                       X.dtype == torch.float64)
         gram_bwd_launches += 1

@@ -206,18 +206,21 @@ def gram_ho_bwd_launch(N1, N2, rows, L, d, itemsize):
 #: memory: at most this many bytes (the grid strides over the rest)
 
 
-def _gram_bwd_grid(plan, N1, N2, pairs, L, d, itemsize):
+def _gram_bwd_grid(plan, N1, N2, pairs, L, d, itemsize, chains=1):
     """Add the grid to a Gram backward's plan: one block an item (an x
     against ``pairs`` y) where staged; else as many blocks as the
     workspace of ``pairs`` X̄ sums [L][d + 1] a block takes within
-    WORKSPACE_BYTES (at least one), striding over the items."""
+    WORKSPACE_BYTES (at least one), striding over the items. With
+    ``chains`` (the order-1 backward's chain axis) the grid is repeated a
+    chain, ``blocks`` counts one chain's and ``work`` all chains' slots,
+    within WORKSPACE_BYTES together."""
     items = N1 * -(-N2 // pairs)
     plan.update(items=items, blocks=items, work=0)
     if not plan["staged"]:
         per_block = pairs * L * (d + 1)
         blocks = max(1, min(items, WORKSPACE_BYTES
-                            // (per_block * itemsize)))
-        plan.update(blocks=blocks, work=blocks * per_block)
+                            // (chains * per_block * itemsize)))
+        plan.update(blocks=blocks, work=chains * blocks * per_block)
     return plan
 
 
@@ -256,12 +259,13 @@ def gram_bwd_chunk(L, d, S, W, itemsize, staged=True):
     return 8
 
 
-def gram_bwd_launch(N1, N2, L, d, itemsize):
-    """The order-1 Gram backward's launch for sequences [L, d]: a dict of
-    ``S``, ``W`` (:func:`gram_bwd_plan`), ``chunk``, ``staged`` (x, y and
-    the X̄ sums in shared memory; else read from global memory and summed
-    in the workspace), ``smem``, ``items``, ``blocks`` and ``work``
-    elements. None above ``MAX_ROWS``."""
+def gram_bwd_launch(N1, N2, L, d, itemsize, chains=1):
+    """The order-1 Gram backward's launch for sequences [L, d], for each of
+    ``chains`` chains: a dict of ``S``, ``W`` (:func:`gram_bwd_plan`),
+    ``chunk``, ``staged`` (x, y and the X̄ sums in shared memory; else read
+    from global memory and summed in the workspace), ``smem``, ``items``,
+    ``blocks`` (a chain) and ``work`` elements (all chains). None above
+    ``MAX_ROWS``."""
     p = gram_bwd_plan(L)
     if p is None:
         return None
@@ -273,7 +277,7 @@ def gram_bwd_launch(N1, N2, L, d, itemsize):
             break
     return _gram_bwd_grid(dict(S=S, W=W, chunk=chunk, staged=staged,
                                smem=smem), N1, N2,
-                          128 // S if W == 1 else 1, L, d, itemsize)
+                          128 // S if W == 1 else 1, L, d, itemsize, chains)
 
 
 # ---------------------------------------------------------------------------

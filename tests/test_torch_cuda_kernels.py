@@ -1732,3 +1732,73 @@ def test_softmax_steps_on_card_repeat_bitwise(cuda_device):
     a, b, c = run(1), run(1), run(2)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], c[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,bwd_tol,gap_tol",
+                         [(torch.float64, 1e-11, 1e-10, 1e-14),
+                          (torch.float32, 1e-4, 1e-3, 1e-6)])
+def test_chain_axis_kernels_match_plain_and_unbatched(cuda_device, dtype,
+                                                       tol, bwd_tol,
+                                                       gap_tol):
+    """The order-1 Gram (symmetric and not), its diagonal and the Gram's
+    backward with a chain axis [C, N, L, d]: one launch each, against the
+    plain versions, and against one unbatched launch a chain (the forward
+    and the diagonal bitwise; the backward's atomics add the same terms in
+    a run-dependent order: scaled gap 1e-14 / 1e-6)."""
+    rng = np.random.default_rng(40)
+    C, n, L, nl = 5, 9, 20, 3
+    kw = dict(dtype=dtype, device=cuda_device)
+    X = torch.as_tensor(_walks(rng, n, L, 2)[None]
+                        / rng.uniform(0.5, 2.0, (C, 1, 1, 2)), **kw)
+    Y = torch.as_tensor(np.stack([_walks(rng, n + 3, L, 2)
+                                  for _ in range(C)]), **kw)
+    g = torch.as_tensor(rng.standard_normal((C, nl + 1, n, n)), **kw)
+    n0 = (tfg.gram_launches, tfg.diag_launches, tfg.gram_bwd_launches)
+    sym = tfg.fused_gram_levels(X, X, nl, True, True)
+    cross = tfg.fused_gram_levels(X, Y, nl, True)
+    diag = tfg.fused_diag_levels(X, nl, True)
+    bwd = tfg.fused_gram_levels_bwd(X, X, g, nl, True)
+    assert (tfg.gram_launches, tfg.diag_launches,
+            tfg.gram_bwd_launches) == (n0[0] + 2, n0[1] + 1, n0[2] + 1)
+    assert sym.shape == (C, nl + 1, n, n)
+    assert cross.shape == (C, nl + 1, n, n + 3)
+    assert diag.shape == (C, nl + 1, n)
+    assert _scaled_err(sym, tfg.fused_gram_levels_ref(X, X, nl)) < tol
+    assert _scaled_err(cross, tfg.fused_gram_levels_ref(X, Y, nl)) < tol
+    assert _scaled_err(diag, tfg.fused_diag_levels_ref(X, nl)) < tol
+    assert _scaled_errs(bwd, tfg.fused_gram_levels_bwd_ref(X, X, g, nl)) \
+        < bwd_tol
+    for c in range(C):
+        assert torch.equal(sym[c], tfg.fused_gram_levels(X[c], X[c], nl,
+                                                         True, True))
+        assert torch.equal(cross[c], tfg.fused_gram_levels(X[c], Y[c], nl))
+        assert torch.equal(diag[c], tfg.fused_diag_levels(X[c], nl))
+        assert _scaled_errs([b[c] for b in bwd], tfg.fused_gram_levels_bwd(
+            X[c], X[c], g[c], nl)) <= gap_tol
+
+
+@pytest.mark.cuda
+def test_chain_axis_gpr_target_on_card_matches_cpu(cuda_device):
+    """BASELINE config 5's target (``mcmc/targets.py``) with 6 chains,
+    float64: log p and its gradient on the card against the CPU, and one
+    launch of each order-1 kernel for all chains."""
+    from gpsig_tpu_torch.mcmc import nuts
+    from gpsig_tpu_torch.mcmc.targets import signature_gpr_logp
+
+    rng = np.random.default_rng(41)
+    X = _walks(rng, 10, 12, 2)
+    y = rng.standard_normal((10, 1))
+    theta = 0.3 * rng.standard_normal((6, 7))
+    out = {}
+    for where in ("cpu", cuda_device):
+        kw = dict(dtype=torch.float64, device=where)
+        logp = signature_gpr_logp(torch.as_tensor(X, **kw),
+                                  torch.as_tensor(y, **kw), 3)
+        n0 = (tfg.gram_launches, tfg.diag_launches, tfg.gram_bwd_launches)
+        out[str(where)] = nuts.value_and_grad(logp)(
+            torch.as_tensor(theta, **kw))
+        n1 = (tfg.gram_launches, tfg.diag_launches, tfg.gram_bwd_launches)
+        assert n1 == tuple(a + (where != "cpu") for a in n0)
+    for g, w in zip(out[str(cuda_device)], out["cpu"]):
+        assert _scaled_err(g.cpu(), w) <= 1e-10

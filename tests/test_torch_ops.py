@@ -125,7 +125,12 @@ def test_port_imports_without_jax():
         "import gpsig_tpu_torch, gpsig_tpu_torch.ops.explicit\n"
         "import gpsig_tpu_torch.ops.low_rank, gpsig_tpu_torch.kernels.vosf\n"
         "import gpsig_tpu_torch.kernels.low_rank\n"
+        "import gpsig_tpu_torch.mcmc.sample, gpsig_tpu_torch.mcmc.targets\n"
+        "import gpsig_tpu_torch.parallel.chains\n"
+        "import gpsig_tpu_torch.utils.metrics\n"
         "assert not any(m.startswith('jax') and sys.modules[m] is not None"
+        " for m in sys.modules)\n"
+        "assert not any(m == 'gpsig_tpu' or m.startswith('gpsig_tpu.')"
         " for m in sys.modules)\n"
         "print('ok')\n"
     )

@@ -238,3 +238,54 @@ def test_predict_y_passes_generator_and_samples():
                                                          dtype=p.dtype))
         lpd = tm.predict_log_density(tX, tY, num_samples=7)
         assert lpd.shape == (N,) and bool(torch.all(lpd <= 0))
+
+
+def test_softmax_natgrad_steps_match_jax(monkeypatch):
+    """Three natgrad steps at γ = 0.1 of config 6's model cut to a small
+    size: the VOSF SVGP (explicit signature kernel, lengthscale 1,
+    normalised, nl = 3: M = 15 features at d = 2, the family's size
+    nearest 16), q_diag, Softmax(10, 20), a batch of B = 64 sequences
+    standing for config 6's 120,000, JAX's ε under each step's key fed
+    across. q_mu, q_sqrt and the ELBO after every step match JAX (1e-8
+    scaled), so a divergence of these steps on the card is the reference's
+    behaviour, not the port's."""
+    from gpsig_tpu.training import natgrad as jnat
+    from gpsig_tpu_torch.training import natgrad as tnat
+
+    rng = np.random.default_rng(31)
+    C10, S20, B, num_data = 10, 20, 64, 120_000
+    kw = dict(lengthscales=1.0, normalization=True)
+    jk = jvosf.ExplicitSignatureKernel.create(2, 3, **kw)
+    tk = tvosf.ExplicitSignatureKernel.create(2, 3, device="cpu", **kw)
+    convert.load_jax_arrays(tk, leaves(jk))
+    jf = jvosf.OrthogonalSignatureFeatures.for_kernel(jk)
+    tf = tvosf.OrthogonalSignatureFeatures.for_kernel(tk)
+    M = jf.num_inducing
+    assert M == 15
+    jm = jsvgp.SVGP.create(jk, jlik.Softmax(C10, S20), jf, C10, q_diag=True)
+    jm = jm.replace(q_mu=jnp.asarray(0.3 * rng.standard_normal((M, C10))),
+                    q_sqrt=jnp.asarray(rng.uniform(0.3, 1.0, (M, C10))))
+    tm = tsvgp.SVGP.create(tk, tlik.Softmax(C10, S20), tf, C10, q_diag=True,
+                           device="cpu")
+    convert.load_jax_arrays(tm, leaves(jm))
+    X, Y = walks(rng, B), rng.integers(0, C10, B)
+    tX, tY = torch.as_tensor(X), torch.as_tensor(Y)
+    key = {"value": None}
+    monkeypatch.setattr(tm.likelihood, "draw",
+                        lambda num_samples, F, generator=None: torch.as_tensor(
+                            jax_eps(key["value"], num_samples, F.shape)))
+    jstep = jax.jit(lambda m, k: jnat.natgrad_step(m, 0.1, X, Y,
+                                                   num_data=num_data, key=k))
+    jelbo = jax.jit(lambda m, k: m.elbo(X, Y, num_data=num_data, key=k))
+    for k_step, k_eval in jax.random.split(jax.random.PRNGKey(32), (3, 2)):
+        jm = jstep(jm, k_step)
+        key["value"] = k_step
+        tnat.natgrad_step(tm, 0.1, tX, tY, num_data=num_data,
+                          generator=torch.Generator())
+        close(tm.q_mu, jm.q_mu, GRAD_TOL)
+        close(tm.q_sqrt, jm.q_sqrt, GRAD_TOL)
+        key["value"] = k_eval
+        with torch.no_grad():
+            close(tm.elbo(tX, tY, num_data=num_data,
+                          generator=torch.Generator()),
+                  jelbo(jm, k_eval), GRAD_TOL)
