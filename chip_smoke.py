@@ -10,7 +10,8 @@ sequence SVGP at L = 3000, GPRs past 1024 rows), sig_gram past order 7,
 the entry twin of ``__graft_entry__.py``, UEA archive files through the
 port's reader, the rest of the GP layer (VOSF at BASELINE config 6,
 VOSF under the PDE prior, the low-rank kernel, the Monte-Carlo Softmax),
-and NUTS at BASELINE config 5 (16 chains as one batch).
+NUTS at BASELINE config 5 (16 chains as one batch), and the multi-process
+layer (BASELINE config 4's sharded SVI on ranks sharing the card).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -203,7 +204,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (no branch may flip); a run stopped after 2 chunks and resumed from its
    checkpoint, bitwise equal to an uninterrupted one on a deterministic
    target, config 5's printed;
-18. report: one JSON line with every kernel's launches, error, times and
+18. multi-process (``gpsig_tpu_torch/parallel/``), within a budget of
+   PARALLEL_BUDGET_S seconds checked by the phase, each rank a process of
+   this script (``--parallel-rank``) that must exit 0 and print its JSON
+   line: BASELINE config 4 at full width (20,000 synthetic sequences of
+   L = 30, d = 3, 5 classes; order-1 normalised SignatureRBF, nl = 3, 64
+   inducing tensors, MultiClass(5), γ = 0.05, Adam 2e-3, global batch
+   256 through the sharded loader, float32; 3 steps), as one rank under
+   NCCL and as two ranks on cuda:0 under gloo, against the same 3 steps
+   in one process on the same batches (PARALLEL_F32_TOL), the two ranks'
+   parameters bitwise equal, each rank's diagonal, Kuf and Kuf backward
+   counters rising, ms a sharded step and the share in all_reduce;
+   ``sharded_gram`` at bench.py's shape (N = 256, L = 50, d = 2, nl = 4)
+   on (2, 1) and (1, 2) meshes against K on the card, the Gram counter
+   rising on each rank; the sequence-parallel Goursat corner (float64,
+   s split over 2 ranks) against ``goursat_corner`` on the card; config
+   5's 16 chains as 2 ranks x 8 (draws cut to CONFIG5_SHARDED's), each
+   rank's chain-axis counters rising by one an evaluation and one step
+   size on every chain and rank; the float64 worker's run
+   (``gpsig_tpu_torch.parallel.worker.run``, 2 ranks, 4 steps) against the
+   one-process CPU run (PARALLEL_F64_TOL); each rank's seconds to start
+   and a scenario;
+19. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
    launches on the long path, under "long"; rows 10-13 with the same
    at num_levels = 10, under "deep"; rows 12-13 the run-time-order
@@ -336,38 +358,15 @@ def abs_err(got, want):
 
 def counters():
     """The launch counters of all sixteen kernels."""
-    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
-    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
-    from gpsig_tpu_torch.ops.cuda import goursat as gs
-    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
-    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
-    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+    from gpsig_tpu_torch.ops.cuda import launch_counts
 
-    return dict(gram=fg.gram_launches, diag=fg.diag_launches,
-                tens_seq=ts.launches, gram_bwd=fg.gram_bwd_launches,
-                tens_seq_bwd=ts.bwd_launches, gram_ho=fgho.launches,
-                tsg=tsg.launches, sig_gram=sg.launches,
-                sig_gram_ho=sg.ho_launches, gram_ho_bwd=fgho.bwd_launches,
-                tsg_bwd=tsg.bwd_launches, sig_gram_bwd=sg.bwd_launches,
-                sig_gram_ho_bwd=sg.ho_bwd_launches, goursat=gs.launches,
-                goursat_fused=gs.fused_launches,
-                goursat_grad=gs.grad_launches)
+    return launch_counts()
 
 
 def reset_counters():
-    from gpsig_tpu_torch.ops.cuda import fused_gram as fg
-    from gpsig_tpu_torch.ops.cuda import fused_gram_ho as fgho
-    from gpsig_tpu_torch.ops.cuda import goursat as gs
-    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
-    from gpsig_tpu_torch.ops.cuda import tens_seq as ts
-    from gpsig_tpu_torch.ops.cuda import tens_seq_general as tsg
+    from gpsig_tpu_torch.ops.cuda import reset_launch_counts
 
-    fg.gram_launches = fg.diag_launches = fg.gram_bwd_launches = 0
-    ts.launches = ts.bwd_launches = 0
-    fgho.launches = tsg.launches = sg.launches = sg.ho_launches = 0
-    fgho.bwd_launches = tsg.bwd_launches = 0
-    sg.bwd_launches = sg.ho_bwd_launches = 0
-    gs.launches = gs.fused_launches = gs.grad_launches = 0
+    reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -4941,6 +4940,514 @@ def nuts_config5_phase(dev, card):
     return timings
 
 
+# ---------------------------------------------------------------------------
+# Multi-process training: the parallel layer (``gpsig_tpu_torch/parallel/``)
+# on torch.distributed, run by BASELINE config 4 (sharded minibatch SVI) on
+# ranks that share the card. NCCL takes one rank a device, so the card runs
+# one rank under NCCL (its set-up and collectives) and two ranks on cuda:0
+# under gloo (the protocol); gloo copies CUDA tensors through the host, so
+# the two-rank times measure the protocol, not a link between cards.
+# ---------------------------------------------------------------------------
+
+#: BASELINE config 4 (``benchmarks/config4_sharded_svi.py``), its synthetic
+#: set at full width: N = 20,000 sequences of L = 30, d = 3, 5 classes;
+#: order-1 normalised SignatureRBF at nl = 3, 64 inducing tensors,
+#: MultiClass(5), γ = 0.05, Adam 2e-3, global batch 256, float32; the
+#: steps cut from 300 to 3
+CONFIG4 = dict(N=20_000, L=30, d=3, C=5, M=64, nl=3, B=256, lr=2e-3,
+               gamma=0.05, steps=3)
+#: further sharded steps whose all_reduce calls are synchronised and timed
+CONFIG4_TIMED_STEPS = 2
+#: the phase's wall-time budget in seconds: a phase that overruns fails
+PARALLEL_BUDGET_S = 150.0
+#: a rank's process that has not ended by then is killed, and the run fails
+RANK_TIMEOUT_S = 120
+#: float32 sharded config-4 steps against the one-process steps on the same
+#: batches: the ELBOs relative, q_mu and q_sqrt scaled, the other
+#: parameters (after 3 Adam steps) absolute. Measured (NVIDIA H100 80GB
+#: HBM3, 700.00 W, two runs): ELBOs ≤ 6.7e-8, q ≤ 1.1e-5, the others ≤
+#: 3.6e-6 (4.8e-7 in the other run). Adam divides a gradient by its own
+#: scale, so a sum taken for a mean moves no parameter it updates: the
+#: ELBO and q bounds are the checks that see one
+PARALLEL_F32_TOL = {
+    "elbo": (1e-5, "float32 ELBO terms of 256 sequences summed per rank "
+             "then across ranks, in another order than one process, and "
+             "the Kuf backward's atomics"),
+    "q": (1e-4, "the ELBO's rounding through the natural-gradient "
+          "statistics and float32 Cholesky solves"),
+    "other": (2e-5, "Adam's step is lr times the gradient's ratio to its "
+              "running scale: the gradients' rounding through 3 steps at "
+              "lr 2e-3"),
+}
+#: float64 sharded steps on the card against the one-process CPU run
+PARALLEL_F64_TOL = (1e-10, "float64, other summation order only")
+#: the sequence-parallel Goursat corner against the plain sweep (the JAX
+#: test's bound)
+GOURSAT_SP_TOL = (1e-9, "float64 column recurrences by a doubling scan "
+                  "against the sweep's diagonals")
+GRAM_BENCH = dict(N=256, L=50, d=2, nl=4)
+GOURSAT_SP = dict(batch=4, S=128, T=128, col_block=16)
+#: BASELINE config 5 sharded: 2 ranks x 8 chains, the draw counts cut from
+#: 200 + 200 to 20 + 10 (the phase's budget). Not 10 warmup draws: there the
+#: reference's single adaptation window ends on the last warmup step, dual
+#: averaging restarts on it, and every chain's step size is exactly 1
+#: whatever the ranks pooled
+CONFIG5_SHARDED = dict(warmup=20, samples=10)
+
+
+def config4_problem(torch, dev):
+    """(model, X, y): config 4's synthetic set (numpy, on the host) and its
+    model on the card, inducing tensors from the first 500 sequences."""
+    from gpsig_tpu_torch.data.synthetic import classification_sequences
+    from gpsig_tpu_torch.inducing import make_inducing_tensors_from_data
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+    from gpsig_tpu_torch.likelihoods import MultiClass
+    from gpsig_tpu_torch.models.svgp import SVGP
+
+    c, f32 = CONFIG4, torch.float32
+    X, y = classification_sequences(seed=SEED, N=c["N"], L=c["L"], d=c["d"],
+                                    num_classes=c["C"])
+    kern = SignatureRBF(c["d"], c["nl"], lengthscales=1.0, order=1,
+                        normalization=True, dtype=f32, device=dev)
+    feat = make_inducing_tensors_from_data(
+        torch.Generator().manual_seed(SEED),
+        torch.as_tensor(X[:500], dtype=f32, device=dev),
+        num_tensors=c["M"], num_levels=c["nl"], num_features=c["d"])
+    model = SVGP.create(kern, MultiClass(num_classes=c["C"]), feat,
+                        num_latent=c["C"], dtype=f32, device=dev)
+    return model, X, y
+
+
+def config4_steps(torch, dev, mesh, step):
+    """CONFIG4["steps"] steps of ``step`` on the batches of a
+    ``ShardedLoader`` over ``mesh`` (the same global stream at every mesh
+    size), the counters reset just before: ELBOs, ms a step (host clock
+    around a synchronise), launches, the parameters after, and the model,
+    state and loader to go on with."""
+    from gpsig_tpu_torch.parallel.loader import ShardedLoader
+
+    c = CONFIG4
+    model, X, y = config4_problem(torch, dev)
+    state = step.init(model)
+    loader = ShardedLoader(mesh, X, y, c["B"], seed=SEED, device=dev,
+                           dtype=torch.float32)
+    elbos, ms = [], []
+    torch.cuda.synchronize()
+    reset_counters()
+    for _ in range(c["steps"]):
+        Xb, Yb = next(loader)
+        t = time.perf_counter()
+        state, elbo = step(state, Xb, Yb)
+        elbos.append(float(elbo))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    params = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    return dict(elbos=elbos, ms=ms, launches=counters(), params=params,
+                batch=Xb.shape[0]), (state, loader)
+
+
+def config4_sharded(torch, dev, world):
+    """Config 4's sharded steps on this rank of a (world, 1) mesh, then
+    CONFIG4_TIMED_STEPS more with every ``psum`` synchronised before and
+    after and timed: the all_reduce share of a step."""
+    from gpsig_tpu_torch.parallel.mesh import make_mesh
+    from gpsig_tpu_torch.parallel.train import make_sharded_step_fn
+    from gpsig_tpu_torch.training import loop
+
+    c = CONFIG4
+    mesh = make_mesh(world, 1)
+    step = make_sharded_step_fn(c["lr"], c["N"], mesh, gamma=c["gamma"])
+    out, (state, loader) = config4_steps(torch, dev, mesh, step)
+    spent = []
+    psum = loop.psum
+
+    def timed_psum(tensors, group):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = psum(tensors, group)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return got
+
+    steps = []
+    with mock.patch.object(loop, "psum", timed_psum):
+        for _ in range(CONFIG4_TIMED_STEPS):
+            Xb, Yb = next(loader)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, _ = step(state, Xb, Yb)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t)
+    out.update(timed_ms=1e3 * statistics.median(steps),
+               all_reduce_ms=1e3 * sum(spent) / CONFIG4_TIMED_STEPS,
+               all_reduces=len(spent) // CONFIG4_TIMED_STEPS)
+    return out
+
+
+def bench_gram_inputs(torch, dev):
+    from gpsig_tpu_torch.kernels.signature import SignatureRBF
+
+    g = GRAM_BENCH
+    rng = np.random.default_rng(SEED + 70)
+    X = torch.as_tensor(walks(rng, g["N"], g["L"], g["d"]),
+                        dtype=torch.float32, device=dev)
+    kern = SignatureRBF(g["d"], g["nl"], lengthscales=1.0, order=1,
+                        normalization=True, dtype=torch.float32, device=dev)
+    return kern, X
+
+
+def gram_sharded(torch, dev, world):
+    """``sharded_gram`` at bench.py's shape on the (world, 1) and (1,
+    world) meshes, each with its counters and ms."""
+    from gpsig_tpu_torch.parallel.mesh import make_mesh
+    from gpsig_tpu_torch.parallel.train import sharded_gram
+
+    kern, X = bench_gram_inputs(torch, dev)
+    out = {}
+    for shape in ((world, 1), (1, world)):
+        mesh = make_mesh(*shape)
+        sharded_gram(kern, mesh, X)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        t = time.perf_counter()
+        K = sharded_gram(kern, mesh, X)
+        torch.cuda.synchronize()
+        out[shape] = dict(K=K.cpu(), launches=counters(),
+                          ms=1e3 * (time.perf_counter() - t))
+    return out
+
+
+def goursat_sp_inputs(torch, dev):
+    g = GOURSAT_SP
+    rng = np.random.default_rng(SEED + 71)
+    return torch.as_tensor(0.05 * rng.standard_normal(
+        (g["batch"], g["S"], g["T"])), dtype=torch.float64, device=dev)
+
+
+def goursat_sharded(torch, dev, world):
+    from gpsig_tpu_torch.parallel.goursat_sp import goursat_corner_seq_sharded
+    from gpsig_tpu_torch.parallel.mesh import make_mesh
+
+    inc = goursat_sp_inputs(torch, dev)
+    mesh = make_mesh(world, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    u = goursat_corner_seq_sharded(inc, mesh, GOURSAT_SP["col_block"])
+    torch.cuda.synchronize()
+    return dict(u=u.cpu(), ms=1e3 * (time.perf_counter() - t))
+
+
+def config5_sharded(torch, dev, world):
+    """Config 5's 16 chains split over the ranks, draws cut to
+    CONFIG5_SHARDED's, through ``run_chains_sharded``: this rank's
+    evaluations, launches and every chain's step size."""
+    from gpsig_tpu_torch.mcmc import nuts
+    from gpsig_tpu_torch.mcmc.targets import signature_gpr_logp
+    from gpsig_tpu_torch.parallel.chains import run_chains_sharded
+    from gpsig_tpu_torch.parallel.mesh import make_mesh
+
+    f32 = torch.float32
+    X, y = config5_data(torch, dev, f32)
+    logp = signature_gpr_logp(X, y, CONFIG5["levels"])
+    mesh = make_mesh(world, 1)
+    torch.cuda.synchronize()
+    reset_counters()
+    evals0 = nuts.evaluations
+    t = time.perf_counter()
+    samples, info = run_chains_sharded(
+        SEED, logp, config5_theta0(torch, dev, f32), mesh,
+        num_warmup=CONFIG5_SHARDED["warmup"],
+        num_samples=CONFIG5_SHARDED["samples"],
+        max_depth=CONFIG5["max_depth"],
+        draws_per_dispatch=CONFIG5["draws_per_dispatch"])
+    return dict(evaluations=nuts.evaluations - evals0, launches=counters(),
+                step_size=info["step_size"], shape=samples.shape,
+                finite=bool(np.all(np.isfinite(samples))),
+                wall=time.perf_counter() - t)
+
+
+def worker_float64(torch, dev, world):
+    """``python -m gpsig_tpu_torch.parallel.worker``'s run (4 float64 steps
+    of ``distributed_check``'s problem) on this rank, the counters reset
+    just before."""
+    from gpsig_tpu_torch.parallel import worker
+    from gpsig_tpu_torch.parallel.mesh import make_mesh
+
+    reset_counters()
+    return worker.run(make_mesh(world, 1), 4, torch.float64, dev)
+
+
+RANK_SCENARIOS = {"config4": config4_sharded, "gram": gram_sharded,
+                  "goursat": goursat_sharded, "config5": config5_sharded,
+                  "float64": worker_float64}
+
+
+def parallel_rank(argv):
+    """A rank's process (``chip_smoke.py --parallel-rank R ...``, started by
+    the multi-process phase): join the process group, run the scenarios
+    asked for on cuda:0, save their results and print one JSON line."""
+    started = time.perf_counter()
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--parallel-rank", type=int, required=True)
+    parser.add_argument("--world", type=int, required=True)
+    parser.add_argument("--backend", required=True)
+    parser.add_argument("--store", required=True)
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--scenarios", required=True)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from gpsig_tpu_torch.ops.cuda import _build
+    from gpsig_tpu_torch.parallel.mesh import init_distributed
+
+    # the phase built the library before starting the ranks: a rank loads
+    # it and never runs nvcc
+    check(_build.library_path().exists(), "rank: the kernel library is not "
+          "built")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rank = args.parallel_rank
+    init_distributed(args.backend, f"file://{args.store}", args.world, rank)
+    try:
+        torch.zeros(1, device=dev)  # the CUDA context
+        seconds = {"start": time.perf_counter() - started}
+        results = {}
+        for name in args.scenarios.split(","):
+            t = time.perf_counter()
+            results[name] = RANK_SCENARIOS[name](torch, dev, args.world)
+            seconds[name] = time.perf_counter() - t
+        torch.save(results, Path(args.out) / f"rank{rank}.pt")
+        print(json.dumps({"rank": rank, "world": args.world,
+                          "backend": args.backend, "seconds": seconds}),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_processes(cmds, label):
+    """Start every command, wait for all (RANK_TIMEOUT_S), kill any left
+    over; each must exit 0 and print a JSON line as its last. Returns the
+    parsed lines."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=ROOT)
+             for cmd in cmds]
+    lines = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            last = out.strip().splitlines()[-1:] or [""]
+            check(p.returncode == 0, f"{label}: rank {i} exited "
+                  f"{p.returncode}:\n{err[-4000:]}")
+            check(last[0].startswith("{"), f"{label}: rank {i} printed no "
+                  f"JSON line:\n{out[-2000:]}\n{err[-2000:]}")
+            lines.append(json.loads(last[0]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return lines
+
+
+def run_ranks(tmp, backend, world, scenarios):
+    """``world`` rank processes of this script under ``backend``; each
+    rank's results."""
+    import torch
+
+    out = Path(tmp) / f"{backend}{world}"
+    out.mkdir()
+    cmds = [[sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+             str(r), "--world", str(world), "--backend", backend, "--store",
+             str(out / "store"), "--out", str(out), "--scenarios",
+             ",".join(scenarios)] for r in range(world)]
+    for line in run_processes(cmds, f"{backend} x{world}"):
+        print(f"multi-process {backend} rank {line['rank']} of {world}: "
+              f"seconds {  {k: round(v, 1) for k, v in line['seconds'].items()} } "
+              "(start: from importing torch to a CUDA context in the "
+              "process group)")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def config4_vs_one_process(label, got, ref):
+    """A rank's config-4 steps against the one-process steps: ELBOs, q_mu
+    and q_sqrt, and the other parameters, each within its
+    PARALLEL_F32_TOL."""
+    errs = {
+        "elbo": max(abs(a - b) / abs(b)
+                    for a, b in zip(got["elbos"], ref["elbos"])),
+        "q": max(scaled_err(got["params"][k], ref["params"][k])
+                 for k in ("q_mu", "q_sqrt")),
+    }
+    others = {k: abs_err(v, ref["params"][k])
+              for k, v in got["params"].items() if k not in ("q_mu", "q_sqrt")}
+    errs["other"] = max(others.values())
+    print(f"multi-process {label}: ELBOs {got['elbos']} against one "
+          f"process's {ref['elbos']}; " + "; ".join(
+              f"{k} err {errs[k]:.3e} (tolerance {limit:g}: {why})"
+              for k, (limit, why) in PARALLEL_F32_TOL.items())
+          + f"; other parameters' abs err "
+          f"{ {k: f'{v:.2e}' for k, v in others.items()} }")
+    for k, (limit, _) in PARALLEL_F32_TOL.items():
+        check(errs[k] <= limit, f"multi-process {label}: {k} err "
+              f"{errs[k]} over {limit}")
+    rise = {k: got["launches"][k] for k in ("diag", "tens_seq",
+                                            "tens_seq_bwd")}
+    print(f"multi-process {label}: launches {rise}")
+    check(all(rise.values()), f"multi-process {label}: a kernel did not "
+          f"launch: {rise}")
+
+
+def parallel_phase(dev, card):
+    """The parallel layer on the card within PARALLEL_BUDGET_S seconds:
+    config 4's one-process steps here, then one rank under NCCL, and two
+    ranks on cuda:0 under gloo (config 4, sharded_gram, the
+    sequence-parallel Goursat corner, config 5's chains, and the float64
+    worker's run against the one-process CPU run)."""
+    import tempfile
+
+    import torch
+
+    from gpsig_tpu_torch.ops.goursat import goursat_corner
+    from gpsig_tpu_torch.parallel import distributed_check as dc
+    from gpsig_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[label] = time.perf_counter() - t
+        return out
+
+    c = CONFIG4
+    ref, _ = part("config 4, one process", config4_steps, torch, dev,
+                  Mesh(1, 1), make_step_fn(c["lr"], c["N"],
+                                           gamma=c["gamma"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        (nccl,) = part("NCCL, one rank", run_ranks, tmp, "nccl", 1,
+                       ["config4"])
+        gloo = part("gloo, two ranks", run_ranks, tmp, "gloo", 2,
+                    ["config4", "gram", "goursat", "config5", "float64"])
+    workers = [res["float64"] for res in gloo]
+
+    # config 4: one rank under NCCL and two under gloo against one process
+    config4_vs_one_process("config 4, NCCL, one rank", nccl["config4"], ref)
+    for r, res in enumerate(gloo):
+        config4_vs_one_process(f"config 4, gloo, rank {r} of 2",
+                               res["config4"], ref)
+    p0, p1 = (res["config4"]["params"] for res in gloo)
+    same = all(torch.equal(p0[k], p1[k]) for k in p0)
+    print(f"multi-process config 4, gloo: the two ranks' parameters bitwise "
+          f"equal after {c['steps']} steps: {same}")
+    check(same, "multi-process config 4: the ranks' parameters differ")
+    one = statistics.median(ref["ms"])
+    for label, res in (("NCCL, one rank", nccl["config4"]),
+                       ("gloo, two ranks on one card", gloo[0]["config4"])):
+        print(f"time multi-process config 4 on {card}, {label}: "
+              f"{statistics.median(res['ms']):.2f} ms a sharded step (global "
+              f"batch {c['B']}, {res['batch']} a rank; one process "
+              f"{one:.2f} ms); with synchronised collectives "
+              f"{res['timed_ms']:.2f} ms, of which {res['all_reduce_ms']:.2f} "
+              f"ms in {res['all_reduces']} all_reduce calls (share "
+              f"{res['all_reduce_ms'] / res['timed_ms']:.3f})")
+
+    # sharded_gram at bench.py's shape against K on the card
+    kern, X = bench_gram_inputs(torch, dev)
+    with torch.no_grad():
+        K = kern.K(X)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad():
+        kern.K(X)
+    torch.cuda.synchronize()
+    k_ms = 1e3 * (time.perf_counter() - t)
+    limit, why = TOL["float32"]
+    for r, res in enumerate(gloo):
+        for shape, g in res["gram"].items():
+            err = scaled_err(g["K"], K.cpu())
+            print(f"multi-process sharded_gram {shape} rank {r}: scaled err "
+                  f"{err:.3e} against K on the card (tolerance {limit:g}: "
+                  f"{why}), gram launches {g['launches']['gram']}, "
+                  f"{g['ms']:.2f} ms (K in one process {k_ms:.2f} ms)")
+            check(err <= limit, f"multi-process sharded_gram {shape}: {err}")
+            check(g["launches"]["gram"] > 0, f"multi-process sharded_gram "
+                  f"{shape} rank {r}: the Gram kernel did not launch")
+
+    # the sequence-parallel Goursat corner against the sweep on the card
+    limit, why = GOURSAT_SP_TOL
+    want = goursat_corner(goursat_sp_inputs(torch, dev)).cpu()
+    for r, res in enumerate(gloo):
+        err = scaled_err(res["goursat"]["u"], want)
+        print(f"multi-process Goursat corner, s split over 2 ranks, "
+              f"{GOURSAT_SP}: rank {r} scaled err {err:.3e} against "
+              f"goursat_corner on the card (tolerance {limit:g}: {why}), "
+              f"{res['goursat']['ms']:.1f} ms")
+        check(err <= limit, f"multi-process Goursat corner rank {r}: {err}")
+
+    # config 5's chains over two ranks
+    steps = [res["config5"]["step_size"] for res in gloo]
+    for r, res in enumerate(gloo):
+        got = res["config5"]
+        n = got["evaluations"]
+        rise = {k: got["launches"][k] for k in ("gram", "diag", "gram_bwd")}
+        print(f"multi-process config 5, rank {r} of 2 ({CONFIG5['chains']} "
+              f"chains, {CONFIG5['chains'] // 2} a rank, "
+              f"{CONFIG5_SHARDED['warmup']} + {CONFIG5_SHARDED['samples']} "
+              f"draws): {n} evaluations, launches {rise}, step sizes "
+              f"{np.unique(got['step_size']).tolist()}, {got['wall']:.1f} s")
+        check(all(v == n for v in rise.values()), f"multi-process config 5 "
+              f"rank {r}: launches {rise} for {n} evaluations")
+        check(got["finite"] and got["shape"] == (
+            CONFIG5["chains"], CONFIG5_SHARDED["samples"],
+            CONFIG5["d"] + CONFIG5["levels"] + 2),
+            f"multi-process config 5 rank {r}: samples {got['shape']}")
+    check(np.array_equal(steps[0], steps[1]) and len(np.unique(steps[0])) == 1,
+          "multi-process config 5: the step sizes differ across chains or "
+          "ranks")
+
+    # the float64 worker at two ranks against the one-process CPU run
+    elbo, checksum = dc.run_steps(make_mesh(), 4, torch.float64, "cpu")
+    limit, why = PARALLEL_F64_TOL
+    errs = [max(abs(w["elbo"] - elbo) / abs(elbo),
+                abs(w["checksum"] - checksum) / abs(checksum))
+            for w in workers]
+    print(f"multi-process worker's run, float64, 2 ranks on cuda:0 under "
+          f"gloo, 4 "
+          f"steps: ELBO {workers[0]['elbo']!r}, checksum "
+          f"{workers[0]['checksum']!r} against the CPU's {elbo!r}, "
+          f"{checksum!r}: relative err {max(errs):.3e} (tolerance {limit:g}: "
+          f"{why}); launches {workers[0]['launches']}")
+    check(max(errs) <= limit, f"multi-process worker: {errs}")
+    check(workers[0]["elbo"] == workers[1]["elbo"]
+          and workers[0]["checksum"] == workers[1]["checksum"],
+          "multi-process worker: the ranks differ")
+    check(all(w["launches"][k] for w in workers
+              for k in ("diag", "tens_seq", "tens_seq_bwd")),
+          "multi-process worker: a kernel did not launch")
+
+    total = time.perf_counter() - t0
+    print(f"multi-process phase on {card}: {total:.1f} s of its "
+          f"{PARALLEL_BUDGET_S:.0f} s budget "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    check(total <= PARALLEL_BUDGET_S, f"multi-process phase: {total:.1f} s "
+          f"over its {PARALLEL_BUDGET_S:.0f} s budget")
+
+
 def phase(label, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -5036,6 +5543,7 @@ def main():
     phase("low-rank", lowrank_phase, dev, card)
     phase("Softmax", softmax_phase, dev, card)
     nuts_timings = phase("NUTS at config 5", nuts_config5_phase, dev, card)
+    phase("multi-process", parallel_phase, dev, card)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the
@@ -5107,4 +5615,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(parallel_rank(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -14,9 +14,15 @@ sets fewer leapfrogs a transition); for independent chains any grouping
 gives the same draws, and with ``shared_step_size`` the accept statistic
 is pooled within a block.
 
-``run_chains_sharded``, the mesh and the cross-device ``pmean`` of the
-accept statistic come with the port's multi-process layer (ROADMAP Queue
-1 item 3); here the chains of a block share one device.
+Under a mesh (``parallel/mesh.py``) the chains are split over the ranks of
+its ``data`` axis, as the JAX package's ``shard_map`` splits them over
+devices: each rank runs its block of the C chains, the accept statistic
+is pooled within a chain block and then averaged over the data group (the
+JAX package's ``pmean`` over "chain", then over ``data``), so every rank
+adapts the same step size, and every chain's draws and info come back on
+every rank. Chain c draws from the stream of global chain c whatever rank
+runs it, so a sharded run draws what one process running all C chains
+draws. :func:`run_chains_sharded` is the JAX package's entry point.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import pickle
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gpsig_tpu_torch.mcmc.draws import as_draw_source
 from gpsig_tpu_torch.mcmc.nuts import NutsState, nuts_kernel
@@ -36,6 +43,7 @@ from gpsig_tpu_torch.mcmc.sample import (
     make_samp_step,
     make_warm_step,
 )
+from gpsig_tpu_torch.parallel.mesh import gather, pmean
 from gpsig_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -62,10 +70,39 @@ def _join(parts):
         for xs in zip(*parts))
 
 
+def _pooled_over(mesh):
+    """The accept statistic pooled over a block's chains, then averaged
+    over the mesh's data group."""
+    def reduce(acc):
+        return pmean([acc.mean()], mesh.data_group)[0].expand_as(acc)
+
+    return reduce
+
+
+def run_chains_sharded(
+    seed, logp_fn, theta0s, mesh, num_warmup=500, num_samples=500,
+    max_depth=8, target_accept=0.8, init_step_size=0.1,
+    shared_step_size=True, draws_per_dispatch=None, chain_blocks=1,
+):
+    """All C chains of θ0s [C, D] (every rank passes them all), split over
+    the mesh's ``data`` axis; C must divide by its size. Each rank runs its
+    block through the chunked sampler (one chunk a phase unless
+    ``draws_per_dispatch`` says otherwise); returns (samples [C,
+    num_samples, D], info) on every rank."""
+    sampler = make_chunked_sampler(
+        logp_fn, num_warmup=num_warmup, num_samples=num_samples,
+        max_depth=max_depth, target_accept=target_accept,
+        init_step_size=init_step_size, shared_step_size=shared_step_size,
+        draws_per_dispatch=(draws_per_dispatch or
+                            max(num_warmup, num_samples, 1)),
+        chain_blocks=chain_blocks, mesh=mesh)
+    return sampler(seed, theta0s)
+
+
 def make_chunked_sampler(
     logp_fn, num_warmup=500, num_samples=500, max_depth=8,
     target_accept=0.8, init_step_size=0.1, shared_step_size=True,
-    draws_per_dispatch=100, chain_blocks=1,
+    draws_per_dispatch=100, chain_blocks=1, mesh=None,
 ):
     """Build ``sample(key, theta0s) -> (samples, info)``, which loops on the
     host over chunks of at most ``draws_per_dispatch`` transitions.
@@ -74,13 +111,19 @@ def make_chunked_sampler(
     (the lockstep of a batch makes a transition cost its deepest tree's
     leapfrogs). Per-chain results do not depend on the grouping; with
     ``shared_step_size`` dual averaging pools the accept statistic within a
-    block."""
+    block (and, under ``mesh``, over the data group).
+
+    mesh: split the chains over its ``data`` axis (module docstring);
+    ``theta0s`` then holds all C chains on every rank, and each rank's
+    chain blocks divide its C / data chains."""
     blk_max = int(draws_per_dispatch)
     chain_blocks = int(chain_blocks)
     kernel = nuts_kernel(logp_fn, max_depth=max_depth)
     mass_start = int(0.1 * num_warmup)
     mass_end = int(0.9 * num_warmup)
-    reduce = _pooled if shared_step_size else None
+    reduce = (None if not shared_step_size else
+              _pooled if mesh is None else _pooled_over(mesh))
+    n_data = 1 if mesh is None else mesh.data
     warm_step = make_warm_step(kernel, target_accept, mass_start,
                                mass_end, reduce)
     samp_step = make_samp_step(kernel)
@@ -97,6 +140,7 @@ def make_chunked_sampler(
             "target_accept_milli": int(round(1000 * target_accept)),
             "draws_per_dispatch": blk_max,
             "chain_blocks": chain_blocks,
+            "world_size": 1 if mesh is None else mesh.size,
         }
 
     def _blocks(C):
@@ -170,11 +214,12 @@ def make_chunked_sampler(
                 errors.append((d, e))
                 continue
             saved = {k: int(v) for k, v in tree.get("config", {}).items()}
-            # checkpoints written before chain_blocks existed carry no such
-            # key; one block is the old behaviour, so default it rather
-            # than reject them
+            # checkpoints written before chain_blocks (or the world size)
+            # existed carry no such key; one block on one process is the
+            # old behaviour, so default it rather than reject them
             if saved:
                 saved.setdefault("chain_blocks", 1)
+                saved.setdefault("world_size", 1)
             if saved and saved != expect_config:
                 raise ValueError(
                     f"checkpoint {cdir}/{d} was written under a different "
@@ -214,8 +259,16 @@ def make_chunked_sampler(
         max_chunks: run at most this many chunks in this call and return
         None if unfinished (the state is on disk). on_chunk: ``fn(phase,
         pos, total)`` called after every chunk, phase "warmup" or
-        "sampling". Checkpointing never changes the draws."""
-        C, D = theta0s.shape
+        "sampling". Checkpointing never changes the draws.
+
+        Under a mesh, θ0s holds all C chains; each rank runs its block,
+        saves it under ``checkpoint_dir/rank<r>/``, and returns every
+        chain's draws and info."""
+        C_all, D = theta0s.shape
+        if C_all % n_data:
+            raise ValueError(f"chains {C_all} not divisible by the data "
+                             f"axis's {n_data} ranks")
+        C = C_all // n_data
         if C % chain_blocks:
             raise ValueError(f"chains {C} not divisible by chain_blocks "
                              f"{chain_blocks}")
@@ -224,21 +277,29 @@ def make_chunked_sampler(
                 "max_chunks without checkpoint_dir would return None with "
                 "all progress discarded (the state lives only in local "
                 "variables); pass checkpoint_dir so the slice persists.")
-        draws = as_draw_source(key, C)
-        resumed = (_load_latest(checkpoint_dir, _config(C), theta0s.device)
-                   if checkpoint_dir else None)
+        # each chain draws from its global index's stream
+        lo = 0 if mesh is None else mesh.data_index * C
+        draws = as_draw_source(key, C_all).subset(range(lo, lo + C))
+        theta0s = theta0s[lo:lo + C]
+        cdir = checkpoint_dir
+        if cdir and mesh is not None:
+            cdir = os.path.join(cdir, f"rank{mesh.rank}")
+        resumed = (_load_latest(cdir, _config(C_all), theta0s.device)
+                   if cdir else None)
         if resumed is None:
             carry = init_carry(logp_fn, theta0s, init_step_size)
             phase, pos, chunk, bufs = 0, 0, 0, {}
         else:
             phase, pos, chunk, carry, bufs, states = resumed
             draws.load_state_dict(states)
+        if mesh is not None and dist.is_initialized():
+            _same_chunk(mesh, chunk)
         done_here = 0
 
         def checkpoint():
-            if checkpoint_dir:
-                _save(checkpoint_dir, chunk,
-                      _pack(phase, pos, chunk, carry, bufs, draws, C))
+            if cdir:
+                _save(cdir, chunk,
+                      _pack(phase, pos, chunk, carry, bufs, draws, C_all))
 
         while phase == 0:
             if pos >= num_warmup:
@@ -281,7 +342,7 @@ def make_chunked_sampler(
         dt = torch.empty((), dtype=theta0s.dtype).numpy().dtype
         # num_samples = 0 never enters the sampling loop: empty buffers of
         # the right shapes, as the monolithic run gives
-        info = {
+        result = {
             "step_size": eps.cpu().numpy(),
             "inv_mass": inv_mass.cpu().numpy(),
             "warmup_accept": bufs.get("warmup_accept", np.zeros((C, 0), dt)),
@@ -292,7 +353,24 @@ def make_chunked_sampler(
             "num_leaves": bufs.get("num_leaves",
                                    np.zeros((C, num_samples), dt)),
             "logp": bufs.get("logp", np.zeros((C, num_samples), dt)),
+            "theta": bufs.get("theta", np.zeros((C, num_samples, D), dt)),
         }
-        return bufs.get("theta", np.zeros((C, num_samples, D), dt)), info
+        if mesh is not None:
+            result = {k: gather(mesh, v) for k, v in result.items()}
+        return result.pop("theta"), result
 
     return sample
+
+
+def _same_chunk(mesh, chunk):
+    """Raise unless every rank resumes at the same chunk (a run stopped
+    between two ranks' saves cannot resume): one ``all_reduce`` of
+    (chunk, −chunk) under MAX."""
+    t = torch.tensor([chunk, -chunk], dtype=torch.float64,
+                     device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    if t[0] != -t[1]:
+        raise RuntimeError(
+            f"the ranks' checkpoints are at chunks {int(-t[1])} to "
+            f"{int(t[0])}; a sharded run resumes only from one chunk on "
+            "every rank")

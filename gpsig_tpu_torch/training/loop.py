@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from gpsig_tpu_torch.config import precise_linalg
+from gpsig_tpu_torch.parallel.mesh import broadcast_module, psum
 from gpsig_tpu_torch.training.natgrad import natgrad_step
 
 
@@ -66,23 +67,39 @@ def _step_draws(model, generator):
 
 def make_step_fn(learning_rate, num_data, gamma=0.1, use_natgrad=True,
                  freeze_variational_in_adam=None,
-                 log_prior_fn: Callable | None = None):
+                 log_prior_fn: Callable | None = None, mesh=None):
     """Build a ``(state, X, Y, generator=None) -> (state, elbo)`` training
     step; the ELBO returned is the post-natgrad, pre-Adam one (plus the
     log-prior under MAP). ``generator`` (a ``torch.Generator``) feeds a
     Monte-Carlo likelihood's draws, the same in the step's natgrad ELBO and
     its loss. ``step.init(model)`` makes its state with Adam at
     ``learning_rate``. log_prior_fn(model) -> scalar log-prior over
-    hyperparameters enables MAP training."""
+    hyperparameters enables MAP training.
+
+    mesh: a ``parallel.mesh.Mesh`` makes the step data-parallel: X and Y
+    are this rank's block of the global batch (``shard_batch``), the rank's
+    objective is its share, the ELBO (and log-prior) over the data size n,
+    the natgrad statistics are summed over the data group before the
+    update, the loss and its gradients are summed in one ``all_reduce``
+    before Adam, and ``step.init`` first broadcasts every parameter and
+    buffer from rank 0, so the replicas start and stay equal. The ELBO
+    returned is then the global one. With no process group each of these
+    is the identity."""
     if freeze_variational_in_adam is None:
         freeze_variational_in_adam = use_natgrad
+    reduce = None
+    if mesh is not None:
+        n, group = mesh.data, mesh.data_group
+
+        def reduce(g_mu, g_S):
+            return tuple(psum((g_mu / n, g_S / n), group))
 
     def step(state, X, Y, generator=None):
         model, opt = state.model, state.optimizer
         draws = _step_draws(model, generator)
         if use_natgrad:
             natgrad_step(model, gamma, X, Y, num_data=num_data,
-                         generator=draws())
+                         generator=draws(), reduce=reduce)
         opt.zero_grad(set_to_none=True)
         # the backward runs inside precise_linalg too: the forward's
         # decorator has returned by then, and TF32 would cut its products
@@ -90,14 +107,27 @@ def make_step_fn(learning_rate, num_data, gamma=0.1, use_natgrad=True,
             loss = -model.elbo(X, Y, num_data=num_data, generator=draws())
             if log_prior_fn is not None:
                 loss = loss - log_prior_fn(model)
+            if mesh is not None:
+                loss = loss / n
             loss.backward()
         if freeze_variational_in_adam:
             model.q_mu.grad = None
             model.q_sqrt.grad = None
+        loss = loss.detach()
+        if mesh is not None:
+            params = [p for p in model.parameters() if p.grad is not None]
+            loss, *grads = psum([loss, *(p.grad for p in params)], group)
+            for p, g in zip(params, grads):
+                p.grad = g
         opt.step()
-        return TrainState(model, opt, state.step + 1), -loss.detach()
+        return TrainState(model, opt, state.step + 1), -loss
 
-    step.init = lambda model: init_state(model, learning_rate)
+    def init(model):
+        if mesh is not None:
+            broadcast_module(model)
+        return init_state(model, learning_rate)
+
+    step.init = init
     return step
 
 

@@ -101,12 +101,13 @@ def gaussian_natgrad_update(mu, S, g_mu, g_S, gamma, jitter=1e-8,
 
 
 def natgrad_step(model, gamma, X, Y, num_data=None, jitter=1e-8,
-                 generator=None):
+                 generator=None, reduce=None):
     """One natural-gradient ascent step on (q_mu, q_sqrt) of an SVGP,
     written into the model in place; returns the model. Hyperparameters
     are untouched. ∂ELBO/∂S flows through cholesky(S), as in JAX.
     ``generator`` goes to the ELBO (a Monte-Carlo likelihood draws from
-    it)."""
+    it). ``reduce(g_mu, g_S) -> (g_mu, g_S)`` maps the gradients before the
+    update (the sharded step sums its ranks' shares there)."""
     diag = model.q_diag
     mu = model.q_mu.detach().clone().requires_grad_()
     if diag:
@@ -119,6 +120,8 @@ def natgrad_step(model, gamma, X, Y, num_data=None, jitter=1e-8,
         elbo = model.elbo_at(mu, q_sqrt, X, Y, num_data=num_data,
                              generator=generator)
         g_mu, g_S = torch.autograd.grad(elbo, (mu, S))
+    if reduce is not None:
+        g_mu, g_S = reduce(g_mu, g_S)
     mu_new, q_sqrt_new = gaussian_natgrad_update(
         mu.detach(), S.detach(), g_mu, g_S, gamma, jitter, diag)
     with torch.no_grad():

@@ -127,6 +127,11 @@ def test_port_imports_without_jax():
         "import gpsig_tpu_torch.kernels.low_rank\n"
         "import gpsig_tpu_torch.mcmc.sample, gpsig_tpu_torch.mcmc.targets\n"
         "import gpsig_tpu_torch.parallel.chains\n"
+        "import gpsig_tpu_torch.parallel.mesh, gpsig_tpu_torch.parallel.train\n"
+        "import gpsig_tpu_torch.parallel.loader\n"
+        "import gpsig_tpu_torch.parallel.goursat_sp\n"
+        "import gpsig_tpu_torch.parallel.distributed_check\n"
+        "import gpsig_tpu_torch.parallel.worker, gpsig_tpu_torch.entry\n"
         "import gpsig_tpu_torch.utils.metrics\n"
         "assert not any(m.startswith('jax') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
