@@ -10,8 +10,9 @@ sequence SVGP at L = 3000, GPRs past 1024 rows), sig_gram past order 7,
 the entry twin of ``__graft_entry__.py``, UEA archive files through the
 port's reader, the rest of the GP layer (VOSF at BASELINE config 6,
 VOSF under the PDE prior, the low-rank kernel, the Monte-Carlo Softmax),
-NUTS at BASELINE config 5 (16 chains as one batch), and the multi-process
-layer (BASELINE config 4's sharded SVI on ranks sharing the card).
+NUTS at BASELINE config 5 (16 chains as one batch), the multi-process
+layer (BASELINE config 4's sharded SVI on ranks sharing the card), and
+GPSig's call surface (``gpsig_tpu_torch.compat``) over all of it.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -225,7 +226,28 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (``gpsig_tpu_torch.parallel.worker.run``, 2 ranks, 4 steps) against the
    one-process CPU run (PARALLEL_F64_TOL); each rank's seconds to start
    and a scenario;
-19. report: one JSON line with every kernel's launches, error, times and
+19. compat facade (``gpsig_tpu_torch/compat/``), within a budget of
+   COMPAT_BUDGET_S seconds checked by the phase: the flagship (M = 500
+   inducing tensors with increments, nl = 5, d = 3, L = 50, C = 10; 840
+   sequences flattened to [840, 150]) through the facade's SVGP, 3
+   alternations of ``NatGradOptimizer(0.1)`` and frozen
+   ``AdamOptimizer(1e-3)`` at B = 50, held a step at a time against the
+   core's ``natgrad_step`` and loss gradient from the facade's state on
+   the same batches (ELBOs and q within PARALLEL_F32_TOL, gradients within
+   BWD_TOL) and against Adam replaying its gradients, the diagonal, Kuf and
+   Kuf-backward counters rising, ``predict_y`` and ``predict_density`` on
+   2048 flattened sequences bitwise equal to the core's posterior, ms per
+   alternation and per ``predict_y`` for facade and core; BASELINE config
+   3 at MotorImagery's shape ([278, 192000] flattened) through
+   ``compat.training.fit`` (2 steps at B = 50) against ``make_step_fn`` on
+   the same batches (as the flagship), the sig_gram, Gram and diagonal counters (forward and
+   backward) rising; ``compute_K_symm``, ``compute_K`` and
+   ``compute_Kdiag`` at bench.py's shape bitwise equal to the core's
+   ``K`` / ``Kdiag``; small float64 facade models (order-1 inducing
+   tensors, the SigGPDE VOSF model, whose Goursat forward and adjoint
+   counters rise) after 3 alternations on the card against the CPU
+   (1e-10);
+20. report: one JSON line with every kernel's launches, error, times and
    bound (rows 1-13 also with their L = 150 time, plain time, bound and
    launches on the long path, under "long"; rows 10-13 with the same
    at num_levels = 10, under "deep"; rows 12-13 the run-time-order
@@ -5448,6 +5470,467 @@ def parallel_phase(dev, card):
           f"over its {PARALLEL_BUDGET_S:.0f} s budget")
 
 
+# ---------------------------------------------------------------------------
+# The GPSig call surface (``gpsig_tpu_torch/compat/``): flattened inputs,
+# numpy in and out, the data-holding SVGP drawing its own minibatches and
+# the GPflow-style optimizers, over the port's modules. The facade launches
+# no kernel of its own; what it adds is the host's numpy round trips.
+# ---------------------------------------------------------------------------
+
+#: the phase's wall-time budget in seconds: a phase that overruns fails
+COMPAT_BUDGET_S = 90.0
+#: the flagship (slice_phase's model at full width) through the facade
+COMPAT_FLAGSHIP = dict(M=500, nl=5, d=3, L=50, C=10, n_train=840,
+                       n_test=2048, batch=50, lr=1e-3, gamma=0.1,
+                       alternations=3)
+#: the SigGPDE VOSF model's σ under RobustMax: f's scale does not move its
+#: argmax and Kuu = I, so the ELBO does not depend on σ and its gradient is
+#: rounding (2.2e-15 on the CPU); at |g| <= 1e-13 Adam moves it by
+#: lr·g/(|g| + 1e-8) <= 1e-5·lr a step, on either device
+COMPAT_SIGMA_TOL = 1e-5
+
+
+def param_copies(model):
+    """Every parameter of ``model``, detached copies by name."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def grad_copies(model):
+    """The gradients an Adam step used (those that are not None), by
+    name."""
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def core_step_from(template, params, nat_batch, batch, num_data, gamma):
+    """The core's calls from ``params`` (in a copy of ``template``):
+    ``natgrad_step`` on ``nat_batch``, then the loss −ELBO on ``batch`` and
+    its gradients with q frozen. Returns the ELBO, the gradients and the
+    parameters after the natgrad step."""
+    import torch
+
+    from gpsig_tpu_torch.config import precise_linalg
+    from gpsig_tpu_torch.training.natgrad import natgrad_step
+
+    model = copy.deepcopy(template)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(params[n])
+    natgrad_step(model, gamma, *nat_batch, num_data=num_data)
+    after = param_copies(model)
+    model.zero_grad(set_to_none=True)
+    with precise_linalg():
+        loss = -model.elbo(*batch, num_data=num_data)
+        loss.backward()
+    model.q_mu.grad = model.q_sqrt.grad = None
+    return -loss.item(), grad_copies(model), after
+
+
+def facade_steps_agree(label, got, template, batches, num_data, gamma, lr):
+    """The facade's float32 run against the core's calls, a step at a
+    time from the facade's own state. ``got`` holds the parameters before
+    the first step (``start``) and after each (``params``), and each
+    step's ELBO and gradients; ``batches`` each step's (natgrad, Adam)
+    minibatches. For each step the core starts from the facade's
+    parameters before it: the ELBO and the natgrad step's q within
+    PARALLEL_F32_TOL, the gradients within BWD_TOL's float32 bound (the
+    backward kernels' atomics are the only difference); then
+    ``torch.optim.Adam`` at ``lr``, fed the facade's gradients from its
+    start, must give its parameters after every step (PARALLEL_F32_TOL's
+    "other"). A step at a time, because Adam turns an entry whose gradient
+    is of the atomics' size into ±lr whatever its sign, and the next step
+    carries that to the entries around it."""
+    import torch
+
+    hyper = [n for n in got["start"] if n not in ("q_mu", "q_sqrt")]
+    replay = {n: got["start"][n].clone() for n in hyper}
+    opt = torch.optim.Adam(list(replay.values()), lr=lr)
+    errs = dict(elbo=0.0, q=0.0, gradients=0.0, other=0.0)
+    before = got["start"]
+    for k, (nat_batch, batch) in enumerate(batches):
+        elbo, grads, natgrad = core_step_from(template, before, nat_batch,
+                                              batch, num_data, gamma)
+        after, facade_grads = got["params"][k], got["grads"][k]
+        check(set(grads) == set(facade_grads) == set(hyper),
+              f"{label} step {k + 1}: gradients of {sorted(facade_grads)} "
+              f"vs the core's {sorted(grads)}")
+        errs["elbo"] = max(errs["elbo"], abs(got["elbos"][k] - elbo)
+                           / abs(elbo))
+        errs["q"] = max(errs["q"], *(scaled_err(after[n], natgrad[n])
+                                     for n in ("q_mu", "q_sqrt")))
+        errs["gradients"] = max(errs["gradients"], *(
+            scaled_err(facade_grads[n], grads[n]) for n in hyper))
+        for n, p in replay.items():
+            p.grad = facade_grads[n]
+        opt.step()
+        errs["other"] = max(errs["other"], *(abs_err(after[n], replay[n])
+                                             for n in hyper))
+        before = after
+    limits = dict(PARALLEL_F32_TOL, gradients=BWD_TOL["float32"])
+    print(f"{label}, {len(batches)} steps, each from the facade's state "
+          f"against the core's calls: ELBOs {got['elbos']}; " + "; ".join(
+              f"{k} err {errs[k]:.3e} (tolerance {limit:g}: {why})"
+              for k, (limit, why) in limits.items()))
+    for k, (limit, _) in limits.items():
+        check(errs[k] <= limit, f"{label}: {k} err {errs[k]} over {limit}")
+
+
+def compat_flagship(dev, card):
+    """(1) The flagship (M = 500 inducing tensors with increments, nl = 5,
+    d = 3, L = 50, C = 10; 840 training sequences flattened to [840, 150],
+    the data and Z from ``build_svgp``'s generators) through the facade,
+    float32: 3 alternations of NatGrad(0.1) and frozen Adam(1e-3) at
+    B = 50, the diagonal, Kuf and Kuf-backward counters rising, held a
+    step at a time against the core's calls on the same batches
+    (``facade_steps_agree``); ``predict_y`` and ``predict_density`` on 2048
+    flattened test sequences bitwise against the core's posterior on the
+    same parameters; ms per alternation and per ``predict_y``, facade and
+    core (the core's own run of the same calls)."""
+    import torch
+
+    from gpsig_tpu_torch import compat as gpsig
+    from gpsig_tpu_torch.config import precise_linalg
+    from gpsig_tpu_torch.inducing import make_inducing_tensors_from_data
+    from gpsig_tpu_torch.training.natgrad import natgrad_step
+
+    f = COMPAT_FLAGSHIP
+    f32 = torch.float32
+    M, nl, d, L, C, n = (f[k] for k in ("M", "nl", "d", "L", "C", "n_train"))
+    rng = np.random.default_rng(SEED + 90)
+    X = walks(rng, n, L, d)
+    y = rng.integers(0, C, n)
+    Z = make_inducing_tensors_from_data(
+        torch.Generator().manual_seed(SEED),
+        torch.as_tensor(X, dtype=f32, device=dev), num_tensors=M,
+        num_levels=nl, num_features=d, increments=True).raw_Z.detach()
+    Xte = walks(rng, f["n_test"], L, d).reshape(f["n_test"], L * d)
+    yte = rng.integers(0, C, f["n_test"])
+    kern = gpsig.kernels.SignatureRBF(L * d, d, nl, dtype=f32, device=dev)
+    feat = gpsig.inducing_variables.InducingTensors(
+        Z, nl, increments=True, dtype=f32, device=dev)
+    m = gpsig.models.SVGP(X.reshape(n, L * d), y, kern,
+                          gpsig.likelihoods.MultiClass(C), feat=feat,
+                          num_latent=C, minibatch_size=f["batch"], seed=SEED)
+    core = copy.deepcopy(m.to_functional())
+    nat = gpsig.training.NatGradOptimizer(f["gamma"])
+    adam = gpsig.training.AdamOptimizer(f["lr"])
+    got = dict(start=param_copies(m.to_functional()), elbos=[], grads=[],
+               params=[])
+
+    def record(it, elbo):
+        got["elbos"].append(elbo)
+        got["grads"].append(grad_copies(m.to_functional()))
+        got["params"].append(param_copies(m.to_functional()))
+
+    def facade_alternation():
+        nat.minimize(m, maxiter=1)
+        adam.minimize(m, maxiter=1, freeze_variational=True, callback=record)
+
+    reset_counters()
+    for _ in range(f["alternations"]):
+        facade_alternation()
+    launches = counters()
+    print(f"compat flagship training launches: {launches}")
+    for key in ("diag", "tens_seq", "tens_seq_bwd"):
+        check(launches[key] > 0, f"compat flagship: {key} did not launch")
+
+    # the facade's stream of batches: a natgrad batch, then an Adam batch
+    stream = np.random.default_rng(SEED)
+
+    def batch():
+        idx = torch.as_tensor(stream.choice(n, f["batch"], replace=False),
+                              device=dev)
+        return m.X[idx], m.Y[idx]
+
+    batches = [(batch(), batch()) for _ in range(f["alternations"])]
+    facade_steps_agree("compat flagship", got, core, batches, n,
+                       f["gamma"], f["lr"])
+
+    # times, in turns: the facade's alternation (its batches drawn and
+    # indexed, numpy out) and the core's same calls on batches it indexes
+    opt = torch.optim.Adam(core.parameters(), lr=f["lr"])
+
+    def core_alternation():
+        natgrad_step(core, f["gamma"], *batch(), num_data=n)
+        opt.zero_grad(set_to_none=True)
+        with precise_linalg():
+            loss = -core.elbo(*batch(), num_data=n)
+            loss.backward()
+        core.q_mu.grad = core.q_sqrt.grad = None
+        opt.step()
+        return -loss.item()
+
+    ms = dict(facade=[], core=[])
+    for _ in range(f["alternations"]):
+        ms["facade"].append(timed(lambda: (
+            nat.minimize(m, maxiter=1),
+            adam.minimize(m, maxiter=1, freeze_variational=True)))[1])
+        ms["core"].append(timed(core_alternation)[1])
+
+    # serving: the facade's cached posterior against the core's, bitwise
+    Xte_dev = torch.as_tensor(Xte, dtype=f32, device=dev)
+    yte_dev = torch.as_tensor(yte, device=dev)
+    reset_counters()
+    probs, pvar = m.predict_y(Xte)
+    dens = m.predict_density(Xte, yte)
+    serving = counters()
+    print(f"compat flagship serving launches: {serving}")
+    for key in ("diag", "tens_seq"):
+        check(serving[key] > 0, f"compat flagship serving: {key} did not "
+              "launch")
+    with torch.no_grad():
+        post = m.to_functional().posterior()
+        want = [t.cpu().numpy() for t in (*post.predict_y(Xte_dev),
+                                          post.predict_log_density(
+                                              Xte_dev, yte_dev))]
+    for name, g, w in zip(("predict_y mean", "predict_y var",
+                           "predict_density"), (probs, pvar, dens), want):
+        check(g.shape == w.shape and np.array_equal(g, w),
+              f"compat flagship {name}: not bitwise equal to the core's "
+              f"(max abs diff {np.abs(g - w).max():.3e})")
+    check(np.allclose(probs.sum(-1), 1.0, atol=1e-5),
+          "compat flagship: probabilities do not sum to 1")
+    ms_facade = host_ms(lambda: m.predict_y(Xte))
+    ms_core = host_ms(lambda: post.predict_y(Xte_dev))
+    print(f"compat flagship on {card}: predict_y and predict_density on "
+          f"{f['n_test']} bitwise equal to the core's posterior; ms per "
+          f"NatGrad + frozen Adam alternation (B = {f['batch']}, in turns): "
+          + ", ".join(f"{k} {statistics.median(v):.3f} (all "
+                      f"{[round(t, 3) for t in v]})" for k, v in ms.items())
+          + f"; ms per predict_y on "
+          f"{f['n_test']} (cached posterior): facade {ms_facade:.3f} "
+          f"(numpy in and out), core {ms_core:.3f}")
+
+
+def compat_config3(dev, card):
+    """(2) BASELINE config 3 (40 inducing sequences of length 8, nl = 4,
+    MultiClass(2)) at MotorImagery's shape (L = 3000, d = 64; 278
+    sequences flattened to [278, 192000]), float32, sequence_svgp_phase's
+    data: ``compat.training.fit`` for 2 steps at B = 50 (Adam 2e-3,
+    γ = 0.1) with sig_gram, its backward, the Gram, its backward and the
+    diagonal rising, held a step at a time against ``make_step_fn``'s calls
+    on the same batches (``facade_steps_agree``); ms a step, facade and
+    core (``make_step_fn``'s own run)."""
+    import torch
+
+    from gpsig_tpu_torch import compat as gpsig
+    from gpsig_tpu_torch.inducing import make_inducing_sequences_from_data
+    from gpsig_tpu_torch.training.loop import make_step_fn
+
+    cfg, ui = CONFIG3, UEA["MotorImagery"]
+    f32 = torch.float32
+    L, d, C, M, n = ui["L"], ui["d"], ui["C"], cfg["M"], ui["n_train"]
+    rng = np.random.default_rng(SEED + 53)
+    X = uea_walks(rng, n, L, d)
+    y = rng.integers(0, C, n)
+    Z = make_inducing_sequences_from_data(
+        torch.Generator().manual_seed(SEED),
+        torch.as_tensor(X, dtype=f32, device=dev), M, cfg["Lz"],
+        d).raw_Z.detach()
+    kern = gpsig.kernels.SignatureRBF(L * d, d, cfg["nl"], lengthscales=1.0,
+                                      normalization=True, dtype=f32,
+                                      device=dev)
+    feat = gpsig.inducing_variables.InducingSequences(Z, dtype=f32,
+                                                      device=dev)
+    m = gpsig.models.SVGP(X.reshape(n, L * d), y, kern,
+                          gpsig.likelihoods.MultiClass(C), feat=feat,
+                          num_latent=C, minibatch_size=cfg["batch"],
+                          seed=SEED)
+    del X
+    core = copy.deepcopy(m.to_functional())
+    got = dict(start=param_copies(m.to_functional()), elbos=[], grads=[],
+               params=[])
+
+    def record(it, elbo):
+        got["elbos"].append(elbo)
+        got["grads"].append(grad_copies(m.to_functional()))
+        got["params"].append(param_copies(m.to_functional()))
+
+    reset_counters()
+    gpsig.training.fit(m, maxiter=cfg["steps"], learning_rate=cfg["lr"],
+                       gamma=cfg["gamma"], callback=record)
+    launches = counters()
+    print(f"compat config 3 training launches: {launches}")
+    for key in ("sig_gram", "sig_gram_bwd", "gram", "gram_bwd", "diag"):
+        check(launches[key] > 0, f"compat config 3: {key} did not launch")
+
+    # the facade's stream of batches: one a step, for natgrad and Adam
+    stream = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(cfg["steps"]):
+        idx = torch.as_tensor(stream.choice(n, cfg["batch"], replace=False),
+                              device=dev)
+        batches.append(((m.X[idx], m.Y[idx]),) * 2)
+    facade_steps_agree("compat config 3", got, core, batches, n,
+                       cfg["gamma"], cfg["lr"])
+
+    # times, in turns: a step of the facade's fit (its batch drawn and
+    # indexed) and of make_step_fn on a batch it indexes
+    step = make_step_fn(cfg["lr"], num_data=n, gamma=cfg["gamma"])
+    state = step.init(core)
+    ms = dict(facade=[], core=[])
+    for _ in range(cfg["steps"]):
+        ms["facade"].append(timed(lambda: gpsig.training.fit(
+            m, maxiter=1, learning_rate=cfg["lr"], gamma=cfg["gamma"]))[1])
+        idx = torch.as_tensor(stream.choice(n, cfg["batch"], replace=False),
+                              device=dev)
+        (state, _), t = timed(lambda: step(state, m.X[idx], m.Y[idx]))
+        ms["core"].append(t)
+    print(f"compat config 3 on {card}: ms a natgrad + Adam step at B = "
+          f"{cfg['batch']}, in turns: " + ", ".join(
+              f"{k} {[round(t, 1) for t in v]}" for k, v in ms.items()))
+    del m, core, state, batches
+    torch.cuda.empty_cache()
+
+
+def compat_gram(dev, card):
+    """(3) ``compute_K_symm``, ``compute_K`` and ``compute_Kdiag`` at
+    bench.py's shape (N = 256, L = 50, d = 2, nl = 4, float32), each
+    bitwise equal to ``to_functional().K`` / ``Kdiag`` on the card, the
+    Gram counter rising; ms facade and core."""
+    import torch
+
+    from gpsig_tpu_torch import compat as gpsig
+
+    g = GRAM_BENCH
+    N, L, d = g["N"], g["L"], g["d"]
+    rng = np.random.default_rng(SEED + 70)
+    X = walks(rng, N, L, d).reshape(N, L * d)
+    kern = gpsig.kernels.SignatureRBF(L * d, d, g["nl"], lengthscales=1.0,
+                                      normalization=True,
+                                      dtype=torch.float32, device=dev)
+    reset_counters()
+    got = [kern.compute_K_symm(X), kern.compute_K(X[:N // 2], X[N // 2:]),
+           kern.compute_Kdiag(X)]
+    launches = counters()
+    check(launches["gram"] > 0, "compat compute_K: the Gram did not launch")
+    core = kern.to_functional()
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        want = [core.K(Xd), core.K(Xd[:N // 2], Xd[N // 2:]), core.Kdiag(Xd)]
+    for name, a, b in zip(("compute_K_symm", "compute_K", "compute_Kdiag"),
+                          got, want):
+        b = b.cpu().numpy()
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"compat {name}: not bitwise equal to the core's")
+    ms_facade = host_ms(lambda: kern.compute_K_symm(X))
+    with torch.no_grad():
+        ms_core = host_ms(lambda: core.K(Xd))
+    print(f"compat compute_K_symm / compute_K / compute_Kdiag at N = {N}, "
+          f"L = {L}, d = {d}, nl = {g['nl']}: bitwise equal to the core's; "
+          f"launches {launches}; on {card}: compute_K_symm {ms_facade:.3f} "
+          f"ms (numpy in and out), core K {ms_core:.3f} ms")
+
+
+def compat_small_float64(dev):
+    """(4) Small float64 facade models on the card against the CPU
+    (PARALLEL_F64_TOL): the order-1 inducing-tensor model of
+    tests/test_compat.py's test_svgp_wrapper_trains_and_predicts and its
+    SigGPDE VOSF model, 3 alternations each; the full-data ELBO, every
+    parameter and ``predict_y``. The VOSF model launches the Goursat
+    forward and adjoint (row 15) on the card."""
+    import torch
+
+    from gpsig_tpu_torch import compat as gpsig
+
+    N, L, D, C, NL = 20, 10, 2, 3, 3
+    rng = np.random.default_rng(0)
+    X = 0.4 * rng.standard_normal((N, L * D))
+    y = rng.integers(0, C, N)
+    Z = 0.3 * np.random.default_rng(2).standard_normal(
+        (5, NL * (NL + 1) // 2, D))
+
+    def tensors(where):
+        kern = gpsig.kernels.SignatureRBF(L * D, D, NL, device=where)
+        feat = gpsig.inducing_variables.InducingTensors(Z, NL, device=where)
+        return (gpsig.models.SVGP(X, y, kern, gpsig.likelihoods.MultiClass(C),
+                                  feat=feat, num_latent=C, minibatch_size=8),
+                0.2, 1e-2)
+
+    def siggpde(where):
+        kern = gpsig.kernels.UntruncSignatureKernel(
+            L * D, D, dyadic_order=1, normalization=True, device=where)
+        feat = gpsig.inducing_variables.OrthogonalFeatures(kern, num_levels=3)
+        return (gpsig.models.SVGP(X, y, kern, gpsig.likelihoods.MultiClass(C),
+                                  feat=feat, num_latent=C, q_diag=True),
+                0.1, 5e-3)
+
+    for label, build in (("inducing tensors", tensors),
+                         ("SigGPDE VOSF", siggpde)):
+        out = {}
+        for where in ("cpu", dev):
+            m, gamma, lr = build(where)
+            nat = gpsig.training.NatGradOptimizer(gamma)
+            adam = gpsig.training.AdamOptimizer(lr)
+            reset_counters()
+            for _ in range(3):
+                nat.minimize(m, maxiter=1)
+                adam.minimize(m, maxiter=1, freeze_variational=True)
+            launches = counters()
+            core = m.to_functional()
+            core.zero_grad()
+            core.elbo(m.X, m.Y, num_data=N).backward()
+            out[where] = dict(
+                elbo=torch.tensor(m.compute_log_likelihood_full()),
+                predict_y=torch.as_tensor(np.stack(m.predict_y(X[:4]))),
+                params={k: v.cpu() for k, v in param_copies(core).items()},
+                grads={k: p.grad.detach().cpu()
+                       for k, p in core.named_parameters()},
+                launches=launches)
+        on_card, cpu = out[dev], out["cpu"]
+        errs = {k: scaled_err(on_card[k], cpu[k])
+                for k in ("elbo", "predict_y")}
+        sigma = "kernel.raw_sigma" if label == "SigGPDE VOSF" else None
+        for k, v in cpu["params"].items():
+            if k != sigma:
+                errs[k] = scaled_err(on_card["params"][k], v)
+        print(f"compat {label} float64, card vs CPU after 3 alternations: "
+              f"scaled errs { {k: f'{v:.3e}' for k, v in errs.items()} }, "
+              f"tolerance {PARALLEL_F64_TOL[0]:g} ({PARALLEL_F64_TOL[1]})")
+        for k, v in errs.items():
+            check(v <= PARALLEL_F64_TOL[0], f"compat {label} float64 {k}: {v}")
+        if sigma is not None:
+            scale = max(g.abs().max().item() for g in cpu["grads"].values())
+            g_sigma = max(abs(o["grads"][sigma].item())
+                          for o in (on_card, cpu))
+            moved = abs_err(on_card["params"][sigma], cpu["params"][sigma])
+            tol = 3 * 5e-3 * COMPAT_SIGMA_TOL
+            print(f"compat {label} float64: σ's gradient {g_sigma:.3e} "
+                  f"(the largest {scale:.3e}), raw σ card vs CPU "
+                  f"{moved:.3e}, tolerance {tol:g} (the ELBO does not depend "
+                  "on σ under RobustMax with Kuu = I: 3 Adam steps of lr "
+                  f"5e-3 move its rounding by up to {COMPAT_SIGMA_TOL:g}·lr "
+                  "each)")
+            check(g_sigma <= 1e-13, f"compat {label}: σ's gradient "
+                  f"{g_sigma} is not rounding")
+            check(moved <= tol, f"compat {label}: raw σ {moved}")
+            for key in ("goursat_fused", "goursat_grad"):
+                check(on_card["launches"][key] > 0,
+                      f"compat {label} float64: {key} did not launch")
+            print(f"compat {label} float64 launches on the card: "
+                  f"{ {k: on_card['launches'][k] for k in GOURSAT} }")
+
+
+def compat_phase(dev, card):
+    """The GPSig facade on the card within COMPAT_BUDGET_S seconds."""
+    t0 = time.perf_counter()
+    parts = {}
+    for label, fn, args in (("flagship", compat_flagship, (dev, card)),
+                            ("config 3", compat_config3, (dev, card)),
+                            ("compute_K", compat_gram, (dev, card)),
+                            ("float64 card vs CPU", compat_small_float64,
+                             (dev,))):
+        t = time.perf_counter()
+        fn(*args)
+        parts[label] = time.perf_counter() - t
+    total = time.perf_counter() - t0
+    print(f"compat facade phase on {card}: {total:.1f} s of its "
+          f"{COMPAT_BUDGET_S:.0f} s budget "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    check(total <= COMPAT_BUDGET_S, f"compat facade phase: {total:.1f} s "
+          f"over its {COMPAT_BUDGET_S:.0f} s budget")
+
+
 def phase(label, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time printed under ``label``."""
     t0 = time.perf_counter()
@@ -5544,6 +6027,7 @@ def main():
     phase("Softmax", softmax_phase, dev, card)
     nuts_timings = phase("NUTS at config 5", nuts_config5_phase, dev, card)
     phase("multi-process", parallel_phase, dev, card)
+    phase("compat facade", compat_phase, dev, card)
 
     # launches, each from the main-path run that its counters were reset
     # just before: slice 0's forward kernels from its serving run, the

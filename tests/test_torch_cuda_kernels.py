@@ -1802,3 +1802,52 @@ def test_chain_axis_gpr_target_on_card_matches_cpu(cuda_device):
         assert n1 == tuple(a + (where != "cpu") for a in n0)
     for g, w in zip(out[str(cuda_device)], out["cpu"]):
         assert _scaled_err(g.cpu(), w) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_compat_compute_k_is_the_core_gram_on_card(cuda_device):
+    """The facade's numpy-out Grams are the core's on the card, bitwise."""
+    from gpsig_tpu_torch import compat as gpsig
+
+    X = _walks(np.random.default_rng(0), 64, 20, 2).reshape(64, 40)
+    kern = gpsig.kernels.SignatureRBF(40, 2, 4, dtype=torch.float32,
+                                      device=cuda_device)
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=cuda_device)
+    core = kern.to_functional()
+    with torch.no_grad():
+        want = [core.K(Xd), core.K(Xd[:20], Xd[20:]), core.Kdiag(Xd)]
+    got = [kern.compute_K_symm(X), kern.compute_K(X[:20], X[20:]),
+           kern.compute_Kdiag(X)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_compat_svgp_on_card_matches_cpu(cuda_device):
+    """A float64 facade SVGP (order-1 inducing tensors, MultiClass(3)):
+    3 alternations of NatGrad(0.2) and frozen Adam(1e-2) on the card and
+    on the CPU from the same numpy inputs, the same batches; ELBO,
+    parameters and predict_y within 1e-10 scaled."""
+    from gpsig_tpu_torch import compat as gpsig
+
+    rng = np.random.default_rng(0)
+    X = 0.4 * rng.standard_normal((20, 20))
+    y = rng.integers(0, 3, 20)
+    Z = 0.3 * np.random.default_rng(2).standard_normal((5, 6, 2))
+    out = []
+    for where in ("cpu", cuda_device):
+        kern = gpsig.kernels.SignatureRBF(20, 2, 3, device=where)
+        feat = gpsig.inducing_variables.InducingTensors(Z, 3, device=where)
+        m = gpsig.models.SVGP(X, y, kern, gpsig.likelihoods.MultiClass(3),
+                              feat=feat, num_latent=3, minibatch_size=8)
+        nat = gpsig.training.NatGradOptimizer(0.2)
+        adam = gpsig.training.AdamOptimizer(1e-2)
+        for _ in range(3):
+            nat.minimize(m, maxiter=1)
+            adam.minimize(m, maxiter=1, freeze_variational=True)
+        out.append([torch.tensor(m.compute_log_likelihood_full()),
+                    torch.as_tensor(m.predict_y(X[:4])[0]),
+                    *(p.detach().cpu()
+                      for p in m.to_functional().parameters())])
+    for a, b in zip(*out):
+        assert _scaled_err(b, a) <= 1e-10

@@ -115,6 +115,7 @@ def test_signature_kern_tens_matches_jax():
 def test_port_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "sys.modules['optax'] = None\n"
         "import gpsig_tpu_torch.models.svgp, gpsig_tpu_torch.models.gpr\n"
         "import gpsig_tpu_torch.convert, gpsig_tpu_torch.ops.cuda.tens_seq\n"
         "import gpsig_tpu_torch.kernels.signature\n"
@@ -133,8 +134,17 @@ def test_port_imports_without_jax():
         "import gpsig_tpu_torch.parallel.distributed_check\n"
         "import gpsig_tpu_torch.parallel.worker, gpsig_tpu_torch.entry\n"
         "import gpsig_tpu_torch.utils.metrics\n"
+        "from gpsig_tpu_torch import compat\n"
+        "import gpsig_tpu_torch.compat.inducing_variables\n"
+        "import gpsig_tpu_torch.compat.kernels\n"
+        "import gpsig_tpu_torch.compat.likelihoods\n"
+        "import gpsig_tpu_torch.compat.models\n"
+        "import gpsig_tpu_torch.compat.preprocessing\n"
+        "import gpsig_tpu_torch.compat.training\n"
         "assert not any(m.startswith('jax') and sys.modules[m] is not None"
         " for m in sys.modules)\n"
+        "assert not any(m.split('.')[0] in ('optax', 'flax')"
+        " and sys.modules[m] is not None for m in sys.modules)\n"
         "assert not any(m == 'gpsig_tpu' or m.startswith('gpsig_tpu.')"
         " for m in sys.modules)\n"
         "print('ok')\n"
