@@ -4,6 +4,7 @@ one CUDA card, in turns (A, B, B, A), so that a kernel change is measured
 against its parent within one machine and one card.
 
     python3 ab_kernels.py PARENT_DIR [CHANGE_DIR]   # CHANGE_DIR: this one
+    python3 ab_kernels.py -k TEXT PARENT_DIR [CHANGE_DIR]
     python3 ab_kernels.py --builds PARENT_DIR [CHANGE_DIR]
 
 Each checkout's kernels are built (both builds at once), then each turn
@@ -46,8 +47,9 @@ L' = 149 (B = 2048 forward, B = 50 backward), order 1 at L' = 149
 L' = 49), forward and backward, and the cases the parent refuses (null):
 the inducing-sequence Gram at MotorImagery's length (2000 matrices of
 2999 x 7), the triangle of a Gram at L = 1300 (21 matrices of 1299 x 1299,
-order 2) and order 5 at num_levels = 8; and, as "kernel
-alone", the flagship and L = 150 diagonal and both Goursat Kuf routes by
+order 2) and order 5 at num_levels = 8; sig_gram past order 7 at its timed
+shape (nl = 8, order 8, 22,500 matrices of 49 x 49, forward and
+backward); and, as "kernel alone", the flagship and L = 150 diagonal and both Goursat Kuf routes by
 their C entry point's call (and sig_gram at the flagship diagonal and
 the inducing-sequence matrices), recorded once through the wrapper and
 replayed with no plan, allocation or check, the kernel's device time by
@@ -55,6 +57,7 @@ replayed with no plan, allocation or check, the kernel's device time by
 of pairs (no triangle), so that both checkouts do the same work; the GPR
 steps go through ``K(X)``, which solves the triangle where the checkout
 does.
+With ``-k TEXT`` only the cases whose name contains TEXT run.
 With ``--builds`` it instead builds each checkout's kernels from
 scratch, alone on the machine, in turns A, B, A, and prints each build's
 wall time and the sum of its compiles. Needs a CUDA card; exits non-zero
@@ -221,6 +224,10 @@ CASES = [
      "alone:sig_gram.sig_gram_levels_ho", "sg2"),
     ("sig_gram order 1 B=2000 [2999, 7] nl=4 kernel alone",
      "alone:sig_gram.sig_gram_levels", "sg1_seq"),
+    ("sig_gram order 8 B=22500 L'=49 nl=8", "sig_gram.sig_gram_levels_ho",
+     "sg8_nl8"),
+    ("sig_gram_bwd order 8 B=22500 L'=49 nl=8",
+     "sig_gram.sig_gram_levels_ho_bwd", "sg8_bwd_nl8"),
 ]
 
 
@@ -323,6 +330,13 @@ def _args(kind, torch, dev):
         g = t(rng.standard_normal((5, n)))
         return {"sg3_149": (m, 4, 3), "sg3_bwd_149": (m, g, 4, 3),
                 "sg1_149": (m, 4), "sg1_bwd_149": (m, g, 4)}[kind]
+    if kind in ("sg8_nl8", "sg8_bwd_nl8"):
+        # chip_smoke.py's timed shape past order 7: the order-8 GPR's Gram
+        # at num_levels = 8 (every pair of 150 sequences)
+        m = _args("sg1_nl10", torch, dev)[0]
+        if kind == "sg8_nl8":
+            return (m, 8, 8)
+        return (m, t(rng.standard_normal((9, m.shape[0]))), 8, 8)
     if kind in ("sg1_nl10", "sg2_nl10", "sg1_bwd_nl10", "sg2_bwd_nl10"):
         # the num_levels = 10 GPR's Gram: every pair of 150 sequences
         x = _walks(rng, 150, 50, 2).reshape(-1, 2)
@@ -504,8 +518,14 @@ def _gpr_step(torch, dev, order):
     return step
 
 
-def _turn(root):
-    """Time every case with the package under ``root``; one JSON line."""
+def _cases(text):
+    """The cases whose name contains ``text`` (every case for None)."""
+    return [c for c in CASES if text is None or text in c[0]]
+
+
+def _turn(root, text=None):
+    """Time the cases (:func:`_cases`) with the package under ``root``; one
+    JSON line."""
     import importlib
 
     import torch
@@ -513,7 +533,7 @@ def _turn(root):
     sys.path.insert(0, str(root))
     dev = torch.device("cuda", 0)
     out = {}
-    for name, path, kind in CASES:
+    for name, path, kind in _cases(text):
         if path == "step":
             def f(step):
                 step()
@@ -616,11 +636,14 @@ def _build_turns(roots):
 def main():
     import torch
 
-    if len(sys.argv) == 3 and sys.argv[1] == "--turn":
-        _turn(Path(sys.argv[2]).resolve())
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--turn":
+        _turn(Path(sys.argv[2]).resolve(), *sys.argv[3:])
         return 0
     builds = sys.argv[1:2] == ["--builds"]
     args = sys.argv[1 + builds:]
+    text = None
+    if not builds and args[:1] == ["-k"] and len(args) > 1:
+        text, args = args[1], args[2:]
     if not torch.cuda.is_available() or len(args) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
@@ -639,8 +662,9 @@ def main():
     runs = {"A": [], "B": []}
     for label in ("A", "B", "B", "A"):
         proc = subprocess.run([sys.executable, __file__, "--turn",
-                               str(roots[label])], capture_output=True,
-                              text=True)
+                               str(roots[label]),
+                               *([text] if text is not None else [])],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1
@@ -651,7 +675,7 @@ def main():
                           text=True, check=True).stdout.strip()
     print(card)
     print(f"{'case':40s} {'A ms':>10s} {'B ms':>10s} {'B/A':>6s}")
-    for name, _, _ in CASES:
+    for name, _, _ in _cases(text):
         med = {k: [r[name] for r in v] for k, v in runs.items()}
         a = None if None in med["A"] else statistics.median(med["A"])
         b = None if None in med["B"] else statistics.median(med["B"])

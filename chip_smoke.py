@@ -156,8 +156,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
 15. past order 7, the entry twin and the UEA files: sig_gram's
    run-time-order instance (p = min(order, num_levels) > 7) forward and
    backward against the plain versions at num_levels 8 and 10, orders 8
-   and 10, L2 in {49, 150}, float32 and float64, timed at num_levels = 8,
-   order 8 on 150² matrices of L' = 49, then a GPR Adam step of
+   and 10, L2 in {49, 150}, and p = nl = 20 at L2 = 150 (the workspace
+   route), float32 and float64, each case's routes printed (register,
+   shared memory, workspace), within ORDER_BUDGET_S seconds; timed at
+   num_levels = 8, order 8 on 150² matrices of L' = 49, then a GPR Adam
+   step of
    SignatureRBF(2, 8, order=8) at N = 150, L = 50 and a small float64 one
    against the CPU; ``gpsig_tpu_torch.entry.entry()`` on the card in
    float32 against the plain route; .ts files at
@@ -3710,38 +3713,96 @@ def chunked(fn, *tensors, size=1500):
     return torch.cat(outs, dim=-1 if outs[0].ndim == 2 else 0)
 
 
-def order_phase(dev):
-    """sig_gram past order 7 (``csrc/sig_gram_order.cuh``): forward and
-    backward against their plain versions at num_levels 8 and 10, orders 8
-    and 10, L2 in {49, 150} (4 matrices [20, L2]), float32 and float64,
-    under DEEP_TOL, each launch the instance's own; then the instance
-    timed at num_levels = 8, order 8 on the increment matrices of 150²
-    pairs of L' = 49 (the nl = 10 GPR's Gram shape at a higher order),
-    float32, with its bound; then a GPR Adam step of SignatureRBF(2, 8,
-    order=8) at BASELINE config 1's N = 150, L = 50 (finite, the
-    instance's forward and backward launched), and a small float64 GPR
-    (K, lml, gradients) on the card against the CPU. Returns the timings
-    and the counters of the GPR step, reset just before it."""
+#: the wall time "deep orders past 7" may take (about 10 s on an H100;
+#: the sweep's p = nl = 20 case adds its plain versions)
+ORDER_BUDGET_S = 60.0
+
+
+def order_routes(B, L1, L2, nl, order):
+    """The run-time-order instance's routes for one shape: float32 and
+    float64, forward and backward (``plan.sig_gram_order_plan``)."""
+    from gpsig_tpu_torch.ops.cuda import plan
+
+    return {(item, bwd): plan.sig_gram_plan(B, L1, L2, nl, min(order, nl),
+                                            item, bwd)["route"]
+            for item in (4, 8) for bwd in (False, True)}
+
+
+def order_float32_err(dev, rng, B, L1, L2, p):
+    """The larger scaled error of the p = nl forward and backward in
+    float32 against the plain versions in float64 (the known fault of
+    the reverse sweep past order 7 at many levels)."""
     import torch
 
     from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 
+    M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2)) / np.sqrt(
+        max(L1, L2) / 20), dtype=torch.float64, device=dev)
+    g = torch.as_tensor(rng.standard_normal((p + 1, B)),
+                        dtype=torch.float64, device=dev)
+    got = (sg.sig_gram_levels_ho(M.float(), p, p),
+           sg.sig_gram_levels_ho_bwd(M.float(), g.float(), p, p))
+    want = (sg.sig_gram_levels_ho_ref(M, p, p),
+            sg.sig_gram_levels_ho_bwd_ref(M, g, p, p))
+    return max(scaled_err(a.double(), b) for a, b in zip(got, want))
+
+
+def order_phase(dev):
+    """sig_gram past order 7 (``csrc/sig_gram_order.cuh``) within
+    ORDER_BUDGET_S seconds: forward and backward against their plain
+    versions at num_levels 8 and 10, orders 8 and 10, L2 in {49, 150} (4
+    matrices [20, L2]), float32 and float64, and p = nl = 20 at L2 = 150,
+    whose state takes the workspace, float64 (its float32 error printed:
+    ROADMAP Queue 3), under DEEP_TOL, each launch the
+    instance's own, each case's routes (register, shared memory or
+    workspace) printed from the plan; then the instance timed at
+    num_levels = 8, order 8 on the increment matrices of 150² pairs of L' =
+    49 (the nl = 10 GPR's Gram shape at a higher order), float32, with its
+    bound; then a GPR Adam step of SignatureRBF(2, 8, order=8) at BASELINE
+    config 1's N = 150, L = 50 (finite, the instance's forward and
+    backward launched), and a small float64 GPR (K, lml, gradients) on the
+    card against the CPU. Returns the timings and the counters of the GPR
+    step, reset just before it."""
+    import torch
+
+    from gpsig_tpu_torch.ops.cuda import sig_gram as sg
+
+    t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 60)
-    for nl in (8, 10):
-        for order in (8, 10):
-            for Lp in (49, 150):
-                n0 = order_counts()
-                errs, plans = sig_gram_case(
-                    dev, rng, 4, 20, Lp, nl, order,
-                    (torch.float32, torch.float64), DEEP_TOL)
-                n1 = order_counts()
-                check(n1 == (n0[0] + 2, n0[1] + 2),
-                      f"order {order} nl={nl}: the p > 7 instance did not "
-                      f"launch ({n0} -> {n1})")
-                print(f"order {order} nl={nl} L2={Lp}: scaled err float32 "
-                      f"{errs['float32']:.2e}, float64 {errs['float64']:.2e}"
-                      f"; one warp a matrix, workspace {plans[1]['work']} "
-                      "values (backward, float64)")
+    cases = [(nl, order, Lp) for nl in (8, 10) for order in (8, 10)
+             for Lp in (49, 150)] + [(20, 20, 150)]
+    for nl, order, Lp in cases:
+        # p = nl = 20 in float64: in float32 the backward's reverse sweep,
+        # which rebuilds a column's carries by subtraction, leaves the early
+        # columns an absolute error of float32's epsilon times the later
+        # columns' sums (ROADMAP Queue 3): printed below, not held to
+        # DEEP_TOL
+        dtypes = ((torch.float64,) if nl == 20 else
+                  (torch.float32, torch.float64))
+        n0 = order_counts()
+        errs, plans = sig_gram_case(dev, rng, 4, 20, Lp, nl, order, dtypes,
+                                    DEEP_TOL)
+        n1 = order_counts()
+        check(n1 == (n0[0] + len(dtypes), n0[1] + len(dtypes)),
+              f"order {order} nl={nl}: the p > 7 instance did not "
+              f"launch ({n0} -> {n1})")
+        if nl == 20:
+            errs["float32"] = order_float32_err(dev, rng, 4, 20, Lp, nl)
+        routes = order_routes(4, 20, Lp, nl, order)
+        print(f"order {order} nl={nl} L2={Lp}: scaled err float32 "
+              f"{errs['float32']:.2e}"
+              f"{' (known fault, not held)' if nl == 20 else ''}, float64 "
+              f"{errs['float64']:.2e}; routes float32 forward / backward "
+              f"{routes[4, False]} / {routes[4, True]}, float64 "
+              f"{routes[8, False]} / {routes[8, True]}")
+        if min(order, nl) == 8 and Lp == 49:
+            check(routes[4, False] == routes[4, True] == "register",
+                  f"order {order} nl={nl} L2=49: float32 not on the "
+                  f"register route: {routes}")
+        if nl == 20:
+            check(routes[8, True] == "workspace",
+                  f"p = nl = 20 at L2 = 150: the float64 backward should "
+                  f"take the workspace: {routes}")
 
     # timed: the increment matrices of 150² pairs at L' = 49
     N, L, nl, order = DEEP_GPR["N"], DEEP_GPR["L"], 8, 8
@@ -3777,8 +3838,10 @@ def order_phase(dev):
             plain, reps=1, warmup=0)
         report[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            **bound(*work), library_ms=None)
+        route = order_routes(B, l, l, nl, order)[4, key.endswith("bwd")]
         print(f"time order {key} nl={nl} order {order} B={B} L'={l} "
-              f"float32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"float32 ({route} route): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms "
               f"(blocks of 1500 matrices), bound "
               f"{report[key]['bound_ms']:.4f} ms "
               f"({report[key]['bound_by']}), scaled err "
@@ -3835,6 +3898,10 @@ def order_phase(dev):
           f"{len(out[0]) - 2} gradients, card vs CPU scaled err {err:.3e}, "
           "tolerance 1e-8")
     check(err <= 1e-8, f"small float64 order-8 GPR: {err}")
+    total = time.perf_counter() - t0
+    print(f"order phase: {total:.1f} s of its {ORDER_BUDGET_S:.0f} s budget")
+    check(total <= ORDER_BUDGET_S, f"order phase: {total:.1f} s over its "
+          f"{ORDER_BUDGET_S:.0f} s budget")
     return report, launches
 
 

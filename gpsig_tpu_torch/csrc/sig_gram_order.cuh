@@ -11,46 +11,67 @@
 // ops/signature.py's signature_kern and autograd through it.
 //
 // Why a separate instance. sig_gram.cuh's paths template the DP on the
-// order P and keep a row's P x P state grid in registers; past 7 levels
-// deep_levels.cuh keeps the per-level carries in shared memory. A row's
-// backward state grows as (nl - 1) p²: 617 values at p = nl = 8, two
-// million at p = nl = 127. So here the order is a run-time argument and
-// every value a row keeps lives in a device workspace that the wrapper
-// allocates (plan.py's sig_gram_order_plan, order_slots).
+// order P and keep a row's P x P state grid in registers up to P = 7; past
+// 7 levels deep_levels.cuh keeps the per-level carries in shared memory.
+// Here the order is a run-time argument 8 .. 127. The plan (plan.py's
+// sig_gram_order_plan, order_slots) picks one of three routes from the
+// shape alone:
+// - register (p = kOrderRegP = 8, at most one row a thread): D's grid, the
+//   scans' values and the adjoint's pieces in registers, levels 2 .. 8 at
+//   compile-time sizes, past them a loop at full size; the carries over
+//   columns (and the backward's E, CP and grids) in shared memory;
+// - smem: every value a row keeps in shared memory;
+// - workspace: the same slots in a device workspace the wrapper allocates,
+//   where one matrix's exceed shared memory.
 //
-// Design (simple first: one warp a matrix).
-// - A warp takes one matrix at a time, grid-strided over the batch; its
-//   workspace region holds the matrix's rows' slots as [slot][L2], so the
-//   lanes of a chunk touch neighbouring addresses (coalesced).
-// - The DP streams M's rows M[b, i, :] as its columns (the orientation of
-//   sig_gram.cuh) and takes the column's L2 rows in chunks of 32, one row
-//   a lane. Every cross-row step of a column is a warp scan that a chunk
-//   starts from the carry of the chunks before it (prefixes, chunks
-//   ascending) or after it (suffixes, chunks descending); a level runs one
-//   pass over the chunks per scan, so each pass carries one value. A row
-//   is always on the same lane, so a lane reads only what it wrote: no
-//   barrier, no shared memory.
-// - Forward, column i, level m = 2 .. nl: level m's grid from level
-//   m - 1's (two grids in turn), the carries over columns (T_m, RA_m[q])
-//   used, then advanced; level nl's grid sums into its carry, k_nl.
-// - Backward: the forward sweep to the end carries, then the reverse sweep
-//   over the columns, last first: the levels' grids of the column rebuilt
-//   by subtraction from the carries (deep_levels.cuh's deep_rebuild, every
-//   level's grid kept), then the adjoint from level nl down to 1
-//   (deep_adjoint): its same-column pieces for the level below (injected
-//   cotangents, their column suffixes, the row and total pieces) pass
-//   through two sets of slots in turn, its carries over columns (Rtot,
-//   Rrow) stay a slot each, and M̄ adds up in the output row.
+// Design (redesigned for Hopper).
+// - A block of W = ceil(L2 / 32) warps (at most kOrderWarps) takes one
+//   matrix at a time, its NT = 32 W threads one DP row each; rows past NT
+//   come in C = ceil(L2 / NT) chunks (row c NT + t). The DP streams M's
+//   rows M[b, i, :] as its columns (the orientation of sig_gram.cuh); a
+//   column's M values are staged in a slot and read there at every level.
+// - The state is [slot][L2]: a slot's rows are neighbouring words, so a
+//   warp's accesses are conflict-free in shared memory and coalesced in a
+//   workspace. Slots are packed: level m's grid takes min(p, m)² slots and
+//   its carries min(p, m) - 1 (OrderLayout).
+// - Every cross-row step is an exclusive prefix (the forward, the reverse
+//   sweep's rebuild) or suffix (the adjoint) over the rows, of the level's
+//   min(p, m) values at once: each warp scans by shuffles and leaves its
+//   totals in shared memory, one barrier, then each warp adds the totals
+//   of the warps before (after) it; across chunks the first (last) thread
+//   carries the chunk's total in shared memory (OrderBlock::scan). One
+//   barrier a level and chunk, none with one warp.
+// - Forward, column i, level m = 2 .. nl: one grid, updated in place. Pass
+//   one puts the scans' inputs (T_m's carry and D_{m-1}'s column sums) into
+//   scan slots; pass two walks D_{m-1}'s rows last first, adding each row
+//   into its carry over columns and moving it one diagonal step into D_m
+//   (the shift needs no second grid: a cell is read before the row above
+//   overwrites it), then the scan and D_m's first row. The top level only
+//   sums its cells into a register (k_nl).
+// - Backward: the forward sweep to the end carries (its top level updates
+//   the carries only), then the reverse sweep over the columns, last first:
+//   the column's grids rebuilt by subtraction from the carries (deep_levels
+//   .cuh's deep_rebuild; every level's grid kept, packed, with E and CP),
+//   then the adjoint from level nl down to 1 (deep_adjoint): the pieces it
+//   hands the level below (the diagonal ones in place, ascending, and two
+//   sets of the row and column pieces and the total), their suffixes
+//   scanned by the level that made them, and M̄ summed in a slot.
+// - The divisions by (a + 1)(b + 1) and q + 1 are products of a table of
+//   1 / n in shared memory (compile-time constants on the register route).
 // tests/test_torch_sig_gram_order.py holds a float64 torch model of this
-// loop order against the JAX package's kernels and jax.grad.
+// loop order (warps, chunks, packed slots) against the JAX package's
+// kernels and jax.grad.
 //
 // What bounds it on the H100. It reads M (B L1 L2 values) and writes
-// (nl + 1) B, or M̄ (B L1 L2) in the backward, but per entry it does about
-// Σ_m 2 min(p, m)² + min(p, m) operations (the forward) and keeps them in
-// the workspace: every state is a load and a store of L1 or L2, so the
-// workspace traffic, a few times the operations in bytes, and one warp's
-// L1 serial columns times nl levels of dependent loads bind it, far above
-// the bound from M's bytes or the operations.
+// (nl + 1) B, or M̄ (B L1 L2) in the backward, and does about
+// Σ_m 2 min(p, m)² + min(p, m) operations per entry (the forward): the
+// operations bind, at 0.36 ms (forward) and 1.07 ms (backward) for the
+// order-8 GPR's 150² matrices of L' = 49. Each column's level-by-level
+// chain of scans and barriers, and the blocks an SM (6 to 8 forward, 4
+// backward: its 255 registers and 48 KB of shared memory a matrix), bound
+// it in practice: 11-12 ms forward and ~80 ms backward there on an H100
+// (PERF.md). The smem and workspace routes pay a shared-memory or global
+// access for every state: 31 and 229 ms at that shape.
 
 #pragma once
 
@@ -59,354 +80,930 @@
 namespace gpsig {
 
 // The warps a block at most (plan.py's SIG_GRAM_ORDER_WARPS).
-constexpr int kOrderWarps = 4;
+constexpr int kOrderWarps = 8;
 
-// A row's slots (plan.py's order_slots):
-//   tsum[m]        m < nl                 T_{m+1}: carry over columns; k
-//   ra[m][q]       m < nl - 1, q < p - 1  RA_{m+2}[q]: carry over columns
-//   grid[k][a][b]  k < G, a, b < p        G = 2 (forward: two grids in
-//                                         turn), nl - 1 (backward: D_1 ..
-//                                         D_{nl-1} of the column)
-// and for the backward only:
-//   pre[m], colpre[m][q]                  E_{m+2}, CP_{m+2}[q]
-//   rtot[m], rrow[m][q]                   Rtot_{m+1}, Rrow_{m+1}[q]
-//   inj[k][a][b], injc[k][b], ptot[k], prow[k][q]   k < 2: the pieces one
-//                                         level's adjoint hands the next
-struct OrderSlots {
-  int nl, p;
-  long long f0, b0, b1;
-
-  __host__ __device__ OrderSlots(int nl_, int p_)
-      : nl(nl_), p(p_),
-        f0(nl_ + static_cast<long long>(nl_ - 1) * (p_ - 1)),
-        b0(f0 + static_cast<long long>(nl_ - 1) * p_ * p_),
-        b1(b0 + 2LL * (nl_ - 1) * p_) {}
-  __host__ __device__ static long long count(int nl, int p, bool bwd) {
-    const OrderSlots s(nl, p);
-    return bwd ? s.b1 + 2LL * p * p + 4LL * p + 2 : s.f0 + 2LL * p * p;
-  }
-  __device__ long long tsum(int m) const { return m; }
-  __device__ long long ra(int m, int q) const {
-    return nl + static_cast<long long>(m) * (p - 1) + q;
-  }
-  __device__ long long grid(int k, int a, int b) const {
-    return f0 + (static_cast<long long>(k) * p + a) * p + b;
-  }
-  __device__ long long pre(int m) const { return b0 + m; }
-  __device__ long long colpre(int m, int q) const {
-    return b0 + (nl - 1) + static_cast<long long>(m) * (p - 1) + q;
-  }
-  __device__ long long rtot(int m) const {
-    return b0 + static_cast<long long>(nl - 1) * p + m;
-  }
-  __device__ long long rrow(int m, int q) const {
-    return b0 + static_cast<long long>(nl - 1) * (p + 1) +
-           static_cast<long long>(m) * (p - 1) + q;
-  }
-  __device__ long long inj(int k, int a, int b) const {
-    return b1 + (static_cast<long long>(k) * p + a) * p + b;
-  }
-  __device__ long long injc(int k, int b) const {
-    return b1 + 2LL * p * p + static_cast<long long>(k) * p + b;
-  }
-  __device__ long long ptot(int k) const { return b1 + 2LL * p * p + 2 * p + k; }
-  __device__ long long prow(int k, int q) const {
-    return b1 + 2LL * p * p + 2 * p + 2 + static_cast<long long>(k) * p + q;
-  }
-};
-
-// One warp's matrix: M [L1, L2], its rows' slots [slot][L2] at `mem`, the
-// lane's row of chunk c is 32 c + lane (none past L2: it reads 0, writes
-// nothing, and still takes part in the scans).
-template <typename T>
-struct OrderDP {
-  const T* M;
-  T* mem;
-  int L1, L2, nl, p, lane, chunks;
-  OrderSlots sl;
-  WarpGroup<T, 32> g;
-
-  __device__ OrderDP(T* mem_, int L1_, int L2_, int nl_, int p_)
-      : M(nullptr), mem(mem_), L1(L1_), L2(L2_), nl(nl_), p(p_),
-        lane(static_cast<int>(threadIdx.x) & 31), chunks((L2_ + 31) / 32),
-        sl(nl_, p_), g() {}
-
-  __device__ int row(int c) const { return 32 * c + lane; }
-  __device__ T ld(long long s, int j) const {
-    return j < L2 ? mem[s * L2 + j] : T(0);
-  }
-  __device__ void st(long long s, int j, T v) const {
-    if (j < L2) mem[s * L2 + j] = v;
-  }
-  __device__ T x(int i, int j) const {
-    return j < L2 ? M[static_cast<long long>(i) * L2 + j] : T(0);
-  }
-
-  // The exclusive prefix (suffix) of v over the rows, plus the carry of
-  // the chunks before (after) this one; the carry moves past this chunk.
-  __device__ T prefix(T v, T& carry) {
-    T in[1] = {v}, out[1];
-    const T incl = g.template prefix_from<1>(in, out, lane == 0 ? carry : T(0));
-    carry = __shfl_sync(kFull, incl, 31);
-    return out[0];
-  }
-  __device__ T suffix(T v, T& carry) {
-    T in[1] = {v}, out[1];
-    const T incl = g.template suffix_from<1>(in, out, lane == 31 ? carry : T(0));
-    carry = __shfl_sync(kFull, incl, 0);
-    return out[0];
-  }
-
-  // Level m >= 2 of column i: D_m's grid from D_{m-1}'s. Forward: the
-  // carries before column i build it, then take column i's sums; k_nl's
-  // carry takes level nl's grid. Rebuild (the reverse sweep): the carries
-  // drop column i's sums first (they held them), E and CP are kept for
-  // the adjoint, and level nl's grid is not written (never read).
-  __device__ void level(int i, int m, bool rebuild) {
-    const int Rp = p < m - 1 ? p : m - 1;
-    const int Rm = p < m ? p : m;
-    const int kp = rebuild ? m - 2 : (m - 2) & 1;
-    const int kc = rebuild ? m - 1 : (m - 1) & 1;
-    const bool write = !rebuild || m < nl;
-    const bool top = !rebuild && m == nl;
-    T carry = T(0);
-    for (int c = 0; c < chunks; ++c) {
-      const int j = row(c);
-      const T xv = x(i, j);
-      T tot = T(0);
-      for (int a = 0; a < Rp; ++a)
-        for (int b = 0; b < Rp; ++b) tot += ld(sl.grid(kp, a, b), j);
-      T ts = ld(sl.tsum(m - 2), j);
-      if (rebuild) {
-        ts -= tot;
-        st(sl.tsum(m - 2), j, ts);
-      }
-      const T pre = prefix(ts, carry);
-      if (rebuild)
-        st(sl.pre(m - 2), j, pre);
-      else
-        st(sl.tsum(m - 2), j, ts + tot);
-      if (write) {
-        T s = xv * pre;
-        st(sl.grid(kc, 0, 0), j, s);
-        for (int a = 1; a < Rm; ++a)
-          for (int b = 1; b < Rm; ++b) {
-            const T v = xv / T((a + 1) * (b + 1)) *
-                        ld(sl.grid(kp, a - 1, b - 1), j);
-            st(sl.grid(kc, a, b), j, v);
-            s += v;
-          }
-        if (top) st(sl.tsum(nl - 1), j, ld(sl.tsum(nl - 1), j) + s);
-      }
-    }
-    for (int q = 0; q + 1 < Rm; ++q) {
-      carry = T(0);
-      for (int c = 0; c < chunks; ++c) {
-        const int j = row(c);
-        T cs = T(0), rs = T(0);
-        for (int a = 0; a < Rp; ++a) {
-          cs += ld(sl.grid(kp, a, q), j);
-          rs += ld(sl.grid(kp, q, a), j);
-        }
-        const T cp = prefix(cs, carry);
-        T r = ld(sl.ra(m - 2, q), j);
-        if (rebuild) {
-          r -= rs;
-          st(sl.ra(m - 2, q), j, r);
-          st(sl.colpre(m - 2, q), j, cp);
-        } else {
-          st(sl.ra(m - 2, q), j, r + rs);
-        }
-        if (write) {
-          const T k = x(i, j) / T(q + 2);
-          const T u = k * r, v = k * cp;
-          st(sl.grid(kc, q + 1, 0), j, u);
-          st(sl.grid(kc, 0, q + 1), j, v);
-          if (top) st(sl.tsum(nl - 1), j, ld(sl.tsum(nl - 1), j) + u + v);
-        }
-      }
-    }
-  }
-
-  // Column i begins: D_1 = M's row into grid 0.
-  __device__ void first(int i) {
-    for (int c = 0; c < chunks; ++c) st(sl.grid(0, 0, 0), row(c), x(i, row(c)));
-  }
-
-  // The forward sweep over the columns: the carries end in the slots,
-  // tsum[m] holding the rows' shares of k_{m+1}.
-  __device__ void forward() {
-    for (long long s = 0; s < sl.f0; ++s)
-      for (int c = 0; c < chunks; ++c) st(s, row(c), T(0));
-    for (int i = 0; i < L1; ++i) {
-      first(i);
-      for (int m = 2; m <= nl; ++m) level(i, m, false);
-    }
-  }
-
-  // Level m's adjoint of column i (deep_levels.cuh's deep_adjoint): w the
-  // cotangent of k_m; the pieces of level m + 1 in set m & 1, its own for
-  // level m - 1 into set (m - 1) & 1; M̄'s row set at level nl, then added.
-  __device__ void adjoint(int i, int m, T w, T* mbar) {
-    const int Rm = p < m ? p : m;
-    const int Rn = p < m + 1 ? p : m + 1;
-    const int ki = m & 1, ko = (m - 1) & 1;
-    const bool below = m < nl;
-    for (int c = 0; c < chunks; ++c) {
-      const int j = row(c);
-      const T xv = x(i, j);
-      const T rt = below ? ld(sl.rtot(m - 1), j) : T(0);
-      // the cotangent of D_m[a][b] at this entry
-      auto A = [&](int a, int b) {
-        T v = w;
-        if (below) {
-          v += rt;
-          if (a + 1 < Rn) v += ld(sl.rrow(m - 1, a), j);
-          if (b + 1 < Rn) {
-            v += ld(sl.injc(ki, b), j);
-            if (a + 1 < Rn) v += ld(sl.inj(ki, a, b), j);
-          }
-        }
-        return v;
-      };
-      T mb;
-      if (m >= 2) {
-        const T a00 = A(0, 0);
-        mb = a00 * ld(sl.pre(m - 2), j);
-        for (int q = 1; q < Rm; ++q) {
-          const T k = T(1) / T(q + 1);
-          const T aq0 = A(q, 0), a0q = A(0, q);
-          mb += k * (aq0 * ld(sl.ra(m - 2, q - 1), j) +
-                     a0q * ld(sl.colpre(m - 2, q - 1), j));
-          st(sl.injc(ko, q - 1), j, xv * k * a0q);
-          st(sl.prow(ko, q - 1), j, xv * k * aq0);
-        }
-        for (int a = 1; a < Rm; ++a)
-          for (int b = 1; b < Rm; ++b) {
-            const T k = T(1) / T((a + 1) * (b + 1));
-            const T ab = A(a, b);
-            mb += k * ab * ld(sl.grid(m - 2, a - 1, b - 1), j);
-            st(sl.inj(ko, a - 1, b - 1), j, xv * k * ab);
-          }
-        st(sl.ptot(ko), j, xv * a00);
-      } else {
-        mb = A(0, 0);
-      }
-      if (below)
-        for (int q = 0; q + 1 < Rn; ++q)
-          st(sl.rrow(m - 1, q), j,
-             ld(sl.rrow(m - 1, q), j) + ld(sl.prow(ki, q), j));
-      if (j < L2) {
-        T* out = mbar + static_cast<long long>(i) * L2 + j;
-        *out = m == nl ? mb : *out + mb;
-      }
-    }
-    // the scans, chunks descending: level m + 1's total pieces join the
-    // carry over columns only now; level m's column pieces become their
-    // suffixes
-    if (below) {
-      T carry = T(0);
-      for (int c = chunks - 1; c >= 0; --c) {
-        const int j = row(c);
-        const T sfx = suffix(ld(sl.ptot(ki), j), carry);
-        st(sl.rtot(m - 1), j, ld(sl.rtot(m - 1), j) + sfx);
-      }
-    }
-    if (m >= 2)
-      for (int q = 1; q < Rm; ++q) {
-        T carry = T(0);
-        for (int c = chunks - 1; c >= 0; --c) {
-          const int j = row(c);
-          st(sl.injc(ko, q - 1), j, suffix(ld(sl.injc(ko, q - 1), j), carry));
-        }
-      }
-  }
-
-  // The reverse sweep after forward(): gw [nl + 1, B], matrix b; M̄ of
-  // every entry into mbar [L1, L2].
-  __device__ void reverse(const T* gw, long long B, long long b, T* mbar) {
-    for (int m = 0; m + 1 < nl; ++m)
-      for (int c = 0; c < chunks; ++c) {
-        st(sl.rtot(m), row(c), T(0));
-        for (int q = 0; q + 1 < p; ++q) st(sl.rrow(m, q), row(c), T(0));
-      }
-    for (int i = L1 - 1; i >= 0; --i) {
-      first(i);
-      for (int m = 2; m <= nl; ++m) level(i, m, true);
-      for (int m = nl; m >= 1; --m) adjoint(i, m, gw[m * B + b], mbar);
-    }
-  }
-};
-
-// The launch arguments are sig_gram.cuh's SgArgs, as plan.py's
-// sig_gram_order_plan fills them: S = 32, R = 1, bands = 1, W warps a
-// block (1 .. kOrderWarps), the workspace `area` elements a warp
-// (order_slots L2 at least), `blocks` blocks striding over the matrices.
-inline bool sg_order_ok(const SgArgs& a, bool bwd) {
-  return a.P > kDeepOrder && a.P <= a.nl && a.nl <= kDeepLevels &&
-         a.S == 32 && a.R == 1 && a.bands == 1 && a.W >= 1 &&
-         a.W <= kOrderWarps && !a.area_smem && a.work != nullptr &&
-         a.blocks >= 1 && a.B >= 1 && a.L1 >= 1 && a.L2 >= 1 &&
-         a.area >= OrderSlots::count(a.nl, a.P, bwd) * a.L2;
+// Warps a block for L2 rows (plan.py's order_warps).
+__host__ __device__ inline int order_warps(int L2) {
+  const int w = (L2 + 31) / 32;
+  return w < kOrderWarps ? w : kOrderWarps;
 }
 
-// Warp w of block k takes matrices k W + w, then a stride of the grid's
-// warps. out: [nl + 1, B].
+// A row's slots, packed (plan.py's order_slots counts them). Level m's
+// grid has min(p, m) rows and columns, its carries over columns RA_m[q]
+// (and in the backward CP_m[q] and Rrow_{m-1}[q]) min(p, m) - 1 entries.
+//   forward:  x; tsum[m - 2] for levels m = 2 .. nl (T_m's carry); ra;
+//             the scan slots (p); one p x p grid, in place
+//   backward: x, mb (M̄'s sum over levels); tsum; ra; ec, level m's
+//             [E_m, CP_m[0 .. min(p, m) - 2]]; the grids of levels 1 ..
+//             nl - 1; rt[m - 1] and rr (Rtot_m, Rrow_m: carries over
+//             columns of the adjoint); inj (p - 1)², the diagonal pieces,
+//             in place; two sets of [ptot, injc[0 .. p - 2]] and of
+//             prow[0 .. p - 2]
+// The backward's forward sweep keeps its in-place grid (stride p) at the
+// grids' slots and its scan slots at ec. The register route (reg) keeps
+// the column's M value, the grid, the scan values and the adjoint's
+// pieces in registers: its forward has tsum and ra only, its backward
+// tsum, ra, ec, the grids, rt and rr.
+struct OrderLayout {
+  int nl, p;
+  int ts, ra0, ec0, g0, rt0, rr0, inj0, set0, prow0, buf0, total;
+
+  __host__ __device__ OrderLayout(int nl_, int p_, bool bwd, bool reg = false)
+      : nl(nl_), p(p_) {
+    const int R = rsum(nl + 1);
+    ts = reg ? 0 : bwd ? 2 : 1;
+    ra0 = ts + nl - 1;
+    ec0 = g0 = rt0 = rr0 = inj0 = set0 = prow0 = buf0 = 0;
+    if (bwd) {
+      ec0 = ra0 + R;
+      g0 = ec0 + R + nl - 1;
+      rt0 = g0 + gsum(nl);
+      rr0 = rt0 + nl - 1;
+      inj0 = rr0 + R;
+      set0 = inj0 + (p - 1) * (p - 1);
+      prow0 = set0 + 2 * p;
+      total = reg ? inj0 : prow0 + 2 * (p - 1);
+    } else {
+      buf0 = ra0 + R;
+      g0 = buf0 + p;
+      total = reg ? buf0 : g0 + p * p;
+    }
+  }
+  // Σ_{m' = 2}^{m - 1} (min(p, m') - 1)
+  __host__ __device__ int rsum(int m) const {
+    return m - 1 <= p ? (m - 2) * (m - 1) / 2
+                      : (p - 1) * p / 2 + (m - 1 - p) * (p - 1);
+  }
+  // Σ_{m' = 1}^{m - 1} min(p, m')²
+  __host__ __device__ int gsum(int m) const {
+    return m - 1 <= p ? (m - 1) * m * (2 * m - 1) / 6
+                      : p * (p + 1) * (2 * p + 1) / 6 + (m - 1 - p) * p * p;
+  }
+  __device__ int tsum(int m) const { return ts + m - 2; }
+  __device__ int ra(int m, int q) const { return ra0 + rsum(m) + q; }
+  __device__ int ec(int m, int k) const { return ec0 + rsum(m) + m - 2 + k; }
+  __device__ int grid(int m) const { return g0 + gsum(m); }
+  __device__ int rt(int m) const { return rt0 + m - 1; }
+  __device__ int rr(int m, int q) const { return rr0 + rsum(m + 1) + q; }
+  __device__ int inj(int a, int b) const { return inj0 + a * (p - 1) + b; }
+  __device__ int set(int s, int k) const { return set0 + s * p + k; }
+  __device__ int prow(int s, int q) const {
+    return prow0 + s * (p - 1) + q;
+  }
+};
+
+// The block's small shared arrays, before the slots where those are in
+// shared memory: 1 / n (n <= p + 1), the warps' scan totals [2][p][W], the
+// chunk carries [2][p] (prefix, suffix), the forward's level sums [nl][W].
+__host__ __device__ inline int order_small(int nl, int p, int W) {
+  return p + 2 + 2 * p * W + 2 * p + nl * W;
+}
+
+// The forward's output for matrix b: out[0] = 1, out[m] (m = 1 .. nl) the
+// sum over the block's threads of value(m), each warp's by shuffles, then
+// the warps' in order through red [nl][W].
+template <typename T, typename F>
+__device__ void order_reduce(F value, T* out, T* red, int nl, int W,
+                             long long B, long long b) {
+  const int t = static_cast<int>(threadIdx.x), lane = t & 31, w = t >> 5;
+  for (int m = 1; m <= nl; ++m) {
+    T v = value(m);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFull, v, off);
+    if (W == 1) {
+      if (lane == 0) out[m * B + b] = v;
+    } else if (lane == 0) {
+      red[(m - 1) * W + w] = v;
+    }
+  }
+  if (t == 0) out[b] = T(1);
+  if (W == 1) return;
+  __syncthreads();
+  if (t == 0)
+    for (int m = 1; m <= nl; ++m) {
+      T v = T(0);
+      for (int u = 0; u < W; ++u) v += red[(m - 1) * W + u];
+      out[m * B + b] = v;
+    }
+}
+
+constexpr int kX = 0;   // the column's M values
+constexpr int kMb = 1;  // backward: M̄'s sum over the column's levels
+
+// One block's matrix: the state at S ([slot][L2]), this thread's rows
+// c NT + t (none past L2: it reads 0, writes nothing, and takes part in
+// the scans and barriers).
 template <typename T>
+struct OrderBlock {
+  T* S;
+  T* inv;
+  T* xw;
+  T* chunks;
+  T* red;
+  int L2, nl, p, W, NT, C, t, w, lane, par;
+  OrderLayout ly;
+
+  __device__ OrderBlock(T* small, T* S_, int L2_, int nl_, int p_, bool bwd)
+      : S(S_), L2(L2_), nl(nl_), p(p_), W(static_cast<int>(blockDim.x) >> 5),
+        NT(static_cast<int>(blockDim.x)), t(static_cast<int>(threadIdx.x)),
+        w(static_cast<int>(threadIdx.x) >> 5),
+        lane(static_cast<int>(threadIdx.x) & 31), par(0),
+        ly(nl_, p_, bwd) {
+    C = (L2 + NT - 1) / NT;
+    inv = small;
+    xw = inv + p + 2;
+    chunks = xw + 2 * p * W;
+    red = chunks + 2 * p;
+    for (int n = t; n < p + 2; n += NT) inv[n] = n ? T(1) / T(n) : T(0);
+    __syncthreads();
+  }
+
+  __device__ int row(int c) const { return c * NT + t; }
+  __device__ T ld(int s, int j) const { return j < L2 ? S[s * L2 + j] : T(0); }
+  __device__ void st(int s, int j, T v) const {
+    if (j < L2) S[s * L2 + j] = v;
+  }
+
+  // The exclusive prefix (Suffix: suffix) over the rows of slots base ..
+  // base + K - 1, in place, for chunk c; chunks go in ascending (Suffix:
+  // descending) order, the first (last) thread carrying their totals.
+  template <bool Suffix>
+  __device__ void scan(int base, int K, int c) {
+    const int j = row(c);
+    const bool first = Suffix ? c == C - 1 : c == 0;
+    const bool holder = Suffix ? t == NT - 1 : t == 0;
+    T* cy = chunks + (Suffix ? p : 0);
+    T* xs = xw + par * p * W;
+    for (int k = 0; k < K; ++k) {
+      const T v = ld(base + k, j);
+      T incl = holder && !first ? v + cy[k] : v;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        if (Suffix) {
+          const T u = __shfl_down_sync(kFull, incl, off);
+          if (lane + off < 32) incl += u;
+        } else {
+          const T u = __shfl_up_sync(kFull, incl, off);
+          if (lane >= off) incl += u;
+        }
+      }
+      st(base + k, j, incl - v);
+      if (W == 1) {
+        const T tot = __shfl_sync(kFull, incl, Suffix ? 0 : 31);
+        if (holder && C > 1) cy[k] = tot;
+      } else if (lane == (Suffix ? 0 : 31)) {
+        xs[k * W + w] = incl;
+      }
+    }
+    if (W == 1) {
+      __syncwarp();
+      return;
+    }
+    __syncthreads();
+    for (int k = 0; k < K; ++k) {
+      T off = T(0);
+      if (Suffix)
+        for (int u = W - 1; u > w; --u) off += xs[k * W + u];
+      else
+        for (int u = 0; u < w; ++u) off += xs[k * W + u];
+      if (Suffix ? w < W - 1 : w > 0) st(base + k, j, ld(base + k, j) + off);
+      if (holder && C > 1) {
+        T tot = T(0);
+        for (int u = 0; u < W; ++u) tot += xs[k * W + u];
+        cy[k] = tot;
+      }
+    }
+    par ^= 1;
+  }
+
+  // Zero slots [s0, s1) of every row.
+  __device__ void zero(int s0, int s1) {
+    for (int s = s0; s < s1; ++s)
+      for (int c = 0; c < C; ++c) st(s, row(c), T(0));
+  }
+
+  // Column i of M [L1, L2] into slot kX.
+  __device__ void stage(const T* M, int i) {
+    for (int c = 0; c < C; ++c) {
+      const int j = row(c);
+      if (j < L2) S[kX * L2 + j] = M[static_cast<long long>(i) * L2 + j];
+    }
+  }
+
+  // Forward level m >= 2 of the column in slot kX: D_m from D_{m-1} in
+  // place in the grid at slot g (row stride p), the scans through slots
+  // buf .. buf + min(p, m) - 1, the carries over columns advanced. mode 0:
+  // D_m written; 1 (the forward's top level): D_m's cells summed into acc,
+  // not written; 2 (the backward's top level): the carries only.
+  __device__ void forward_level(int m, int g, int buf, int mode, T& acc) {
+    const int Rp = p < m - 1 ? p : m - 1;
+    const int Rm = p < m ? p : m;
+    const bool scans = mode != 2, write = mode == 0;
+    for (int c = 0; c < C; ++c) {
+      const int j = row(c);
+      const T x = ld(kX, j);
+      const T ts = ld(ly.tsum(m), j);
+      if (scans) {
+        st(buf, j, ts);
+        for (int q = 0; q + 1 < Rm; ++q) {
+          T cs = T(0);
+          for (int a = 0; a < Rp; ++a) cs += ld(g + a * p + q, j);
+          st(buf + 1 + q, j, cs);
+        }
+      }
+      T tot = T(0);
+      for (int a = Rp - 1; a >= 0; --a) {
+        const bool moves = a + 1 < Rm;
+        const T xa = x * inv[a + 2];
+        T rs = T(0);
+        for (int b = Rp - 1; b >= 0; --b) {
+          const T v = ld(g + a * p + b, j);
+          rs += v;
+          if (scans && moves && b + 1 < Rm) {
+            const T nv = xa * inv[b + 2] * v;
+            if (write)
+              st(g + (a + 1) * p + b + 1, j, nv);
+            else
+              acc += nv;
+          }
+        }
+        tot += rs;
+        if (moves) {
+          const int s = ly.ra(m, a);
+          const T r = ld(s, j);
+          st(s, j, r + rs);
+          if (scans) {
+            if (write)
+              st(g + (a + 1) * p, j, xa * r);
+            else
+              acc += xa * r;
+          }
+        }
+      }
+      st(ly.tsum(m), j, ts + tot);
+      if (!scans) continue;
+      scan<false>(buf, Rm, c);
+      T e = x * ld(buf, j);
+      if (write)
+        st(g, j, e);
+      else
+        acc += e;
+      for (int q = 0; q + 1 < Rm; ++q) {
+        e = x * inv[q + 2] * ld(buf + 1 + q, j);
+        if (write)
+          st(g + q + 1, j, e);
+        else
+          acc += e;
+      }
+    }
+  }
+
+  // The forward sweep over M's L1 columns from zero carries; the grid at
+  // slot g (stride p). The forward's top level sums k_nl into acc, the
+  // backward's (bwd) updates the carries only; the scan slots are buf
+  // (forward) or ec (backward).
+  __device__ void sweep(const T* M, int L1, int g, bool bwd, T& acc) {
+    zero(ly.ts, ly.ra0 + ly.rsum(nl + 1));
+    for (int i = 0; i < L1; ++i) {
+      stage(M, i);
+      for (int c = 0; c < C; ++c) st(g, row(c), ld(kX, row(c)));
+      for (int m = 2; m <= nl; ++m)
+        forward_level(m, g, bwd ? ly.ec(m, 0) : ly.buf0,
+                      m < nl ? 0 : bwd ? 2 : 1, acc);
+    }
+  }
+
+  // The reverse sweep's level m >= 2 of column i: the carries drop the
+  // column's sums (they held them), E_m and CP_m by prefix scans into ec,
+  // and (below the top) D_m's grid from D_{m-1}'s.
+  __device__ void rebuild(int m) {
+    const int Rp = p < m - 1 ? p : m - 1;
+    const int Rm = p < m ? p : m;
+    const bool write = m < nl;
+    const int gp = ly.grid(m - 1), gc = write ? ly.grid(m) : 0;
+    const int e0 = ly.ec(m, 0);
+    for (int c = 0; c < C; ++c) {
+      const int j = row(c);
+      const T x = ld(kX, j);
+      for (int q = 0; q + 1 < Rm; ++q) {
+        T cs = T(0);
+        for (int a = 0; a < Rp; ++a) cs += ld(gp + a * Rp + q, j);
+        st(e0 + 1 + q, j, cs);
+      }
+      T tot = T(0);
+      for (int a = 0; a < Rp; ++a) {
+        const bool moves = a + 1 < Rm;
+        const T xa = x * inv[a + 2];
+        T rs = T(0);
+        for (int b = 0; b < Rp; ++b) {
+          const T v = ld(gp + a * Rp + b, j);
+          rs += v;
+          if (write && moves && b + 1 < Rm)
+            st(gc + (a + 1) * Rm + b + 1, j, xa * inv[b + 2] * v);
+        }
+        tot += rs;
+        if (moves) {
+          const int s = ly.ra(m, a);
+          const T r = ld(s, j) - rs;
+          st(s, j, r);
+          if (write) st(gc + (a + 1) * Rm, j, xa * r);
+        }
+      }
+      const T ts = ld(ly.tsum(m), j) - tot;
+      st(ly.tsum(m), j, ts);
+      st(e0, j, ts);
+      scan<false>(e0, Rm, c);
+      if (write) {
+        st(gc, j, x * ld(e0, j));
+        for (int q = 0; q + 1 < Rm; ++q)
+          st(gc + q + 1, j, x * inv[q + 2] * ld(e0 + 1 + q, j));
+      }
+    }
+  }
+
+  // Level m's adjoint of the column (deep_levels.cuh's deep_adjoint): wm
+  // the cotangent of k_m; level m + 1's pieces in set m & 1 (their
+  // suffixes scanned) and inj, level m's own for level m - 1 into set
+  // (m - 1) & 1 and inj (in place: cell (a, b) is read before (a + 1,
+  // b + 1) writes it), then scanned; the carries over columns take level
+  // m + 1's pieces after their use; M̄'s row written at level 1.
+  __device__ void adjoint(int m, T wm, T* mbar) {
+    const int Rm = p < m ? p : m;
+    const int Rn = p < m + 1 ? p : m + 1;
+    const int Rp = p < m - 1 ? p : m - 1;
+    const bool below = m < nl;
+    const int ki = m & 1, ko = (m - 1) & 1;
+    const int gp = m >= 2 ? ly.grid(m - 1) : 0;
+    for (int c = 0; c < C; ++c) {
+      const int j = row(c);
+      const T x = ld(kX, j);
+      const T base = below ? wm + ld(ly.rt(m), j) : wm;
+      auto rowp = [&](int a) {
+        return below && a + 1 < Rn ? ld(ly.rr(m, a), j) : T(0);
+      };
+      auto colp = [&](int b) {
+        return below && b + 1 < Rn ? ld(ly.set(ki, 1 + b), j) : T(0);
+      };
+      auto injv = [&](int a, int b) {
+        return below && a + 1 < Rn && b + 1 < Rn ? ld(ly.inj(a, b), j) : T(0);
+      };
+      const T r0 = base + rowp(0), c0 = colp(0);
+      const T a00 = r0 + c0 + injv(0, 0);
+      T mb = m == nl ? T(0) : ld(kMb, j);
+      if (m >= 2) {
+        mb += a00 * ld(ly.ec(m, 0), j);
+        for (int q = 1; q < Rm; ++q) {
+          const T k = inv[q + 1];
+          const T aq0 = base + rowp(q) + c0 + injv(q, 0);
+          const T a0q = r0 + colp(q) + injv(0, q);
+          mb += k * (aq0 * ld(ly.ra(m, q - 1), j) + a0q * ld(ly.ec(m, q), j));
+          st(ly.set(ko, q), j, x * k * a0q);
+          st(ly.prow(ko, q - 1), j, x * k * aq0);
+        }
+        for (int a = 1; a < Rm; ++a) {
+          const T ra = base + rowp(a);
+          const T ka = inv[a + 1], xa = x * ka;
+          for (int b = 1; b < Rm; ++b) {
+            const T kb = inv[b + 1];
+            const T ab = ra + colp(b) + injv(a, b);
+            mb += ka * kb * ab * ld(gp + (a - 1) * Rp + b - 1, j);
+            st(ly.inj(a - 1, b - 1), j, xa * kb * ab);
+          }
+        }
+        st(ly.set(ko, 0), j, x * a00);
+      } else {
+        mb += a00;
+      }
+      if (below) {
+        st(ly.rt(m), j, ld(ly.rt(m), j) + ld(ly.set(ki, 0), j));
+        for (int q = 0; q + 1 < Rn; ++q)
+          st(ly.rr(m, q), j, ld(ly.rr(m, q), j) + ld(ly.prow(ki, q), j));
+      }
+      if (m > 1)
+        st(kMb, j, mb);
+      else if (j < L2)
+        mbar[j] = mb;
+    }
+    if (m >= 2)
+      for (int c = C - 1; c >= 0; --c) scan<true>(ly.set(ko, 0), Rm, c);
+  }
+
+  // The forward's output for matrix b: out[m] the sum over rows of tsum (m
+  // < nl) or of acc (m = nl).
+  __device__ void reduce(T acc, T* out, long long B, long long b) {
+    order_reduce(
+        [&](int m) {
+          T v = T(0);
+          if (m == nl) return acc;
+          for (int c = 0; c < C; ++c) v += ld(ly.tsum(m + 1), row(c));
+          return v;
+        },
+        out, red, nl, W, B, b);
+  }
+};
+
+// Smem: the slots in shared memory (after the small arrays), else the
+// block's region of `area` elements in the workspace. Block k takes
+// matrices k, then a stride of the grid. out: [nl + 1, B].
+template <typename T, bool Smem>
 __global__ void __launch_bounds__(32 * kOrderWarps)
 sig_gram_order_kernel(const T* __restrict__ M, T* __restrict__ out, T* work,
                       int B, int L1, int L2, int nl, int P, int area) {
+  extern __shared__ __align__(16) unsigned char order_smem[];
+  T* small = reinterpret_cast<T*>(order_smem);
   const int W = static_cast<int>(blockDim.x) >> 5;
-  const long long w = static_cast<long long>(blockIdx.x) * W +
-                      (static_cast<int>(threadIdx.x) >> 5);
-  OrderDP<T> dp(work + w * area, L1, L2, nl, P);
-  for (long long b = w; b < B; b += static_cast<long long>(gridDim.x) * W) {
-    dp.M = M + b * L1 * L2;
-    dp.forward();
-    if (dp.lane == 0) out[b] = T(1);
-    for (int m = 0; m < nl; ++m) {
-      T s = T(0);
-      for (int c = 0; c < dp.chunks; ++c) s += dp.ld(dp.sl.tsum(m), dp.row(c));
-      s = dp.g.sum(s);
-      if (dp.lane == 0) out[(m + 1) * static_cast<long long>(B) + b] = s;
-    }
+  T* S = Smem ? small + order_small(nl, P, W)
+              : work + static_cast<long long>(blockIdx.x) * area;
+  OrderBlock<T> ob(small, S, L2, nl, P, false);
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    T acc = T(0);
+    ob.sweep(M + b * L1 * L2, L1, ob.ly.g0, false, acc);
+    ob.reduce(acc, out, B, b);
   }
 }
 
 // The backward: gw [nl + 1, B] -> Mbar [B, L1, L2], every entry written.
-template <typename T>
+template <typename T, bool Smem>
 __global__ void __launch_bounds__(32 * kOrderWarps)
 sig_gram_order_bwd_kernel(const T* __restrict__ M, const T* __restrict__ gw,
                           T* __restrict__ Mbar, T* work, int B, int L1,
                           int L2, int nl, int P, int area) {
+  extern __shared__ __align__(16) unsigned char order_smem[];
+  T* small = reinterpret_cast<T*>(order_smem);
   const int W = static_cast<int>(blockDim.x) >> 5;
-  const long long w = static_cast<long long>(blockIdx.x) * W +
-                      (static_cast<int>(threadIdx.x) >> 5);
-  OrderDP<T> dp(work + w * area, L1, L2, nl, P);
-  for (long long b = w; b < B; b += static_cast<long long>(gridDim.x) * W) {
+  T* S = Smem ? small + order_small(nl, P, W)
+              : work + static_cast<long long>(blockIdx.x) * area;
+  OrderBlock<T> ob(small, S, L2, nl, P, true);
+  const OrderLayout& ly = ob.ly;
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
     const long long off = b * L1 * L2;
-    dp.M = M + off;
-    dp.forward();
-    dp.reverse(gw, B, b, Mbar + off);
+    T acc = T(0);
+    ob.sweep(M + off, L1, ly.g0, true, acc);
+    ob.zero(ly.rt0, ly.rt0 + nl - 1);
+    ob.zero(ly.rr0, ly.rr0 + ly.rsum(nl + 1));
+    for (int i = L1 - 1; i >= 0; --i) {
+      ob.stage(M + off, i);
+      for (int c = 0; c < ob.C; ++c)
+        ob.st(ly.grid(1), ob.row(c), ob.ld(kX, ob.row(c)));
+      for (int m = 2; m <= nl; ++m) ob.rebuild(m);
+      for (int m = nl; m >= 1; --m)
+        ob.adjoint(m, gw[m * static_cast<long long>(B) + b],
+                   Mbar + off + static_cast<long long>(i) * L2);
+    }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The register route: p = kOrderRegP, at most one row a thread (L2 <= 32
+// kOrderWarps). The same loop order with the column's M value, D's grid
+// (p x p, zero outside the current level's), the scans' values and the
+// adjoint's pieces in registers, every loop over a grid's rows and columns
+// unrolled (a level's size min(p, m) a uniform guard), the coefficients
+// compile-time constants; shared memory holds the carries over columns
+// and, in the backward, the column's E, CP and grids for the adjoint
+// (OrderLayout with reg).
+// ---------------------------------------------------------------------------
+
+// The register route's order (plan.py's ORDER_REGISTER_P).
+constexpr int kOrderRegP = 8;
+
+template <typename T, int P>
+struct RegBlock {
+  T* S;
+  T* xw;
+  T* red;
+  int L2, nl, W, t, w, lane, par;
+  bool live;
+  OrderLayout ly;
+  T g[P][P];
+  T inj[P - 1][P - 1];  // the backward: level m + 1's diagonal pieces
+  T ci[P];              // [ptot, injc[0 .. P - 2]] of level m + 1, scanned
+  T pi[P - 1];          // prow of level m + 1
+
+  __device__ RegBlock(T* small, T* S_, int L2_, int nl_, bool bwd)
+      : S(S_), L2(L2_), nl(nl_), W(static_cast<int>(blockDim.x) >> 5),
+        t(static_cast<int>(threadIdx.x)),
+        w(static_cast<int>(threadIdx.x) >> 5),
+        lane(static_cast<int>(threadIdx.x) & 31), par(0), live(t < L2_),
+        ly(nl_, P, bwd, true) {
+    xw = small;
+    red = xw + 2 * P * W;
+  }
+
+  __device__ __forceinline__ T ld(int s) const {
+    return live ? S[s * L2 + t] : T(0);
+  }
+  __device__ __forceinline__ void st(int s, T v) const {
+    if (live) S[s * L2 + t] = v;
+  }
+  static __device__ __forceinline__ T c(int n) { return T(1) / T(n + 1); }
+
+  // The exclusive prefix (Suffix: suffix) over the rows of v[0 .. n - 1].
+  template <bool Suffix>
+  __device__ __forceinline__ void scan(T (&v)[P], int n) {
+    T incl[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) incl[k] = v[k];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (k < n) {
+          if (Suffix) {
+            const T u = __shfl_down_sync(kFull, incl[k], off);
+            if (lane + off < 32) incl[k] += u;
+          } else {
+            const T u = __shfl_up_sync(kFull, incl[k], off);
+            if (lane >= off) incl[k] += u;
+          }
+        }
+    if (W > 1) {
+      T* xs = xw + par * P * W;
+      if (lane == (Suffix ? 0 : 31))
+#pragma unroll
+        for (int k = 0; k < P; ++k)
+          if (k < n) xs[k * W + w] = incl[k];
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (k < n) {
+          T o = T(0);
+          if (Suffix)
+            for (int u = W - 1; u > w; --u) o += xs[k * W + u];
+          else
+            for (int u = 0; u < w; ++u) o += xs[k * W + u];
+          incl[k] += o;
+        }
+      par ^= 1;
+    }
+#pragma unroll
+    for (int k = 0; k < P; ++k) v[k] = incl[k] - v[k];
+  }
+
+  // D_{m-1}'s row sums rs and column sums (into sv[1 + b]) over its RP x
+  // RP cells, and their total.
+  template <int RP>
+  __device__ __forceinline__ T sums(T (&rs)[P], T (&sv)[P]) {
+    T tot = T(0);
+#pragma unroll
+    for (int k = 0; k < P; ++k) rs[k] = sv[k] = T(0);
+#pragma unroll
+    for (int a = 0; a < RP; ++a) {
+#pragma unroll
+      for (int b = 0; b < RP; ++b) {
+        rs[a] += g[a][b];
+        if (b + 1 < P) sv[b + 1] += g[a][b];
+      }
+      tot += rs[a];
+    }
+    return tot;
+  }
+
+  // D_m's cells past its first row and column from D_{m-1}'s (a row moves
+  // one diagonal step, last first); Top: summed, not written.
+  template <int RM, bool Top>
+  __device__ __forceinline__ T shift(T x) {
+    T s = T(0);
+#pragma unroll
+    for (int a = RM - 2; a >= 0; --a) {
+      const T xa = x * c(a + 1);
+#pragma unroll
+      for (int b = RM - 2; b >= 0; --b) {
+        const T v = xa * c(b + 1) * g[a][b];
+        if (Top)
+          s += v;
+        else
+          g[a + 1][b + 1] = v;
+      }
+    }
+    return s;
+  }
+
+  // D_m's first row and column: E_m and CP_m (the scanned sv), RA_m's
+  // carries before this column (er); Top: summed, not written.
+  template <int RM, bool Top>
+  __device__ __forceinline__ T edges(T x, const T (&sv)[P],
+                                     const T (&er)[P]) {
+    T s = x * sv[0];
+    if (!Top) g[0][0] = s;
+#pragma unroll
+    for (int q = 0; q + 1 < RM; ++q) {
+      const T k = x * c(q + 1);
+      const T u = k * er[q], v = k * sv[q + 1];
+      if (Top) {
+        s += u + v;
+      } else {
+        g[q + 1][0] = u;
+        g[0][q + 1] = v;
+      }
+    }
+    return s;
+  }
+
+  // Forward level m >= 2 at RP = min(p, m - 1), RM = min(p, m)
+  // (OrderBlock::forward_level): mode 0 D_m kept, 1 its cells summed into
+  // acc, 2 the carries only.
+  template <int RP, int RM>
+  __device__ __forceinline__ void level(int m, T x, int mode, T& acc) {
+    T rs[P], sv[P], er[P];
+    const T tot = sums<RP>(rs, sv);
+    const int r0 = ly.ra(m, 0);
+#pragma unroll
+    for (int a = 0; a + 1 < RM; ++a) {
+      er[a] = ld(r0 + a);
+      st(r0 + a, er[a] + rs[a]);
+    }
+    const T ts = ld(ly.tsum(m));
+    st(ly.tsum(m), ts + tot);
+    if (mode == 2) return;
+    sv[0] = ts;
+    if (mode == 0)
+      shift<RM, false>(x);
+    else
+      acc += shift<RM, true>(x);
+    scan<false>(sv, RM);
+    if (mode == 0)
+      edges<RM, false>(x, sv, er);
+    else
+      acc += edges<RM, true>(x, sv, er);
+  }
+
+  // Levels M .. P of a column (compile-time sizes), then the rest.
+  template <int M>
+  __device__ __forceinline__ void levels(T x, int top, T& acc) {
+    if constexpr (M <= P) {
+      level<M - 1, M>(M, x, M < nl ? 0 : top, acc);
+      levels<M + 1>(x, top, acc);
+    } else {
+      for (int m = P + 1; m <= nl; ++m)
+        level<P, P>(m, x, m < nl ? 0 : top, acc);
+    }
+  }
+
+  __device__ void sweep(const T* M, int L1, bool bwd, T& acc) {
+    for (int s = ly.ts; s < ly.ra0 + ly.rsum(nl + 1); ++s) st(s, T(0));
+    for (int i = 0; i < L1; ++i) {
+      const T x = live ? M[static_cast<long long>(i) * L2 + t] : T(0);
+      g[0][0] = x;
+      levels<2>(x, bwd ? 2 : 1, acc);
+    }
+  }
+
+  // The reverse sweep's level m (OrderBlock::rebuild): E_m and CP_m into
+  // ec; below the top, D_m in the registers and into its grid's slots.
+  template <int RP, int RM>
+  __device__ __forceinline__ void rebuild(int m, T x) {
+    T rs[P], sv[P], er[P];
+    const T tot = sums<RP>(rs, sv);
+    const int r0 = ly.ra(m, 0);
+#pragma unroll
+    for (int a = 0; a + 1 < RM; ++a) {
+      er[a] = ld(r0 + a) - rs[a];
+      st(r0 + a, er[a]);
+    }
+    sv[0] = ld(ly.tsum(m)) - tot;
+    st(ly.tsum(m), sv[0]);
+    scan<false>(sv, RM);
+    const int e0 = ly.ec(m, 0);
+#pragma unroll
+    for (int k = 0; k < RM; ++k) st(e0 + k, sv[k]);
+    if (m == nl) return;
+    shift<RM, false>(x);
+    edges<RM, false>(x, sv, er);
+    const int gc = ly.grid(m);
+#pragma unroll
+    for (int a = 0; a < RM; ++a)
+#pragma unroll
+      for (int b = 0; b < RM; ++b) st(gc + a * RM + b, g[a][b]);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void rebuilds(T x) {
+    if constexpr (M <= P) {
+      rebuild<M - 1, M>(M, x);
+      rebuilds<M + 1>(x);
+    } else {
+      for (int m = P + 1; m <= nl; ++m) rebuild<P, P>(m, x);
+    }
+  }
+
+  // Level m's adjoint at RM = min(p, m), RN = min(p, m + 1), RP = min(p,
+  // m - 1) (OrderBlock::adjoint), the pieces in registers; mb M̄'s sum over
+  // the column's levels.
+  template <int RM, int RN, int RP>
+  __device__ __forceinline__ void adjoint(int m, T wm, T x, T& mb) {
+    const bool below = m < nl;
+    const T base = below ? wm + ld(ly.rt(m)) : wm;
+    T rp[P];
+#pragma unroll
+    for (int a = 0; a < P; ++a)
+      rp[a] = below && a + 1 < RN ? ld(ly.rr(m, a)) : T(0);
+    auto colp = [&](int b) { return below && b + 1 < RN ? ci[1 + b] : T(0); };
+    auto injv = [&](int a, int b) {
+      return below && a + 1 < RN && b + 1 < RN ? inj[a][b] : T(0);
+    };
+    const T r0 = base + rp[0], c0 = colp(0);
+    const T a00 = r0 + c0 + injv(0, 0);
+    if (below) {
+      st(ly.rt(m), ld(ly.rt(m)) + ci[0]);
+#pragma unroll
+      for (int q = 0; q + 1 < RN; ++q)
+        st(ly.rr(m, q), rp[q] + pi[q]);
+    }
+    if constexpr (RM < 2) {
+      mb += a00;
+    } else {
+      T co[P], po[P - 1];
+#pragma unroll
+      for (int q = 0; q + 1 < P; ++q) co[q + 1] = po[q] = T(0);
+      mb += a00 * ld(ly.ec(m, 0));
+      const int ra0 = ly.ra(m, 0), e0 = ly.ec(m, 0);
+#pragma unroll
+      for (int q = 1; q < RM; ++q) {
+        const T aq0 = base + rp[q] + c0 + injv(q, 0);
+        const T a0q = r0 + colp(q) + injv(0, q);
+        mb += c(q) * (aq0 * ld(ra0 + q - 1) + a0q * ld(e0 + q));
+        co[q] = x * c(q) * a0q;
+        po[q - 1] = x * c(q) * aq0;
+      }
+      const int gp = ly.grid(m - 1);
+#pragma unroll
+      for (int a = 1; a < RM; ++a) {
+        const T ra = base + rp[a];
+#pragma unroll
+        for (int b = 1; b < RM; ++b) {
+          const T k = c(a) * c(b);
+          const T ab = ra + colp(b) + injv(a, b);
+          mb += k * ab * ld(gp + (a - 1) * RP + b - 1);
+          inj[a - 1][b - 1] = x * k * ab;
+        }
+      }
+      co[0] = x * a00;
+      scan<true>(co, RM);
+#pragma unroll
+      for (int k = 0; k < P; ++k) ci[k] = co[k];
+#pragma unroll
+      for (int k = 0; k + 1 < P; ++k) pi[k] = po[k];
+    }
+  }
+
+  __device__ __forceinline__ void clear_pieces() {
+#pragma unroll
+    for (int a = 0; a + 1 < P; ++a) {
+      pi[a] = ci[a + 1] = T(0);
+#pragma unroll
+      for (int b = 0; b + 1 < P; ++b) inj[a][b] = T(0);
+    }
+    ci[0] = T(0);
+  }
+
+  template <int M>
+  __device__ __forceinline__ void adjoints(const T* gw, long long B,
+                                           long long b, T x, T& mb) {
+    constexpr int RM = M < P ? M : P, RN = M + 1 < P ? M + 1 : P;
+    constexpr int RP = M - 1 < P ? M - 1 : P;
+    adjoint<RM, RN, RP>(M, gw[M * B + b], x, mb);
+    if constexpr (M > 1) adjoints<M - 1>(gw, B, b, x, mb);
+  }
+
+  // The forward's output for matrix b (OrderBlock::reduce).
+  __device__ void reduce(T acc, T* out, long long B, long long b) {
+    order_reduce([&](int m) { return m < nl ? ld(ly.tsum(m + 1)) : acc; },
+                 out, red, nl, W, B, b);
+  }
+};
+
+// The register route's small shared arrays: the warps' scan totals
+// [2][P][W] and the forward's level sums [nl][W].
+__host__ __device__ inline int order_reg_small(int nl, int W) {
+  return 2 * kOrderRegP * W + nl * W;
+}
+
+// The forward in float32 at 128 registers: 8 blocks of two warps an SM
+// rather than 6 (11.30 against 12.15 ms at the order-8 GPR's 150² matrices
+// of L' = 49 on an H100); in float64 that would spill.
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * kOrderWarps, sizeof(T) == 4 ? 2 : 1)
+sig_gram_order_reg_kernel(const T* __restrict__ M, T* __restrict__ out,
+                          int B, int L1, int L2, int nl) {
+  extern __shared__ __align__(16) unsigned char order_smem[];
+  T* small = reinterpret_cast<T*>(order_smem);
+  const int W = static_cast<int>(blockDim.x) >> 5;
+  RegBlock<T, P> rb(small, small + order_reg_small(nl, W), L2, nl, false);
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    T acc = T(0);
+    rb.sweep(M + b * L1 * L2, L1, false, acc);
+    rb.reduce(acc, out, B, b);
+  }
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * kOrderWarps)
+sig_gram_order_reg_bwd_kernel(const T* __restrict__ M,
+                              const T* __restrict__ gw, T* __restrict__ Mbar,
+                              int B, int L1, int L2, int nl) {
+  extern __shared__ __align__(16) unsigned char order_smem[];
+  T* small = reinterpret_cast<T*>(order_smem);
+  const int W = static_cast<int>(blockDim.x) >> 5;
+  RegBlock<T, P> rb(small, small + order_reg_small(nl, W), L2, nl, true);
+  const OrderLayout& ly = rb.ly;
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    const T* Mb = M + b * L1 * L2;
+    T acc = T(0);
+    rb.sweep(Mb, L1, true, acc);
+    for (int s = ly.rt0; s < ly.rr0 + ly.rsum(nl + 1); ++s) rb.st(s, T(0));
+    for (int i = L1 - 1; i >= 0; --i) {
+      const T x = rb.live ? Mb[static_cast<long long>(i) * L2 + rb.t] : T(0);
+      rb.g[0][0] = x;
+      rb.st(ly.grid(1), x);
+      rb.template rebuilds<2>(x);
+      // the top level reads none of the pieces: cleared here, they hold
+      // no registers through the sweeps
+      rb.clear_pieces();
+      T mb = T(0);
+      for (int m = nl; m > P; --m)
+        rb.template adjoint<P, P, P>(m, gw[m * static_cast<long long>(B) + b],
+                                     x, mb);
+      rb.template adjoints<P>(gw, B, b, x, mb);
+      if (rb.live)
+        Mbar[b * L1 * L2 + static_cast<long long>(i) * L2 + rb.t] = mb;
+    }
+  }
+}
+
+// The launch arguments are sig_gram.cuh's SgArgs, as plan.py's
+// sig_gram_order_plan fills them: S = 32, R = 1, bands = 1, W =
+// order_warps(L2), `area` = OrderLayout(nl, P, bwd, reg).total L2 elements
+// a matrix, area_smem 2 (the register route, P = kOrderRegP, L2 <= 32
+// kOrderWarps, the slots in shared memory), 1 (the slots in shared
+// memory) or 0 (a workspace region a block), `blocks` blocks striding
+// over the matrices.
+inline size_t sg_order_smem(const SgArgs& a, size_t item) {
+  const size_t slots = a.area_smem ? static_cast<size_t>(a.area) : 0;
+  return item * ((a.area_smem == 2 ? order_reg_small(a.nl, a.W)
+                                   : order_small(a.nl, a.P, a.W)) +
+                 slots);
+}
+
+inline bool sg_order_ok(const SgArgs& a, bool bwd, size_t item) {
+  const bool reg = a.area_smem == 2;
+  return a.P > kDeepOrder && a.P <= a.nl && a.nl <= kDeepLevels &&
+         a.S == 32 && a.R == 1 && a.bands == 1 && a.L2 >= 1 &&
+         a.W == order_warps(a.L2) && a.blocks >= 1 && a.B >= 1 &&
+         a.L1 >= 1 && a.area_smem >= 0 && a.area_smem <= 2 &&
+         (!reg || (a.P == kOrderRegP && a.L2 <= 32 * kOrderWarps)) &&
+         a.area == static_cast<long long>(
+                       OrderLayout(a.nl, a.P, bwd, reg).total) * a.L2 &&
+         (a.area_smem || a.work != nullptr) &&
+         sg_order_smem(a, item) <= kSegSmemBytes;
 }
 
 template <typename T>
 cudaError_t sg_fwd_order(const SgArgs& a, cudaStream_t stream) {
-  if (!sg_order_ok(a, false)) return cudaErrorInvalidValue;
-  sig_gram_order_kernel<T><<<a.blocks, 32 * a.W, 0, stream>>>(
-      static_cast<const T*>(a.M), static_cast<T*>(a.out),
-      static_cast<T*>(a.work), a.B, a.L1, a.L2, a.nl, a.P, a.area);
+  if (!sg_order_ok(a, false, sizeof(T))) return cudaErrorInvalidValue;
+  const size_t smem = sg_order_smem(a, sizeof(T));
+  const T* M = static_cast<const T*>(a.M);
+  T* out = static_cast<T*>(a.out);
+  if (a.area_smem == 2) {
+    auto kern = sig_gram_order_reg_kernel<T, kOrderRegP>;
+    cudaError_t e = allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<a.blocks, 32 * a.W, smem, stream>>>(M, out, a.B, a.L1, a.L2,
+                                               a.nl);
+    return cudaGetLastError();
+  }
+  auto kern = a.area_smem ? sig_gram_order_kernel<T, true>
+                          : sig_gram_order_kernel<T, false>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<a.blocks, 32 * a.W, smem, stream>>>(
+      M, out, static_cast<T*>(a.work), a.B, a.L1, a.L2, a.nl, a.P, a.area);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t sg_bwd_order(const SgArgs& a, cudaStream_t stream) {
-  if (!sg_order_ok(a, true)) return cudaErrorInvalidValue;
-  sig_gram_order_bwd_kernel<T><<<a.blocks, 32 * a.W, 0, stream>>>(
-      static_cast<const T*>(a.M), static_cast<const T*>(a.g),
-      static_cast<T*>(a.out), static_cast<T*>(a.work), a.B, a.L1, a.L2,
-      a.nl, a.P, a.area);
+  if (!sg_order_ok(a, true, sizeof(T))) return cudaErrorInvalidValue;
+  const size_t smem = sg_order_smem(a, sizeof(T));
+  const T* M = static_cast<const T*>(a.M);
+  const T* g = static_cast<const T*>(a.g);
+  T* Mbar = static_cast<T*>(a.out);
+  if (a.area_smem == 2) {
+    auto kern = sig_gram_order_reg_bwd_kernel<T, kOrderRegP>;
+    cudaError_t e = allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<a.blocks, 32 * a.W, smem, stream>>>(M, g, Mbar, a.B, a.L1, a.L2,
+                                               a.nl);
+    return cudaGetLastError();
+  }
+  auto kern = a.area_smem ? sig_gram_order_bwd_kernel<T, true>
+                          : sig_gram_order_bwd_kernel<T, false>;
+  cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<a.blocks, 32 * a.W, smem, stream>>>(
+      M, g, Mbar, static_cast<T*>(a.work), a.B, a.L1, a.L2, a.nl, a.P,
+      a.area);
   return cudaGetLastError();
 }
 

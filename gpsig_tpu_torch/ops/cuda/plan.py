@@ -44,8 +44,9 @@ memory and a device workspace.
 The sig_gram kernels (:func:`sig_gram_plan`) take a matrix on a segment
 of lanes up to what one warp holds and in bands of rows on a wavefront of
 warps past it, so every L2: the kernel layer sends them every Gram past
-``MAX_ROWS`` rows. Past order 7 one warp takes a matrix with every row's
-state in a workspace (:func:`sig_gram_order_plan`).
+``MAX_ROWS`` rows. Past order 7 a block takes a matrix with its rows'
+state in shared memory, or in a workspace where it does not fit
+(:func:`sig_gram_order_plan`).
 
 The wrappers compute the plan and the bytes here, pass the plan to the
 kernel, and raise ``ValueError`` above what a launch can take: more than
@@ -514,37 +515,107 @@ def sig_gram_carries(nl, p):
 
 #: warps a block of the run-time-order instance at most
 #: (csrc/sig_gram_order.cuh's kOrderWarps)
-SIG_GRAM_ORDER_WARPS = 4
+SIG_GRAM_ORDER_WARPS = 8
+#: the H100's L2 cache: the run-time-order instance's workspace route keeps
+#: the regions of the blocks in flight within it where one region fits
+ORDER_L2_BYTES = 50 * 1024 * 1024
+#: SMs of an H100: a block an SM where one workspace region exceeds the L2
+ORDER_SMS = 132
+#: the order of the run-time-order instance's register route
+#: (csrc/sig_gram_order.cuh's kOrderRegP)
+ORDER_REGISTER_P = 8
 
 
-def order_slots(nl, p, backward):
-    """Values a DP row keeps in the workspace on the run-time-order
-    instance (``csrc/sig_gram_order.cuh``'s OrderSlots): the deep path's
-    (:func:`deep_slots`) and the column's grids, two in the forward and
-    nl - 1 in the backward (counted by :func:`deep_slots` there), and for
-    the backward two sets of the pieces one level's adjoint hands the next,
-    2p² + 4p + 2."""
+def order_warps(L2):
+    """Warps a block of the run-time-order instance: one DP row a thread up
+    to SIG_GRAM_ORDER_WARPS warps, the rows past them in chunks
+    (``csrc/sig_gram_order.cuh``'s order_warps)."""
+    return min(-(-L2 // 32), SIG_GRAM_ORDER_WARPS)
+
+
+def _order_rsum(p, m):
+    """Σ_{m'=2}^{m-1} (min(p, m') - 1): the packed carries of levels 2 ..
+    m - 1."""
+    if m - 1 <= p:
+        return (m - 2) * (m - 1) // 2
+    return (p - 1) * p // 2 + (m - 1 - p) * (p - 1)
+
+
+def _order_gsum(p, m):
+    """Σ_{m'=1}^{m-1} min(p, m')²: the packed grids of levels 1 .. m - 1."""
+    if m - 1 <= p:
+        return (m - 1) * m * (2 * m - 1) // 6
+    return p * (p + 1) * (2 * p + 1) // 6 + (m - 1 - p) * p * p
+
+
+def order_slots(nl, p, backward, register=False):
+    """Values a DP row keeps on the run-time-order instance, packed
+    (``csrc/sig_gram_order.cuh``'s OrderLayout): level m's carries take
+    min(p, m) - 1 slots, its grid min(p, m)². Forward: M's value, T_m's
+    carries (nl - 1), the RA carries, p scan slots and one p x p grid
+    updated in place. Backward: M's value and M̄'s sum, T_m's and the RA
+    carries, E_m and CP_m, the grids of levels 1 .. nl - 1, the adjoint's
+    carries Rtot (nl - 1) and Rrow, the diagonal pieces (p - 1)² in place,
+    and two sets of the total, column and row pieces, 2p + 2(p - 1). The
+    register route keeps only the carries over columns in memory, and in
+    the backward E_m, CP_m and the grids."""
+    R = _order_rsum(p, nl + 1)
+    if register:
+        return (nl - 1 + R if not backward else
+                3 * (nl - 1) + 3 * R + _order_gsum(p, nl))
     if backward:
-        return deep_slots(nl, p, True) + 2 * p * p + 4 * p + 2
-    return deep_slots(nl, p, False) + 2 * p * p
+        return (2 + 3 * (nl - 1) + 3 * R + _order_gsum(p, nl)
+                + (p - 1) ** 2 + 4 * p - 2)
+    return 1 + (nl - 1) + R + p + p * p
+
+
+def order_small(nl, p, W, register=False):
+    """Values of the run-time-order block's small shared arrays: 1 / n,
+    the warps' scan totals, the chunk carries and the level sums; the
+    register route's scan totals and level sums
+    (``csrc/sig_gram_order.cuh``'s order_small, order_reg_small)."""
+    if register:
+        return 2 * ORDER_REGISTER_P * W + nl * W
+    return p + 2 + 2 * p * W + 2 * p + nl * W
 
 
 def sig_gram_order_plan(B, L1, L2, nl, p, itemsize, backward):
-    """The run-time-order instance's launch (p > SIG_GRAM_MAX_ORDER): one
-    warp a matrix, its rows' slots (:func:`order_slots` a row) in the
-    workspace, ``area`` elements a warp; the most warps of B,
-    SIG_GRAM_MAX_BLOCKS blocks of SIG_GRAM_ORDER_WARPS warps and what the
-    workspace holds, W of them a block, the grid striding over the rest.
-    None where one matrix's slots exceed WORKSPACE_BYTES."""
+    """The run-time-order instance's launch (p > SIG_GRAM_MAX_ORDER): a
+    block of ``W`` = :func:`order_warps` warps a matrix, a DP row a thread
+    (rows past 32 W in chunks), its rows' slots (:func:`order_slots` a row,
+    ``area`` elements a matrix). ``route`` "register" (``area_smem`` 2): p
+    = ORDER_REGISTER_P and a row a thread, the grid and the adjoint's
+    pieces in registers, the carries in shared memory, a block a matrix,
+    where they fit SMEM_BYTES. Else "smem": every slot in the block's shared
+    memory after its small arrays, where they fit, a block a matrix. Else
+    "workspace": a region of ``area`` a block in the workspace, as many
+    blocks as the L2 holds regions (ORDER_L2_BYTES), where one region
+    exceeds it ORDER_SMS, at most B and what WORKSPACE_BYTES holds, the grid
+    striding over the rest. None where one matrix's slots exceed
+    WORKSPACE_BYTES."""
+    W = order_warps(L2)
+    if p == ORDER_REGISTER_P and L2 <= 32 * SIG_GRAM_ORDER_WARPS:
+        area = order_slots(nl, p, backward, True) * L2
+        smem = itemsize * (order_small(nl, p, W, True) + area)
+        if smem <= SMEM_BYTES:
+            return dict(S=32, R=1, bands=1, W=W, area=area, area_smem=2,
+                        smem=smem, blocks=B, work=0, route="register")
     area = order_slots(nl, p, backward) * L2
-    warps = min(B, SIG_GRAM_ORDER_WARPS * SIG_GRAM_MAX_BLOCKS,
-                WORKSPACE_BYTES // (area * itemsize))
-    if warps < 1:
+    small = order_small(nl, p, W) * itemsize
+    plan = dict(S=32, R=1, bands=1, W=W, area=area, area_smem=True,
+                smem=small + area * itemsize, blocks=B, work=0,
+                route="smem")
+    if plan["smem"] <= SMEM_BYTES:
+        return plan
+    region = area * itemsize
+    if region > WORKSPACE_BYTES:
         return None
-    W = min(SIG_GRAM_ORDER_WARPS, warps)
-    blocks = warps // W
-    return dict(S=32, R=1, bands=1, W=W, area=area, area_smem=False, smem=0,
-                blocks=blocks, work=blocks * W * area)
+    blocks = ORDER_L2_BYTES // region or min(ORDER_SMS,
+                                             WORKSPACE_BYTES // region)
+    blocks = min(B, blocks)
+    plan.update(area_smem=False, smem=small, blocks=blocks,
+                work=blocks * area, route="workspace")
+    return plan
 
 
 @functools.lru_cache(maxsize=512)

@@ -15,7 +15,9 @@ carries in shared memory where the block's fit, else in a device
 workspace this wrapper allocates, as the bands' carries. Past order
 p = min(order, num_levels) = 7 the run-time-order instance
 (``csrc/sig_gram_order.cuh``, ``plan.sig_gram_order_plan``) takes a
-matrix on one warp with every row's state in the workspace. The kernel
+matrix on a block of warps, a row a thread, its rows' packed state in
+shared memory (at p = 8 the grid in registers) or, where that does not
+fit, in the workspace. The kernel
 layer uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
 in PyTorch (as the JAX package leaves them to XLA), for every Gram between

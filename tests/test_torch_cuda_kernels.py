@@ -166,7 +166,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         (2, 5, 6)), device=cuda_device)
     assert _scaled_err(tsg_.sig_gram_levels_ho(Mr, 8, 8),
                        tsg_.sig_gram_levels_ho_ref(Mr, 8, 8)) < 1e-11
-    wide = torch.zeros(1, 5, 64, dtype=torch.float64, device=cuda_device)
+    # p = nl = 127 keeps 715,516 values a row in the backward: float64
+    # takes 187 rows in the workspace
+    wide = torch.zeros(1, 5, 188, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="workspace for one matrix's rows"):
         tsg_.sig_gram_levels_ho_bwd(
             wide, torch.ones(128, 1, dtype=torch.float64,

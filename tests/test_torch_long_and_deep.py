@@ -199,6 +199,7 @@ def test_sig_gram_constants_match_the_source():
     assert const(deep, "kDeepLevels") == plan.SIG_GRAM_MAX_LEVELS
     assert const(deep, "kDeepOrder") == plan.SIG_GRAM_MAX_ORDER
     assert const(order, "kOrderWarps") == plan.SIG_GRAM_ORDER_WARPS
+    assert const(order, "kOrderRegP") == plan.ORDER_REGISTER_P
     assert "if (P > kDeepOrder)" in entry
     assert plan.sig_gram_plan(4, 20, 49, 8, plan.SIG_GRAM_MAX_ORDER + 1, 8,
                               True)["R"] == 1
