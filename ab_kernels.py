@@ -49,8 +49,10 @@ the inducing-sequence Gram at MotorImagery's length (2000 matrices of
 2999 x 7), the triangle of a Gram at L = 1300 (21 matrices of 1299 x 1299,
 order 2) and order 5 at num_levels = 8; sig_gram past order 7 at its timed
 shape (nl = 8, order 8, 22,500 matrices of 49 x 49, forward and
-backward); and, as "kernel alone", the flagship and L = 150 diagonal and both Goursat Kuf routes by
-their C entry point's call (and sig_gram at the flagship diagonal and
+backward) and an Adam step of the order-8 GPR at BASELINE config 1's
+L = 50 (N = 150, nl = 8); and, as "kernel alone", the flagship and
+L = 150 diagonal and both Goursat Kuf routes by their C entry point's
+call (and sig_gram at the flagship diagonal and
 the inducing-sequence matrices), recorded once through the wrapper and
 replayed with no plan, allocation or check, the kernel's device time by
 ``torch.profiler`` (median of 7 windows of 10 launches). Every Gram kernel is timed on its full grid
@@ -228,6 +230,7 @@ CASES = [
      "sg8_nl8"),
     ("sig_gram_bwd order 8 B=22500 L'=49 nl=8",
      "sig_gram.sig_gram_levels_ho_bwd", "sg8_bwd_nl8"),
+    ("GPR Adam step order 8 RBF L=50 N=150 nl=8", "step", "gpr8"),
 ]
 
 
@@ -297,6 +300,8 @@ def _args(kind, torch, dev):
         return (x, x, 4, True)
     if kind in ("gpr1", "gpr2"):
         return (_gpr_step(torch, dev, int(kind[-1])),)
+    if kind == "gpr8":
+        return (_gpr_step(torch, dev, 8, L=50, nl=8),)
     if kind in ("predict2", "svgp2"):
         return (_svgp_call(torch, dev, kind == "svgp2", order=2, d=2),)
     if kind in ("predict1", "svgp1"):
@@ -490,20 +495,21 @@ def _svgp_call(torch, dev, train, order, d):
     return call
 
 
-def _gpr_step(torch, dev, order):
+def _gpr_step(torch, dev, order, L=150, nl=4):
     """One Adam step (lr 5e-2) on -log_marginal_likelihood of an exact RBF
-    GPR at L = 150, float32: regression_sequences(seed=0, N=200, L=150,
-    d=2), 150 to train, nl = 4, noise 0.05."""
+    GPR, float32: regression_sequences(seed=0, N=200, L, d=2), 150 to
+    train, noise 0.05; L = 150 and nl = 4, or BASELINE config 1's L = 50
+    at nl = 8, order 8 (the Gram through sig_gram past order 7)."""
     from gpsig_tpu_torch.config import precise_linalg
     from gpsig_tpu_torch.data.synthetic import regression_sequences
     from gpsig_tpu_torch.kernels.signature import SignatureRBF
     from gpsig_tpu_torch.models.gpr import GPR
 
     f32 = torch.float32
-    Xn, yn = regression_sequences(seed=0, N=200, L=150, d=2)
+    Xn, yn = regression_sequences(seed=0, N=200, L=L, d=2)
     X = torch.as_tensor(Xn[:150], dtype=f32, device=dev)
     Y = torch.as_tensor(yn[:150], dtype=f32, device=dev)
-    kern = SignatureRBF(2, 4, lengthscales=1.0, normalization=True,
+    kern = SignatureRBF(2, nl, lengthscales=1.0, normalization=True,
                         order=order, dtype=f32, device=dev)
     gpr = GPR.create(kern, noise_variance=0.05, dtype=f32, device=dev)
     opt = torch.optim.Adam(gpr.parameters(), lr=5e-2)

@@ -2896,8 +2896,9 @@ DEEP_GPR = dict(N=150, L=50)
 # scaled error allowed past 7 levels (the stated bounds of the deep path)
 DEEP_TOL = {
     "float32": (1e-4, "float32 DP sums over up to 149 columns and 127 "
-                "levels in another order than the plain version, the "
-                "backward's states rebuilt by subtraction"),
+                "levels in another order than the plain version; up to "
+                "order 7 the backward's states rebuilt by subtraction "
+                "(deep_levels.cuh), past it recomputed from checkpoints"),
     "float64": (1e-12, "the plain version's arithmetic, other summation "
                 "order only"),
 }
@@ -2963,6 +2964,22 @@ def deep_levels_phase(dev):
                       "the workspace")
             del M, g, got, want
             torch.cuda.empty_cache()
+
+    # order 7 at 20 and 127 levels, L' = 149, float32 against the plain
+    # version in float64: deep_levels.cuh's backward rebuilds a column's
+    # states by subtracting its sums from the carries (deep_rebuild)
+    for nl in (20, 127):
+        M_np = self_increments(walks(rng, 8, 150, 2) * np.sqrt(50 / 150))
+        e = order_float32_err(dev, M_np, rng.standard_normal((nl + 1, 8)),
+                              nl, 7)
+        torch.cuda.empty_cache()
+        print(f"deep sig_gram order 7 nl={nl} M (8, 149, 149) float32 "
+              f"against the plain version in float64: scaled err forward "
+              f"{e[0]:.3e} (plain float32 {e[2]:.3e}), backward {e[1]:.3e} "
+              f"(plain float32 {e[3]:.3e}), tolerance "
+              f"{DEEP_TOL['float32'][0]:g}")
+        check(max(e[:2]) <= DEEP_TOL["float32"][0], f"deep sig_gram order "
+              f"7 nl={nl} L'=149 float32: {e[:2]}")
 
     # timed at the nl = 10 GPR's Gram: its N² increment matrices
     N, L = DEEP_GPR["N"], DEEP_GPR["L"]
@@ -3713,8 +3730,9 @@ def chunked(fn, *tensors, size=1500):
     return torch.cat(outs, dim=-1 if outs[0].ndim == 2 else 0)
 
 
-#: the wall time "deep orders past 7" may take (about 10 s on an H100;
-#: the sweep's p = nl = 20 case adds its plain versions)
+#: the wall time "deep orders past 7" may take (about 18 s on an H100,
+#: most of it the plain versions of the p = nl = 20 cases and the GPR's
+#: first step)
 ORDER_BUDGET_S = 60.0
 
 
@@ -3728,80 +3746,88 @@ def order_routes(B, L1, L2, nl, order):
             for item in (4, 8) for bwd in (False, True)}
 
 
-def order_float32_err(dev, rng, B, L1, L2, p):
-    """The larger scaled error of the p = nl forward and backward in
-    float32 against the plain versions in float64 (the known fault of
-    the reverse sweep past order 7 at many levels)."""
+def order_float32_err(dev, M_np, g_np, nl, order):
+    """Scaled errors against the plain versions in float64 of the float32
+    kernels' forward and backward and of the plain versions' own in
+    float32: [forward, backward, plain forward, plain backward]. Past order
+    7 the backward recomputes each column's states from a checkpoint, so
+    its error stays near the plain version's at many levels and columns;
+    up to order 7 past 7 levels (deep_levels.cuh) it rebuilds them by
+    subtraction."""
     import torch
 
     from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 
-    M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2)) / np.sqrt(
-        max(L1, L2) / 20), dtype=torch.float64, device=dev)
-    g = torch.as_tensor(rng.standard_normal((p + 1, B)),
-                        dtype=torch.float64, device=dev)
-    got = (sg.sig_gram_levels_ho(M.float(), p, p),
-           sg.sig_gram_levels_ho_bwd(M.float(), g.float(), p, p))
-    want = (sg.sig_gram_levels_ho_ref(M, p, p),
-            sg.sig_gram_levels_ho_bwd_ref(M, g, p, p))
-    return max(scaled_err(a.double(), b) for a, b in zip(got, want))
+    M = torch.as_tensor(M_np, dtype=torch.float64, device=dev)
+    g = torch.as_tensor(g_np, dtype=torch.float64, device=dev)
+    want = (sg.sig_gram_levels_ho_ref(M, nl, order),
+            sg.sig_gram_levels_ho_bwd_ref(M, g, nl, order))
+    M32, g32 = M.float(), g.float()
+    got = (sg.sig_gram_levels_ho(M32, nl, order),
+           sg.sig_gram_levels_ho_bwd(M32, g32, nl, order),
+           sg.sig_gram_levels_ho_ref(M32, nl, order),
+           sg.sig_gram_levels_ho_bwd_ref(M32, g32, nl, order))
+    for a in got[:2]:
+        check(bool(torch.isfinite(a).all()), f"sig_gram nl={nl} order "
+              f"{order} float32: not finite")
+    return [scaled_err(a.double(), b) for a, b in zip(got, want + want)]
 
 
 def order_phase(dev):
     """sig_gram past order 7 (``csrc/sig_gram_order.cuh``) within
     ORDER_BUDGET_S seconds: forward and backward against their plain
     versions at num_levels 8 and 10, orders 8 and 10, L2 in {49, 150} (4
-    matrices [20, L2]), float32 and float64, and p = nl = 20 at L2 = 150,
-    whose state takes the workspace, float64 (its float32 error printed:
-    ROADMAP Queue 3), under DEEP_TOL, each launch the
-    instance's own, each case's routes (register, shared memory or
-    workspace) printed from the plan; then the instance timed at
-    num_levels = 8, order 8 on the increment matrices of 150² pairs of L' =
-    49 (the nl = 10 GPR's Gram shape at a higher order), float32, with its
-    bound; then a GPR Adam step of SignatureRBF(2, 8, order=8) at BASELINE
-    config 1's N = 150, L = 50 (finite, the instance's forward and
-    backward launched), and a small float64 GPR (K, lml, gradients) on the
-    card against the CPU. Returns the timings and the counters of the GPR
-    step, reset just before it."""
+    matrices [20, L2]), at p = nl = 20 on [4, 20, 150] and on the long
+    columns of [4, 149, 49] (whose backward states take the workspace),
+    float64 against the plain versions in float64 and float32 against the
+    plain versions in float64 (the plain float32 version's own error
+    printed beside), under DEEP_TOL, each launch the instance's own, each
+    case's routes (register, shared memory or workspace) printed from the
+    plan; then the instance timed at num_levels = 8, order 8 on the
+    increment matrices of 150² pairs of L' = 49 (the nl = 10 GPR's Gram
+    shape at a higher order), float32, with its bound; then a GPR Adam
+    step of SignatureRBF(2, 8, order=8) at BASELINE config 1's N = 150, L =
+    50 (finite, the instance's forward and backward launched), and a small
+    float64 GPR (K, lml, gradients) on the card against the CPU. Returns
+    the timings and the counters of the GPR step, reset just before it."""
     import torch
 
     from gpsig_tpu_torch.ops.cuda import sig_gram as sg
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 60)
-    cases = [(nl, order, Lp) for nl in (8, 10) for order in (8, 10)
-             for Lp in (49, 150)] + [(20, 20, 150)]
-    for nl, order, Lp in cases:
-        # p = nl = 20 in float64: in float32 the backward's reverse sweep,
-        # which rebuilds a column's carries by subtraction, leaves the early
-        # columns an absolute error of float32's epsilon times the later
-        # columns' sums (ROADMAP Queue 3): printed below, not held to
-        # DEEP_TOL
-        dtypes = ((torch.float64,) if nl == 20 else
-                  (torch.float32, torch.float64))
+    cases = [(nl, order, 20, Lp) for nl in (8, 10) for order in (8, 10)
+             for Lp in (49, 150)] + [(20, 20, 20, 150), (20, 20, 149, 49)]
+    for nl, order, L1, Lp in cases:
         n0 = order_counts()
-        errs, plans = sig_gram_case(dev, rng, 4, 20, Lp, nl, order, dtypes,
-                                    DEEP_TOL)
+        errs, plans = sig_gram_case(dev, rng, 4, L1, Lp, nl, order,
+                                    (torch.float64,), DEEP_TOL)
+        M_np = 0.4 * rng.standard_normal((4, L1, Lp)) / np.sqrt(
+            max(L1, Lp) / 20)
+        f32 = order_float32_err(dev, M_np, rng.standard_normal((nl + 1, 4)),
+                                nl, order)
         n1 = order_counts()
-        check(n1 == (n0[0] + len(dtypes), n0[1] + len(dtypes)),
+        check(n1 == (n0[0] + 2, n0[1] + 2),
               f"order {order} nl={nl}: the p > 7 instance did not "
               f"launch ({n0} -> {n1})")
-        if nl == 20:
-            errs["float32"] = order_float32_err(dev, rng, 4, 20, Lp, nl)
-        routes = order_routes(4, 20, Lp, nl, order)
-        print(f"order {order} nl={nl} L2={Lp}: scaled err float32 "
-              f"{errs['float32']:.2e}"
-              f"{' (known fault, not held)' if nl == 20 else ''}, float64 "
-              f"{errs['float64']:.2e}; routes float32 forward / backward "
-              f"{routes[4, False]} / {routes[4, True]}, float64 "
-              f"{routes[8, False]} / {routes[8, True]}")
+        routes = order_routes(4, L1, Lp, nl, order)
+        print(f"order {order} nl={nl} M [4, {L1}, {Lp}]: scaled err against "
+              f"the plain version in float64: float32 forward {f32[0]:.2e} "
+              f"(plain float32 {f32[2]:.2e}), backward {f32[1]:.2e} (plain "
+              f"float32 {f32[3]:.2e}); float64 {errs['float64']:.2e}; "
+              f"routes float32 forward / backward {routes[4, False]} / "
+              f"{routes[4, True]}, float64 {routes[8, False]} / "
+              f"{routes[8, True]}")
+        check(max(f32[:2]) <= DEEP_TOL["float32"][0],
+              f"order {order} nl={nl} M [4, {L1}, {Lp}] float32: {f32[:2]} "
+              f"> {DEEP_TOL['float32'][0]}")
         if min(order, nl) == 8 and Lp == 49:
             check(routes[4, False] == routes[4, True] == "register",
                   f"order {order} nl={nl} L2=49: float32 not on the "
                   f"register route: {routes}")
         if nl == 20:
             check(routes[8, True] == "workspace",
-                  f"p = nl = 20 at L2 = 150: the float64 backward should "
+                  f"p = nl = 20 at L2 = {Lp}: the float64 backward should "
                   f"take the workspace: {routes}")
 
     # timed: the increment matrices of 150² pairs at L' = 49

@@ -35,7 +35,7 @@
 //   workspace. Slots are packed: level m's grid takes min(p, m)² slots and
 //   its carries min(p, m) - 1 (OrderLayout).
 // - Every cross-row step is an exclusive prefix (the forward, the reverse
-//   sweep's rebuild) or suffix (the adjoint) over the rows, of the level's
+//   sweep's build) or suffix (the adjoint) over the rows, of the level's
 //   min(p, m) values at once: each warp scans by shuffles and leaves its
 //   totals in shared memory, one barrier, then each warp adds the totals
 //   of the warps before (after) it; across chunks the first (last) thread
@@ -48,14 +48,24 @@
 //   (the shift needs no second grid: a cell is read before the row above
 //   overwrites it), then the scan and D_m's first row. The top level only
 //   sums its cells into a register (k_nl).
-// - Backward: the forward sweep to the end carries (its top level updates
-//   the carries only), then the reverse sweep over the columns, last first:
-//   the column's grids rebuilt by subtraction from the carries (deep_levels
-//   .cuh's deep_rebuild; every level's grid kept, packed, with E and CP),
-//   then the adjoint from level nl down to 1 (deep_adjoint): the pieces it
-//   hands the level below (the diagonal ones in place, ascending, and two
-//   sets of the row and column pieces and the total), their suffixes
-//   scanned by the level that made them, and M̄ summed in a slot.
+// - Backward: checkpoints, nothing subtracted. The forward sweep (its top
+//   level updates the carries only) saves a row's carries over columns
+//   (T_m's and the RA carries, OrderCkpt) before every K-th column: K = 1
+//   where the carries before every column take at most kOrderCkptAllBytes
+//   a matrix, else K = ceil(sqrt(L1)). The reverse sweep takes the
+//   segments of K columns last first: it restores the segment's
+//   checkpoint, recomputes the segment's columns forward keeping the
+//   carries before each (none at K = 1), then walks them last first. A
+//   column's grids are built from its carries by the forward's own
+//   arithmetic (every level's grid kept, packed, with E and CP), so they
+//   are the forward's values; then the adjoint from level nl down to 1
+//   (deep_levels.cuh's deep_adjoint): the pieces it hands the level below
+//   (the diagonal ones in place, ascending, and two sets of the row and
+//   column pieces and the total), their suffixes scanned by the level that
+//   made them, and M̄ summed in a slot. The checkpoints (L1 sets a row at
+//   K = 1, else ceil(L1 / K) + K - 1) are in a workspace region a block on
+//   every route (after the slots on the workspace route); the grid strides
+//   over the matrices on the blocks that stay resident.
 // - The divisions by (a + 1)(b + 1) and q + 1 are products of a table of
 //   1 / n in shared memory (compile-time constants on the register route).
 // tests/test_torch_sig_gram_order.py holds a float64 torch model of this
@@ -69,9 +79,10 @@
 // order-8 GPR's 150² matrices of L' = 49. Each column's level-by-level
 // chain of scans and barriers, and the blocks an SM (6 to 8 forward, 4
 // backward: its 255 registers and 48 KB of shared memory a matrix), bound
-// it in practice: 11-12 ms forward and ~80 ms backward there on an H100
-// (PERF.md). The smem and workspace routes pay a shared-memory or global
-// access for every state: 31 and 229 ms at that shape.
+// it in practice: 11-12 ms forward and ~95 ms backward there on an H100
+// (PERF.md), of which ~12 ms the checkpoints' saves and loads. The smem
+// and workspace routes pay a shared-memory or global access for every
+// state: 31 and 229 ms at that shape (measured before the checkpoints).
 
 #pragma once
 
@@ -152,6 +163,62 @@ struct OrderLayout {
   }
 };
 
+// The most bytes a matrix's checkpoints of every column may take
+// (plan.py's ORDER_CKPT_ALL_BYTES): up to it the backward keeps the
+// carries before every column and recomputes none.
+constexpr long long kOrderCkptAllBytes = 1 << 20;
+
+// Columns a segment of the backward's reverse sweep (plan.py's
+// order_segments): 1 where the carries before every column (nc values a
+// row, L2 rows, `item` bytes) take at most kOrderCkptAllBytes, else
+// ceil(sqrt(L1)).
+__host__ __device__ inline int order_seg_len(int L1, int nc, int L2,
+                                             int item) {
+  if (static_cast<long long>(L1) * nc * L2 * item <= kOrderCkptAllBytes)
+    return 1;
+  int K = 1;
+  while (static_cast<long long>(K) * K < L1) ++K;
+  return K;
+}
+
+// The backward's checkpoint region (plan.py's order_checkpoints): sets of
+// a row's nc carries over columns (slots ly.ts .. ly.ts + nc - 1: T_m's and
+// the RA carries), each [nc][L2]; set s holds those before segment s's
+// first column, set segs + k - 1 those before a segment's column k >= 1.
+struct OrderCkpt {
+  int nc, K, segs;
+  __host__ __device__ OrderCkpt(int L1, int L2, int item,
+                                const OrderLayout& ly)
+      : nc(ly.nl - 1 + ly.rsum(ly.nl + 1)), K(order_seg_len(L1, nc, L2, item)),
+        segs((L1 + K - 1) / K) {}
+  __host__ __device__ int set(int s, int k) const {
+    return k ? segs + k - 1 : s;
+  }
+  __host__ __device__ long long elems(int L2) const {
+    return static_cast<long long>(segs + K - 1) * nc * L2;
+  }
+};
+
+// Copy n values of a row from src to dst, both strided by L2 (a slot's
+// rows are neighbouring words): kCopyBatch loads in flight before their
+// stores, so that a load from the workspace does not wait on the store
+// before it.
+constexpr int kCopyBatch = 8;
+template <typename T>
+__device__ __forceinline__ void order_copy(T* __restrict__ dst,
+                                           const T* __restrict__ src, int n,
+                                           int L2) {
+  for (int s0 = 0; s0 < n; s0 += kCopyBatch) {
+    T v[kCopyBatch];
+#pragma unroll
+    for (int k = 0; k < kCopyBatch; ++k)
+      if (s0 + k < n) v[k] = src[static_cast<long long>(s0 + k) * L2];
+#pragma unroll
+    for (int k = 0; k < kCopyBatch; ++k)
+      if (s0 + k < n) dst[static_cast<long long>(s0 + k) * L2] = v[k];
+  }
+}
+
 // The block's small shared arrays, before the slots where those are in
 // shared memory: 1 / n (n <= p + 1), the warps' scan totals [2][p][W], the
 // chunk carries [2][p] (prefix, suffix), the forward's level sums [nl][W].
@@ -197,6 +264,7 @@ constexpr int kMb = 1;  // backward: M̄'s sum over the column's levels
 template <typename T>
 struct OrderBlock {
   T* S;
+  T* ck;  // the backward's checkpoint sets (OrderCkpt), in the workspace
   T* inv;
   T* xw;
   T* chunks;
@@ -205,7 +273,8 @@ struct OrderBlock {
   OrderLayout ly;
 
   __device__ OrderBlock(T* small, T* S_, int L2_, int nl_, int p_, bool bwd)
-      : S(S_), L2(L2_), nl(nl_), p(p_), W(static_cast<int>(blockDim.x) >> 5),
+      : S(S_), ck(nullptr), L2(L2_), nl(nl_), p(p_),
+        W(static_cast<int>(blockDim.x) >> 5),
         NT(static_cast<int>(blockDim.x)), t(static_cast<int>(threadIdx.x)),
         w(static_cast<int>(threadIdx.x) >> 5),
         lane(static_cast<int>(threadIdx.x) & 31), par(0),
@@ -359,25 +428,42 @@ struct OrderBlock {
     }
   }
 
-  // The forward sweep over M's L1 columns from zero carries; the grid at
-  // slot g (stride p). The forward's top level sums k_nl into acc, the
-  // backward's (bwd) updates the carries only; the scan slots are buf
+  // Column i of the sweep: every level's grid in place at slot g (stride
+  // p), the carries advanced. The forward's top level sums k_nl into acc,
+  // the backward's (bwd) updates the carries only; the scan slots are buf
   // (forward) or ec (backward).
-  __device__ void sweep(const T* M, int L1, int g, bool bwd, T& acc) {
-    zero(ly.ts, ly.ra0 + ly.rsum(nl + 1));
-    for (int i = 0; i < L1; ++i) {
-      stage(M, i);
-      for (int c = 0; c < C; ++c) st(g, row(c), ld(kX, row(c)));
-      for (int m = 2; m <= nl; ++m)
-        forward_level(m, g, bwd ? ly.ec(m, 0) : ly.buf0,
-                      m < nl ? 0 : bwd ? 2 : 1, acc);
+  __device__ void column(const T* M, int i, int g, bool bwd, T& acc) {
+    stage(M, i);
+    for (int c = 0; c < C; ++c) st(g, row(c), ld(kX, row(c)));
+    for (int m = 2; m <= nl; ++m)
+      forward_level(m, g, bwd ? ly.ec(m, 0) : ly.buf0,
+                    m < nl ? 0 : bwd ? 2 : 1, acc);
+  }
+
+  // The carries over columns (nc slots from ly.ts) of this thread's rows
+  // into (save) or from (load) checkpoint set n.
+  __device__ void save(int n, int nc) {
+    for (int c = 0; c < C; ++c) {
+      const int j = row(c);
+      if (j < L2)
+        order_copy(ck + static_cast<long long>(n) * nc * L2 + j,
+                   S + ly.ts * L2 + j, nc, L2);
+    }
+  }
+  __device__ void load(int n, int nc) {
+    for (int c = 0; c < C; ++c) {
+      const int j = row(c);
+      if (j < L2)
+        order_copy(S + ly.ts * L2 + j,
+                   ck + static_cast<long long>(n) * nc * L2 + j, nc, L2);
     }
   }
 
-  // The reverse sweep's level m >= 2 of column i: the carries drop the
-  // column's sums (they held them), E_m and CP_m by prefix scans into ec,
-  // and (below the top) D_m's grid from D_{m-1}'s.
-  __device__ void rebuild(int m) {
+  // The reverse sweep's level m >= 2 of the column from the carries before
+  // it (restored from a checkpoint set): E_m and CP_m by prefix scans into
+  // ec, and (below the top) D_m's grid from D_{m-1}'s, by forward_level's
+  // arithmetic.
+  __device__ void build(int m) {
     const int Rp = p < m - 1 ? p : m - 1;
     const int Rm = p < m ? p : m;
     const bool write = m < nl;
@@ -391,28 +477,15 @@ struct OrderBlock {
         for (int a = 0; a < Rp; ++a) cs += ld(gp + a * Rp + q, j);
         st(e0 + 1 + q, j, cs);
       }
-      T tot = T(0);
-      for (int a = 0; a < Rp; ++a) {
-        const bool moves = a + 1 < Rm;
-        const T xa = x * inv[a + 2];
-        T rs = T(0);
-        for (int b = 0; b < Rp; ++b) {
-          const T v = ld(gp + a * Rp + b, j);
-          rs += v;
-          if (write && moves && b + 1 < Rm)
-            st(gc + (a + 1) * Rm + b + 1, j, xa * inv[b + 2] * v);
+      if (write)
+        for (int a = 0; a + 1 < Rm; ++a) {
+          const T xa = x * inv[a + 2];
+          for (int b = 0; b + 1 < Rm; ++b)
+            st(gc + (a + 1) * Rm + b + 1, j,
+               xa * inv[b + 2] * ld(gp + a * Rp + b, j));
+          st(gc + (a + 1) * Rm, j, xa * ld(ly.ra(m, a), j));
         }
-        tot += rs;
-        if (moves) {
-          const int s = ly.ra(m, a);
-          const T r = ld(s, j) - rs;
-          st(s, j, r);
-          if (write) st(gc + (a + 1) * Rm, j, xa * r);
-        }
-      }
-      const T ts = ld(ly.tsum(m), j) - tot;
-      st(ly.tsum(m), j, ts);
-      st(e0, j, ts);
+      st(e0, j, ld(ly.tsum(m), j));
       scan<false>(e0, Rm, c);
       if (write) {
         st(gc, j, x * ld(e0, j));
@@ -516,14 +589,19 @@ sig_gram_order_kernel(const T* __restrict__ M, T* __restrict__ out, T* work,
   T* S = Smem ? small + order_small(nl, P, W)
               : work + static_cast<long long>(blockIdx.x) * area;
   OrderBlock<T> ob(small, S, L2, nl, P, false);
+  const OrderLayout& ly = ob.ly;
   for (long long b = blockIdx.x; b < B; b += gridDim.x) {
     T acc = T(0);
-    ob.sweep(M + b * L1 * L2, L1, ob.ly.g0, false, acc);
+    ob.zero(ly.ts, ly.ra0 + ly.rsum(nl + 1));
+    for (int i = 0; i < L1; ++i) ob.column(M + b * L1 * L2, i, ly.g0, false,
+                                           acc);
     ob.reduce(acc, out, B, b);
   }
 }
 
 // The backward: gw [nl + 1, B] -> Mbar [B, L1, L2], every entry written.
+// Block k's workspace region: its slots (`area`, the workspace route),
+// then its checkpoint sets (OrderCkpt).
 template <typename T, bool Smem>
 __global__ void __launch_bounds__(32 * kOrderWarps)
 sig_gram_order_bwd_kernel(const T* __restrict__ M, const T* __restrict__ gw,
@@ -532,24 +610,42 @@ sig_gram_order_bwd_kernel(const T* __restrict__ M, const T* __restrict__ gw,
   extern __shared__ __align__(16) unsigned char order_smem[];
   T* small = reinterpret_cast<T*>(order_smem);
   const int W = static_cast<int>(blockDim.x) >> 5;
-  T* S = Smem ? small + order_small(nl, P, W)
-              : work + static_cast<long long>(blockIdx.x) * area;
-  OrderBlock<T> ob(small, S, L2, nl, P, true);
+  const OrderCkpt ck(L1, L2, sizeof(T), OrderLayout(nl, P, true));
+  const long long own = Smem ? 0 : area;
+  T* region = work + static_cast<long long>(blockIdx.x) * (own + ck.elems(L2));
+  OrderBlock<T> ob(small, Smem ? small + order_small(nl, P, W) : region, L2,
+                   nl, P, true);
+  ob.ck = region + own;
   const OrderLayout& ly = ob.ly;
   for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    const long long off = b * L1 * L2;
+    const T* Mb = M + b * L1 * L2;
+    T* Mbarb = Mbar + b * L1 * L2;
     T acc = T(0);
-    ob.sweep(M + off, L1, ly.g0, true, acc);
+    ob.zero(ly.ts, ly.ts + ck.nc);
+    for (int i = 0; i < L1; ++i) {
+      if (i % ck.K == 0) ob.save(i / ck.K, ck.nc);
+      ob.column(Mb, i, ly.g0, true, acc);
+    }
     ob.zero(ly.rt0, ly.rt0 + nl - 1);
     ob.zero(ly.rr0, ly.rr0 + ly.rsum(nl + 1));
-    for (int i = L1 - 1; i >= 0; --i) {
-      ob.stage(M + off, i);
-      for (int c = 0; c < ob.C; ++c)
-        ob.st(ly.grid(1), ob.row(c), ob.ld(kX, ob.row(c)));
-      for (int m = 2; m <= nl; ++m) ob.rebuild(m);
-      for (int m = nl; m >= 1; --m)
-        ob.adjoint(m, gw[m * static_cast<long long>(B) + b],
-                   Mbar + off + static_cast<long long>(i) * L2);
+    for (int s = ck.segs - 1; s >= 0; --s) {
+      const int c0 = s * ck.K, n = L1 - c0 < ck.K ? L1 - c0 : ck.K;
+      ob.load(s, ck.nc);
+      for (int k = 1; k < n; ++k) {
+        ob.column(Mb, c0 + k - 1, ly.g0, true, acc);
+        ob.save(ck.set(s, k), ck.nc);
+      }
+      // the carries before the segment's last column are loaded already
+      for (int k = n - 1; k >= 0; --k) {
+        if (k < n - 1) ob.load(ck.set(s, k), ck.nc);
+        ob.stage(Mb, c0 + k);
+        for (int c = 0; c < ob.C; ++c)
+          ob.st(ly.grid(1), ob.row(c), ob.ld(kX, ob.row(c)));
+        for (int m = 2; m <= nl; ++m) ob.build(m);
+        for (int m = nl; m >= 1; --m)
+          ob.adjoint(m, gw[m * static_cast<long long>(B) + b],
+                     Mbarb + static_cast<long long>(c0 + k) * L2);
+      }
     }
   }
 }
@@ -571,6 +667,7 @@ constexpr int kOrderRegP = 8;
 template <typename T, int P>
 struct RegBlock {
   T* S;
+  T* ck;  // the backward's checkpoint sets (OrderCkpt), in the workspace
   T* xw;
   T* red;
   int L2, nl, W, t, w, lane, par;
@@ -582,8 +679,8 @@ struct RegBlock {
   T pi[P - 1];          // prow of level m + 1
 
   __device__ RegBlock(T* small, T* S_, int L2_, int nl_, bool bwd)
-      : S(S_), L2(L2_), nl(nl_), W(static_cast<int>(blockDim.x) >> 5),
-        t(static_cast<int>(threadIdx.x)),
+      : S(S_), ck(nullptr), L2(L2_), nl(nl_),
+        W(static_cast<int>(blockDim.x) >> 5), t(static_cast<int>(threadIdx.x)),
         w(static_cast<int>(threadIdx.x) >> 5),
         lane(static_cast<int>(threadIdx.x) & 31), par(0), live(t < L2_),
         ly(nl_, P, bwd, true) {
@@ -741,29 +838,36 @@ struct RegBlock {
     }
   }
 
-  __device__ void sweep(const T* M, int L1, bool bwd, T& acc) {
-    for (int s = ly.ts; s < ly.ra0 + ly.rsum(nl + 1); ++s) st(s, T(0));
-    for (int i = 0; i < L1; ++i) {
-      const T x = live ? M[static_cast<long long>(i) * L2 + t] : T(0);
-      g[0][0] = x;
-      levels<2>(x, bwd ? 2 : 1, acc);
-    }
+  // A column of the sweep, its M value x (OrderBlock::column).
+  __device__ __forceinline__ void column(T x, bool bwd, T& acc) {
+    g[0][0] = x;
+    levels<2>(x, bwd ? 2 : 1, acc);
   }
 
-  // The reverse sweep's level m (OrderBlock::rebuild): E_m and CP_m into
-  // ec; below the top, D_m in the registers and into its grid's slots.
+  // The carries over columns into (save) or from (load) checkpoint set n
+  // (OrderBlock::save, load).
+  __device__ void save(int n, int nc) const {
+    if (live)
+      order_copy(ck + static_cast<long long>(n) * nc * L2 + t,
+                 S + ly.ts * L2 + t, nc, L2);
+  }
+  __device__ void load(int n, int nc) const {
+    if (live)
+      order_copy(S + ly.ts * L2 + t,
+                 ck + static_cast<long long>(n) * nc * L2 + t, nc, L2);
+  }
+
+  // The reverse sweep's level m (OrderBlock::build): E_m and CP_m into ec
+  // from the carries before the column; below the top, D_m in the
+  // registers and into its grid's slots, by level's arithmetic.
   template <int RP, int RM>
-  __device__ __forceinline__ void rebuild(int m, T x) {
+  __device__ __forceinline__ void build(int m, T x) {
     T rs[P], sv[P], er[P];
-    const T tot = sums<RP>(rs, sv);
+    sums<RP>(rs, sv);
     const int r0 = ly.ra(m, 0);
 #pragma unroll
-    for (int a = 0; a + 1 < RM; ++a) {
-      er[a] = ld(r0 + a) - rs[a];
-      st(r0 + a, er[a]);
-    }
-    sv[0] = ld(ly.tsum(m)) - tot;
-    st(ly.tsum(m), sv[0]);
+    for (int a = 0; a + 1 < RM; ++a) er[a] = ld(r0 + a);
+    sv[0] = ld(ly.tsum(m));
     scan<false>(sv, RM);
     const int e0 = ly.ec(m, 0);
 #pragma unroll
@@ -779,12 +883,12 @@ struct RegBlock {
   }
 
   template <int M>
-  __device__ __forceinline__ void rebuilds(T x) {
+  __device__ __forceinline__ void builds(T x) {
     if constexpr (M <= P) {
-      rebuild<M - 1, M>(M, x);
-      rebuilds<M + 1>(x);
+      build<M - 1, M>(M, x);
+      builds<M + 1>(x);
     } else {
-      for (int m = P + 1; m <= nl; ++m) rebuild<P, P>(m, x);
+      for (int m = P + 1; m <= nl; ++m) build<P, P>(m, x);
     }
   }
 
@@ -891,43 +995,69 @@ sig_gram_order_reg_kernel(const T* __restrict__ M, T* __restrict__ out,
   T* small = reinterpret_cast<T*>(order_smem);
   const int W = static_cast<int>(blockDim.x) >> 5;
   RegBlock<T, P> rb(small, small + order_reg_small(nl, W), L2, nl, false);
+  const OrderLayout& ly = rb.ly;
   for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    const T* Mb = M + b * L1 * L2;
     T acc = T(0);
-    rb.sweep(M + b * L1 * L2, L1, false, acc);
+    for (int s = ly.ts; s < ly.ra0 + ly.rsum(nl + 1); ++s) rb.st(s, T(0));
+    for (int i = 0; i < L1; ++i)
+      rb.column(rb.live ? Mb[static_cast<long long>(i) * L2 + rb.t] : T(0),
+                false, acc);
     rb.reduce(acc, out, B, b);
   }
 }
 
+// The register route's backward (the loop order of sig_gram_order_bwd_
+// kernel); block k's workspace region is its checkpoint sets.
 template <typename T, int P>
 __global__ void __launch_bounds__(32 * kOrderWarps)
 sig_gram_order_reg_bwd_kernel(const T* __restrict__ M,
                               const T* __restrict__ gw, T* __restrict__ Mbar,
-                              int B, int L1, int L2, int nl) {
+                              T* work, int B, int L1, int L2, int nl) {
   extern __shared__ __align__(16) unsigned char order_smem[];
   T* small = reinterpret_cast<T*>(order_smem);
   const int W = static_cast<int>(blockDim.x) >> 5;
   RegBlock<T, P> rb(small, small + order_reg_small(nl, W), L2, nl, true);
   const OrderLayout& ly = rb.ly;
+  const OrderCkpt ck(L1, L2, sizeof(T), ly);
+  rb.ck = work + static_cast<long long>(blockIdx.x) * ck.elems(L2);
   for (long long b = blockIdx.x; b < B; b += gridDim.x) {
     const T* Mb = M + b * L1 * L2;
+    auto x_at = [&](int i) {
+      return rb.live ? Mb[static_cast<long long>(i) * L2 + rb.t] : T(0);
+    };
     T acc = T(0);
-    rb.sweep(Mb, L1, true, acc);
+    for (int s = ly.ts; s < ly.ts + ck.nc; ++s) rb.st(s, T(0));
+    for (int i = 0; i < L1; ++i) {
+      if (i % ck.K == 0) rb.save(i / ck.K, ck.nc);
+      rb.column(x_at(i), true, acc);
+    }
     for (int s = ly.rt0; s < ly.rr0 + ly.rsum(nl + 1); ++s) rb.st(s, T(0));
-    for (int i = L1 - 1; i >= 0; --i) {
-      const T x = rb.live ? Mb[static_cast<long long>(i) * L2 + rb.t] : T(0);
-      rb.g[0][0] = x;
-      rb.st(ly.grid(1), x);
-      rb.template rebuilds<2>(x);
-      // the top level reads none of the pieces: cleared here, they hold
-      // no registers through the sweeps
-      rb.clear_pieces();
-      T mb = T(0);
-      for (int m = nl; m > P; --m)
-        rb.template adjoint<P, P, P>(m, gw[m * static_cast<long long>(B) + b],
-                                     x, mb);
-      rb.template adjoints<P>(gw, B, b, x, mb);
-      if (rb.live)
-        Mbar[b * L1 * L2 + static_cast<long long>(i) * L2 + rb.t] = mb;
+    for (int s = ck.segs - 1; s >= 0; --s) {
+      const int c0 = s * ck.K, n = L1 - c0 < ck.K ? L1 - c0 : ck.K;
+      rb.load(s, ck.nc);
+      for (int k = 1; k < n; ++k) {
+        rb.column(x_at(c0 + k - 1), true, acc);
+        rb.save(ck.set(s, k), ck.nc);
+      }
+      // the carries before the segment's last column are loaded already
+      for (int k = n - 1; k >= 0; --k) {
+        if (k < n - 1) rb.load(ck.set(s, k), ck.nc);
+        const T x = x_at(c0 + k);
+        rb.g[0][0] = x;
+        rb.st(ly.grid(1), x);
+        rb.template builds<2>(x);
+        // the top level reads none of the pieces: cleared here, they hold
+        // no registers through the builds
+        rb.clear_pieces();
+        T mb = T(0);
+        for (int m = nl; m > P; --m)
+          rb.template adjoint<P, P, P>(
+              m, gw[m * static_cast<long long>(B) + b], x, mb);
+        rb.template adjoints<P>(gw, B, b, x, mb);
+        if (rb.live)
+          Mbar[b * L1 * L2 + static_cast<long long>(c0 + k) * L2 + rb.t] = mb;
+      }
     }
   }
 }
@@ -938,7 +1068,8 @@ sig_gram_order_reg_bwd_kernel(const T* __restrict__ M,
 // a matrix, area_smem 2 (the register route, P = kOrderRegP, L2 <= 32
 // kOrderWarps, the slots in shared memory), 1 (the slots in shared
 // memory) or 0 (a workspace region a block), `blocks` blocks striding
-// over the matrices.
+// over the matrices. The backward always has a workspace: a region a
+// block of its slots (area_smem 0) and its checkpoint sets.
 inline size_t sg_order_smem(const SgArgs& a, size_t item) {
   const size_t slots = a.area_smem ? static_cast<size_t>(a.area) : 0;
   return item * ((a.area_smem == 2 ? order_reg_small(a.nl, a.W)
@@ -955,7 +1086,7 @@ inline bool sg_order_ok(const SgArgs& a, bool bwd, size_t item) {
          (!reg || (a.P == kOrderRegP && a.L2 <= 32 * kOrderWarps)) &&
          a.area == static_cast<long long>(
                        OrderLayout(a.nl, a.P, bwd, reg).total) * a.L2 &&
-         (a.area_smem || a.work != nullptr) &&
+         (bwd ? a.work != nullptr : a.area_smem || a.work != nullptr) &&
          sg_order_smem(a, item) <= kSegSmemBytes;
 }
 
@@ -982,6 +1113,24 @@ cudaError_t sg_fwd_order(const SgArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The backward's grid: the plan's blocks (its workspace's regions), at most
+// as many as the card keeps resident, so that no block's strided loop over
+// the matrices starts after another's has ended.
+template <typename K>
+cudaError_t order_resident_grid(K kern, int threads, size_t smem,
+                                int& blocks) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kern, threads, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  if (resident >= 1 && resident < blocks) blocks = static_cast<int>(resident);
+  return cudaSuccess;
+}
+
 template <typename T>
 cudaError_t sg_bwd_order(const SgArgs& a, cudaStream_t stream) {
   if (!sg_order_ok(a, true, sizeof(T))) return cudaErrorInvalidValue;
@@ -989,21 +1138,24 @@ cudaError_t sg_bwd_order(const SgArgs& a, cudaStream_t stream) {
   const T* M = static_cast<const T*>(a.M);
   const T* g = static_cast<const T*>(a.g);
   T* Mbar = static_cast<T*>(a.out);
+  T* work = static_cast<T*>(a.work);
+  int blocks = a.blocks;
   if (a.area_smem == 2) {
     auto kern = sig_gram_order_reg_bwd_kernel<T, kOrderRegP>;
     cudaError_t e = allow_smem(kern, smem);
+    if (e == cudaSuccess) e = order_resident_grid(kern, 32 * a.W, smem, blocks);
     if (e != cudaSuccess) return e;
-    kern<<<a.blocks, 32 * a.W, smem, stream>>>(M, g, Mbar, a.B, a.L1, a.L2,
-                                               a.nl);
+    kern<<<blocks, 32 * a.W, smem, stream>>>(M, g, Mbar, work, a.B, a.L1,
+                                             a.L2, a.nl);
     return cudaGetLastError();
   }
   auto kern = a.area_smem ? sig_gram_order_bwd_kernel<T, true>
                           : sig_gram_order_bwd_kernel<T, false>;
   cudaError_t e = allow_smem(kern, smem);
+  if (e == cudaSuccess) e = order_resident_grid(kern, 32 * a.W, smem, blocks);
   if (e != cudaSuccess) return e;
-  kern<<<a.blocks, 32 * a.W, smem, stream>>>(
-      M, g, Mbar, static_cast<T*>(a.work), a.B, a.L1, a.L2, a.nl, a.P,
-      a.area);
+  kern<<<blocks, 32 * a.W, smem, stream>>>(M, g, Mbar, work, a.B, a.L1, a.L2,
+                                           a.nl, a.P, a.area);
   return cudaGetLastError();
 }
 

@@ -59,6 +59,7 @@ backward). Nothing here needs a card.
 from __future__ import annotations
 
 import functools
+import math
 
 #: most warps one pair's block takes (256 threads: registers stay uncapped)
 MAX_WARPS = 8
@@ -524,6 +525,16 @@ ORDER_SMS = 132
 #: the order of the run-time-order instance's register route
 #: (csrc/sig_gram_order.cuh's kOrderRegP)
 ORDER_REGISTER_P = 8
+#: an H100 SM's limits on resident blocks: blocks, warps, shared memory
+#: (bytes) and the shared memory the card reserves a block
+ORDER_SM_BLOCKS = 32
+ORDER_SM_WARPS = 64
+ORDER_SM_SMEM = 228 * 1024
+ORDER_BLOCK_SMEM_RESERVED = 1024
+#: the most bytes a matrix's checkpoints of every column may take in the
+#: backward (csrc/sig_gram_order.cuh's kOrderCkptAllBytes): up to it no
+#: column is recomputed
+ORDER_CKPT_ALL_BYTES = 1 << 20
 
 
 def order_warps(L2):
@@ -579,43 +590,98 @@ def order_small(nl, p, W, register=False):
     return p + 2 + 2 * p * W + 2 * p + nl * W
 
 
+def order_carries(nl, p):
+    """A row's carries over columns: T_m's (nl - 1) and the RA carries."""
+    return nl - 1 + _order_rsum(p, nl + 1)
+
+
+def order_segments(L1, nl, p, L2, itemsize):
+    """(K, segments): the backward's reverse sweep takes M's L1 columns in
+    segments of K columns, the last one shorter where K does not divide L1:
+    K = 1 (no column recomputed) where the carries before every column
+    (:func:`order_carries` a row, L2 rows) take at most
+    ORDER_CKPT_ALL_BYTES, else ceil(sqrt(L1)) (``csrc/sig_gram_order.cuh``'s
+    order_seg_len)."""
+    if L1 * order_carries(nl, p) * L2 * itemsize <= ORDER_CKPT_ALL_BYTES:
+        return 1, L1
+    K = math.isqrt(L1 - 1) + 1
+    return K, -(-L1 // K)
+
+
+def order_checkpoints(L1, nl, p, L2, itemsize):
+    """Values a DP row keeps in the backward's checkpoint region: sets of
+    its carries over columns (:func:`order_carries`), one a segment (the
+    carries before its first column) and K - 1 for a segment's recomputed
+    columns past its first (:func:`order_segments`;
+    ``csrc/sig_gram_order.cuh``'s OrderCkpt)."""
+    K, segments = order_segments(L1, nl, p, L2, itemsize)
+    return (segments + K - 1) * order_carries(nl, p)
+
+
+def order_resident(W, smem):
+    """The most blocks of ``W`` warps and ``smem`` bytes of shared memory
+    that ORDER_SMS SMs keep resident by warps, blocks and shared memory
+    (registers may allow fewer: the kernel's launch takes the least of this
+    and what the card reports)."""
+    per_sm = min(ORDER_SM_BLOCKS, ORDER_SM_WARPS // W,
+                 ORDER_SM_SMEM // (smem + ORDER_BLOCK_SMEM_RESERVED))
+    return ORDER_SMS * max(per_sm, 1)
+
+
 def sig_gram_order_plan(B, L1, L2, nl, p, itemsize, backward):
     """The run-time-order instance's launch (p > SIG_GRAM_MAX_ORDER): a
     block of ``W`` = :func:`order_warps` warps a matrix, a DP row a thread
     (rows past 32 W in chunks), its rows' slots (:func:`order_slots` a row,
     ``area`` elements a matrix). ``route`` "register" (``area_smem`` 2): p
     = ORDER_REGISTER_P and a row a thread, the grid and the adjoint's
-    pieces in registers, the carries in shared memory, a block a matrix,
-    where they fit SMEM_BYTES. Else "smem": every slot in the block's shared
-    memory after its small arrays, where they fit, a block a matrix. Else
-    "workspace": a region of ``area`` a block in the workspace, as many
-    blocks as the L2 holds regions (ORDER_L2_BYTES), where one region
-    exceeds it ORDER_SMS, at most B and what WORKSPACE_BYTES holds, the grid
-    striding over the rest. None where one matrix's slots exceed
-    WORKSPACE_BYTES."""
+    pieces in registers, the carries in shared memory, where they fit
+    SMEM_BYTES. Else "smem": every slot in the block's shared memory after
+    its small arrays, where they fit. Else "workspace": a region of
+    ``area`` a block in the workspace. The forward's register and smem
+    routes take a block a matrix; its workspace route as many blocks as
+    the L2 holds regions (ORDER_L2_BYTES), where one region exceeds it
+    ORDER_SMS, at most B and what WORKSPACE_BYTES holds, the grid striding
+    over the rest.
+
+    The backward on every route also keeps its checkpoints
+    (:func:`order_checkpoints` a row, ``ckpt`` elements a matrix) in the
+    workspace: a region a block of ``ckpt`` elements, after ``area`` on the
+    workspace route; ``blocks`` at most what stays resident
+    (:func:`order_resident`), what WORKSPACE_BYTES holds, and on the
+    workspace route what the L2 holds as above. None where one matrix's
+    region exceeds WORKSPACE_BYTES."""
     W = order_warps(L2)
+    ckpt = (order_checkpoints(L1, nl, p, L2, itemsize) * L2 if backward
+            else 0)
+
+    def bounded(plan, region, blocks):
+        if region * itemsize > WORKSPACE_BYTES:
+            return None
+        if backward:
+            blocks = min(blocks, order_resident(W, plan["smem"]),
+                         WORKSPACE_BYTES // (region * itemsize))
+        blocks = min(B, blocks)
+        plan.update(blocks=blocks, ckpt=ckpt, work=blocks * region)
+        return plan
+
     if p == ORDER_REGISTER_P and L2 <= 32 * SIG_GRAM_ORDER_WARPS:
         area = order_slots(nl, p, backward, True) * L2
         smem = itemsize * (order_small(nl, p, W, True) + area)
         if smem <= SMEM_BYTES:
-            return dict(S=32, R=1, bands=1, W=W, area=area, area_smem=2,
-                        smem=smem, blocks=B, work=0, route="register")
+            return bounded(dict(S=32, R=1, bands=1, W=W, area=area,
+                                area_smem=2, smem=smem, route="register"),
+                           ckpt, B)
     area = order_slots(nl, p, backward) * L2
     small = order_small(nl, p, W) * itemsize
     plan = dict(S=32, R=1, bands=1, W=W, area=area, area_smem=True,
-                smem=small + area * itemsize, blocks=B, work=0,
-                route="smem")
+                smem=small + area * itemsize, route="smem")
     if plan["smem"] <= SMEM_BYTES:
-        return plan
-    region = area * itemsize
-    if region > WORKSPACE_BYTES:
-        return None
+        return bounded(plan, ckpt, B)
+    region = (area + ckpt) * itemsize
     blocks = ORDER_L2_BYTES // region or min(ORDER_SMS,
                                              WORKSPACE_BYTES // region)
-    blocks = min(B, blocks)
-    plan.update(area_smem=False, smem=small, blocks=blocks,
-                work=blocks * area, route="workspace")
-    return plan
+    plan.update(area_smem=False, smem=small, route="workspace")
+    return bounded(plan, area + ckpt, blocks)
 
 
 @functools.lru_cache(maxsize=512)

@@ -17,7 +17,8 @@ p = min(order, num_levels) = 7 the run-time-order instance
 (``csrc/sig_gram_order.cuh``, ``plan.sig_gram_order_plan``) takes a
 matrix on a block of warps, a row a thread, its rows' packed state in
 shared memory (at p = 8 the grid in registers) or, where that does not
-fit, in the workspace. The kernel
+fit, in the workspace; its backward's checkpoints of the carries over
+columns are always in the workspace. The kernel
 layer uses it for the normalisation diagonal of every configuration that the
 tuned ``_diag_kernel`` does not take, on self-increment matrices it builds
 in PyTorch (as the JAX package leaves them to XLA), for every Gram between
@@ -95,7 +96,7 @@ def _check(name, M, num_levels, order, backward, *more):
     lp = plan.sig_gram_plan(B, L1, L2, num_levels, p, M.element_size(),
                             backward)
     if lp is None:
-        what = ("rows' states" if p > plan.SIG_GRAM_MAX_ORDER
+        what = ("rows' states and checkpoints" if p > plan.SIG_GRAM_MAX_ORDER
                 else "band carries")
         raise ValueError(
             f"{name}: M [{B}, {L1}, {L2}] needs more than "

@@ -18,13 +18,17 @@ routes that ``plan.sig_gram_order_plan`` picks), and timed at
 of 49 x 49 of 150 sequences' pairs, float32, forward and backward: the
 median of 5 launches after one, by CUDA events, the variants in turns
 (A, B, ..., B, A). Ends with the card's name and power limit; exits
-non-zero without a card or when a check fails.
+non-zero without a card or when a check fails. A variant that keeps more
+in its workspace than the plan counts runs with
+``ORDER_PROBE_WORK_SCALE=N`` in the environment: every call allocates N
+times the plan's workspace.
 """
 
 from __future__ import annotations
 
 import ctypes
 import itertools
+import os
 import statistics
 import subprocess
 import sys
@@ -59,8 +63,14 @@ int probe_bwd(const void* M, const void* g, void* Mbar, void* work, int B,
 }
 """
 
+#: the workspace a call allocates, in multiples of the plan's (a variant
+#: that keeps more than the plan counts asks for more:
+#: ORDER_PROBE_WORK_SCALE=N in the environment)
+WORK_SCALE = int(os.environ.get("ORDER_PROBE_WORK_SCALE", "1"))
+
 CHECKS = [(4, 20, 49, 8, 8), (4, 20, 49, 10, 8), (5, 7, 5, 12, 8),
-          (3, 9, 240, 9, 8), (2, 10, 150, 10, 10)]
+          (3, 9, 240, 9, 8), (2, 10, 150, 10, 10), (3, 1, 7, 8, 8),
+          (4, 20, 150, 20, 20), (4, 149, 49, 20, 20)]
 
 
 def build(variants):
@@ -116,7 +126,8 @@ def call(lib, M, g, nl, order, backward):
     B, L1, L2 = M.shape
     lp = plan.sig_gram_order_plan(B, L1, L2, nl, min(order, nl),
                                   M.element_size(), backward)
-    work = torch.empty(max(lp["work"], 1), dtype=M.dtype, device=M.device)
+    work = torch.empty(max(lp["work"], 1) * WORK_SCALE, dtype=M.dtype,
+                       device=M.device)
     args = (lp["S"], lp["R"], lp["bands"], lp["W"], int(lp["area_smem"]),
             lp["blocks"], lp["area"], int(M.dtype == torch.float64),
             torch.cuda.current_stream().cuda_stream)

@@ -155,8 +155,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     # the sig_gram kernels take num_levels + 1 <= 128 and every order
     # (past p = min(order, num_levels) = 7 the run-time-order instance);
     # past 1024 rows the kernel layer's Gram takes them (the shorter side
-    # on the rows); only a matrix whose rows' states exceed the workspace
-    # is refused
+    # on the rows); only a matrix whose rows' states (and, in the
+    # backward, checkpoints) exceed the workspace is refused
     M = torch.zeros(2, 5, 6, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="num_levels must be 1..127"):
         tsg_.sig_gram_levels(M, 128)
@@ -166,8 +166,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
         (2, 5, 6)), device=cuda_device)
     assert _scaled_err(tsg_.sig_gram_levels_ho(Mr, 8, 8),
                        tsg_.sig_gram_levels_ho_ref(Mr, 8, 8)) < 1e-11
-    # p = nl = 127 keeps 715,516 values a row in the backward: float64
-    # takes 187 rows in the workspace
+    # p = nl = 127 keeps 715,516 values a row in the backward and 32,508
+    # in its checkpoints at L1 = 5: float64 takes 179 rows in the workspace
     wide = torch.zeros(1, 5, 188, dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="workspace for one matrix's rows"):
         tsg_.sig_gram_levels_ho_bwd(
@@ -1553,13 +1553,15 @@ def test_order1_svgp_step_takes_wide_d(cuda_device):
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("B,L1,L2,nl,order", [
     (3, 7, 5, 8, 8), (5, 20, 49, 8, 8), (4, 20, 150, 10, 10),
-    (3, 13, 33, 10, 9), (2, 6, 40, 12, 20), (9, 4, 3, 20, 20)])
+    (3, 13, 33, 10, 9), (2, 6, 40, 12, 20), (9, 4, 3, 20, 20),
+    (3, 1, 7, 8, 8), (4, 20, 150, 20, 20), (2, 149, 49, 20, 20)])
 def test_sig_gram_past_order_7(cuda_device, dtype, tol, B, L1, L2, nl,
                                order):
     """The run-time-order instance (p = min(order, num_levels) > 7):
     forward and backward against the plain versions, each launch counted
-    under ho_launches / ho_bwd_launches. Tolerance: the deep path's (the
-    backward's states rebuilt by subtraction)."""
+    under ho_launches / ho_bwd_launches, at one column, at p = nl = 20 and
+    at 149 columns (the backward's segments of 13 columns recomputed from
+    their checkpoints). Tolerance: the deep path's."""
     rng = np.random.default_rng(B + L2 + nl)
     M = torch.as_tensor(0.4 * rng.standard_normal((B, L1, L2))
                         / np.sqrt(max(L1, L2) / 20), dtype=dtype,
